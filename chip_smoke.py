@@ -1,0 +1,663 @@
+#!/usr/bin/env python3
+"""On-GPU smoke of the PyTorch port (gubernator_tpu_torch): builds its
+CUDA kernel, holds it against its plain PyTorch version at full size,
+and drives the port's main path, the HTTP daemon, through it.
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py            # full size: 2^25-row table, 10M keys
+
+Phases (each prints a line with its seconds; any failure exits non-zero):
+
+1. device: the card's name and nvidia-smi's name / power limit;
+2. build: K1 (gubernator_tpu_torch/csrc/decide.cu) with nvcc for sm_90a;
+3. kernel vs plain: a 2^25-row (4 GiB) table holding 10M keys, then
+   >= 8 waves of 8192 rows and one of 1024 (the main path's two wave
+   widths; Zipf(1.1) keys, TOKEN and LEAKY, RESET / DRAIN / Gregorian,
+   queries, duplicates, per-row now, one crafted bucket-full wave)
+   through decide_cuda and decide_plain on two copies of the table:
+   outputs, counters and the whole table must be equal;
+4. main path: spawn_daemon on the GPU, the HTTP verify flow, then
+   rounds of 8 threads of 1000-request Zipf(1.1) batches through
+   V1Instance.get_rate_limits against a 10M-key table, checked per key;
+   each round prints its decisions/s and latencies, every dispatcher
+   wave and every garbage collection is timed on the host, and a last,
+   shorter round runs under
+   torch.profiler for the device's busy share.  K1's launch count must
+   grow.
+
+The line before the last is a JSON object with the kernel's numbers;
+the last line is {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from contextlib import contextmanager
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+#: the device every phase uses (a CPU rehearsal of the phase functions
+#: sets "cpu" and stands the plain step in for K1)
+DEVICE = "cuda"
+NOW0 = 1_760_000_000_000
+#: bytes a request moves besides its bucket: 76 B of packed request
+#: columns in (8 int64 + 3 int32), 29 B of outputs (status int32,
+#: remaining / reset_time / limit int64, err bool)
+REQ_BYTES = 76 + 29
+#: a touched bucket is read and written once; K1 moves only the 16 used
+#: words (64 B) of each of its 8 slots
+BUCKET_BYTES = 2 * 8 * 16 * 4
+
+
+def require(ok, what: str) -> None:
+    """A check that also holds under python -O."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+@contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    print(f"[{name}] ...", flush=True)
+    yield
+    print(f"[{name}] done in {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def smoke_hashes(idx: np.ndarray) -> np.ndarray:
+    """Vectorized hash of the keys "smoke_k%08d" % idx: FNV-1a over the
+    fixed-width bytes, then the port's finalizer (held against
+    hash_request_keys on a sample in main)."""
+    from gubernator_tpu_torch.hashing import fnv1a64, mix64_np
+
+    h = np.full(len(idx), fnv1a64(b"smoke_k"), np.uint64)
+    prime = np.uint64(0x100000001B3)
+    for p in range(7, -1, -1):
+        digit = (idx // 10 ** p) % 10 + ord("0")
+        h = (h ^ digit.astype(np.uint64)) * prime
+    x = mix64_np(h)
+    return np.where(x == 0, np.uint64(1), x)
+
+
+def zipf_ranks(rng, a: float, n_keys: int, size: int) -> np.ndarray:
+    """Zipf(a) ranks over [0, n_keys), by rejection of the tail."""
+    out = np.empty(0, np.int64)
+    while len(out) < size:
+        z = rng.zipf(a, size=2 * size)
+        out = np.concatenate([out, z[z <= n_keys] - 1])
+    return out[:size]
+
+
+def fit_population(n_keys: int, log2_cap: int):
+    """n_keys key indices (and hashes) that all fit their 8-slot bucket
+    of a 2^log2_cap-row table beside the keys the main path inserts
+    itself (the daemon's warm-up key and the HTTP flow's): indices past
+    a bucket's room are skipped, so every population key is resident
+    after the fill."""
+    from gubernator_tpu_torch.hashing import hash_request_keys
+
+    reserved = hash_request_keys(["_warmup", "api"], ["w", "u1"])
+    idx = np.arange(int(n_keys * 1.002) + 1000, dtype=np.int64)
+    keys = np.concatenate([reserved, smoke_hashes(idx)])
+    bucket = (keys & np.uint64((1 << (log2_cap - 3)) - 1)).astype(np.int64)
+    order = np.argsort(bucket, kind="stable")
+    sb = bucket[order]
+    start = np.r_[True, sb[1:] != sb[:-1]]
+    pos = np.arange(len(sb))
+    rank = pos - np.maximum.accumulate(np.where(start, pos, 0))
+    keep = np.zeros(len(keys), bool)
+    keep[order[rank < 8]] = True
+    sel = np.nonzero(keep[len(reserved):])[0][:n_keys]
+    return idx[sel], keys[len(reserved):][sel]
+
+
+def token_rows(keys, limit, duration, t0, remaining=None):
+    n = len(keys)
+    dur = np.broadcast_to(np.asarray(duration, np.int64), (n,)).copy()
+    lim = np.broadcast_to(np.asarray(limit, np.int64), (n,)).copy()
+    return {"key": keys, "meta": np.zeros(n, np.int32), "limit": lim,
+            "burst": lim.copy(), "duration": dur, "eff_ms": dur.copy(),
+            "remaining": lim.copy() if remaining is None else remaining,
+            "t_ms": np.full(n, t0, np.int64), "expire_at": t0 + dur}
+
+
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"device: {name}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+    return name, smi
+
+
+def phase_build():
+    from gubernator_tpu_torch.ops import build
+
+    build.load_library()
+    info = build.build_info
+    print(f"K1 build: {info['seconds']:.2f} s (compiled={info['built']}) "
+          f"-> {info['path']}", flush=True)
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or "stack" in line:
+            print("  ptxas:", line.strip(), flush=True)
+
+
+def make_wave(rng, pop_keys, pop_idx, rows_n, wave_no, log2_cap,
+              craft_full_bucket: bool, taken: np.ndarray):
+    """One wave of ``rows_n`` rows of mixed traffic as packed numpy
+    matrices."""
+    from gubernator_tpu_torch.core.batch import pack_columns, pack_wave_host
+    from gubernator_tpu_torch.ops.decide import qualifies
+
+    n_keys = len(pop_keys)
+    pick = zipf_ranks(rng, 1.1, n_keys, rows_n)
+    khash = pop_keys[pick].copy()
+    kidx = pop_idx[pick].copy()
+    fresh = rng.random(rows_n) < 0.03  # brand-new keys: inserts
+    khash[fresh] = rng.integers(1, 2 ** 63, fresh.sum(), dtype=np.int64
+                                ).astype(np.uint64)
+    kidx[fresh] = rng.integers(0, 1000, fresh.sum())
+    alg = (kidx % 2).astype(np.int32)
+    alg ^= (rng.random(rows_n) < 0.01).astype(np.int32)  # algorithm switch
+    limit = 20 + kidx % 50
+    limit += 5 * (rng.random(rows_n) < 0.02)  # limit change
+    duration = np.where(kidx % 7 == 0, 5_000, 60_000)
+    duration = np.where(rng.random(rows_n) < 0.02, 90_000, duration)
+    behavior = np.zeros(rows_n, np.int32)
+    behavior |= 8 * (rng.random(rows_n) < 0.02)  # RESET_REMAINING
+    behavior |= 32 * (rng.random(rows_n) < 0.03)  # DRAIN_OVER_LIMIT
+    greg = rng.random(rows_n) < 0.02
+    behavior |= 4 * greg  # DURATION_IS_GREGORIAN: duration is an ordinal
+    duration = np.where(greg, rng.integers(0, 3, rows_n), duration)
+    hits = np.where(rng.random(rows_n) < 0.1, 0,
+                    rng.integers(1, 4, rows_n))
+    if craft_full_bucket:
+        # 12 new keys into the bucket of an existing key: overflow
+        nb_mask = (1 << (log2_cap - 3)) - 1
+        b = int(pop_keys[0]) & nb_mask
+        hi = rng.integers(1, 2 ** 30, 12).astype(np.uint64)
+        khash[:12] = (hi << np.uint64(log2_cap)) | np.uint64(b)
+        alg[:12], hits[:12], behavior[:12] = 0, 1, 0
+    base = NOW0 + 1_000 + 2_000 * wave_no
+    created = base + np.sort(rng.integers(0, 2_000, rows_n))
+    batch, errs = pack_columns(khash, hits, limit, duration, alg, behavior,
+                               limit.copy(), base, created_at=created)
+    require(not errs and qualifies(batch), "wave outside the kernel domain")
+    taken[wave_no] = created[-1]
+    return pack_wave_host(batch)
+
+
+def time_raw_launch(torch, rows, b, now, reps: int = 5) -> float:
+    """Median ms of K1's launch alone (no sort, no outputs) on the wave
+    ``b``, run on a scratch copy of the table."""
+    from gubernator_tpu_torch.ops import decide as dmod
+    from gubernator_tpu_torch.ops.build import load_library
+
+    lib = load_library()
+    scratch = rows.clone()
+    plan = dmod._plan(scratch, b, now)
+    out = torch.zeros((dmod.N_OUT, plan.req.shape[1]), dtype=torch.int64,
+                      device=rows.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    times = []
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        rc = lib.guber_decide(
+            scratch.data_ptr(), plan.req.data_ptr(), plan.order.data_ptr(),
+            plan.seg_bucket.data_ptr(), plan.seg_start.data_ptr(),
+            plan.seg_len.data_ptr(), plan.seg_bucket.numel(),
+            plan.req.shape[1], out.data_ptr(), stream)
+        e1.record()
+        require(rc == 0, f"K1 launch failed: {rc}")
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def phase_kernel_vs_plain(torch, args, pop_idx, pop_keys):
+    from gubernator_tpu_torch.engine import BucketEngine
+    from gubernator_tpu_torch.ops import decide as dmod
+
+    dev = torch.device(DEVICE)
+    eng = BucketEngine(device=dev, capacity=1 << args.log2_cap)
+    n = len(pop_keys)
+    # mixed TOKEN / LEAKY rows, full buckets at NOW0
+    rows = token_rows(pop_keys, 20 + pop_idx % 50,
+                      np.where(pop_idx % 7 == 0, 5_000, 60_000), NOW0)
+    leaky = pop_idx % 2 == 1
+    rows["meta"] = leaky.astype(np.int32)
+    rows["remaining"] = np.where(leaky, rows["limit"] * rows["eff_ms"],
+                                 rows["limit"])
+    t0 = time.perf_counter()
+    placed = eng.restore(rows)
+    torch.cuda.synchronize()
+    print(f"fill: {placed} of {n} keys placed in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    require(placed == n, f"fill placed {placed} of {n} keys")
+    rows_k = eng.rows
+    rows_p = rows_k.clone()
+    rng = np.random.default_rng(args.seed)
+    # wave 0 warms up, untimed; waves 1..N are the timed full waves; the
+    # last is one narrow wave, the main path's other wave width
+    widths = [args.wave_rows] * (args.waves + 1) + [args.small_rows]
+    taken = np.zeros(len(widths), np.int64)
+    k_ms, p_ms, bound_ms, seg_max, max_err = [], [], [], [], 0
+    errs_seen = 0
+    for w, rows_n in enumerate(widths):
+        a64, a32 = make_wave(rng, pop_keys, pop_idx, rows_n, w,
+                             args.log2_cap, w == 3, taken)
+        b = dmod.batch_from_packed(torch.from_numpy(a64).to(dev),
+                                   torch.from_numpy(a32).to(dev))
+        now = int(taken[w])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        ok_ = dmod.decide_cuda(rows_k, b, now)
+        ev[1].record()
+        ev[2].record()
+        op_ = dmod.decide_plain(rows_p, b, now)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for f in ("status", "remaining", "reset_time", "limit", "err",
+                  "over_count", "insert_count"):
+            a, c = getattr(ok_, f), getattr(op_, f)
+            if not torch.equal(a, c):
+                raise AssertionError(f"wave {w}: K1 and plain differ in {f}")
+            max_err = max(max_err, int((a.to(torch.int64)
+                                        - c.to(torch.int64)).abs().max()))
+        if not torch.equal(rows_k, rows_p):
+            raise AssertionError(f"wave {w}: tables differ after K1/plain")
+        errs_seen += int(ok_.err.sum())
+        if w == 3:
+            require(int(ok_.err.sum()) > 0, "crafted bucket-full wave: no err")
+        plan = dmod._plan(rows_k, b, now)
+        s_buckets = int(plan.seg_bucket.numel())
+        live = int(plan.order.numel())
+        seg_max.append(int(plan.seg_len[0]) if s_buckets else 0)
+        wave_bound = ((s_buckets * BUCKET_BYTES + live * REQ_BYTES)
+                      / HBM_BYTES_PER_S * 1e3)
+        if 0 < w <= args.waves:
+            k_ms.append(ev[0].elapsed_time(ev[1]))
+            p_ms.append(ev[2].elapsed_time(ev[3]))
+            bound_ms.append(wave_bound)
+            full = (b, now)
+        elif w > args.waves:
+            small = {"rows": rows_n, "ms": ev[0].elapsed_time(ev[1]),
+                     "plain_ms": ev[2].elapsed_time(ev[3]),
+                     "bound_ms": wave_bound, "longest_chain": seg_max[-1]}
+        print(f"wave {w} ({rows_n} rows): equal; K1 "
+              f"{ev[0].elapsed_time(ev[1]):.3f} ms, "
+              f"plain {ev[2].elapsed_time(ev[3]):.1f} ms, "
+              f"{s_buckets} buckets, longest chain {seg_max[-1]}, "
+              f"err rows {int(ok_.err.sum())}, "
+              f"over {int(ok_.over_count)}, inserts "
+              f"{int(ok_.insert_count)}, bytes bound {wave_bound:.6f} ms",
+              flush=True)
+    launch_ms = time_raw_launch(torch, rows_k, *full)
+    del rows_p, eng
+    torch.cuda.empty_cache()
+    res = {"ms": float(np.mean(k_ms)), "plain_ms": float(np.mean(p_ms)),
+           "bound_ms": float(np.mean(bound_ms)), "launch_ms": launch_ms,
+           "max_abs_err": max_err, "waves": args.waves,
+           "longest_chain_max": max(seg_max), "err_rows": errs_seen,
+           "small_wave": small}
+    print(f"K1 per {args.wave_rows}-row wave: decide_cuda {res['ms']} "
+          f"ms (kernel launch alone {res['launch_ms']} ms), plain "
+          f"{res['plain_ms']} ms, bytes bound {res['bound_ms']} ms; per "
+          f"{args.small_rows}-row wave: decide_cuda {small['ms']} ms, "
+          f"plain {small['plain_ms']} ms, bytes bound {small['bound_ms']} "
+          f"ms", flush=True)
+    return res
+
+
+def phase_main_path(torch, args, pop_idx, pop_keys):
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.ops.decide import decide_cuda
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    limit, duration = 100, 3_600_000
+    pauses: list = []
+    on_gc = time_gc(pauses)
+    gc.callbacks.append(on_gc)
+    decide_cuda.launches = 0
+    d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0",
+                                  cache_size=1 << args.log2_cap,
+                                  batch_rows=1024, device=DEVICE))
+    try:
+        url = f"http://127.0.0.1:{d.http_port}/v1/GetRateLimits"
+        body = json.dumps({"requests": [{
+            "name": "api", "uniqueKey": "u1", "hits": 1, "limit": 3,
+            "duration": 5000}]}).encode()
+        statuses, remaining = [], []
+        for _ in range(5):
+            req = urllib.request.Request(
+                url, body, {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                resp = json.loads(r.read())["responses"][0]
+            statuses.append(resp["status"])
+            remaining.append(resp["remaining"])
+        require(statuses == [0, 0, 0, 1, 1] and remaining == [2, 1, 0, 0, 0],
+                f"HTTP flow: {statuses} {remaining}")
+        print(f"HTTP flow: statuses {statuses} remaining {remaining}",
+              flush=True)
+
+        t0 = time.perf_counter()
+        fill_t = int(time.time() * 1000) - 1_000
+        with d.instance._engine_mu:
+            placed = d.instance.engine.restore(
+                token_rows(pop_keys, limit, duration, fill_t))
+        print(f"fill: {placed} TOKEN keys in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        require(placed == len(pop_keys), f"fill placed {placed} keys")
+
+        waves = time_waves(d.instance)
+        rng = np.random.default_rng(args.seed + 1)
+        tally = Tally(limit)
+        rounds = []
+        # the last round runs under torch.profiler and counts apart
+        for rnd in range(args.rounds + 1):
+            profiled = rnd == args.rounds
+            n_b = args.profile_batches if profiled else args.batches
+            per = [[zipf_ranks(rng, 1.1, len(pop_idx), 1000)
+                    for _ in range(n_b)] for _ in range(args.threads)]
+            jobs = [[[RateLimitRequest(name="smoke",
+                                       unique_key=f"k{pop_idx[r]:08d}",
+                                       hits=1, limit=limit,
+                                       duration=duration)
+                      for r in ranks] for ranks in thread]
+                    for thread in per]
+            device = None
+            if profiled:
+                out, device = profile_device(
+                    torch, lambda: drive(d.instance, jobs))
+            else:
+                out = drive(d.instance, jobs)
+            t0, wall, lat, results = out
+            tally.add(per, results)
+            rounds.append((t0, wall, lat, sum(
+                len(b) for resps in results.values() for b in resps), device))
+        launches = decide_cuda.launches
+    finally:
+        d.close()  # joins the worker: every wave's record is in
+        gc.callbacks.remove(on_gc)
+
+    tally.check()
+    lat_ms = np.concatenate([np.asarray(r[2]) for r in rounds[:-1]]) * 1e3
+    stats = []
+    for rnd, (t0, wall, lat, n_req, device) in enumerate(rounds):
+        s = round_stats(wall, lat, [w for w in waves
+                                    if t0 <= w[0] <= t0 + wall], n_req,
+                        [p for p in pauses if t0 <= p[0] <= t0 + wall])
+        if rnd == args.rounds:
+            s["device"] = device
+        stats.append(s)
+        print(f"main path round {rnd}"
+              f"{' (profiled)' if rnd == args.rounds else ''}: "
+              f"{json.dumps(s)}", flush=True)
+    rounds, timed = stats, stats[:-1]
+    rates = [r["decisions_per_s"] for r in timed]
+    res = {"decisions_per_s": float(np.mean(rates)),
+           "decisions_per_s_min": min(rates),
+           "decisions_per_s_max": max(rates),
+           "requests": tally.n_req, "keys": len(tally.count),
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "batches": len(lat_ms), "launches": launches, "rounds": rounds}
+    print(f"main path: {tally.n_req} decisions over {len(tally.count)} keys;"
+          f" {len(timed)} timed rounds: {res['decisions_per_s']} decisions/s"
+          f" (min {res['decisions_per_s_min']}, max "
+          f"{res['decisions_per_s_max']}); batch p50 {res['p50_ms']} ms p99 "
+          f"{res['p99_ms']} ms over {res['batches']} batches; K1 launches "
+          f"{launches}", flush=True)
+    require(launches > 0, "the main path never launched K1")
+    return res
+
+
+def drive(inst, jobs):
+    """Each thread calls get_rate_limits on its batches in turn; returns
+    (start on the perf_counter clock, wall s, batch latencies s,
+    {thread: [responses per batch]})."""
+    lat: list = []
+    results: dict = {}
+    failures: list = []
+
+    def caller(t):
+        try:
+            out = []
+            for batch in jobs[t]:
+                s = time.perf_counter()
+                out.append(inst.get_rate_limits(batch))
+                lat.append(time.perf_counter() - s)
+            results[t] = out
+        except Exception as e:  # re-raised below, after join
+            failures.append(e)
+
+    threads = [threading.Thread(target=caller, args=(t,))
+               for t in range(len(jobs))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if failures:
+        raise failures[0]
+    return t0, wall, lat, results
+
+
+class Tally:
+    """Per key: UNDER count = min(requests, limit), and the UNDER rows'
+    remaining values are exactly limit-1 .. limit-count."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.n_req = 0
+        self.under: dict = {}
+        self.count: dict = {}
+
+    def add(self, per, results) -> None:
+        from gubernator_tpu_torch.types import Status
+
+        for t, thread in enumerate(per):
+            for ranks, resps in zip(thread, results[t]):
+                for r, resp in zip(ranks.tolist(), resps):
+                    require(not resp.error, resp.error)
+                    self.n_req += 1
+                    self.count[r] = self.count.get(r, 0) + 1
+                    if resp.status == Status.UNDER_LIMIT:
+                        self.under.setdefault(r, []).append(resp.remaining)
+                    else:
+                        require(resp.remaining == 0,
+                                "an OVER row with remaining > 0")
+
+    def check(self) -> None:
+        for r, c in self.count.items():
+            got = sorted(self.under.get(r, []))
+            m = min(c, self.limit)
+            require(got == list(range(self.limit - m, self.limit)),
+                    f"key rank {r}: {c} requests, UNDER remaining "
+                    f"{got[:5]}...")
+
+
+def time_waves(inst) -> list:
+    """Time every dispatcher wave on the worker thread's host clock, and
+    the engine call inside it (device work and the result download
+    included).  Appends (start s, end s, jobs, rows, engine s) per wave
+    to the returned list."""
+    disp, eng = inst.dispatcher, inst.engine
+    run_wave, check = disp._run_wave, eng.check_packed
+    rec: list = []
+    engine_s: list = []
+
+    def timed_check(*a):
+        t = time.perf_counter()
+        try:
+            return check(*a)
+        finally:
+            engine_s.append(time.perf_counter() - t)
+
+    def timed_wave(wave):
+        t = time.perf_counter()
+        run_wave(wave)
+        rec.append((t, time.perf_counter(), len(wave),
+                    sum(len(j) for j in wave), sum(engine_s)))
+        engine_s.clear()
+
+    eng.check_packed = timed_check
+    disp._run_wave = timed_wave
+    return rec
+
+
+def time_gc(pauses: list):
+    """A gc callback appending (start s, end s, generation) of every
+    garbage collection to ``pauses``."""
+    start: list = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            pauses.append((start.pop(), time.perf_counter(),
+                           info["generation"]))
+
+    return on_gc
+
+
+def round_stats(wall, lat, waves, n_req, pauses) -> dict:
+    """One round's decisions/s and latencies, and what its waves show:
+    the worker's busy share of the wall, the engine's share of a wave,
+    and the garbage collections (all threads stop for them), in all and
+    inside the slowest wave."""
+    lat_ms = np.asarray(lat) * 1e3
+    w = np.asarray(waves, dtype=np.float64).reshape(-1, 5)
+    wave_s = w[:, 1] - w[:, 0]
+    g = np.asarray(pauses, dtype=np.float64).reshape(-1, 3)
+    gc_s = g[:, 1] - g[:, 0]
+    slow = int(wave_s.argmax())
+    in_slow = np.clip(np.minimum(g[:, 1], w[slow, 1])
+                      - np.maximum(g[:, 0], w[slow, 0]), 0, None)
+    return {"wall_s": wall, "decisions_per_s": n_req / wall,
+            "batches": len(lat), "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "max_ms": float(lat_ms.max()), "waves": len(w),
+            "jobs_per_wave": float(w[:, 2].mean()),
+            "rows_per_wave": float(w[:, 3].mean()),
+            "wave_ms_mean": float(wave_s.mean() * 1e3),
+            "wave_ms_max": float(wave_s.max() * 1e3),
+            "engine_ms_mean": float(w[:, 4].mean() * 1e3),
+            "engine_share_of_wave": float(w[:, 4].sum() / wave_s.sum()),
+            "worker_busy_share": float(wave_s.sum() / wall),
+            "slowest_wave_engine_ms": float(w[slow, 4] * 1e3),
+            "slowest_wave_gc_ms": float(in_slow.sum() * 1e3),
+            "gc_collections": len(g),
+            "gc_gen2_collections": int((g[:, 2] == 2).sum()),
+            "gc_ms_total": float(gc_s.sum() * 1e3),
+            "gc_ms_max": float(gc_s.max() * 1e3) if len(g) else 0.0}
+
+
+def profile_device(torch, run):
+    """Run ``run()`` under torch.profiler; returns (its result, the
+    device's busy share of the profiled wall and the device time by
+    kind).  The busy time is the union of the recorded device intervals
+    (kernels and copies); a profiler that records no device event gives
+    None, not a guess."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return out, None
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    by_kind: dict = {}
+    for s, e, name in spans:
+        kind = ("K1" if "decide_kernel" in name
+                else "memcpy" if "Memcpy" in name
+                else "memset" if "Memset" in name
+                else "sort" if "sort" in name.lower() or "radix" in name.lower()
+                else "other kernels")
+        by_kind[kind] = by_kind.get(kind, 0.0) + (e - s) / 1e3
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return out, {"events": len(spans), "busy_ms": busy / 1e3,
+                 "wall_ms": wall_us / 1e3, "busy_share": busy / wall_us,
+                 "ms_by_kind": by_kind}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--log2-cap", type=int, default=25)
+    ap.add_argument("--keys", type=int, default=10_000_000)
+    ap.add_argument("--waves", type=int, default=8)
+    ap.add_argument("--wave-rows", type=int, default=8192)
+    ap.add_argument("--small-rows", type=int, default=1024)
+    ap.add_argument("--threads", type=int, default=8)
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--batches", type=int, default=100,
+                    help="batches per thread per timed round")
+    ap.add_argument("--profile-batches", type=int, default=20,
+                    help="batches per thread in the profiled round")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    with phase("device"):
+        name, smi = phase_device(torch)
+    with phase("build"):
+        phase_build()
+    with phase("population"):
+        pop_idx, pop_keys = fit_population(args.keys, args.log2_cap)
+        from gubernator_tpu_torch.hashing import hash_request_keys
+
+        sample = pop_idx[:: max(len(pop_idx) // 1000, 1)]
+        require((smoke_hashes(sample) == hash_request_keys(
+            ["smoke"] * len(sample),
+            [f"k{i:08d}" for i in sample])).all(), "vectorized hash differs")
+        print(f"{len(pop_keys)} keys fit a 2^{args.log2_cap}-row table",
+              flush=True)
+    with phase("kernel vs plain"):
+        k = phase_kernel_vs_plain(torch, args, pop_idx, pop_keys)
+    with phase("main path"):
+        m = phase_main_path(torch, args, pop_idx, pop_keys)
+    print(json.dumps({"main_path": m, "kernel_detail": k}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "decide", "route": "cuda",
+        "source": "gubernator_tpu_torch/csrc/decide.cu",
+        "replaces": "gubernator_tpu/ops/pallas_step.py:338",
+        "launches": m["launches"], "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

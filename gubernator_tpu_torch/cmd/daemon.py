@@ -1,0 +1,48 @@
+"""The daemon binary: config → spawn → wait for a signal.
+
+Usage: python -m gubernator_tpu_torch.cmd.daemon [--config FILE]
+(GUBER_HTTP_ADDRESS, GUBER_CACHE_SIZE, GUBER_BATCH_ROWS, GUBER_DEVICE and
+GUBER_LOG_LEVEL apply; see config.py).  Serves on the GPU unless
+GUBER_DEVICE=cpu.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import signal
+import sys
+import threading
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="gubernator-tpu-torch daemon")
+    ap.add_argument("--config", default="", help="KEY=value config file")
+    ap.add_argument("--http", default="", help="override GUBER_HTTP_ADDRESS")
+    ap.add_argument("--device", default="", help="override GUBER_DEVICE")
+    args = ap.parse_args(argv)
+
+    from ..config import setup_daemon_config
+    from ..daemon import spawn_daemon
+
+    cfg = setup_daemon_config(conf_file=args.config)
+    if args.http:
+        cfg.http_listen_address = args.http
+    if args.device:
+        cfg.device = args.device
+    logging.basicConfig(
+        level=getattr(logging, cfg.log_level.upper(), logging.INFO),
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+
+    d = spawn_daemon(cfg)
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    print(f"gubernator-tpu-torch listening http={cfg.http_listen_address} "
+          f"device={cfg.device}", flush=True)
+    stop.wait()
+    d.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,61 @@
+"""Key hashing: the numpy path of gubernator_tpu/hashing.py, copied.
+
+The rate-limit identity is ``name + "_" + unique_key``, hashed on the
+host to 64 bits (FNV-1a 64 + a splitmix64 finalizer).  Bucket placement
+in the device table depends on these bits, so they must stay identical
+to the JAX package's: the tests hash the same request lists through
+both.  Hash value 0 is remapped to 1 (key 0 marks an empty slot).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+
+def fnv1a64(data: bytes) -> int:
+    h = 0xCBF29CE484222325
+    for b in data:
+        h ^= b
+        h = (h * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+def mix64_np(x: np.ndarray) -> np.ndarray:
+    """Vectorized splitmix64-style avalanche finalizer (uint64 → uint64)."""
+    x = x.astype(np.uint64)  # astype copies; in-place ops below are safe
+    x ^= x >> np.uint64(30)
+    x *= np.uint64(0xBF58476D1CE4E5B9)
+    x ^= x >> np.uint64(27)
+    x *= np.uint64(0x94D049BB133111EB)
+    x ^= x >> np.uint64(31)
+    return x
+
+
+def hash_key(name: str, unique_key: str) -> int:
+    """64-bit identity hash of one rate limit, never 0."""
+    return int(hash_keys([name + "_" + unique_key])[0])
+
+
+def hash_keys(keys: Sequence[str]) -> np.ndarray:
+    """Batch hash → uint64[len(keys)], never 0."""
+    raw = np.empty(len(keys), dtype=np.uint64)
+    for i, k in enumerate(keys):
+        raw[i] = fnv1a64(k.encode("utf-8"))
+    x = mix64_np(raw)
+    return np.where(x == 0, np.uint64(1), x)
+
+
+def hash_request_keys(names: Sequence[str], unique_keys: Sequence[str]
+                      ) -> np.ndarray:
+    """Batch identity hash of (name, unique_key) pairs, never 0."""
+    return hash_keys([n + "_" + k for n, k in zip(names, unique_keys)])
+
+
+def shard_of(key_hash: np.ndarray | int, num_shards: int) -> np.ndarray | int:
+    """Shard index by hash range (top 32 bits): ``((h >> 32) * n) >> 32``."""
+    if isinstance(key_hash, (int, np.integer)):
+        return int(((int(key_hash) >> 32) * num_shards) >> 32)
+    kh = key_hash.astype(np.uint64)
+    return ((kh >> np.uint64(32)) * np.uint64(num_shards)
+            >> np.uint64(32)).astype(np.int32)

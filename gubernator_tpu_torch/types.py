@@ -1,0 +1,186 @@
+"""Wire-level types of the PyTorch port (a copy of gubernator_tpu/types.py:
+the port imports nothing of the JAX package).
+
+These mirror the reference wire contract (SURVEY.md §2.4; reference
+`proto/gubernator.proto` › Algorithm/Status/Behavior/RateLimitReq/
+RateLimitResp — reconstructed, the reference mount was empty).  They are
+plain Python enums/dataclasses so the core framework works without
+protobuf; the gRPC front door converts to/from the generated pb2 classes.
+"""
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Dict, List
+
+
+class Algorithm(enum.IntEnum):
+    """reference: gubernator.proto › Algorithm."""
+
+    TOKEN_BUCKET = 0
+    LEAKY_BUCKET = 1
+
+
+class Status(enum.IntEnum):
+    """reference: gubernator.proto › Status."""
+
+    UNDER_LIMIT = 0
+    OVER_LIMIT = 1
+
+
+class Behavior(enum.IntFlag):
+    """reference: gubernator.proto › Behavior (bit flags).
+
+    BATCHING is the zero value (default behavior), as in the reference.
+    """
+
+    BATCHING = 0
+    NO_BATCHING = 1
+    GLOBAL = 2
+    DURATION_IS_GREGORIAN = 4
+    RESET_REMAINING = 8
+    MULTI_REGION = 16
+    DRAIN_OVER_LIMIT = 32
+
+
+class GregorianDuration(enum.IntEnum):
+    """Calendar periods for DURATION_IS_GREGORIAN.
+
+    When Behavior.DURATION_IS_GREGORIAN is set, RateLimitRequest.duration
+    holds one of these ordinals instead of milliseconds; the bucket expires
+    at the end of the current calendar period (reference: holster gregorian
+    helpers used by algorithms.go › tokenBucket).
+    """
+
+    MINUTES = 0
+    HOURS = 1
+    DAYS = 2
+    WEEKS = 3
+    MONTHS = 4
+    YEARS = 5
+
+
+#: reference: gubernator.go › maxBatchSize
+MAX_BATCH_SIZE = 1000
+
+# --- int64-safety input bounds (the "Input clamps" contract in oracle.py;
+# reference algorithms.go takes int64 durations — these bounds keep every
+# intermediate product inside int64 while admitting calendar-scale ms
+# durations.  Applied identically by the oracle and the device packers
+# (core/batch.py); parity tests enforce agreement.)
+
+#: Millisecond durations clamp (~285k years); token-bucket expiry adds
+#: this to epoch ms (< 2^41), so sums stay far below 2^63.
+DURATION_MAX = 1 << 53
+
+#: hits/limit/burst ceiling for TOKEN_BUCKET (sums/diffs stay < 2^54).
+VALUE_MAX = 1 << 53
+
+#: LEAKY_BUCKET effective-duration denominator ceiling (~1.09 years of
+#: ms).  Calendar-scale leaky windows beyond this are what
+#: DURATION_IS_GREGORIAN exists for (its rate denominators are all
+#: < 2^35 too).
+EFF_MAX = 1 << 35
+
+#: Leaky token-duration fixed-point bound: per-request, hits/limit/burst
+#: are clamped to TD_BOUND // eff so every td product (value × eff,
+#: elapsed × limit) stays ≤ 2^61 and any sum of two stays < 2^63.
+TD_BOUND = 1 << 61
+
+#: Rescale-on-duration-change keeps the sub-token fractional part only
+#: when both denominators are below this (frac × eff must fit int64);
+#: above it the rescale floors to whole tokens — a < 1-token, defined
+#: deviation applied identically by oracle and device.
+FRAC_SAFE = 1 << 31
+
+#: Millisecond durations for the fixed-width Gregorian periods (used for
+#: leak-rate math; actual expiry is computed on the calendar).
+GREGORIAN_APPROX_MS = {
+    GregorianDuration.MINUTES: 60_000,
+    GregorianDuration.HOURS: 3_600_000,
+    GregorianDuration.DAYS: 86_400_000,
+    GregorianDuration.WEEKS: 7 * 86_400_000,
+    GregorianDuration.MONTHS: 30 * 86_400_000,
+    GregorianDuration.YEARS: 365 * 86_400_000,
+}
+
+
+@dataclass(slots=True)
+class RateLimitRequest:
+    """reference: gubernator.proto › RateLimitReq.
+
+    Identity of a rate limit is ``hash(name + "_" + unique_key)``
+    (reference: gubernator.go › GetRateLimits key construction).
+    """
+
+    name: str = ""
+    unique_key: str = ""
+    hits: int = 1
+    limit: int = 0
+    duration: int = 0  # milliseconds, or GregorianDuration ordinal
+    #: Algorithm/Behavior accept plain ints: the gRPC ingest path keeps
+    #: raw wire values (enum construction costs µs per request), and
+    #: Behavior bit-combos aren't valid single members anyway.
+    algorithm: Algorithm | int = Algorithm.TOKEN_BUCKET
+    behavior: Behavior | int = Behavior.BATCHING
+    burst: int = 0  # 0 → defaults to limit (leaky bucket only)
+    #: Epoch-ms timestamp the request was ACCEPTED at (proto field 10;
+    #: 0 = unset → the serving daemon stamps its own clock).  The
+    #: forward hop sets it so a request applies at the CALLER's clock
+    #: wherever it lands: without it, a key served through two daemons
+    #: mixes two time bases in one bucket row, and the later base sees
+    #: the earlier-base row as expired — the bucket resets and every
+    #: prior debit is silently discarded (the concurrent cold-key
+    #: conservation loss; cross-daemon clock skew does the same to
+    #: short-duration limits in production).
+    created_at: int = 0
+    metadata: Dict[str, str] = field(default_factory=dict)
+
+    @property
+    def key(self) -> str:
+        return self.name + "_" + self.unique_key
+
+
+@dataclass(slots=True)
+class RateLimitResponse:
+    """reference: gubernator.proto › RateLimitResp."""
+
+    status: Status = Status.UNDER_LIMIT
+    limit: int = 0
+    remaining: int = 0
+    reset_time: int = 0  # epoch ms
+    error: str = ""
+    metadata: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class GetRateLimitsRequest:
+    """reference: gubernator.proto › GetRateLimitsReq."""
+
+    requests: List[RateLimitRequest] = field(default_factory=list)
+
+
+@dataclass
+class GetRateLimitsResponse:
+    """reference: gubernator.proto › GetRateLimitsResp."""
+
+    responses: List[RateLimitResponse] = field(default_factory=list)
+
+
+@dataclass
+class PeerInfo:
+    """reference: peers.proto / config.go › PeerInfo."""
+
+    grpc_address: str = ""
+    http_address: str = ""
+    datacenter: str = ""
+    is_owner: bool = False
+
+
+@dataclass
+class HealthCheckResponse:
+    """reference: gubernator.proto › HealthCheckResp."""
+
+    status: str = "healthy"  # "healthy" | "unhealthy"
+    message: str = ""
+    peer_count: int = 0

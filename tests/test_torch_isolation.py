@@ -1,0 +1,79 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points default to the GPU, raising where there is none."""
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import gubernator_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "gubernator_tpu_torch"
+
+
+def all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        gubernator_tpu_torch.__path__, "gubernator_tpu_torch."))
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = all_modules()
+    assert "gubernator_tpu_torch.ops.decide" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'gubernator_tpu' "
+        "or m.startswith('gubernator_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "gubernator_tpu"), (path, name)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from gubernator_tpu_torch.config import Config, DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.engine import BucketEngine
+    from gubernator_tpu_torch.instance import V1Instance
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BucketEngine()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        V1Instance(Config())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0"))
+    assert Config().device == DaemonConfig().device == "cuda"
+
+
+def test_chip_smoke_refuses_without_cuda(monkeypatch):
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        chip_smoke.main([])
+    assert e.value.code != 0
