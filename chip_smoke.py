@@ -1,32 +1,49 @@
 #!/usr/bin/env python3
 """On-GPU smoke of the PyTorch port (gubernator_tpu_torch): builds its
-CUDA kernel, holds it against its plain PyTorch version at full size,
-and drives the port's main path, the HTTP daemon, through it.
+CUDA kernels, holds each against its plain PyTorch version at full size,
+and drives the port's two serving paths, the HTTP daemon on the bucket
+engine (K1) and on the classic SoA engine (K2), through them.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py            # full size: 2^25-row table, 10M keys
+    python3 chip_smoke.py            # full size: 10M keys on each path
 
 Phases (each prints a line with its seconds; any failure exits non-zero):
 
 1. device: the card's name and nvidia-smi's name / power limit;
-2. build: K1 (gubernator_tpu_torch/csrc/decide.cu) with nvcc for sm_90a;
-3. kernel vs plain: a 2^25-row (4 GiB) table holding 10M keys, then
-   >= 8 waves of 8192 rows and one of 1024 (the main path's two wave
-   widths; Zipf(1.1) keys, TOKEN and LEAKY, RESET / DRAIN / Gregorian,
-   queries, duplicates, per-row now, one crafted bucket-full wave)
-   through decide_cuda and decide_plain on two copies of the table:
-   outputs, counters and the whole table must be equal;
-4. main path: spawn_daemon on the GPU, the HTTP verify flow, then
-   rounds of 8 threads of 1000-request Zipf(1.1) batches through
-   V1Instance.get_rate_limits against a 10M-key table, checked per key;
-   each round prints its decisions/s and latencies, every dispatcher
-   wave and every garbage collection is timed on the host, and a last,
-   shorter round runs under
-   torch.profiler for the device's busy share.  K1's launch count must
-   grow.
+2. build: K1, K2 and K3 (gubernator_tpu_torch/csrc/*.cu) with nvcc for
+   sm_90a, one nvcc per source, started together;
+3. probe: K3 (the toolchain probe, an int32 add) against x + y on the
+   (8, 128) input of tools/pallas_probe.py and on 2^24 elements;
+4. kernel vs plain: a 2^25-row (4 GiB) bucket table holding 10M keys,
+   then >= 8 waves of 8192 rows and one of 1024 (the bucket path's two
+   wave widths; Zipf(1.1) keys, TOKEN and LEAKY, RESET / DRAIN /
+   Gregorian, queries, duplicates, per-row now, one crafted bucket-full
+   wave) through decide_cuda and decide_plain on two copies of the
+   table: outputs, counters and the whole table must be equal;
+5. main path: spawn_daemon on the GPU (bucket engine), the HTTP verify
+   flow, then rounds of 8 threads of 1000-request Zipf(1.1) batches
+   through V1Instance.get_rate_limits against a 10M-key table, checked
+   per key; each round prints its decisions/s and latencies, every
+   dispatcher wave and every garbage collection is timed on the host,
+   and a last, shorter round runs under torch.profiler for the device's
+   busy share.  K1's launch count must grow;
+6. sweep vs plain: a 2^24-row SoA table holding 10M keys (placed with
+   upsert_rows; ~30% expired, some removed) swept by K2 and by its
+   plain version on two copies: key and expire_at equal, the other
+   columns untouched, the live counts equal;
+7. classic main path: spawn_daemon with GUBER_ENGINE=xla on the GPU
+   (2^24 rows, auto-grow to 2^25, a short sweep interval), the HTTP
+   verify flow and a 2^40 limit, a 10M-key table (restored; a share
+   expired), then rounds of 8 threads of 1000-request Zipf(1.1) batches
+   over the live keys the table holds plus 3% brand-new keys (inserts,
+   the table-full retry, the auto-grow), with an on-device grow to twice
+   the rows between the rounds, checked per key and per grow (a grow
+   drops few rows, and only the keys it dropped may restart), and a
+   last, shorter round under torch.profiler.  Every decision step is
+   timed alone with CUDA events.  K2's launch count must grow.
 
-The line before the last is a JSON object with the kernel's numbers;
+The line before the last is a JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -55,6 +72,14 @@ REQ_BYTES = 76 + 29
 #: a touched bucket is read and written once; K1 moves only the 16 used
 #: words (64 B) of each of its 8 slots
 BUCKET_BYTES = 2 * 8 * 16 * 4
+#: the answer to a request whose probe window stayed full
+TABLE_FULL = "rate limit table full"
+#: most rows a grow may drop, as a share of the rows it re-places: an
+#: H100 dropped 25 of ~8M live rows (3e-6) growing 2^24 -> 2^25 in this
+#: script's classic phase (PERF.md); a grow losing more is a fault
+GROW_DROP_MAX_SHARE = 1e-4
+#: share of each classic batch sent to brand-new keys (inserts)
+FRESH_SHARE = 0.03
 
 
 def require(ok, what: str) -> None:
@@ -146,8 +171,8 @@ def phase_build():
 
     build.load_library()
     info = build.build_info
-    print(f"K1 build: {info['seconds']:.2f} s (compiled={info['built']}) "
-          f"-> {info['path']}", flush=True)
+    print(f"K1, K2, K3 build: {info['seconds']:.2f} s "
+          f"(compiled={info['built']}) -> {info['path']}", flush=True)
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "stack" in line:
             print("  ptxas:", line.strip(), flush=True)
@@ -337,22 +362,7 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
                                   cache_size=1 << args.log2_cap,
                                   batch_rows=1024, device=DEVICE))
     try:
-        url = f"http://127.0.0.1:{d.http_port}/v1/GetRateLimits"
-        body = json.dumps({"requests": [{
-            "name": "api", "uniqueKey": "u1", "hits": 1, "limit": 3,
-            "duration": 5000}]}).encode()
-        statuses, remaining = [], []
-        for _ in range(5):
-            req = urllib.request.Request(
-                url, body, {"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=60) as r:
-                resp = json.loads(r.read())["responses"][0]
-            statuses.append(resp["status"])
-            remaining.append(resp["remaining"])
-        require(statuses == [0, 0, 0, 1, 1] and remaining == [2, 1, 0, 0, 0],
-                f"HTTP flow: {statuses} {remaining}")
-        print(f"HTTP flow: statuses {statuses} remaining {remaining}",
-              flush=True)
+        http_verify_flow(d.http_port)
 
         t0 = time.perf_counter()
         fill_t = int(time.time() * 1000) - 1_000
@@ -426,6 +436,364 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
     return res
 
 
+def elapsed_ms(torch, fn, *a):
+    """(fn(*a), its time in ms): CUDA events around the call on the card
+    (the host clock in a CPU rehearsal)."""
+    if DEVICE != "cuda":
+        t = time.perf_counter()
+        out = fn(*a)
+        return out, (time.perf_counter() - t) * 1e3
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn(*a)
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def phase_probe(torch, args):
+    """K3, the toolchain probe, through probe_add on its two inputs, then
+    against the plain add: equal, and the small sum is 1,047,552."""
+    from gubernator_tpu_torch.ops import probe
+
+    dev = torch.device(DEVICE)
+    small = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(
+        8, 128)
+    rng = np.random.default_rng(args.seed + 3)
+    # full int32 range: about a quarter of the sums wrap
+    big_x, big_y = (torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31, 1 << 24).astype(np.int32)).to(dev)
+        for _ in range(2))
+    probe.probe_add_cuda.launches = 0
+    out_small = probe.probe_add(small, small)
+    out_big, ms = elapsed_ms(torch, probe.probe_add, big_x, big_y)
+    launches = probe.probe_add_cuda.launches
+    _, plain_ms = elapsed_ms(torch, probe.probe_add_plain, big_x, big_y)
+    err = 0
+    for got, x, y in ((out_small, small, small), (out_big, big_x, big_y)):
+        want = probe.probe_add_plain(x, y)
+        err = max(err, int((got.to(torch.int64) - want.to(torch.int64))
+                           .abs().max()))
+        require(torch.equal(got, want), f"K3 on {tuple(x.shape)}")
+    require(int(out_small.sum()) == 1_047_552, "K3 (8, 128) sum")
+    times = [elapsed_ms(torch, probe.probe_add, big_x, big_y)[1]
+             for _ in range(5)]
+    plains = [elapsed_ms(torch, probe.probe_add_plain, big_x, big_y)[1]
+              for _ in range(5)]
+    # the library call: torch.add, the same wrapping int32 add
+    libs = [elapsed_ms(torch, torch.add, big_x, big_y)[1] for _ in range(5)]
+    res = {"launches": launches, "max_abs_err": err,
+           "ms": float(np.mean(times)), "plain_ms": float(np.mean(plains)),
+           "library_ms": float(np.mean(libs)),
+           "bound_ms": 3 * 4 * big_x.numel() / HBM_BYTES_PER_S * 1e3,
+           "first_ms": ms, "first_plain_ms": plain_ms}
+    print(f"K3 probe: (8, 128) sum {int(out_small.sum())}; 2^24 elements "
+          f"equal to x + y; K3 {res['ms']} ms, plain {res['plain_ms']} ms,"
+          f" torch.add {res['library_ms']} ms, bytes bound "
+          f"{res['bound_ms']} ms; launches {launches}", flush=True)
+    require(DEVICE != "cuda" or launches == 2, "K3 was not launched")
+    return res
+
+
+def soa_population(n_keys: int):
+    """n_keys distinct key hashes of "smoke" / "k%08d" (their indices
+    too), in index order."""
+    idx = np.arange(n_keys, dtype=np.int64)
+    keys = smoke_hashes(idx)
+    _, first = np.unique(keys, return_index=True)
+    keep = np.sort(first)
+    return idx[keep], keys[keep]
+
+
+def phase_sweep_vs_plain(torch, args):
+    """A 2^24-row SoA table holding 10M keys (about 30% expired at the
+    sweep's now, some at exactly now, some rows removed), swept by K2
+    and by the plain version on two copies."""
+    from gubernator_tpu_torch.ops import sweep as swm
+    from gubernator_tpu_torch.sharded import ShardedEngine
+
+    cap = 1 << args.soa_log2_cap
+    # wide row-op waves: the fill is 153 waves, not 9,766
+    eng = ShardedEngine(device=DEVICE, capacity=cap, batch_rows=1 << 16)
+    rng = np.random.default_rng(args.seed + 2)
+    _, keys = soa_population(args.keys)
+    n = len(keys)
+    now = NOW0 + 100_000
+    cols = token_rows(keys, 100, 60_000, now - 30_000)
+    dead = rng.random(n) < 0.3
+    cols["expire_at"] = np.where(dead, now - rng.integers(0, 50_000, n),
+                                 now + rng.integers(1, 3_600_000, n))
+    cols["expire_at"][:1000] = now  # the boundary: dead
+    t0 = time.perf_counter()
+    placed = eng.upsert_rows(keys, cols)
+    removed = eng.remove_rows(keys[::97])
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    print(f"SoA fill: {placed} of {n} keys placed, {removed} removed in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    require(placed > 0.99 * n and removed > 0, "SoA fill")
+    st = eng.state
+    others = {f: getattr(st, f).clone() for f in st._fields
+              if f not in ("key", "expire_at")}
+    reclaim = int(((st.expire_at <= now)
+                   & ((st.key != 0) | (st.expire_at != 0))).sum())
+
+    def fresh():
+        return st._replace(key=st.key.clone(), expire_at=st.expire_at.clone())
+
+    sk, sp = fresh(), fresh()
+    live_k = int(swm.sweep_cuda(sk, now))
+    live_p = int(swm.sweep_plain(sp, now))
+    # in float64: a difference of two 64-bit keys must not wrap
+    err = max(abs(live_k - live_p), *(
+        float((getattr(sk, f).double() - getattr(sp, f).double())
+              .abs().max()) for f in ("key", "expire_at")))
+    require(torch.equal(sk.key, sp.key)
+            and torch.equal(sk.expire_at, sp.expire_at),
+            "K2 and plain differ in key / expire_at")
+    require(live_k == live_p == int((sk.key != 0).sum()),
+            f"live counts: K2 {live_k}, plain {live_p}")
+    require(all(torch.equal(getattr(st, f), c) for f, c in others.items()),
+            "a sweep touched a column other than key / expire_at")
+    require(not bool(((sk.expire_at <= now) & (sk.key != 0)).any()),
+            "an expired row survived")
+    k_ms = [elapsed_ms(torch, swm.sweep_cuda, fresh(), now)[1]
+            for _ in range(args.sweep_reps)]
+    p_ms = [elapsed_ms(torch, swm.sweep_plain, fresh(), now)[1]
+            for _ in range(args.sweep_reps)]
+    res = {"rows": cap, "keys": n, "placed": placed, "removed": removed,
+           "live": live_k, "reclaimed": reclaim, "max_abs_err": err,
+           "ms": float(np.mean(k_ms)), "ms_runs": k_ms,
+           "plain_ms": float(np.mean(p_ms)),
+           "bound_ms": 16 * (cap + reclaim) / HBM_BYTES_PER_S * 1e3}
+    print(f"K2 sweep of 2^{args.soa_log2_cap} rows: equal (live {live_k}, "
+          f"reclaimed {reclaim}); K2 {res['ms']} ms (runs {k_ms}), plain "
+          f"{res['plain_ms']} ms, bytes bound {res['bound_ms']} ms",
+          flush=True)
+    del eng, st, sk, sp, others
+    return res
+
+
+def phase_classic_main_path(torch, args):
+    """The HTTP daemon on the classic SoA engine: verify flow, a 2^40
+    limit, a 10M-key table (a share expired), then rounds of Zipf(1.1)
+    traffic over the live keys the table holds, with 3% of each batch on
+    brand-new keys (inserts, the table-full retry and the auto-grow) and
+    a grow to twice the rows before the second round; checked per key
+    and per grow; the last, shorter round runs under torch.profiler."""
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.ops import sweep as swm
+    from gubernator_tpu_torch.sharded import ShardedEngine
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    limit, duration = 100, 3_600_000
+    cap = 1 << args.soa_log2_cap
+    pop_idx, pop_keys = soa_population(args.keys)
+    rng = np.random.default_rng(args.seed + 4)
+    expired = rng.random(len(pop_keys)) < 0.2
+    pauses: list = []
+    on_gc = time_gc(pauses)
+    gc.callbacks.append(on_gc)
+    swm.sweep_cuda.launches = 0
+    d = spawn_daemon(DaemonConfig(
+        http_listen_address="127.0.0.1:0", engine="xla", cache_size=cap,
+        cache_autogrow_max=2 * cap, batch_rows=1024,
+        sweep_interval_ms=args.classic_sweep_ms, device=DEVICE))
+    try:
+        eng = d.instance.engine
+        require(isinstance(eng, ShardedEngine)
+                and eng.cap_local == cap, "GUBER_ENGINE=xla engine")
+        http_verify_flow(d.http_port)
+        big = post_one(d.http_port, {"name": "big", "uniqueKey": "b1",
+                                     "hits": 1, "limit": 2 ** 40,
+                                     "duration": 60_000})
+        require(not big["error"] and big["status"] == 0
+                and big["remaining"] == 2 ** 40 - 1, f"2^40 limit: {big}")
+        print(f"2^40 limit: status {big['status']} remaining "
+              f"{big['remaining']}", flush=True)
+
+        t0 = time.perf_counter()
+        fill_t = int(time.time() * 1000) - 1_000
+        rows = token_rows(pop_keys, limit, duration, fill_t)
+        rows["expire_at"] = np.where(expired, fill_t - 1_000,
+                                     rows["expire_at"])
+        with d.instance._engine_mu:
+            placed = eng.restore(rows)
+            # the live keys the table holds, taken once: a key the fill
+            # could not place (its probe window was full) would need an
+            # insert that the same window can refuse again; the fresh
+            # keys below are what tests inserts
+            held = torch.isin(torch.from_numpy(pop_keys.view(np.int64))
+                              .to(eng.device), eng.state.key).cpu().numpy()
+        held &= ~expired
+        print(f"fill: {placed} of {len(pop_keys)} keys restored "
+              f"({int(expired.sum())} expired, {int(held.sum())} live held)"
+              f" in {time.perf_counter() - t0:.2f} s", flush=True)
+        require(placed > 0.99 * len(pop_keys), f"fill placed {placed}")
+        cap_before, sweeps_before = eng.cap_local, eng.sweep_count
+        dropped_before = eng.dropped_rows
+
+        waves = time_waves(d.instance)
+        steps = time_steps(torch, eng)
+        lost: list = []
+        record_grows(torch, eng, lost)
+        tally = Tally(limit)
+        rounds = []
+        grow_ms = None
+        n_fresh = 0
+        # the last round runs under torch.profiler and counts apart
+        for rnd in range(args.classic_rounds + 1):
+            profiled = rnd == args.classic_rounds
+            if rnd == 1:
+                # an on-device grow at full size, between the rounds:
+                # the counters must come through it exactly
+                t0 = time.perf_counter()
+                with d.instance._engine_mu:
+                    eng.grow(2 * eng.cap_local)
+                    if DEVICE == "cuda":
+                        torch.cuda.synchronize()
+                grow_ms = (time.perf_counter() - t0) * 1e3
+            # the held keys no grow has dropped so far
+            gone = lost_ids(pop_idx, pop_keys, lost)
+            live_idx = pop_idx[held & ~np.isin(pop_idx, gone)]
+            n_b = args.profile_batches if profiled else args.batches
+            per = []
+            for _ in range(args.threads):
+                thread = []
+                for _ in range(n_b):
+                    ids = live_idx[zipf_ranks(rng, 1.1, len(live_idx), 1000)]
+                    fresh = np.nonzero(rng.random(1000) < FRESH_SHARE)[0]
+                    ids[fresh] = -1 - n_fresh - np.arange(len(fresh))
+                    n_fresh += len(fresh)
+                    thread.append(ids)
+                per.append(thread)
+            jobs = [[[RateLimitRequest(
+                name="smoke", unique_key=(f"k{i:08d}" if i >= 0
+                                          else f"fresh{-i:09d}"),
+                hits=1, limit=limit, duration=duration) for i in ids]
+                for ids in thread] for thread in per]
+            device = None
+            if profiled:
+                out, device = profile_device(
+                    torch, lambda: drive(d.instance, jobs))
+            else:
+                out = drive(d.instance, jobs)
+            t0, wall, lat, results = out
+            tally.add(per, results, frozenset(
+                lost_ids(pop_idx, pop_keys, lost).tolist()))
+            rounds.append((t0, wall, lat, sum(
+                len(b) for resps in results.values() for b in resps),
+                device))
+        launches = swm.sweep_cuda.launches
+        # every held key is still held, but those a grow dropped
+        with d.instance._engine_mu:
+            still = torch.isin(torch.from_numpy(pop_keys.view(np.int64))
+                               .to(eng.device), eng.state.key).cpu().numpy()
+        gone = lost_ids(pop_idx, pop_keys, lost)
+        missing = pop_idx[held & ~still]
+        require(np.isin(missing, gone).all(),
+                f"{int((~np.isin(missing, gone)).sum())} held keys left "
+                f"the table without a grow dropping them")
+        n_lost = int(sum(len(g) for g in lost))
+        require(n_lost == eng.dropped_rows - dropped_before,
+                f"grows dropped {eng.dropped_rows - dropped_before} rows, "
+                f"{n_lost} keys lost")
+        res = {"capacity_before": cap_before, "capacity_after": eng.cap_local,
+               "grows": len(lost), "grow_ms": grow_ms,
+               "dropped_rows": n_lost, "held_keys_dropped": len(gone),
+               "held_keys_missing": len(missing),
+               "fresh_requests": tally.fresh,
+               "fresh_table_full": tally.fresh_full,
+               "dropped_keys_table_full": tally.dropped_full,
+               "sweeps": eng.sweep_count - sweeps_before,
+               "live_rows_last_sweep": eng.live_rows}
+    finally:
+        d.close()
+        gc.callbacks.remove(on_gc)
+
+    tally.check(exclude=frozenset(gone.tolist()))
+    stats = []
+    for rnd, (t0, wall, lat, n_req, device) in enumerate(rounds):
+        s = round_stats(wall, lat, [w for w in waves
+                                    if t0 <= w[0] <= t0 + wall], n_req,
+                        [p for p in pauses if t0 <= p[0] <= t0 + wall])
+        s.update(step_stats(torch, [x for x in steps
+                                    if t0 <= x[0] <= t0 + wall]))
+        if rnd == args.classic_rounds:
+            s["device"] = device
+        stats.append(s)
+        print(f"classic main path round {rnd}"
+              f"{' (profiled)' if rnd == args.classic_rounds else ''}: "
+              f"{json.dumps(s)}", flush=True)
+    timed = stats[:-1]
+    lat_ms = np.concatenate([np.asarray(r[2]) for r in rounds[:-1]]) * 1e3
+    rates = [r["decisions_per_s"] for r in timed]
+    timed_steps = [x for t0, wall, *_ in rounds[:-1] for x in steps
+                   if t0 <= x[0] <= t0 + wall]
+    res.update({
+        "decisions_per_s": float(np.mean(rates)),
+        "decisions_per_s_min": min(rates),
+        "decisions_per_s_max": max(rates),
+        "requests": tally.n_req, "keys": len(tally.count),
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "engine_ms_per_wave": float(np.mean(
+            [r["engine_ms_mean"] for r in timed])),
+        **step_stats(torch, timed_steps),
+        "batches": len(lat_ms), "launches": launches, "rounds": stats})
+    print(f"classic main path: {tally.n_req} decisions over "
+          f"{len(tally.count)} keys ({tally.fresh} to fresh keys, "
+          f"{tally.fresh_full} of them table full), every key exact but "
+          f"the {len(gone)} held keys grows dropped ({tally.dropped_full} "
+          f"table-full answers to them); {len(timed)} timed "
+          f"rounds: {res['decisions_per_s']} decisions/s (min "
+          f"{res['decisions_per_s_min']}, max {res['decisions_per_s_max']});"
+          f" batch p50 {res['p50_ms']} ms p99 {res['p99_ms']} ms; SoA "
+          f"engine call {res['engine_ms_per_wave']} ms per wave, the step "
+          f"alone {res['step_device_ms_mean']} device-ms "
+          f"({res['step_host_ms_mean']} host-ms) over {res['steps']} "
+          f"steps; capacity {res['capacity_before']} -> "
+          f"{res['capacity_after']} ({res['grows']} grows, the explicit one"
+          f" in {res['grow_ms']} ms, {res['dropped_rows']} rows dropped); "
+          f"{res['sweeps']} sweeps; K2 launches {launches}", flush=True)
+    require(DEVICE != "cuda" or launches > 0,
+            "the classic path never launched K2")
+    return res
+
+
+def lost_ids(pop_idx, pop_keys, lost: list) -> np.ndarray:
+    """The population ids of the keys the grows in ``lost`` dropped."""
+    if not lost:
+        return pop_idx[:0]
+    return pop_idx[np.isin(pop_keys.view(np.int64), np.concatenate(lost))]
+
+
+def post_one(port: int, req: dict) -> dict:
+    """One request through the daemon's HTTP front door."""
+    body = json.dumps({"requests": [req]}).encode()
+    r = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/GetRateLimits", body,
+        {"Content-Type": "application/json"})
+    with urllib.request.urlopen(r, timeout=60) as resp:
+        return json.loads(resp.read())["responses"][0]
+
+
+def http_verify_flow(port: int) -> None:
+    """limit=3 over 5 calls: statuses [0,0,0,1,1], remaining
+    [2,1,0,0,0]."""
+    got = [post_one(port, {"name": "api", "uniqueKey": "u1", "hits": 1,
+                           "limit": 3, "duration": 5000})
+           for _ in range(5)]
+    statuses = [g["status"] for g in got]
+    remaining = [g["remaining"] for g in got]
+    require(statuses == [0, 0, 0, 1, 1] and remaining == [2, 1, 0, 0, 0],
+            f"HTTP flow: {statuses} {remaining}")
+    print(f"HTTP flow: statuses {statuses} remaining {remaining}",
+          flush=True)
+
+
 def drive(inst, jobs):
     """Each thread calls get_rate_limits on its batches in turn; returns
     (start on the perf_counter clock, wall s, batch latencies s,
@@ -460,22 +828,35 @@ def drive(inst, jobs):
 
 class Tally:
     """Per key: UNDER count = min(requests, limit), and the UNDER rows'
-    remaining values are exactly limit-1 .. limit-count."""
+    remaining values are exactly limit-1 .. limit-count.  Keys with a
+    negative id are fresh (never in the table before): a `rate limit
+    table full` answer to one of them, or to a key a grow dropped (its
+    probe window was full), is counted apart, not failed."""
 
     def __init__(self, limit: int):
         self.limit = limit
         self.n_req = 0
+        self.fresh = 0
+        self.fresh_full = 0
+        self.dropped_full = 0
         self.under: dict = {}
         self.count: dict = {}
 
-    def add(self, per, results) -> None:
+    def add(self, per, results, dropped=frozenset()) -> None:
         from gubernator_tpu_torch.types import Status
 
         for t, thread in enumerate(per):
             for ranks, resps in zip(thread, results[t]):
-                for r, resp in zip(ranks.tolist(), resps):
-                    require(not resp.error, resp.error)
+                for r, resp in zip(np.asarray(ranks).tolist(), resps):
                     self.n_req += 1
+                    self.fresh += r < 0
+                    if resp.error == TABLE_FULL and r < 0:
+                        self.fresh_full += 1
+                        continue
+                    if resp.error == TABLE_FULL and r in dropped:
+                        self.dropped_full += 1
+                        continue
+                    require(not resp.error, resp.error)
                     self.count[r] = self.count.get(r, 0) + 1
                     if resp.status == Status.UNDER_LIMIT:
                         self.under.setdefault(r, []).append(resp.remaining)
@@ -483,12 +864,17 @@ class Tally:
                         require(resp.remaining == 0,
                                 "an OVER row with remaining > 0")
 
-    def check(self) -> None:
+    def check(self, exclude=frozenset()) -> None:
+        """Every key exact, but those in ``exclude`` (keys a grow
+        dropped: their counter restarts, as the table's eviction
+        contract allows)."""
         for r, c in self.count.items():
+            if r in exclude:
+                continue
             got = sorted(self.under.get(r, []))
             m = min(c, self.limit)
             require(got == list(range(self.limit - m, self.limit)),
-                    f"key rank {r}: {c} requests, UNDER remaining "
+                    f"key {r}: {c} requests, UNDER remaining "
                     f"{got[:5]}...")
 
 
@@ -519,6 +905,67 @@ def time_waves(inst) -> list:
     eng.check_packed = timed_check
     disp._run_wave = timed_wave
     return rec
+
+
+def time_steps(torch, eng) -> list:
+    """Time every decision step the engine runs (``eng._decide``, the
+    SoA step alone: no packing, upload or download) on the host clock
+    and, on the card, with CUDA events around it.  Appends (start s,
+    host s, start event, end event) per step to the returned list; read
+    the events' times after a synchronize."""
+    decide = eng._decide
+    rec: list = []
+
+    def timed_decide(*a):
+        ev = None
+        if DEVICE == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        t = time.perf_counter()
+        out = decide(*a)
+        host = time.perf_counter() - t
+        if ev:
+            ev[1].record()
+        rec.append((t, host) + (tuple(ev) if ev else (None, None)))
+        return out
+
+    eng._decide = timed_decide
+    return rec
+
+
+def step_stats(torch, steps) -> dict:
+    """Mean host and device ms of the steps in ``steps``."""
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    host = [s[1] * 1e3 for s in steps]
+    dev = [s[2].elapsed_time(s[3]) for s in steps if s[2] is not None]
+    return {"steps": len(steps),
+            "step_host_ms_mean": float(np.mean(host)) if host else None,
+            "step_device_ms_mean": float(np.mean(dev)) if dev else None}
+
+
+def record_grows(torch, eng, lost: list) -> None:
+    """Wrap ``eng.grow`` (the explicit grow, the table-full auto-grow
+    and the sweep's proactive grow all call it): for each grow, append
+    to ``lost`` the int64 keys it held before and not after, and require
+    that they are the rows the grow reports dropped, and few."""
+    grow = eng.grow
+
+    def recorded_grow(new_capacity):
+        before = eng.state.key[eng.state.key != 0]
+        dropped = grow(new_capacity)
+        gone = before[~torch.isin(before, eng.state.key)].cpu().numpy()
+        require(len(gone) == dropped,
+                f"grow reports {dropped} dropped rows, lost {len(gone)}")
+        require(dropped <= GROW_DROP_MAX_SHARE * before.numel(),
+                f"grow to {new_capacity} rows dropped {dropped} of "
+                f"{before.numel()}")
+        print(f"grow to {new_capacity} rows: {before.numel()} rows "
+              f"re-placed, {dropped} dropped", flush=True)
+        lost.append(gone)
+        return dropped
+
+    eng.grow = recorded_grow
 
 
 def time_gc(pauses: list):
@@ -592,6 +1039,7 @@ def profile_device(torch, run):
     by_kind: dict = {}
     for s, e, name in spans:
         kind = ("K1" if "decide_kernel" in name
+                else "K2" if "sweep_kernel" in name
                 else "memcpy" if "Memcpy" in name
                 else "memset" if "Memset" in name
                 else "sort" if "sort" in name.lower() or "radix" in name.lower()
@@ -610,13 +1058,21 @@ def profile_device(torch, run):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--log2-cap", type=int, default=25)
+    ap.add_argument("--log2-cap", type=int, default=25,
+                    help="bucket-table rows (log2)")
+    ap.add_argument("--soa-log2-cap", type=int, default=24,
+                    help="SoA-table rows (log2)")
     ap.add_argument("--keys", type=int, default=10_000_000)
     ap.add_argument("--waves", type=int, default=8)
     ap.add_argument("--wave-rows", type=int, default=8192)
     ap.add_argument("--small-rows", type=int, default=1024)
     ap.add_argument("--threads", type=int, default=8)
-    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="timed rounds on the bucket path")
+    ap.add_argument("--classic-rounds", type=int, default=2)
+    ap.add_argument("--classic-sweep-ms", type=int, default=1_000,
+                    help="the classic daemon's sweep interval")
+    ap.add_argument("--sweep-reps", type=int, default=5)
     ap.add_argument("--batches", type=int, default=100,
                     help="batches per thread per timed round")
     ap.add_argument("--profile-batches", type=int, default=20,
@@ -630,6 +1086,8 @@ def main(argv=None) -> int:
         name, smi = phase_device(torch)
     with phase("build"):
         phase_build()
+    with phase("probe"):
+        k3 = phase_probe(torch, args)
     with phase("population"):
         pop_idx, pop_keys = fit_population(args.keys, args.log2_cap)
         from gubernator_tpu_torch.hashing import hash_request_keys
@@ -644,15 +1102,40 @@ def main(argv=None) -> int:
         k = phase_kernel_vs_plain(torch, args, pop_idx, pop_keys)
     with phase("main path"):
         m = phase_main_path(torch, args, pop_idx, pop_keys)
-    print(json.dumps({"main_path": m, "kernel_detail": k}), flush=True)
+    del pop_idx, pop_keys
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    with phase("sweep vs plain"):
+        k2 = phase_sweep_vs_plain(torch, args)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    with phase("classic main path"):
+        c = phase_classic_main_path(torch, args)
+    print(json.dumps({"main_path": m, "kernel_detail": k,
+                      "classic_main_path": c, "sweep_detail": k2,
+                      "probe_detail": k3}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "decide", "route": "cuda",
-        "source": "gubernator_tpu_torch/csrc/decide.cu",
-        "replaces": "gubernator_tpu/ops/pallas_step.py:338",
-        "launches": m["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "decide", "route": "cuda",
+         "source": "gubernator_tpu_torch/csrc/decide.cu",
+         "replaces": "gubernator_tpu/ops/pallas_step.py:338",
+         "launches": m["launches"], "max_abs_err": k["max_abs_err"],
+         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "sweep", "route": "cuda",
+         "source": "gubernator_tpu_torch/csrc/sweep.cu",
+         "replaces": "gubernator_tpu/ops/pallas_sweep.py:48",
+         "launches": c["launches"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "probe_add", "route": "cuda",
+         "source": "gubernator_tpu_torch/csrc/probe.cu",
+         "replaces": "tools/pallas_probe.py:93",
+         "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": "bytes",
+         "library_ms": k3["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

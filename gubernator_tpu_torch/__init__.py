@@ -1,15 +1,18 @@
 """gubernator_tpu_torch: the PyTorch / CUDA port of gubernator_tpu.
 
-Runs on an NVIDIA GPU (the decision step is a hand-written CUDA kernel,
-csrc/decide.cu, built at first use) and, when asked with
-``device="cpu"``, on the CPU through the kernel's plain PyTorch version.
-Imports torch, numpy and the standard library; nothing of JAX or of the
-JAX package.
+Runs on an NVIDIA GPU and, when asked with ``device="cpu"``, on the CPU
+through each kernel's plain PyTorch version.  Two engines serve: the
+bucket engine (engine.py; its decision step is the hand-written CUDA
+kernel csrc/decide.cu) and the classic SoA engine (sharded.py; the step
+is plain PyTorch, the expiry sweep the kernel csrc/sweep.cu).  The
+kernels are built at first use.  Imports torch, numpy and the standard
+library; nothing of JAX or of the JAX package.
 """
 from .daemon import spawn_daemon
 from .engine import BucketEngine
 from .instance import V1Instance
+from .sharded import ShardedEngine
 from .types import RateLimitRequest, RateLimitResponse
 
 __all__ = ["BucketEngine", "RateLimitRequest", "RateLimitResponse",
-           "V1Instance", "spawn_daemon"]
+           "ShardedEngine", "V1Instance", "spawn_daemon"]

@@ -1,9 +1,10 @@
 """The daemon binary: config → spawn → wait for a signal.
 
 Usage: python -m gubernator_tpu_torch.cmd.daemon [--config FILE]
-(GUBER_HTTP_ADDRESS, GUBER_CACHE_SIZE, GUBER_BATCH_ROWS, GUBER_DEVICE and
-GUBER_LOG_LEVEL apply; see config.py).  Serves on the GPU unless
-GUBER_DEVICE=cpu.
+(GUBER_HTTP_ADDRESS, GUBER_CACHE_SIZE, GUBER_BATCH_ROWS, GUBER_ENGINE,
+GUBER_CACHE_AUTOGROW_MAX, GUBER_DEVICE and GUBER_LOG_LEVEL apply; see
+config.py).  Serves on the GPU unless GUBER_DEVICE=cpu, through the
+bucket engine unless GUBER_ENGINE=xla selects the classic SoA engine.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ def main(argv=None) -> int:
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
     print(f"gubernator-tpu-torch listening http={cfg.http_listen_address} "
-          f"device={cfg.device}", flush=True)
+          f"device={cfg.device} "
+          f"engine={type(d.instance.engine).__name__}", flush=True)
     stop.wait()
     d.close()
     return 0

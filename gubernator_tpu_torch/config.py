@@ -16,10 +16,19 @@ from typing import Dict, Optional
 class Config:
     """Core-instance configuration."""
 
-    #: Rows in the device counter table (rounded up to a power of two).
+    #: Rows in the device counter table (rounded up to a power of two;
+    #: the instance serves at least 1024).
     cache_size: int = 1 << 16
     #: Rows of the small wave bucket (the big one is 8×).
     batch_rows: int = 1024
+    #: Upper bound (rows) for the classic engine's on-device auto-grow
+    #: when the table fills with live keys (0 disables); rounded down to
+    #: a power of two.  The bucket engine has no grow.
+    cache_autogrow_max: int = 0
+    #: Serving engine (GUBER_ENGINE): "" / "auto" / "pallas" = the bucket
+    #: engine (K1; counters < 2^30), "xla" / "sharded" = the classic SoA
+    #: engine (the full value domain, auto-grow).  Anything else raises.
+    engine: str = ""
     #: Milliseconds between expired-row sweeps (0 disables).
     sweep_interval_ms: int = 30_000
     #: Device the engine serves on: "cuda" (default; raises without a
@@ -43,6 +52,8 @@ class DaemonConfig:
     http_listen_address: str = "localhost:1050"
     cache_size: int = 1 << 16
     batch_rows: int = 1024
+    cache_autogrow_max: int = 0
+    engine: str = ""
     sweep_interval_ms: int = 30_000
     device: str = "cuda"
     log_level: str = "info"
@@ -50,6 +61,8 @@ class DaemonConfig:
     def instance_config(self) -> Config:
         return Config(cache_size=self.cache_size,
                       batch_rows=self.batch_rows,
+                      cache_autogrow_max=self.cache_autogrow_max,
+                      engine=self.engine,
                       sweep_interval_ms=self.sweep_interval_ms,
                       device=self.device).set_defaults()
 
@@ -83,6 +96,9 @@ def setup_daemon_config(conf_file: str = "",
                                      d.http_listen_address)
     d.cache_size = int(conf.get("GUBER_CACHE_SIZE", d.cache_size))
     d.batch_rows = int(conf.get("GUBER_BATCH_ROWS", d.batch_rows))
+    d.cache_autogrow_max = int(conf.get("GUBER_CACHE_AUTOGROW_MAX",
+                                        d.cache_autogrow_max))
+    d.engine = conf.get("GUBER_ENGINE", d.engine)
     d.device = conf.get("GUBER_DEVICE", d.device)
     d.log_level = conf.get("GUBER_LOG_LEVEL", d.log_level)
     return d

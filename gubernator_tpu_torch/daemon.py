@@ -141,6 +141,7 @@ class Daemon:
 def spawn_daemon(cfg: DaemonConfig) -> Daemon:
     """reference: daemon.go › SpawnDaemon."""
     d = Daemon(cfg)
-    log.info("gubernator-tpu-torch daemon up: http=%s device=%s",
-             cfg.http_listen_address, cfg.device)
+    log.info("gubernator-tpu-torch daemon up: http=%s device=%s "
+             "engine=%s", cfg.http_listen_address, cfg.device,
+             type(d.instance.engine).__name__)
     return d

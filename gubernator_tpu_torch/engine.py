@@ -1,40 +1,35 @@
 """BucketEngine: single-device serving over the bucketized table.
 
 The single-device twin of gubernator_tpu/parallel/pallas_engine.py ›
-PallasServingEngine (with its fused serving, without the mesh lane),
-whose serving core is ShardedEngine's at one shard: requests are put
-in arrival order, cut into waves that ride the smallest wave bucket
-that holds them, and each wave is ONE decision step (ops/decide.py:
-K1 on a CUDA table) that also emits the [4, B] heavy-hitter tap.
-Each wave uploads two packed matrices and brings its results back with
-one ``.cpu()``.
+PallasServingEngine (with its fused serving, without the mesh lane).
+As that class derives from the JAX ShardedEngine, this one derives from
+the port's (sharded.py), whose wave routing and retry loop it shares:
+requests are put in arrival order, cut into waves that ride the
+smallest wave bucket that holds them, and each wave is ONE decision
+step (ops/decide.py: K1 on a CUDA table) that also emits the [4, B]
+heavy-hitter tap.  It overrides the table, the step, the domain gate,
+the sweep, the row ops and snapshot / restore.
 
 Domain: the step serves TOKEN and LEAKY rows whose counters are < 2^30
 and (leaky) eff < 2^31.  Out-of-domain rows are scoped per row: left
 out of the step and answered as table_full, never truncated into wrong
-decisions and never failing the other rows of the wave.  A bucket-full
-row gets one retry after an expiry sweep; there is no grow.
+decisions and never failing the other rows of the wave; the classic
+engine (``GUBER_ENGINE=xla``) serves them.  A bucket-full row gets one
+retry after an expiry sweep; there is no grow.
 """
 from __future__ import annotations
-
-import logging
-from typing import List, Sequence
 
 import numpy as np
 import torch
 
-from .core.batch import (PACK32, PACK64, RequestBatch, empty_batch,
-                         pack_requests, responses_from_columns)
+from .core.batch import RequestBatch
+from .core.step import StepOutput
 from .core.table import (EFF_BOUND, SLOTS, VALUE_BOUND, W_ALG, W_DHI,
                          W_DLO, W_EHI, W_ELO, W_KHI, W_KLO, W_LIMIT, W_REM,
                          W_STATUS, W_TDHI, W_TDLO, W_THI, W_TLO, W_XHI,
                          W_XLO, WORDS, init_table, join64, split64)
-from .hashing import hash_request_keys
-from .ops.decide import (batch_from_packed, decide, fused_tap_columns,
-                         value_domain_mask)
-from .types import RateLimitRequest, RateLimitResponse
-
-log = logging.getLogger("gubernator_tpu_torch.engine")
+from .ops.decide import decide, value_domain_mask
+from .sharded import ShardedEngine
 
 #: snapshot column → (lo word, hi word)
 _I64_PAIRS = {"duration": (W_DLO, W_DHI),
@@ -43,19 +38,6 @@ _I64_PAIRS = {"duration": (W_DLO, W_DHI),
               "expire_at": (W_XLO, W_XHI)}
 _ROW_COLS = ("meta", "limit", "duration", "eff_ms", "burst", "remaining",
              "t_ms", "expire_at")
-
-
-def resolve_device(device) -> torch.device:
-    """The engine's device.  ``cuda`` (the default everywhere) raises
-    when no GPU is present: the port never carries on quietly on the
-    CPU; pass ``device="cpu"`` for that."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                           "run the plain PyTorch step on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 # ---- host-side row conversion (snapshot / restore / row ops) ----------
@@ -179,115 +161,21 @@ def _place_into_buckets(rows: torch.Tensor, keys: torch.Tensor,
     return placed
 
 
-class BucketEngine:
+class BucketEngine(ShardedEngine):
     """Single-device serving engine over the bucketized table."""
 
     def __init__(self, device="cuda", capacity: int = 1 << 16,
                  batch_rows: int = 1024):
-        self.device = resolve_device(device)
-        self.capacity = capacity
-        self.rows = init_table(capacity, self.device)
-        #: a wave rides the smallest bucket that holds it: a lone client
-        #: batch takes the small launch, coalesced bursts the big one
-        self.wave_buckets = (batch_rows, batch_rows * 8)
-        self.over_count = 0
-        self.insert_count = 0
-        self.sweep_count = 0
-        self.live_rows = -1  # set by sweep
-        self.dropped_rows = 0  # rows lost to restore / upsert placement
-        #: optional callable taking each wave's [4, B] device tap
-        self.tap_sink = None
+        super().__init__(device=device, capacity=capacity,
+                         batch_rows=batch_rows)
 
-    # ---- serving -------------------------------------------------------
+    # ---- the table, the step and the domain gate -----------------------
 
-    @staticmethod
-    def _arrival_order(batch: RequestBatch) -> np.ndarray:
-        """Request indices in arrival-time order (same-key requests split
-        across waves then apply in time order); an already
-        non-decreasing ``now`` column skips the sort."""
-        now_col = np.asarray(batch.now)
-        n = len(now_col)
-        if n <= 1 or (now_col[1:] >= now_col[:-1]).all():
-            return np.arange(n, dtype=np.int64)
-        return np.argsort(now_col, kind="stable")
+    def _init_table(self) -> None:
+        self.rows = init_table(self.cap_local, self.device)
 
-    def _build_waves(self, pending: np.ndarray):
-        """Cut ``pending`` (in order) into waves of at most the largest
-        bucket; each wave rides the smallest bucket that holds it.
-        Returns [(idx, bw)]: the wave's request indices and width."""
-        Bw = self.wave_buckets[-1]
-        waves = []
-        for a in range(0, len(pending), Bw):
-            idx = pending[a:a + Bw]
-            bw = next(b for b in self.wave_buckets if len(idx) <= b)
-            waves.append((idx, bw))
-        return waves
-
-    @staticmethod
-    def _fill_packed(batch: RequestBatch, idx: np.ndarray, bw: int):
-        """The wave's requests into packed matrices ([8, bw] i64, [3, bw]
-        i32); padding rows are empty_batch rows (eff_ms 1, invalid)."""
-        n = len(idx)
-        a64 = np.zeros((len(PACK64), bw), np.int64)
-        a32 = np.zeros((len(PACK32), bw), np.int32)
-        a64[PACK64.index("eff_ms")] = 1
-        a64[0, :n] = np.asarray(batch.key).view(np.int64)[idx]
-        for i, f in enumerate(PACK64[1:], start=1):
-            a64[i, :n] = np.asarray(getattr(batch, f))[idx]
-        for i, f in enumerate(PACK32):
-            a32[i, :n] = np.asarray(getattr(batch, f))[idx]
-        return a64, a32
-
-    def _launch_arrays(self, a64: np.ndarray, a32: np.ndarray,
-                       now_ms: int) -> torch.Tensor:
-        """One wave: 2 uploads and the decision step, not waited on.
-        Returns the device result vector (5 output rows + 2 counters)."""
-        batch = batch_from_packed(torch.from_numpy(a64).to(self.device),
-                                  torch.from_numpy(a32).to(self.device))
-        out = decide(self.rows, batch, now_ms)
-        if self.tap_sink is not None:
-            self.tap_sink(fused_tap_columns(batch, out))
-        return torch.cat([
-            torch.stack([out.status.to(torch.int64), out.remaining,
-                         out.reset_time, out.limit,
-                         out.err.to(torch.int64)]).reshape(-1),
-            out.over_count.reshape(1), out.insert_count.reshape(1)])
-
-    def _finish_wave(self, packed: torch.Tensor):
-        """One download for the wave; folds its counters.  Returns
-        (status, remaining, reset, limit, table_full) host columns."""
-        host = packed.cpu().numpy()
-        B = (len(host) - 2) // 5
-        o = host[:5 * B].reshape(5, B)
-        self.over_count += int(host[-2])
-        self.insert_count += int(host[-1])
-        return o[0], o[1], o[2], o[3], o[4] != 0
-
-    def _launch_waves(self, batch, pending, now_ms):
-        launched = []
-        for idx, bw in self._build_waves(pending):
-            a64, a32 = self._fill_packed(batch, idx, bw)
-            launched.append((idx, self._launch_arrays(a64, a32, now_ms)))
-        return launched
-
-    def _collect(self, launched, n: int):
-        """Block on launched waves; (columns, bucket-full row indices)."""
-        status = np.zeros(n, np.int32)
-        rem_o = np.zeros(n, np.int64)
-        rst_o = np.zeros(n, np.int64)
-        lim_o = np.zeros(n, np.int64)
-        err_idx: List[np.ndarray] = []
-        for idx, packed in launched:
-            o_st, o_rem, o_rst, o_lim, o_err = self._finish_wave(packed)
-            m = len(idx)
-            status[idx] = o_st[:m]
-            rem_o[idx] = o_rem[:m]
-            rst_o[idx] = o_rst[:m]
-            lim_o[idx] = o_lim[:m]
-            err_idx.append(idx[o_err[:m]])
-        err = (np.sort(np.concatenate(err_idx)) if err_idx
-               else np.empty(0, np.int64))
-        return [status, lim_o, rem_o, rst_o, np.zeros(n, bool)], err
+    def _decide(self, batch: RequestBatch, now_ms: int) -> StepOutput:
+        return decide(self.rows, batch, now_ms)
 
     def _mask_out_of_domain(self, batch: RequestBatch):
         """Invalidate rows outside the step's value domain; returns
@@ -299,77 +187,7 @@ class BucketEngine:
             return batch, None
         return batch._replace(valid=v & mask), np.nonzero(ood)[0]
 
-    @staticmethod
-    def _merge_ood(cols, ood):
-        """Out-of-domain rows come back as table_full, outputs zeroed."""
-        if ood is not None:
-            cols[4][ood] = True
-        return tuple(cols)
-
-    def check_packed(self, batch: RequestBatch, khash: np.ndarray,
-                     now_ms: int) -> tuple:
-        """Numpy request columns in, response columns out: (status i32,
-        limit i64, remaining i64, reset_time i64, table_full bool).
-        Invalid rows come back zeroed (the caller owns their errors).
-        Bucket-full rows get one retry after an expiry sweep."""
-        batch, ood = self._mask_out_of_domain(batch)
-        n = len(khash)
-        cols, err = self._collect(self._launch_waves(
-            batch, self._arrival_order(batch), now_ms), n)
-        if len(err):
-            # buckets clogged with expired rows: sweep once and retry
-            self.sweep(now_ms)
-            r_cols, r_err = self._collect(
-                self._launch_waves(batch, err, now_ms), n)
-            for c, rc in zip(cols[:4], r_cols[:4]):
-                c[err] = rc[err]
-            cols[4][r_err] = True
-        return self._merge_ood(cols, ood)
-
-    def launch_packed(self, batch: RequestBatch, khash: np.ndarray,
-                      now_ms: int):
-        """check_packed split in two: launch the waves without waiting
-        and return a token for ``sync_packed``."""
-        batch, ood = self._mask_out_of_domain(batch)
-        return (batch, khash, now_ms, ood, self._launch_waves(
-            batch, self._arrival_order(batch), now_ms))
-
-    def sync_packed(self, token, engine_lock=None) -> tuple:
-        """Wait for launched waves and assemble check_packed's columns.
-        Bucket-full rows re-run through check_packed (under
-        ``engine_lock`` when given: it mutates the table)."""
-        import contextlib
-
-        batch, khash, now_ms, ood, launched = token
-        cols, err = self._collect(launched, len(khash))
-        if len(err):
-            sub = RequestBatch(*[np.asarray(c)[err] for c in batch])
-            with (engine_lock if engine_lock is not None
-                  else contextlib.nullcontext()):
-                r_cols = self.check_packed(sub, khash[err], now_ms)
-            for c, rc in zip(cols, r_cols):
-                c[err] = rc
-        return self._merge_ood(cols, ood)
-
-    def check_batch(self, reqs: Sequence[RateLimitRequest], now_ms: int
-                    ) -> List[RateLimitResponse]:
-        """Object-lane entry: pack, check_packed, build responses."""
-        khash = hash_request_keys([r.name for r in reqs],
-                                  [r.unique_key for r in reqs])
-        batch, errs = pack_requests(reqs, now_ms, size=len(reqs),
-                                    key_hashes=khash)
-        return responses_from_columns(
-            self.check_packed(batch, khash, now_ms), errs)
-
-    def warmup(self, now_ms: int = 1) -> None:
-        """Run every wave bucket once (all-invalid rows: no state
-        change), so the first burst pays no first-use costs."""
-        for bw in self.wave_buckets:
-            b = empty_batch(bw)
-            self._collect(self._launch_waves(
-                b, np.arange(bw, dtype=np.int64), now_ms), bw)
-
-    # ---- sweep and occupancy ------------------------------------------
+    # ---- sweep, grow and occupancy -------------------------------------
 
     def sweep(self, now_ms: int) -> None:
         """Zero every live slot whose expire_at <= now (the whole row, so
@@ -381,6 +199,11 @@ class BucketEngine:
         self.live_rows = int((live & ~expired).sum())
         self.sweep_count += 1
 
+    def grow(self, new_capacity: int) -> int:
+        raise NotImplementedError(
+            "the bucket engine has no on-device grow; size cache_size for "
+            "peak keys up front (bucket-full rows err as table_full)")
+
     def occupancy_and_saturation(self) -> tuple[int, int, int]:
         """(live rows, full buckets, total buckets) in one device pass:
         a full 8-slot bucket turns every new key in it into table_full,
@@ -389,17 +212,16 @@ class BucketEngine:
         per_bucket = live.view(-1, SLOTS).sum(1)
         both = torch.stack([live.sum(), (per_bucket == SLOTS).sum()])
         occ, full = both.cpu().tolist()
-        return int(occ), int(full), self.capacity // SLOTS
+        return int(occ), int(full), self.cap_local // SLOTS
+
+    def occupancy(self) -> int:
+        return self.occupancy_and_saturation()[0]
 
     # ---- row ops (cold path) -------------------------------------------
 
-    def _keys_tensor(self, khash: np.ndarray) -> torch.Tensor:
-        k = np.ascontiguousarray(np.asarray(khash, np.uint64)).view(np.int64)
-        return torch.from_numpy(k.copy()).to(self.device)
-
     def _find(self, keys: torch.Tensor):
         """(row index of each key's slot, found mask) on the device."""
-        n_buckets = self.capacity // SLOTS
+        n_buckets = self.cap_local // SLOTS
         bucket = keys & (n_buckets - 1)
         khi, klo = split64(keys)
         kw = self.rows.view(n_buckets, SLOTS, WORDS)[

@@ -1,5 +1,6 @@
 """Build and bind the port's CUDA kernels (csrc/*.cu) at first use.
 
+K1 (decide.cu), K2 (sweep.cu) and K3 (probe.cu) go into one library.
 Each source compiles with its own ``nvcc -c`` (all started together),
 then one link makes ``build/gubernator_tpu_torch/libgubertorch.so`` in
 the checkout.  A file lock serializes concurrent builds, and a hash
@@ -82,6 +83,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.guber_decide.argtypes = [p, p, p, p, p, p, ctypes.c_int64,
                                  ctypes.c_int64, p, p]
     lib.guber_decide.restype = ctypes.c_int
+    lib.guber_sweep.argtypes = [p, p, ctypes.c_int64, ctypes.c_int64, p, p]
+    lib.guber_sweep.restype = ctypes.c_int
+    lib.guber_probe_add.argtypes = [p, p, p, ctypes.c_int64, p]
+    lib.guber_probe_add.restype = ctypes.c_int
     lib.guber_error_string.argtypes = [ctypes.c_int]
     lib.guber_error_string.restype = ctypes.c_char_p
     return lib

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.batch import RequestBatch
+from ..core.step import StepOutput
 from ..core.table import (EFF_BOUND, SLOTS, VALUE_BOUND, W_ALG, W_DHI,
                           W_DLO, W_EHI, W_ELO, W_KHI, W_KLO, W_LIMIT, W_REM,
                           W_STATUS, W_TDHI, W_TDLO, W_THI, W_TLO, W_XHI,
@@ -49,16 +50,6 @@ N_REQ = 14
 #: rows of the [N_OUT, B] int64 raw output matrix
 O_STATUS, O_REM, O_RESET, O_LIMIT, O_FLAGS = range(5)
 N_OUT = 5
-
-
-class StepOutput(NamedTuple):
-    status: torch.Tensor  # int32 [B]
-    remaining: torch.Tensor  # int64 [B]
-    reset_time: torch.Tensor  # int64 [B]
-    limit: torch.Tensor  # int64 [B]
-    err: torch.Tensor  # bool [B]: bucket full
-    over_count: torch.Tensor  # int64 scalar
-    insert_count: torch.Tensor  # int64 scalar
 
 
 def value_domain_mask(batch: RequestBatch) -> np.ndarray:

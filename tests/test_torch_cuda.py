@@ -1,6 +1,8 @@
-"""K1 on the card against its plain version, on the streams of
-test_torch_streams.py.  Marked ``gpu``: skips where no CUDA device is
-present.  On a GPU machine (which need not have JAX, hence no conftest):
+"""The kernels on the card against their plain versions: K1 on the
+streams of test_torch_streams.py, K2 (the SoA sweep) and K3 (the probe
+add), and the SoA step and the classic engine on CUDA against the same
+on the CPU.  Marked ``gpu``: skips where no CUDA device is present.  On
+a GPU machine (which need not have JAX, hence no conftest):
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 """
@@ -17,7 +19,7 @@ from test_torch_streams import STREAMS, property_stream, to_torch
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 has no CPU mode")
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -63,3 +65,109 @@ def test_engine_serves_through_k1(cuda):
     assert dmod.decide_cuda.launches > before
     assert np.asarray([int(r.status) for r in out]).tolist() == \
         [0, 0, 0, 1, 1]
+
+
+# ---- K2, K3, the SoA step and the classic engine -----------------------
+
+def soa_table(dev, cap, seed):
+    """A SoA table of any length (K2 takes any) with live, expired,
+    at-now, empty and removed rows."""
+    from gubernator_tpu_torch.core.table import TableState
+
+    g = torch.Generator().manual_seed(seed)
+    st = TableState(*[torch.zeros(cap, dtype=torch.int32 if f == "meta"
+                                  else torch.int64)
+                      for f in TableState._fields])
+    st.key.copy_(torch.randint(-2 ** 62, 2 ** 62, (cap,), generator=g))
+    st.expire_at.copy_(NOW_SOA + torch.randint(-50_000, 50_000, (cap,),
+                                               generator=g))
+    st.expire_at[::7] = NOW_SOA
+    st.key[::5] = 0
+    st.expire_at[::5] = 0
+    return type(st)(*[c.to(dev) for c in st])
+
+
+NOW_SOA = 1_760_000_000_000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1, 64, 1000, 1 << 16, (1 << 20) + 3])
+def test_k2_equals_plain(cuda, cap):
+    from gubernator_tpu_torch.ops import sweep
+
+    sk = soa_table(cuda, cap, cap)
+    sp = type(sk)(*[c.clone() for c in sk])
+    before = sweep.sweep_cuda.launches
+    live_k = sweep.sweep_cuda(sk, NOW_SOA)
+    live_p = sweep.sweep_plain(sp, NOW_SOA)
+    torch.cuda.synchronize()
+    assert sweep.sweep_cuda.launches == before + 1
+    assert live_k.dim() == 0 and int(live_k) == int(live_p)
+    for a, b in zip(sk, sp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_k3_equals_plain(cuda):
+    from gubernator_tpu_torch.ops import probe
+
+    g = torch.Generator().manual_seed(0)
+    for shape in [(8, 128), (1 << 20,), (3, 5)]:
+        x = torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int64,
+                          generator=g).to(torch.int32)
+        y = torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int64,
+                          generator=g).to(torch.int32)
+        got = probe.probe_add(x.to(cuda), y.to(cuda))
+        assert torch.equal(got.cpu(), probe.probe_add_plain(x, y))
+    x = torch.arange(8 * 128, dtype=torch.int32, device=cuda).reshape(8, 128)
+    assert int(probe.probe_add(x, x).sum()) == 1_047_552
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_soa_step_on_cuda_equals_cpu(cuda, name):
+    from gubernator_tpu_torch.core.step import decide_batch
+    from gubernator_tpu_torch.core.table import init_soa_table
+
+    sc, sg = init_soa_table(1 << 12, "cpu"), init_soa_table(1 << 12, cuda)
+    batches, nows = STREAMS[name]()
+    for b, now in zip(batches, nows):
+        tb = to_torch(b)
+        oc = decide_batch(sc, tb, now)
+        og = decide_batch(sg, type(tb)(*[c.to(cuda) for c in tb]), now)
+        for f in oc._fields:
+            assert torch.equal(getattr(oc, f), getattr(og, f).cpu()), f
+        for a, c in zip(sc, sg):
+            assert torch.equal(a, c.cpu())
+
+
+@pytest.mark.gpu
+def test_classic_engine_on_cuda_equals_cpu(cuda):
+    """Serving, the K2 sweep-retry, auto-grow, row ops and restore."""
+    from gubernator_tpu_torch.ops import sweep
+    from gubernator_tpu_torch.sharded import ShardedEngine
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    engs = [ShardedEngine(device=d, capacity=1024, batch_rows=64,
+                          auto_grow_limit=4096) for d in ("cpu", cuda)]
+    before = sweep.sweep_cuda.launches
+    for w in range(4):
+        reqs = [RateLimitRequest(name="c", unique_key=f"k{w}_{i % 700}",
+                                 hits=1 + i % 3, limit=2 ** 40 if i % 9
+                                 else 7, duration=1_000 + 60_000 * (w % 2),
+                                 algorithm=i % 2) for i in range(900)]
+        outs = [e.check_batch(reqs, NOW_SOA + 3_000 * w) for e in engs]
+        assert [(int(r.status), r.remaining, r.reset_time, r.error)
+                for r in outs[0]] == [(int(r.status), r.remaining,
+                                       r.reset_time, r.error)
+                                      for r in outs[1]]
+        for a, c in zip(engs[0].state, engs[1].state):
+            assert torch.equal(a, c.cpu())
+    assert engs[1].cap_local > 1024  # grew
+    assert sweep.sweep_cuda.launches > before
+    snap = engs[0].snapshot()
+    fresh = [ShardedEngine(device=d, capacity=4096, batch_rows=64)
+             for d in ("cpu", cuda)]
+    assert fresh[0].restore(snap) == fresh[1].restore(snap) > 0
+    for a, c in zip(fresh[0].state, fresh[1].state):
+        assert torch.equal(a, c.cpu())

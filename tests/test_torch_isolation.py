@@ -59,12 +59,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from gubernator_tpu_torch.daemon import spawn_daemon
     from gubernator_tpu_torch.engine import BucketEngine
     from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.sharded import ShardedEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BucketEngine()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ShardedEngine()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         V1Instance(Config())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        V1Instance(Config(engine="xla"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0"))
     assert Config().device == DaemonConfig().device == "cuda"

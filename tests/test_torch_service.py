@@ -205,3 +205,178 @@ def test_dispatcher_check_packed_matches_engine():
         want = ref.check_packed(*cols[c], NOW + c)
         for a, b in zip(got[c], want):
             assert (np.asarray(a) == np.asarray(b)).all(), c
+
+
+# ---- the classic SoA engine (GUBER_ENGINE=xla) --------------------------
+
+def _quiet_jax_instance(monkeypatch):
+    for var in ("GUBER_ANALYTICS", "GUBER_SLO", "GUBER_MEM_LEDGER"):
+        monkeypatch.setenv(var, "0")
+    monkeypatch.delenv("GUBER_ENGINE", raising=False)
+    monkeypatch.delenv("GUBER_STEP_IMPL", raising=False)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_classic_engine_instance_matches_jax_instance(monkeypatch, seed):
+    from gubernator_tpu.config import Config as JaxConfig
+    from gubernator_tpu.instance import V1Instance as JaxInstance
+    from gubernator_tpu.parallel import make_mesh
+    from gubernator_tpu.parallel.sharded import ShardedEngine as JaxEngine
+    from gubernator_tpu.types import RateLimitRequest as JaxReq
+    from gubernator_tpu_torch.sharded import ShardedEngine
+
+    _quiet_jax_instance(monkeypatch)
+    streams = {c: caller_stream(c, seed + 10) for c in range(8)}
+    port = V1Instance(Config(cache_size=CAP, batch_rows=64, device="cpu",
+                             engine="xla", sweep_interval_ms=0))
+    assert isinstance(port.engine, ShardedEngine)
+    assert "rows=0" in port.health_check().message
+    try:
+        got = run_callers(port, RateLimitRequest, streams)
+    finally:
+        port.close()
+    jax_inst = JaxInstance(
+        JaxConfig(cache_size=CAP, batch_rows=64, sweep_interval_ms=0,
+                  hot_set_capacity=0),
+        engine=JaxEngine(make_mesh(n=1), capacity_per_shard=CAP,
+                         batch_per_shard=64))
+    try:
+        want = run_callers(jax_inst, JaxReq, streams)
+    finally:
+        jax_inst.close()
+    for c in streams:
+        assert flat(got[c]) == flat(want[c]), c
+
+
+def test_limit_2_40_classic_serves_bucket_refuses(monkeypatch):
+    """A 2^40 limit is outside the bucket engine's domain (table full in
+    both packages) and served by the classic engine (in both)."""
+    from gubernator_tpu.config import Config as JaxConfig
+    from gubernator_tpu.instance import V1Instance as JaxInstance
+    from gubernator_tpu.parallel import make_mesh
+    from gubernator_tpu.parallel.pallas_engine import PallasServingEngine
+    from gubernator_tpu.parallel.sharded import ShardedEngine as JaxEngine
+    from gubernator_tpu.types import RateLimitRequest as JaxReq
+
+    _quiet_jax_instance(monkeypatch)
+    kw = dict(name="big", unique_key="k", hits=1, limit=2 ** 40,
+              duration=60_000)
+    for engine, jax_engine, served in (
+            ("xla", JaxEngine, True), ("", PallasServingEngine, False)):
+        port = V1Instance(Config(cache_size=CAP, batch_rows=64,
+                                 device="cpu", engine=engine,
+                                 sweep_interval_ms=0))
+        jax_inst = JaxInstance(
+            JaxConfig(cache_size=CAP, batch_rows=64, sweep_interval_ms=0,
+                      hot_set_capacity=0),
+            engine=jax_engine(make_mesh(n=1), capacity_per_shard=CAP,
+                              batch_per_shard=64))
+        try:
+            got = port.get_rate_limits([RateLimitRequest(**kw)], NOW)
+            want = jax_inst.get_rate_limits([JaxReq(**kw)], NOW)
+        finally:
+            port.close()
+            jax_inst.close()
+        assert flat([got]) == flat([want]), engine
+        if served:
+            assert not got[0].error and got[0].remaining == 2 ** 40 - 1
+        else:
+            assert got[0].error == "rate limit table full"
+
+
+def test_unknown_engine_raises():
+    from gubernator_tpu_torch.instance import resolve_engine_kind
+
+    assert [resolve_engine_kind(s) for s in
+            ("", "auto", "Pallas", "xla", " sharded ")] == \
+        ["bucket", "bucket", "bucket", "classic", "classic"]
+    with pytest.raises(ValueError, match="unknown GUBER_ENGINE"):
+        V1Instance(Config(cache_size=CAP, device="cpu", engine="xlaa"))
+
+
+def test_engine_and_autogrow_are_parsed(tmp_path):
+    conf = tmp_path / "d.conf"
+    conf.write_text("GUBER_ENGINE = pallas\nGUBER_CACHE_AUTOGROW_MAX = 5000\n")
+    cfg = setup_daemon_config(str(conf), env={"GUBER_ENGINE": "xla"})
+    assert (cfg.engine, cfg.cache_autogrow_max) == ("xla", 5000)
+    ic = cfg.instance_config()
+    assert (ic.engine, ic.cache_autogrow_max) == ("xla", 5000)
+    assert (setup_daemon_config(env={}).engine,
+            setup_daemon_config(env={}).cache_autogrow_max) == ("", 0)
+    inst = V1Instance(Config(cache_size=1024, device="cpu", engine="xla",
+                             cache_autogrow_max=5000, sweep_interval_ms=0))
+    try:
+        assert inst.engine.auto_grow_limit == 4096
+    finally:
+        inst.close()
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_small_cache_size_gets_the_jax_capacity(monkeypatch, engine):
+    """cache_size=256: both packages serve 1024 rows (the floor, as the
+    JAX instance sets it at one shard), and answer a stream of 450 keys
+    the same."""
+    from gubernator_tpu.config import Config as JaxConfig
+    from gubernator_tpu.instance import V1Instance as JaxInstance
+    from gubernator_tpu.parallel import make_mesh
+    from gubernator_tpu.types import RateLimitRequest as JaxReq
+
+    _quiet_jax_instance(monkeypatch)
+    port = V1Instance(Config(cache_size=256, batch_rows=64, device="cpu",
+                             engine=engine, sweep_interval_ms=0))
+    classic = engine == "xla"
+    jax_inst = JaxInstance(
+        JaxConfig(cache_size=256, batch_rows=64, sweep_interval_ms=0,
+                  hot_set_capacity=0, engine="xla" if classic else "",
+                  step_impl="" if classic else "pallas"),
+        mesh=make_mesh(n=1))
+    try:
+        assert type(port.engine).__name__ == type(jax_inst.engine).__name__ \
+            .replace("PallasServingEngine", "BucketEngine")
+        assert port.engine.cap_local == \
+            jax_inst.engine.cap_local * jax_inst.engine.n == 1024
+        for w in range(2):
+            reqs = [dict(name="cap", unique_key=f"k{i}", hits=1 + i % 2,
+                         limit=5, duration=60_000, algorithm=i % 2)
+                    for i in range(w * 150, w * 150 + 300)]
+            got = [port.get_rate_limits([RateLimitRequest(**r)
+                                         for r in reqs[a:a + 150]],
+                                        NOW + w)
+                   for a in range(0, 300, 150)]
+            want = [jax_inst.get_rate_limits([JaxReq(**r)
+                                              for r in reqs[a:a + 150]],
+                                             NOW + w)
+                    for a in range(0, 300, 150)]
+            assert flat(got) == flat(want), w
+            if classic:
+                assert not any(r.error for b in got for r in b)
+        assert port.engine.occupancy() > 256
+    finally:
+        port.close()
+        jax_inst.close()
+
+
+def test_http_daemon_serves_through_the_classic_engine():
+    from gubernator_tpu_torch.sharded import ShardedEngine
+
+    d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0",
+                                  cache_size=CAP, device="cpu",
+                                  engine="xla"))
+    try:
+        assert isinstance(d.instance.engine, ShardedEngine)
+        got = [_post(d.http_port, [{"name": "api", "uniqueKey": "u1",
+                                    "hits": 1, "limit": 3,
+                                    "duration": 5000}])["responses"][0]
+               for _ in range(5)]
+        assert [r["status"] for r in got] == [0, 0, 0, 1, 1]
+        assert [r["remaining"] for r in got] == [2, 1, 0, 0, 0]
+        big = _post(d.http_port, [{"name": "api", "uniqueKey": "big",
+                                   "limit": 2 ** 40,
+                                   "duration": 5000}])["responses"][0]
+        assert big["remaining"] == 2 ** 40 - 1 and not big["error"]
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{d.http_port}/healthz", timeout=30) as r:
+            h = json.loads(r.read())
+        assert h["status"] == "healthy" and "rows=" in h["message"]
+    finally:
+        d.close()
