@@ -16,11 +16,16 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
 3. probe: K3 (the toolchain probe, an int32 add) against x + y on the
    (8, 128) input of tools/pallas_probe.py and on 2^24 elements;
 4. kernel vs plain: a 2^25-row (4 GiB) bucket table holding 10M keys,
-   then >= 8 waves of 8192 rows and one of 1024 (the bucket path's two
-   wave widths; Zipf(1.1) keys, TOKEN and LEAKY, RESET / DRAIN /
+   then >= 8 mixed waves of 8192 rows and one of 1024 (the bucket path's
+   two wave widths; Zipf(1.1) keys, TOKEN and LEAKY, RESET / DRAIN /
    Gregorian, queries, duplicates, per-row now, one crafted bucket-full
-   wave) through decide_cuda and decide_plain on two copies of the
-   table: outputs, counters and the whole table must be equal;
+   wave), then >= 4 waves of 8192 rows of the main path's own traffic
+   (Zipf(1.1) over the same keys, hits 1, one TOKEN config, per-row now
+   spread like coalesced callers), through decide_cuda and decide_plain
+   on two copies of the table: outputs, counters and the whole table
+   must be equal.  Each wave prints K1's hot segments, its longest slot
+   chain, and the requests it took in closed form and one by one; K1's
+   launch alone is timed on a mixed and on a main-path wave;
 5. main path: spawn_daemon on the GPU (bucket engine), the HTTP verify
    flow, then rounds of 8 threads of 1000-request Zipf(1.1) batches
    through V1Instance.get_rate_limits against a 10M-key table, checked
@@ -72,6 +77,12 @@ REQ_BYTES = 76 + 29
 #: a touched bucket is read and written once; K1 moves only the 16 used
 #: words (64 B) of each of its 8 slots
 BUCKET_BYTES = 2 * 8 * 16 * 4
+#: GPU cycles (~1 ms) the stream spins (torch.cuda._sleep) before a timed
+#: launch, so that the host has queued the launch before the start event
+#: completes and the event span is device time only
+SLEEP_CYCLES = 2_000_000
+#: K1's hot-segment thresholds whose launch alone phase 4 also times
+HOT_SWEEP = (0, 8, 16, 32, 64, 128, 1 << 20)
 #: the answer to a request whose probe window stayed full
 TABLE_FULL = "rate limit table full"
 #: most rows a grow may drop, as a share of the rows it re-places: an
@@ -223,9 +234,31 @@ def make_wave(rng, pop_keys, pop_idx, rows_n, wave_no, log2_cap,
     return pack_wave_host(batch)
 
 
-def time_raw_launch(torch, rows, b, now, reps: int = 5) -> float:
+def make_main_wave(rng, pop_keys, rows_n, wave_no, taken: np.ndarray):
+    """One wave of the main path's traffic (phase 5's requests: hits 1,
+    limit 100, a one-hour TOKEN window) as packed numpy matrices."""
+    from gubernator_tpu_torch.core.batch import pack_columns, pack_wave_host
+    from gubernator_tpu_torch.ops.decide import qualifies
+
+    khash = pop_keys[zipf_ranks(rng, 1.1, len(pop_keys), rows_n)]
+    zeros = np.zeros(rows_n, np.int32)
+    limit = np.full(rows_n, 100)
+    base = NOW0 + 1_000 + 2_000 * wave_no
+    created = base + np.sort(rng.integers(0, 2_000, rows_n))
+    batch, errs = pack_columns(khash, np.ones(rows_n, np.int64), limit,
+                               np.full(rows_n, 3_600_000), zeros, zeros,
+                               limit.copy(), base, created_at=created)
+    require(not errs and qualifies(batch), "wave outside the kernel domain")
+    taken[wave_no] = created[-1]
+    return pack_wave_host(batch)
+
+
+def time_raw_launch(torch, rows, b, now, reps: int = 5, hot=None) -> float:
     """Median ms of K1's launch alone (no sort, no outputs) on the wave
-    ``b``, run on a scratch copy of the table."""
+    ``b``, run on a scratch copy of the table; segments longer than
+    ``hot`` (default HOT_SEGMENT) on the hot path.  The stream is kept
+    busy while the host makes the call, so the host's part of the launch
+    does not show."""
     from gubernator_tpu_torch.ops import decide as dmod
     from gubernator_tpu_torch.ops.build import load_library
 
@@ -238,12 +271,14 @@ def time_raw_launch(torch, rows, b, now, reps: int = 5) -> float:
     times = []
     for _ in range(reps):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SLEEP_CYCLES)
         e0.record()
         rc = lib.guber_decide(
             scratch.data_ptr(), plan.req.data_ptr(), plan.order.data_ptr(),
             plan.seg_bucket.data_ptr(), plan.seg_start.data_ptr(),
             plan.seg_len.data_ptr(), plan.seg_bucket.numel(),
-            plan.req.shape[1], out.data_ptr(), stream)
+            plan.req.shape[1], dmod.HOT_SEGMENT if hot is None else hot,
+            None, out.data_ptr(), stream)
         e1.record()
         require(rc == 0, f"K1 launch failed: {rc}")
         torch.cuda.synchronize()
@@ -274,22 +309,31 @@ def phase_kernel_vs_plain(torch, args, pop_idx, pop_keys):
     rows_k = eng.rows
     rows_p = rows_k.clone()
     rng = np.random.default_rng(args.seed)
-    # wave 0 warms up, untimed; waves 1..N are the timed full waves; the
-    # last is one narrow wave, the main path's other wave width
+    # wave 0 warms up, untimed; waves 1..N are the timed full waves; then
+    # one narrow wave, the main path's other wave width; then the waves
+    # of the main path's own traffic
     widths = [args.wave_rows] * (args.waves + 1) + [args.small_rows]
+    first_main = len(widths)
+    widths += [args.wave_rows] * args.main_waves
     taken = np.zeros(len(widths), np.int64)
     k_ms, p_ms, bound_ms, seg_max, max_err = [], [], [], [], 0
+    main_ms, main_counts, mixed_counts = [], [], []
     errs_seen = 0
+    stats = torch.zeros(len(dmod.K1_STATS), dtype=torch.int64, device=dev)
     for w, rows_n in enumerate(widths):
-        a64, a32 = make_wave(rng, pop_keys, pop_idx, rows_n, w,
-                             args.log2_cap, w == 3, taken)
+        if w < first_main:
+            a64, a32 = make_wave(rng, pop_keys, pop_idx, rows_n, w,
+                                 args.log2_cap, w == 3, taken)
+        else:
+            a64, a32 = make_main_wave(rng, pop_keys, rows_n, w, taken)
         b = dmod.batch_from_packed(torch.from_numpy(a64).to(dev),
                                    torch.from_numpy(a32).to(dev))
         now = int(taken[w])
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        stats.zero_()
         torch.cuda.synchronize()
         ev[0].record()
-        ok_ = dmod.decide_cuda(rows_k, b, now)
+        ok_ = dmod.decide_cuda(rows_k, b, now, stats=stats)
         ev[1].record()
         ev[2].record()
         op_ = dmod.decide_plain(rows_p, b, now)
@@ -313,33 +357,58 @@ def phase_kernel_vs_plain(torch, args, pop_idx, pop_keys):
         seg_max.append(int(plan.seg_len[0]) if s_buckets else 0)
         wave_bound = ((s_buckets * BUCKET_BYTES + live * REQ_BYTES)
                       / HBM_BYTES_PER_S * 1e3)
+        counts = dict(zip(dmod.K1_STATS, stats.tolist()))
         if 0 < w <= args.waves:
             k_ms.append(ev[0].elapsed_time(ev[1]))
             p_ms.append(ev[2].elapsed_time(ev[3]))
             bound_ms.append(wave_bound)
-            full = (b, now)
-        elif w > args.waves:
+            mixed_counts.append(counts)
+            mixed = (b, now)
+        elif w == first_main - 1:
             small = {"rows": rows_n, "ms": ev[0].elapsed_time(ev[1]),
                      "plain_ms": ev[2].elapsed_time(ev[3]),
                      "bound_ms": wave_bound, "longest_chain": seg_max[-1]}
-        print(f"wave {w} ({rows_n} rows): equal; K1 "
+        elif w >= first_main:
+            main_ms.append(ev[0].elapsed_time(ev[1]))
+            main_counts.append(counts)
+            main = (b, now)
+        kind = "main-path" if w >= first_main else "mixed"
+        print(f"wave {w} ({kind}, {rows_n} rows): equal; K1 "
               f"{ev[0].elapsed_time(ev[1]):.3f} ms, "
               f"plain {ev[2].elapsed_time(ev[3]):.1f} ms, "
-              f"{s_buckets} buckets, longest chain {seg_max[-1]}, "
+              f"{s_buckets} buckets, longest segment {seg_max[-1]}, "
+              f"hot segments {counts['hot_segments']}, longest slot chain "
+              f"{counts['longest_chain']}, closed form "
+              f"{counts['closed_form']}, one by one {counts['serial']} "
+              f"(hot) + {counts['cold']} (cold), "
               f"err rows {int(ok_.err.sum())}, "
               f"over {int(ok_.over_count)}, inserts "
               f"{int(ok_.insert_count)}, bytes bound {wave_bound:.6f} ms",
               flush=True)
-    launch_ms = time_raw_launch(torch, rows_k, *full)
+    launch_ms = time_raw_launch(torch, rows_k, *main)
+    launch_mixed_ms = time_raw_launch(torch, rows_k, *mixed)
+    # the launch alone against the hot-segment threshold (1 << 20: every
+    # segment walked by one thread)
+    by_hot = {kind: {h: time_raw_launch(torch, rows_k, *wave, hot=h)
+                     for h in HOT_SWEEP}
+              for kind, wave in (("main_path", main), ("mixed", mixed))}
+    print(f"K1 launch alone (ms) by hot-segment threshold: "
+          f"{json.dumps(by_hot)}", flush=True)
     del rows_p, eng
     torch.cuda.empty_cache()
     res = {"ms": float(np.mean(k_ms)), "plain_ms": float(np.mean(p_ms)),
            "bound_ms": float(np.mean(bound_ms)), "launch_ms": launch_ms,
+           "launch_mixed_ms": launch_mixed_ms, "launch_ms_by_hot": by_hot,
+           "main_wave_ms": main_ms, "main_wave_counts": main_counts,
+           "mixed_wave_counts": mixed_counts,
            "max_abs_err": max_err, "waves": args.waves,
+           "main_waves": args.main_waves,
            "longest_chain_max": max(seg_max), "err_rows": errs_seen,
            "small_wave": small}
     print(f"K1 per {args.wave_rows}-row wave: decide_cuda {res['ms']} "
-          f"ms (kernel launch alone {res['launch_ms']} ms), plain "
+          f"ms on the mixed waves, {float(np.mean(main_ms))} ms on the "
+          f"main-path waves; kernel launch alone {launch_mixed_ms} ms "
+          f"(mixed), {launch_ms} ms (main path); plain "
           f"{res['plain_ms']} ms, bytes bound {res['bound_ms']} ms; per "
           f"{args.small_rows}-row wave: decide_cuda {small['ms']} ms, "
           f"plain {small['plain_ms']} ms, bytes bound {small['bound_ms']} "
@@ -452,6 +521,23 @@ def elapsed_ms(torch, fn, *a):
     return out, e0.elapsed_time(e1)
 
 
+def queued_ms(torch, fn, *a, n: int = 20) -> float:
+    """Mean ms of n back-to-back calls of fn(*a): on the card the stream
+    spins while the host queues them, so the events span device time
+    only (in a CPU rehearsal, the host clock)."""
+    if DEVICE != "cuda":
+        return elapsed_ms(torch, lambda: [fn(*a) for _ in range(n)])[1] / n
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    e0.record()
+    for _ in range(n):
+        fn(*a)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
 def phase_probe(torch, args):
     """K3, the toolchain probe, through probe_add on its two inputs, then
     against the plain add: equal, and the small sum is 1,047,552."""
@@ -477,15 +563,16 @@ def phase_probe(torch, args):
                            .abs().max()))
         require(torch.equal(got, want), f"K3 on {tuple(x.shape)}")
     require(int(out_small.sum()) == 1_047_552, "K3 (8, 128) sum")
-    times = [elapsed_ms(torch, probe.probe_add, big_x, big_y)[1]
-             for _ in range(5)]
-    plains = [elapsed_ms(torch, probe.probe_add_plain, big_x, big_y)[1]
-              for _ in range(5)]
-    # the library call: torch.add, the same wrapping int32 add
-    libs = [elapsed_ms(torch, torch.add, big_x, big_y)[1] for _ in range(5)]
+    # in turns: kernel, plain, library call (torch.add, the same
+    # wrapping int32 add), five times
+    runs = [[queued_ms(torch, f, big_x, big_y) for f in
+             (probe.probe_add_cuda if DEVICE == "cuda" else probe.probe_add,
+              probe.probe_add_plain, torch.add)] for _ in range(5)]
+    times, plains, libs = (list(r) for r in zip(*runs))
     res = {"launches": launches, "max_abs_err": err,
            "ms": float(np.mean(times)), "plain_ms": float(np.mean(plains)),
-           "library_ms": float(np.mean(libs)),
+           "library_ms": float(np.mean(libs)), "ms_runs": times,
+           "library_ms_runs": libs,
            "bound_ms": 3 * 4 * big_x.numel() / HBM_BYTES_PER_S * 1e3,
            "first_ms": ms, "first_plain_ms": plain_ms}
     print(f"K3 probe: (8, 128) sum {int(out_small.sum())}; 2^24 elements "
@@ -1063,7 +1150,10 @@ def main(argv=None) -> int:
     ap.add_argument("--soa-log2-cap", type=int, default=24,
                     help="SoA-table rows (log2)")
     ap.add_argument("--keys", type=int, default=10_000_000)
-    ap.add_argument("--waves", type=int, default=8)
+    ap.add_argument("--waves", type=int, default=8,
+                    help="timed mixed waves in phase 4")
+    ap.add_argument("--main-waves", type=int, default=4,
+                    help="waves of the main path's traffic in phase 4")
     ap.add_argument("--wave-rows", type=int, default=8192)
     ap.add_argument("--small-rows", type=int, default=1024)
     ap.add_argument("--threads", type=int, default=8)
@@ -1121,7 +1211,9 @@ def main(argv=None) -> int:
          "replaces": "gubernator_tpu/ops/pallas_step.py:338",
          "launches": m["launches"], "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "launch_ms": k["launch_ms"],
+         "launch_mixed_ms": k["launch_mixed_ms"]},
         {"name": "sweep", "route": "cuda",
          "source": "gubernator_tpu_torch/csrc/sweep.cu",
          "replaces": "gubernator_tpu/ops/pallas_sweep.py:48",

@@ -80,9 +80,11 @@ def _compile(nvcc: str, sources: list[Path], lib: Path) -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p = ctypes.c_void_p
-    lib.guber_decide.argtypes = [p, p, p, p, p, p, ctypes.c_int64,
-                                 ctypes.c_int64, p, p]
+    i64 = ctypes.c_int64
+    lib.guber_decide.argtypes = [p, p, p, p, p, p, i64, i64, i64, p, p, p]
     lib.guber_decide.restype = ctypes.c_int
+    lib.guber_decide_smem.argtypes = []
+    lib.guber_decide_smem.restype = i64
     lib.guber_sweep.argtypes = [p, p, ctypes.c_int64, ctypes.c_int64, p, p]
     lib.guber_sweep.restype = ctypes.c_int
     lib.guber_probe_add.argtypes = [p, p, p, ctypes.c_int64, p]

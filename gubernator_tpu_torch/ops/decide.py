@@ -12,8 +12,10 @@ Requests interact only within a bucket, so the wrapper sorts the live
 rows stably by bucket and hands each distinct bucket's segment, in
 batch order, to one worker:
 
-- ``decide_cuda`` launches K1 (csrc/decide.cu): one CUDA thread per
-  distinct bucket walks its segment serially;
+- ``decide_cuda`` launches K1 (csrc/decide.cu): a segment of at most
+  ``HOT_SEGMENT`` requests is walked by one CUDA thread; a longer one by
+  a block of 8 warps, one per slot, which takes runs of like requests
+  in closed form;
 - ``decide_plain`` is the same function in plain PyTorch: round j
   applies the j-th request of every segment at once, vectorized across
   segments.
@@ -23,7 +25,6 @@ tensor, the kernel for a CUDA tensor.  Nothing falls back.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -50,6 +51,23 @@ N_REQ = 14
 #: rows of the [N_OUT, B] int64 raw output matrix
 O_STATUS, O_REM, O_RESET, O_LIMIT, O_FLAGS = range(5)
 N_OUT = 5
+#: K1 gives a segment longer than this a block of its own (8 warps, one
+#: per slot); shorter ones get a thread each.  On an H100 the launch on
+#: the main path's waves is fastest at thresholds 8 and 16 and slower
+#: from 32 up, where a thread's walk of a cold segment becomes the
+#: longest path (PERF.md §6); the higher one needs fewer blocks: ~40 per
+#: 8192-row Zipf(1.1) wave.  The wrapper's ``hot`` argument exists so
+#: tests can send every segment to the block path and the smoke can
+#: measure the threshold.
+HOT_SEGMENT = 16
+#: requests K1's hot path stages in shared memory at a time
+#: (csrc/decide.cu TILE); a longer segment is walked tile after tile
+K1_TILE = 256
+#: the counters K1 adds to when the wrapper is given a ``stats`` tensor
+#: (csrc/decide.cu ST_*): hot segments, hot requests applied one by one,
+#: hot requests taken in closed form, the longest slot chain of a hot
+#: segment (a maximum), and requests walked by cold threads
+K1_STATS = ("hot_segments", "serial", "closed_form", "longest_chain", "cold")
 
 
 def value_domain_mask(batch: RequestBatch) -> np.ndarray:
@@ -336,10 +354,14 @@ def decide_plain(rows: torch.Tensor, batch: RequestBatch, now
 
 # ---- K1 -----------------------------------------------------------------
 
-def decide_cuda(rows: torch.Tensor, batch: RequestBatch, now
+def decide_cuda(rows: torch.Tensor, batch: RequestBatch, now,
+                hot: int = HOT_SEGMENT, stats: torch.Tensor | None = None
                 ) -> StepOutput:
     """Launch K1 (csrc/decide.cu) on the current stream: updates ``rows``
-    in place.  Raises on a refused launch; never falls back."""
+    in place.  Segments longer than ``hot`` go to a block each (0: every
+    segment).  ``stats``, if given, is a CUDA int64 tensor of
+    len(K1_STATS) counters that the launch adds to.  Raises on a refused
+    launch; never falls back."""
     from .build import load_library
 
     if rows.device.type != "cuda":
@@ -349,18 +371,32 @@ def decide_cuda(rows: torch.Tensor, batch: RequestBatch, now
         raise ValueError("table must be a contiguous [CAP, 32] int32 tensor")
     if any(c.device != rows.device for c in batch if c is not None):
         raise ValueError("batch columns must lie on the table's device")
+    if hot < 0:
+        raise ValueError("hot must be >= 0")
+    if stats is not None and (stats.device != rows.device
+                              or stats.dtype != torch.int64
+                              or stats.shape != (len(K1_STATS),)
+                              or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous int64 "
+                         f"[{len(K1_STATS)}] tensor on the table's device")
     lib = load_library()
     plan = _plan(rows, batch, now)
     B = plan.req.shape[1]
     out = torch.zeros((N_OUT, B), dtype=torch.int64, device=rows.device)
     S = plan.seg_bucket.shape[0]
     if S:
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        rc = lib.guber_decide(
-            rows.data_ptr(), plan.req.data_ptr(), plan.order.data_ptr(),
-            plan.seg_bucket.data_ptr(), plan.seg_start.data_ptr(),
-            plan.seg_len.data_ptr(), ctypes.c_int64(S), ctypes.c_int64(B),
-            out.data_ptr(), stream)
+        with torch.cuda.device(rows.device):
+            rc = lib.guber_decide(
+                rows.data_ptr(), plan.req.data_ptr(), plan.order.data_ptr(),
+                plan.seg_bucket.data_ptr(), plan.seg_start.data_ptr(),
+                plan.seg_len.data_ptr(), S, B, hot,
+                None if stats is None else stats.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(rows.device).cuda_stream)
+        if rc < 0:
+            raise RuntimeError(
+                f"K1 launch refused: {lib.guber_decide_smem()} B of dynamic "
+                f"shared memory per block for the hot path were not granted "
+                f"(CUDA error {-rc}: {lib.guber_error_string(-rc).decode()})")
         if rc != 0:
             raise RuntimeError(f"K1 launch failed: CUDA error {rc} "
                                f"({lib.guber_error_string(rc).decode()})")

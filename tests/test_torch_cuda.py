@@ -13,7 +13,9 @@ import torch
 from gubernator_tpu_torch.core.table import init_table
 from gubernator_tpu_torch.ops import decide as dmod
 
-from test_torch_streams import STREAMS, property_stream, to_torch
+from test_torch_streams import (DRAIN, NOW, RESET, STREAMS, in_bucket,
+                                mk_batch, mk_leaky, property_stream,
+                                to_torch)
 
 
 @pytest.fixture()
@@ -23,20 +25,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def run_kernel_and_plain(dev, batches, nows, cap=1 << 12):
+def run_kernel_and_plain(dev, batches, nows, cap=1 << 12,
+                         hot=dmod.HOT_SEGMENT):
+    """Every batch through K1 (segments longer than ``hot`` on its hot
+    path) and the plain version; returns K1's summed stats counters."""
     rows_k = init_table(cap, dev)
     rows_p = init_table(cap, dev)
+    stats = torch.zeros(len(dmod.K1_STATS), dtype=torch.int64, device=dev)
     for b, now in zip(batches, nows):
         tb = to_torch(b)
         tb = type(tb)(*[c.to(dev) for c in tb])
         before = dmod.decide_cuda.launches
-        ok = dmod.decide_cuda(rows_k, tb, now)
+        ok = dmod.decide_cuda(rows_k, tb, now, hot=hot, stats=stats)
         op = dmod.decide_plain(rows_p, tb, now)
         torch.cuda.synchronize()
         assert dmod.decide_cuda.launches == before + 1
         for f in ok._fields:
             assert torch.equal(getattr(ok, f), getattr(op, f)), f
         assert torch.equal(rows_k, rows_p)
+    return dict(zip(dmod.K1_STATS, stats.tolist()))
 
 
 @pytest.mark.gpu
@@ -46,9 +53,78 @@ def test_k1_equals_plain_on_stream(cuda, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_k1_hot_path_equals_plain_on_stream(cuda, name):
+    """hot=0: every segment, however short, goes through a block."""
+    st = run_kernel_and_plain(cuda, *STREAMS[name](), hot=0)
+    assert st["cold"] == 0 and st["hot_segments"] > 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("seed", range(4))
 def test_k1_equals_plain_on_property_stream(cuda, seed):
     run_kernel_and_plain(cuda, *property_stream(seed))
+    run_kernel_and_plain(cuda, *property_stream(seed), hot=0)
+
+
+def multi_tile_stream():
+    """One bucket whose segment spans more than two shared-memory tiles:
+    a hot key with long uniform TOKEN runs (per-request now, exhausting
+    its limit, crossing its window end), broken by RESET / DRAIN / limit
+    changes, queries among them, beside other keys and new keys that
+    overflow the bucket's empty slots in the third tile."""
+    rng = np.random.default_rng(41)
+    n = 2 * dmod.K1_TILE + 300
+    bucket = 55
+    keys = np.repeat(in_bucket(bucket, [1]), n)
+    late = np.arange(n) > 2 * dmod.K1_TILE
+    others = in_bucket(bucket, range(2, 14))  # 12 keys, 7 empty slots
+    pick = late & (rng.random(n) < 0.3)
+    keys[pick] = others[rng.integers(0, 12, int(pick.sum()))]
+    beh = np.zeros(n, np.int32)
+    beh[rng.integers(0, n, 6)] = RESET
+    beh[rng.integers(0, n, 6)] = DRAIN
+    hits = np.where(rng.random(n) < 0.05, 0, 1)
+    limit = np.where(np.arange(n) < n // 2, 150, 160)
+    now = NOW + (4_000 * np.arange(n)) // n
+    b = mk_batch(keys, hits=hits, limit=limit, burst=limit, behavior=beh,
+                 duration=np.full(n, 1_500), eff_ms=np.full(n, 1_500),
+                 now=now)
+    leaky = mk_leaky(np.repeat(in_bucket(bucket + 1, [1]), n),
+                     hits=hits, now=np.full(n, NOW + 4_000))
+    return [b, leaky, b], [NOW + 4_000, NOW + 4_000, NOW + 9_000]
+
+
+@pytest.mark.gpu
+def test_k1_chain_longer_than_two_tiles(cuda):
+    batches, nows = multi_tile_stream()
+    st = run_kernel_and_plain(cuda, batches, nows)
+    assert st["longest_chain"] > 2 * dmod.K1_TILE
+    assert st["closed_form"] > 0 and st["serial"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hot", [0, dmod.HOT_SEGMENT])
+def test_k1_rows_of_an_algorithm_that_writes_nothing(cuda, hot):
+    """Out of the serving domain (the engine masks such rows), but K1
+    must still equal the plain version: a row of algorithm 2 answers
+    zeros, flags an insert without filling the slot, and does not count
+    as a key's first writer."""
+    rng = np.random.default_rng(43)
+    n = 3 * dmod.HOT_SEGMENT
+    keys = in_bucket(9, range(1, 12))[rng.integers(0, 11, n)]
+    alg = np.where(rng.random(n) < 0.3, 2, rng.integers(0, 2, n))
+    b = mk_batch(keys, algorithm=alg, hits=rng.integers(0, 3, n))
+    run_kernel_and_plain(cuda, [b, b], [NOW, NOW + 50], hot=hot)
+
+
+@pytest.mark.gpu
+def test_k1_hot_uniform_run_takes_the_closed_form(cuda):
+    st = run_kernel_and_plain(
+        cuda, *STREAMS["hot_token_run_exhausts"]())
+    assert st["hot_segments"] == 2 and st["cold"] == 0
+    assert st["serial"] == 2  # one head per batch
+    assert st["closed_form"] == 2 * (3 * dmod.HOT_SEGMENT - 1)
 
 
 @pytest.mark.gpu
@@ -121,6 +197,27 @@ def test_k3_equals_plain(cuda):
         assert torch.equal(got.cpu(), probe.probe_add_plain(x, y))
     x = torch.arange(8 * 128, dtype=torch.int32, device=cuda).reshape(8, 128)
     assert int(probe.probe_add(x, x).sum()) == 1_047_552
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, (1 << 20) + 7])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 3), (1, 2), (0, 3)])
+def test_k3_head_tail_and_unaligned_bases(cuda, n, offsets):
+    """Views that start 0-3 elements past a 16-byte boundary, alike (the
+    vector body with a scalar head) or not (element by element), and
+    lengths with a ragged tail."""
+    from gubernator_tpu_torch.ops import probe
+
+    g = torch.Generator().manual_seed(n)
+    base = [torch.randint(-2 ** 31, 2 ** 31, (n + 4,), dtype=torch.int64,
+                          generator=g).to(torch.int32).to(cuda)
+            for _ in range(2)]
+    x, y = (b[o:o + n] for b, o in zip(base, offsets))
+    before = probe.probe_add_cuda.launches
+    got = probe.probe_add(x, y)
+    torch.cuda.synchronize()
+    assert probe.probe_add_cuda.launches == before + 1
+    assert torch.equal(got, probe.probe_add_plain(x, y))
 
 
 @pytest.mark.gpu

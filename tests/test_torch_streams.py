@@ -267,6 +267,128 @@ def s_sustained_mixed():
     return batches, nows
 
 
+# ---- streams aimed at K1's hot path (segments > HOT_SEGMENT) ----------
+
+HOT = dmod.HOT_SEGMENT
+
+
+def in_bucket(bucket: int, ids) -> np.ndarray:
+    """Distinct keys that all land in ``bucket`` of a CAP-row table."""
+    return np.array([(int(j) << 40) | bucket for j in ids], np.uint64)
+
+
+def s_hot_token_run_exhausts():
+    """One key, a uniform TOKEN run well past HOT_SEGMENT that exhausts
+    its limit mid-run, per-request now."""
+    n = 3 * HOT
+    keys = np.repeat(keyify([7]), n)
+    now = NOW + 10 * np.arange(n)
+    return ([mk_batch(keys, limit=np.full(n, 2 * HOT), now=now),
+             mk_batch(keys, limit=np.full(n, 2 * HOT), now=now + 5_000)],
+            [NOW + 1_000, NOW + 6_000])
+
+
+def s_hot_token_run_crosses_x():
+    """A uniform TOKEN run whose per-request now crosses the window end
+    x part-way, twice."""
+    n = 3 * HOT
+    keys = np.repeat(keyify([11]), n)
+    now = NOW + (2_500 * np.arange(n)) // n
+    return ([mk_batch(keys, limit=np.full(n, 20), duration=np.full(n, 1_000),
+                      eff_ms=np.full(n, 1_000), now=now)], [NOW + 3_000])
+
+
+def s_hot_runs_broken():
+    """A hot key's runs broken mid-way by RESET, DRAIN (over the limit), a
+    limit change and a duration change."""
+    n = 4 * HOT
+    keys = np.repeat(keyify([13]), n)
+    beh = np.zeros(n, np.int32)
+    beh[HOT // 2] = RESET
+    beh[HOT + 3:HOT + 6] = DRAIN
+    hits = np.ones(n, np.int64)
+    hits[HOT + 3:HOT + 6] = 50  # over the limit: DRAIN empties it
+    limit = np.where(np.arange(n) < 2 * HOT, 40, 45)
+    dur = np.where(np.arange(n) < 3 * HOT, 10_000, 20_000)
+    b = mk_batch(keys, hits=hits, limit=limit, burst=limit, behavior=beh,
+                 duration=dur, eff_ms=dur)
+    return [b, b], [NOW, NOW + 400]
+
+
+def s_hot_queries_only():
+    """Runs of queries only, TOKEN and LEAKY, after a batch that spent
+    some of each key."""
+    n = 2 * HOT + 5
+    tok, lk = np.repeat(keyify([17]), n), np.repeat(keyify([19]), n)
+    spend = [mk_batch(keyify([17, 17]), hits=np.full(2, 3)),
+             mk_leaky(keyify([19, 19]), hits=np.full(2, 3))]
+    return (spend + [mk_batch(tok, hits=np.zeros(n, np.int64)),
+                     mk_leaky(lk, hits=np.zeros(n, np.int64))],
+            [NOW, NOW, NOW + 100, NOW + 100])
+
+
+def s_hot_leaky_uniform_now():
+    """A LEAKY run longer than HOT_SEGMENT at one now: it drains td by
+    hits x eff a request, then denies."""
+    n = 3 * HOT
+    keys = np.repeat(keyify([23]), n)
+    b = mk_leaky(keys, hits=np.full(n, 2), limit=np.full(n, 50),
+                 burst=np.full(n, 60))
+    return [b, b], [NOW, NOW + 700]
+
+
+def s_hot_leaky_mixed_now():
+    """A LEAKY run longer than HOT_SEGMENT whose now steps every few
+    requests (replenishing in between), with queries among them."""
+    n = 4 * HOT
+    keys = np.repeat(keyify([29]), n)
+    now = NOW + 40 * (np.arange(n) // 3)
+    hits = np.where(np.arange(n) % 9 == 8, 0, 1)
+    return ([mk_leaky(keys, hits=hits, limit=np.full(n, 30),
+                      burst=np.full(n, 12), duration=np.full(n, 1_000),
+                      eff_ms=np.full(n, 1_000), now=now)], [NOW + 10_000])
+
+
+def s_hot_shared_bucket():
+    """A hot key sharing its bucket with other keys, and more new keys
+    than empty slots interleaved with it in batch order: the first new
+    keys are inserted, the rest err on every request."""
+    rng = np.random.default_rng(31)
+    bucket = 77
+    old = in_bucket(bucket, [1, 2, 3])
+    new = in_bucket(bucket, range(4, 15))  # 11 new keys, 5 empty slots
+    first = mk_batch(old, hits=np.full(3, 2))
+    hot = np.repeat(old[:1], 3 * HOT)
+    rest = np.concatenate([np.repeat(new, 3), old[1:]])
+    keys = np.concatenate([hot, rest])
+    keys = keys[rng.permutation(len(keys))]
+    n = len(keys)
+    return ([first, mk_batch(keys, hits=rng.integers(0, 3, n)),
+             mk_batch(keys, hits=np.ones(n, np.int64))],
+            [NOW, NOW + 10, NOW + 20])
+
+
+def s_hot_segment_edges():
+    """Segments of exactly HOT_SEGMENT - 1, HOT_SEGMENT and
+    HOT_SEGMENT + 1 requests (one key each, and two keys sharing one
+    bucket), TOKEN and LEAKY, with queries and over-limit rows."""
+    rng = np.random.default_rng(37)
+    parts, algs = [], []
+    for b, n in ((101, HOT - 1), (102, HOT), (103, HOT + 1)):
+        parts.append(np.repeat(in_bucket(b, [1]), n))
+        algs.append(np.full(n, b % 2))
+    two = in_bucket(104, [1, 2])
+    parts.append(two[rng.integers(0, 2, HOT + 1)])
+    algs.append(np.zeros(HOT + 1))
+    keys, alg = np.concatenate(parts), np.concatenate(algs)
+    perm = rng.permutation(len(keys))
+    keys, alg = keys[perm], alg[perm]
+    n = len(keys)
+    b = mk_batch(keys, algorithm=alg, hits=rng.integers(0, 3, n),
+                 limit=np.full(n, 20), burst=np.full(n, 20))
+    return [b, b], [NOW, NOW + 300]
+
+
 STREAMS = {f.__name__[2:]: f for f in (
     s_zipf_duplicates, s_expiry_and_refresh, s_limit_and_duration_change,
     s_reset_and_drain, s_gregorian_expiry, s_mixed_per_request_now,
@@ -275,7 +397,10 @@ STREAMS = {f.__name__[2:]: f for f in (
     s_leaky_burst_below_limit, s_leaky_queries_and_flags,
     s_leaky_eff_change, s_leaky_limit_change_and_alg_switch,
     s_mixed_token_and_leaky, s_leaky_gregorian, s_td_bounds_stress,
-    s_td_odd_remainders, s_leaky_bucket_full, s_sustained_mixed)}
+    s_td_odd_remainders, s_leaky_bucket_full, s_sustained_mixed,
+    s_hot_token_run_exhausts, s_hot_token_run_crosses_x, s_hot_runs_broken,
+    s_hot_queries_only, s_hot_leaky_uniform_now, s_hot_leaky_mixed_now,
+    s_hot_shared_bucket, s_hot_segment_edges)}
 
 
 def property_stream(seed: int):
@@ -325,3 +450,36 @@ def test_plain_step_is_deterministic(seed):
             dmod.decide_plain(rows, to_torch(b), now)
         tables.append(rows)
     assert torch.equal(*tables)
+
+
+HOT_STREAMS = sorted(n for n in STREAMS if n.startswith("hot_"))
+
+
+@pytest.mark.parametrize("name", HOT_STREAMS)
+def test_hot_stream_reaches_k1_hot_path(name):
+    """Every hot_* stream has a segment longer than HOT_SEGMENT (K1 gives
+    it a block); segment_edges has segments of exactly HOT_SEGMENT - 1,
+    HOT_SEGMENT and HOT_SEGMENT + 1."""
+    batches, nows = STREAMS[name]()
+    lens = set()
+    for b, now in zip(batches, nows):
+        plan = dmod._plan(torch.zeros((CAP, 32), dtype=torch.int32),
+                          to_torch(b), now)
+        lens |= set(plan.seg_len.tolist())
+    assert max(lens) > HOT
+    if name == "hot_segment_edges":
+        assert {HOT - 1, HOT, HOT + 1} <= lens
+
+
+def test_k1_constants_match_the_source():
+    """ops/decide.py's K1_TILE and K1_STATS are csrc/decide.cu's TILE and
+    ST_* counters."""
+    import re
+    from pathlib import Path
+
+    src = (Path(dmod.__file__).parents[1] / "csrc" / "decide.cu").read_text()
+    assert int(re.search(r"constexpr int TILE = (\d+);", src).group(1)) \
+        == dmod.K1_TILE
+    names = re.search(r"enum \{ (ST_[^}]*)N_STATS", src).group(1)
+    assert tuple(n.strip().lower()[3:] for n in names.split(",")
+                 if n.strip()) == dmod.K1_STATS
