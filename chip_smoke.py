@@ -81,8 +81,6 @@ BUCKET_BYTES = 2 * 8 * 16 * 4
 #: launch, so that the host has queued the launch before the start event
 #: completes and the event span is device time only
 SLEEP_CYCLES = 2_000_000
-#: K1's hot-segment thresholds whose launch alone phase 4 also times
-HOT_SWEEP = (0, 8, 16, 32, 64, 128, 1 << 20)
 #: the answer to a request whose probe window stayed full
 TABLE_FULL = "rate limit table full"
 #: most rows a grow may drop, as a share of the rows it re-places: an
@@ -253,47 +251,72 @@ def make_main_wave(rng, pop_keys, rows_n, wave_no, taken: np.ndarray):
     return pack_wave_host(batch)
 
 
-def time_raw_launch(torch, rows, b, now, reps: int = 5, hot=None) -> float:
-    """Median ms of K1's launch alone (no sort, no outputs) on the wave
-    ``b``, run on a scratch copy of the table; segments longer than
-    ``hot`` (default HOT_SEGMENT) on the hot path.  The stream is kept
-    busy while the host makes the call, so the host's part of the launch
-    does not show."""
-    from gubernator_tpu_torch.ops import decide as dmod
-    from gubernator_tpu_torch.ops.build import load_library
+def time_launch(torch, launch, reps: int = 5, spin: bool = True):
+    """(median ms between CUDA events around ``launch()``, median host ms
+    of the call) over ``reps`` calls.  ``spin``: the stream spins in
+    torch.cuda._sleep while the host makes the call, so the event span
+    is device time only; else the events bracket one call on an idle
+    stream, the host's part of the launch inside."""
+    times, host = [], []
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        if spin:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        e0.record()
+        t = time.perf_counter()
+        launch()
+        host.append((time.perf_counter() - t) * 1e3)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times)), float(np.median(host))
 
-    lib = load_library()
+
+def k1_inputs(torch, rows, b, now):
+    """A scratch copy of the table, the wrapper's plan of the wave ``b``
+    and an output matrix: what a raw K1 launch takes."""
+    from gubernator_tpu_torch.ops import decide as dmod
+
     scratch = rows.clone()
     plan = dmod._plan(scratch, b, now)
     out = torch.zeros((dmod.N_OUT, plan.req.shape[1]), dtype=torch.int64,
                       device=rows.device)
+    return scratch, plan, out
+
+
+def time_raw_launch(torch, rows, b, now, hot=None):
+    """K1's launch alone (no sort, no outputs) on the wave ``b``, on a
+    scratch copy of the table, segments longer than ``hot`` (default
+    HOT_SEGMENT) on the hot path: ``time_launch``'s (device ms, host
+    ms)."""
+    from gubernator_tpu_torch.ops import decide as dmod
+    from gubernator_tpu_torch.ops.build import load_library
+
+    lib = load_library()
+    scratch, plan, out = k1_inputs(torch, rows, b, now)
     stream = torch.cuda.current_stream().cuda_stream
-    times = []
-    for _ in range(reps):
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda._sleep(SLEEP_CYCLES)
-        e0.record()
+    hot = dmod.HOT_SEGMENT if hot is None else hot
+
+    def launch():
         rc = lib.guber_decide(
             scratch.data_ptr(), plan.req.data_ptr(), plan.order.data_ptr(),
             plan.seg_bucket.data_ptr(), plan.seg_start.data_ptr(),
             plan.seg_len.data_ptr(), plan.seg_bucket.numel(),
-            plan.req.shape[1], dmod.HOT_SEGMENT if hot is None else hot,
-            None, out.data_ptr(), stream)
-        e1.record()
+            plan.req.shape[1], hot, None, out.data_ptr(), stream)
         require(rc == 0, f"K1 launch failed: {rc}")
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
+
+    return time_launch(torch, launch)
 
 
-def phase_kernel_vs_plain(torch, args, pop_idx, pop_keys):
+def fill_mixed_table(torch, args, pop_idx, pop_keys):
+    """Phase 4's bucket engine: every key of the population restored,
+    TOKEN and LEAKY alternating, full buckets at NOW0."""
     from gubernator_tpu_torch.engine import BucketEngine
-    from gubernator_tpu_torch.ops import decide as dmod
 
-    dev = torch.device(DEVICE)
-    eng = BucketEngine(device=dev, capacity=1 << args.log2_cap)
+    eng = BucketEngine(device=torch.device(DEVICE),
+                       capacity=1 << args.log2_cap)
     n = len(pop_keys)
-    # mixed TOKEN / LEAKY rows, full buckets at NOW0
     rows = token_rows(pop_keys, 20 + pop_idx % 50,
                       np.where(pop_idx % 7 == 0, 5_000, 60_000), NOW0)
     leaky = pop_idx % 2 == 1
@@ -306,34 +329,54 @@ def phase_kernel_vs_plain(torch, args, pop_idx, pop_keys):
     print(f"fill: {placed} of {n} keys placed in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     require(placed == n, f"fill placed {placed} of {n} keys")
-    rows_k = eng.rows
-    rows_p = rows_k.clone()
+    return eng
+
+
+def phase4_waves(torch, args, pop_idx, pop_keys):
+    """Phase 4's waves in order, as (index, kind, rows, batch, now).
+    Kinds: "warm-up" (wave 0, untimed), "mixed" (the timed full waves),
+    "small" (one narrow wave, the main path's other width), then
+    "main-path" (the main path's own traffic)."""
+    from gubernator_tpu_torch.ops import decide as dmod
+
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(args.seed)
-    # wave 0 warms up, untimed; waves 1..N are the timed full waves; then
-    # one narrow wave, the main path's other wave width; then the waves
-    # of the main path's own traffic
-    widths = [args.wave_rows] * (args.waves + 1) + [args.small_rows]
-    first_main = len(widths)
-    widths += [args.wave_rows] * args.main_waves
-    taken = np.zeros(len(widths), np.int64)
-    k_ms, p_ms, bound_ms, seg_max, max_err = [], [], [], [], 0
-    main_ms, main_counts, mixed_counts = [], [], []
-    errs_seen = 0
-    stats = torch.zeros(len(dmod.K1_STATS), dtype=torch.int64, device=dev)
-    for w, rows_n in enumerate(widths):
-        if w < first_main:
+    kinds = (["warm-up"] + ["mixed"] * args.waves + ["small"]
+             + ["main-path"] * args.main_waves)
+    taken = np.zeros(len(kinds), np.int64)
+    for w, kind in enumerate(kinds):
+        rows_n = args.small_rows if kind == "small" else args.wave_rows
+        if kind == "main-path":
+            a64, a32 = make_main_wave(rng, pop_keys, rows_n, w, taken)
+        else:
             a64, a32 = make_wave(rng, pop_keys, pop_idx, rows_n, w,
                                  args.log2_cap, w == 3, taken)
-        else:
-            a64, a32 = make_main_wave(rng, pop_keys, rows_n, w, taken)
         b = dmod.batch_from_packed(torch.from_numpy(a64).to(dev),
                                    torch.from_numpy(a32).to(dev))
-        now = int(taken[w])
+        yield w, kind, rows_n, b, int(taken[w])
+
+
+def phase_kernel_vs_plain(torch, args, pop_idx, pop_keys):
+    from gubernator_tpu_torch.ops import decide as dmod
+
+    dev = torch.device(DEVICE)
+    eng = fill_mixed_table(torch, args, pop_idx, pop_keys)
+    rows_k = eng.rows
+    rows_p = rows_k.clone()
+    k_ms, p_ms, bound_ms, seg_max, max_err = [], [], [], [], 0
+    main_ms, main_counts, mixed_counts = [], [], []
+    host_ms = {"mixed": [], "main-path": []}
+    errs_seen = 0
+    stats = torch.zeros(len(dmod.K1_STATS), dtype=torch.int64, device=dev)
+    for w, kind, rows_n, b, now in phase4_waves(torch, args, pop_idx,
+                                                pop_keys):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         stats.zero_()
         torch.cuda.synchronize()
         ev[0].record()
+        t = time.perf_counter()
         ok_ = dmod.decide_cuda(rows_k, b, now, stats=stats)
+        host = (time.perf_counter() - t) * 1e3
         ev[1].record()
         ev[2].record()
         op_ = dmod.decide_plain(rows_p, b, now)
@@ -358,23 +401,24 @@ def phase_kernel_vs_plain(torch, args, pop_idx, pop_keys):
         wave_bound = ((s_buckets * BUCKET_BYTES + live * REQ_BYTES)
                       / HBM_BYTES_PER_S * 1e3)
         counts = dict(zip(dmod.K1_STATS, stats.tolist()))
-        if 0 < w <= args.waves:
+        if kind in host_ms:
+            host_ms[kind].append(host)
+        if kind == "mixed":
             k_ms.append(ev[0].elapsed_time(ev[1]))
             p_ms.append(ev[2].elapsed_time(ev[3]))
             bound_ms.append(wave_bound)
             mixed_counts.append(counts)
             mixed = (b, now)
-        elif w == first_main - 1:
+        elif kind == "small":
             small = {"rows": rows_n, "ms": ev[0].elapsed_time(ev[1]),
                      "plain_ms": ev[2].elapsed_time(ev[3]),
                      "bound_ms": wave_bound, "longest_chain": seg_max[-1]}
-        elif w >= first_main:
+        elif kind == "main-path":
             main_ms.append(ev[0].elapsed_time(ev[1]))
             main_counts.append(counts)
             main = (b, now)
-        kind = "main-path" if w >= first_main else "mixed"
         print(f"wave {w} ({kind}, {rows_n} rows): equal; K1 "
-              f"{ev[0].elapsed_time(ev[1]):.3f} ms, "
+              f"{ev[0].elapsed_time(ev[1]):.3f} ms, host {host:.3f} ms, "
               f"plain {ev[2].elapsed_time(ev[3]):.1f} ms, "
               f"{s_buckets} buckets, longest segment {seg_max[-1]}, "
               f"hot segments {counts['hot_segments']}, longest slot chain "
@@ -385,20 +429,19 @@ def phase_kernel_vs_plain(torch, args, pop_idx, pop_keys):
               f"over {int(ok_.over_count)}, inserts "
               f"{int(ok_.insert_count)}, bytes bound {wave_bound:.6f} ms",
               flush=True)
-    launch_ms = time_raw_launch(torch, rows_k, *main)
-    launch_mixed_ms = time_raw_launch(torch, rows_k, *mixed)
-    # the launch alone against the hot-segment threshold (1 << 20: every
-    # segment walked by one thread)
-    by_hot = {kind: {h: time_raw_launch(torch, rows_k, *wave, hot=h)
-                     for h in HOT_SWEEP}
-              for kind, wave in (("main_path", main), ("mixed", mixed))}
-    print(f"K1 launch alone (ms) by hot-segment threshold: "
-          f"{json.dumps(by_hot)}", flush=True)
+    launch_ms, launch_host_ms = time_raw_launch(torch, rows_k, *main)
+    launch_mixed_ms, launch_mixed_host_ms = time_raw_launch(torch, rows_k,
+                                                            *mixed)
     del rows_p, eng
     torch.cuda.empty_cache()
+    host = {k: float(np.mean(v)) for k, v in host_ms.items()}
     res = {"ms": float(np.mean(k_ms)), "plain_ms": float(np.mean(p_ms)),
            "bound_ms": float(np.mean(bound_ms)), "launch_ms": launch_ms,
-           "launch_mixed_ms": launch_mixed_ms, "launch_ms_by_hot": by_hot,
+           "launch_mixed_ms": launch_mixed_ms,
+           "launch_host_ms": launch_host_ms,
+           "launch_mixed_host_ms": launch_mixed_host_ms,
+           "decide_cuda_host_ms": host["mixed"],
+           "decide_cuda_main_host_ms": host["main-path"],
            "main_wave_ms": main_ms, "main_wave_counts": main_counts,
            "mixed_wave_counts": mixed_counts,
            "max_abs_err": max_err, "waves": args.waves,
@@ -407,8 +450,10 @@ def phase_kernel_vs_plain(torch, args, pop_idx, pop_keys):
            "small_wave": small}
     print(f"K1 per {args.wave_rows}-row wave: decide_cuda {res['ms']} "
           f"ms on the mixed waves, {float(np.mean(main_ms))} ms on the "
-          f"main-path waves; kernel launch alone {launch_mixed_ms} ms "
-          f"(mixed), {launch_ms} ms (main path); plain "
+          f"main-path waves (host clock {host['mixed']} / "
+          f"{host['main-path']} ms); kernel launch alone {launch_mixed_ms} "
+          f"ms (mixed), {launch_ms} ms (main path), device time, the "
+          f"host's call {launch_mixed_host_ms} / {launch_host_ms} ms; plain "
           f"{res['plain_ms']} ms, bytes bound {res['bound_ms']} ms; per "
           f"{args.small_rows}-row wave: decide_cuda {small['ms']} ms, "
           f"plain {small['plain_ms']} ms, bytes bound {small['bound_ms']} "

@@ -11,16 +11,25 @@
 // the result does not depend on scheduling.
 //
 // What bounds it on this card.  The bytes are tiny: each touched bucket
-// read and written once (16 used words of 8 slots) plus 112 B of request
-// columns in and 40 B out per request, ~1.4 us for an 8192-row wave at
-// 3.35 TB/s.  What is left is (a) the serial chain of the longest
-// segment: under Zipf(1.1) one bucket holds ~11% of a wave, and walking
-// it one request after another, each behind a dependent global load,
-// cost ~0.75 ms; and (b) the launch (a few us).  The design:
+// read and written once (16 used words of 8 slots) plus, per request, the
+// step's 76 B of packed request columns in and 29 B of outputs
+// (chip_smoke.py's bytes bound), ~1.4 us for an 8192-row wave at
+// 3.35 TB/s.  The kernel itself moves more: the wrapper widens the
+// request to 14 int64 columns (112 B) and the outputs to 5 (40 B), so
+// its per-request traffic is 152 B against the 105 B that bound counts.
+// Either way the bytes take microseconds.  What is left is (a) the
+// serial chain of the longest segment: under Zipf(1.1) one bucket holds
+// ~11% of a wave, and walking it one request after another, each behind
+// a dependent global load, cost ~0.75 ms; and (b) the launch (a few us).
+// The design:
 //
 // - One grid, two roles.  Blocks [0, n_hot) each own segment blockIdx.x
 //   if it is longer than `hot` (ops/decide.py HOT_SEGMENT); the rest of
 //   the grid gives one thread to each segment of at most `hot` requests.
+//   The hot blocks come first, so the longest segment's block is the
+//   first one scheduled.  (Two kernels, the cold one without shared
+//   memory, and one grid with the cold blocks first, both measured
+//   slower on an H100: chip_ab.py, PERF.md.)
 // - Cold thread: the 8 slot keys live in registers, the request's slot
 //   is resolved first, and only that slot's 16 words are carried in
 //   registers (written back when the thread moves to another slot).
@@ -49,6 +58,7 @@
 // closed forms are taken only where the state and the requests satisfy
 // the conditions under which they equal the transition applied request
 // by request; anywhere else the transition is applied.
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -697,6 +707,22 @@ decide_kernel(int32_t* __restrict__ table, const int64_t* __restrict__ req,
   }
 }
 
+// The kernel's dynamic shared memory limit, set once per device.
+std::atomic<unsigned long long> smem_set{0};
+
+cudaError_t allow_smem() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (bit && (smem_set.load(std::memory_order_relaxed) & bit)) return e;
+  e = cudaFuncSetAttribute(decide_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           DYN_SMEM);
+  if (e == cudaSuccess) smem_set.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -715,8 +741,7 @@ int guber_decide(void* table, const void* req, const void* order,
                  const void* seg_bucket, const void* seg_start,
                  const void* seg_len, int64_t S, int64_t B, int64_t hot,
                  void* stats, void* out, void* stream) {
-  const cudaError_t a = cudaFuncSetAttribute(
-      decide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DYN_SMEM);
+  const cudaError_t a = allow_smem();
   if (a != cudaSuccess) return -(int)a;
   // at most B // (hot + 1) segments are longer than hot: a prefix, since
   // the segments come longest first

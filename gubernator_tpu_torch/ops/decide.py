@@ -56,9 +56,8 @@ N_OUT = 5
 #: the main path's waves is fastest at thresholds 8 and 16 and slower
 #: from 32 up, where a thread's walk of a cold segment becomes the
 #: longest path (PERF.md §6); the higher one needs fewer blocks: ~40 per
-#: 8192-row Zipf(1.1) wave.  The wrapper's ``hot`` argument exists so
-#: tests can send every segment to the block path and the smoke can
-#: measure the threshold.
+#: 8192-row Zipf(1.1) wave.  ``chip_ab.py`` times the launch against the
+#: threshold.
 HOT_SEGMENT = 16
 #: requests K1's hot path stages in shared memory at a time
 #: (csrc/decide.cu TILE); a longer segment is walked tile after tile
@@ -358,8 +357,10 @@ def decide_cuda(rows: torch.Tensor, batch: RequestBatch, now,
                 hot: int = HOT_SEGMENT, stats: torch.Tensor | None = None
                 ) -> StepOutput:
     """Launch K1 (csrc/decide.cu) on the current stream: updates ``rows``
-    in place.  Segments longer than ``hot`` go to a block each (0: every
-    segment).  ``stats``, if given, is a CUDA int64 tensor of
+    in place.  Segments longer than ``hot`` go to a block each.  Serving
+    always passes ``HOT_SEGMENT``; other values are a seam for the tests
+    (0: every segment on the block path) and for ``chip_ab.py``'s
+    threshold sweep.  ``stats``, if given, is a CUDA int64 tensor of
     len(K1_STATS) counters that the launch adds to.  Raises on a refused
     launch; never falls back."""
     from .build import load_library
@@ -395,7 +396,7 @@ def decide_cuda(rows: torch.Tensor, batch: RequestBatch, now,
         if rc < 0:
             raise RuntimeError(
                 f"K1 launch refused: {lib.guber_decide_smem()} B of dynamic "
-                f"shared memory per block for the hot path were not granted "
+                f"shared memory per hot block were not granted "
                 f"(CUDA error {-rc}: {lib.guber_error_string(-rc).decode()})")
         if rc != 0:
             raise RuntimeError(f"K1 launch failed: CUDA error {rc} "

@@ -61,6 +61,30 @@ def test_k1_hot_path_equals_plain_on_stream(cuda, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_k1_cold_path_equals_plain_on_stream(cuda, name):
+    """hot=2^20: every segment on a thread, no block on the hot
+    path."""
+    st = run_kernel_and_plain(cuda, *STREAMS[name](), hot=1 << 20)
+    assert st["hot_segments"] == 0 and st["cold"] > 0
+
+
+@pytest.mark.gpu
+def test_k1_cold_segments_outlasting_the_hot_one(cuda):
+    """499 cold segments of HOT_SEGMENT requests each and one hot
+    segment of a uniform run (quick, in closed form): the outputs and
+    the table read right after the launch hold the cold threads' work
+    too."""
+    h = dmod.HOT_SEGMENT
+    cold = np.concatenate([np.repeat(in_bucket(b, [1]), h)
+                           for b in range(1, 500)])
+    keys = np.concatenate([np.repeat(in_bucket(0, [1]), h + 1), cold])
+    st = run_kernel_and_plain(cuda, [mk_batch(keys)] * 3,
+                              [NOW, NOW + 10, NOW + 20])
+    assert st["hot_segments"] == 3 and st["cold"] == 3 * 499 * h
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("seed", range(4))
 def test_k1_equals_plain_on_property_stream(cuda, seed):
     run_kernel_and_plain(cuda, *property_stream(seed))

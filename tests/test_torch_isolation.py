@@ -46,7 +46,7 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     for name in _imports(path):
@@ -81,4 +81,13 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         chip_smoke.main([])
+    assert e.value.code != 0
+
+
+def test_chip_ab_refuses_without_cuda(monkeypatch):
+    import chip_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        chip_ab.main(["--old-csrc", "."])
     assert e.value.code != 0
