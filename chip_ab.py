@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Same-run comparisons on one NVIDIA GPU that chip_smoke.py does not
-make on every run: K1 and K3 against an earlier version of the port's
-CUDA sources, and K1's launch alone against its hot-segment threshold.
+make on every run: K1, K2 and K3 against an earlier version of the
+port's CUDA sources, and K1's launch alone against its hot-segment
+threshold.
 
 Run from the repository root on a machine with one NVIDIA GPU, with the
 earlier sources unpacked inside the checkout (the GPU machine needs no
@@ -14,8 +15,13 @@ git), for example:
 The earlier K1 must take the same plan as the current one, without the
 ``hot`` and ``stats`` arguments (or with them: ``--old-k1-takes-hot``,
 then it runs at the same threshold); the earlier K3 the same
-arguments.  ``--stream side`` runs everything on a stream of its own
-instead of PyTorch's default stream.
+arguments; the earlier K2 one zeroed 64-bit counter (PR 2's and PR 3's
+``guber_sweep``), which its wrapper allocated a call.  ``--stream side``
+runs everything on a stream of its own instead of PyTorch's default
+stream.  ``--k3-only`` and ``--k2-only`` compare one kernel.
+``--k2-variant NAME=FLAGS`` (repeatable) also builds the current
+sweep.cu with extra nvcc flags (``-DK2_UNROLL=2``, ``-DK2_HINTS=1``,
+``-DK2_BLOCKS_PER_SM=8``) and times each beside the two.
 
 Each pair is first checked equal on the same input (K1: outputs and the
 whole table), then timed in turns, old, new, new, old, with two
@@ -23,11 +29,20 @@ measures: "device", the CUDA events around launches the host queued
 while the stream spun in torch.cuda._sleep (device time only), and
 "one_call", the events around one call on an idle stream, the host's
 part of the launch inside.  K3's device measure is 20 queued launches,
-beside torch.add on the same inputs.  K1 runs on phase 4's table of
-chip_smoke.py (2^25 rows, 10M keys) after the same waves; the threshold
-sweep times the current K1 on every timed mixed and main-path wave.  The
-line before the last is nvidia-smi's name and power limit; the last line
-is one JSON object with every number.
+beside torch.add on the same inputs.  K2 runs on phase 6's table of
+chip_smoke.py (2^24 rows, 10M keys, ~30% expired): every version's
+sweep of a fresh copy is checked equal to the plain version (key,
+expire_at, live count, the other columns untouched), then each timed
+launch sweeps a fresh copy followed by 128 MiB of writes and reads that
+flush the L2 cache; its device time is the launch alone (the earlier kernel's
+counter is zeroed before the spin), its one call the wrapper as it was
+(the earlier one allocates and zeroes its counter).  Device time is also
+taken with nothing expired (reads only) and with everything expired
+(every non-empty row zeroed).  K1 runs on phase
+4's table of chip_smoke.py (2^25 rows, 10M keys) after the same waves;
+the threshold sweep times the current K1 on every timed mixed and
+main-path wave.  The line before the last is nvidia-smi's name and power
+limit; the last line is one JSON object with every number.
 """
 from __future__ import annotations
 
@@ -50,32 +65,56 @@ HOT_SWEEP = (0, 4, 8, 12, 16, 24, 32, 48, 64, 128, 1 << 20)
 TURNS = ("old", "new", "new", "old")
 
 
-def build_old(csrc: Path, takes_hot: bool) -> dict:
-    """The earlier decide.cu and probe.cu, each built into a library of
-    its own (one nvcc each, started together) under build/chip_ab/."""
+def build_libs(sources: dict) -> dict:
+    """Each of ``sources`` ({name: (path of a .cu, extra nvcc flags)})
+    built into a library of its own under build/chip_ab/, one nvcc each,
+    started together."""
     from gubernator_tpu_torch.ops import build
 
     out_dir = build.BUILD_DIR.parent / "chip_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = build.nvcc_path()
     procs = {}
-    for name in ("decide", "probe"):
-        lib = out_dir / f"old_{name}.so"
+    for name, (src, extra) in sources.items():
+        lib = out_dir / f"{name}.so"
         procs[name] = (lib, subprocess.Popen(
-            [nvcc, *build.ARCH, *build.FLAGS, "-shared", "-o", str(lib),
-             str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
+            [nvcc, *build.ARCH, *build.FLAGS, *extra, "-shared", "-o",
+             str(lib), str(src)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, p) in procs.items():
         text, _ = p.communicate()
-        cs.require(p.returncode == 0, f"nvcc on the old {name}.cu:\n{text}")
+        cs.require(p.returncode == 0, f"nvcc for {name}:\n{text}")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas ({name}):", line.strip(), flush=True)
         libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def build_old(csrc: Path, takes_hot: bool, names, variants: dict) -> dict:
+    """The earlier sources of ``names`` (of decide, probe, sweep), and the
+    current sweep.cu once per entry of ``variants`` ({name: nvcc flags}),
+    built and bound."""
+    from gubernator_tpu_torch.ops import build
+
+    libs = build_libs({**{n: (csrc / f"{n}.cu", []) for n in names},
+                       **{v: (build.CSRC / "sweep.cu", flags)
+                          for v, flags in variants.items()}})
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    libs["decide"].guber_decide.argtypes = (
-        [ptr] * 6 + [i64, i64] + [i64, ptr] * takes_hot + [ptr, ptr])
-    libs["decide"].guber_decide.restype = ctypes.c_int
-    libs["probe"].guber_probe_add.argtypes = [ptr, ptr, ptr, i64, ptr]
-    libs["probe"].guber_probe_add.restype = ctypes.c_int
+    if "decide" in libs:
+        libs["decide"].guber_decide.argtypes = (
+            [ptr] * 6 + [i64, i64] + [i64, ptr] * takes_hot + [ptr, ptr])
+        libs["decide"].guber_decide.restype = ctypes.c_int
+    if "probe" in libs:
+        libs["probe"].guber_probe_add.argtypes = [ptr, ptr, ptr, i64, ptr]
+        libs["probe"].guber_probe_add.restype = ctypes.c_int
+    if "sweep" in libs:
+        libs["sweep"].guber_sweep.argtypes = [ptr, ptr, i64, i64, ptr, ptr]
+        libs["sweep"].guber_sweep.restype = ctypes.c_int
+    for v in variants:
+        libs[v].guber_sweep.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr]
+        libs[v].guber_sweep.restype = ctypes.c_int
     return libs
 
 
@@ -116,6 +155,81 @@ def k3_ab(torch, old_lib, args) -> dict:
             f = launcher(v)
             res["device"][v].append(cs.queued_ms(torch, f))
             res["one_call"][v].append(cs.time_launch(torch, f, spin=False)[0])
+    return res
+
+
+def k2_raw(torch, lib, counters: int):
+    """A raw launch of a K2 library on a table: the earlier signature (one
+    counter) when ``counters`` is 1, the current one (the count's slot
+    and the slot to clear) when 2.  Returns (launch, the counter's
+    zeroing, one call as the earlier wrapper made it)."""
+    cnt = torch.zeros(counters, dtype=torch.int64, device="cuda")
+
+    def launch(state, now, live=cnt):
+        ptrs = [live.data_ptr()] + [live.data_ptr() + 8] * (counters - 1)
+        rc = lib.guber_sweep(state.key.data_ptr(),
+                             state.expire_at.data_ptr(), state.key.numel(),
+                             int(now), *ptrs,
+                             torch.cuda.current_stream().cuda_stream)
+        cs.require(rc == 0, f"K2 launch failed: {rc}")
+        return live[0]
+
+    def one_call(state, now):
+        return launch(state, now, torch.zeros(
+            counters, dtype=torch.int64, device=state.key.device))
+
+    return launch, cnt.zero_, one_call
+
+
+def k2_ab(torch, args, versions: dict) -> dict:
+    """K2 versions ({name: (device-time call, its prepare or None, one
+    call or None)}, each call ``(state, now) -> live count``) on phase
+    6's table: each equal to the plain version, then timed in turns
+    (old, new, the variants, the variants reversed, new, old) on fresh,
+    L2-flushed copies, after one untimed round."""
+    from gubernator_tpu_torch.ops import sweep as swm
+
+    st, now, *_ = cs.sweep_table(torch, args)
+    others = {f: getattr(st, f).clone() for f in st._fields
+              if f not in ("key", "expire_at")}
+    reclaim = cs.reclaimable(st, now)
+    want = st._replace(key=st.key.clone(), expire_at=st.expire_at.clone())
+    want_live = swm.sweep_plain(want, now)
+    copies = cs.SweepCopies(torch, st)
+    for v, (call, prepare, _) in versions.items():
+        copies.reset()
+        if prepare is not None:
+            prepare()
+        live = call(copies.state, now)
+        cs.check_sweeps(torch, now, (copies.state, live), (want, want_live),
+                        f"{v} K2 and the plain sweep")
+    cs.require(all(torch.equal(getattr(st, f), c) for f, c in others.items()),
+               "a sweep touched a column other than key / expire_at")
+    del want, others
+    variants = [v for v in versions if v not in ("old", "new")]
+    order = ["old", "new", *variants, *variants[::-1], "new", "old"]
+    # the same launch at now = int64 min, where no row is dead and the
+    # sweep only reads ("read_only"), and at int64 max, where every row
+    # is and it zeroes every row that is not empty ("all_dead")
+    nows = {"device": now, "read_only": -2 ** 63, "all_dead": 2 ** 63 - 1}
+    res = {m: {v: [] for v in versions} for m in nows}
+    res["one_call"] = {v: [] for v in versions if versions[v][2]}
+    for r in range(args.rounds + 1):  # round 0 warms up, untimed
+        for v in order:
+            call, prepare, one = versions[v]
+            for m, t in nows.items():
+                ms = cs.time_sweep(torch, copies, call, t, True, prepare)[0]
+                if r:
+                    res[m][v].append(ms)
+            if one is not None:
+                ms = cs.time_sweep(torch, copies, one, now, False)[0]
+                if r:
+                    res["one_call"][v].append(ms)
+    res["bound_ms"] = cs.sweep_bound_ms(st.key.numel(), reclaim)
+    res["reclaimed"] = reclaim
+    del copies, st
+    if cs.DEVICE == "cuda":
+        torch.cuda.empty_cache()
     return res
 
 
@@ -217,17 +331,24 @@ def k1_phases(torch, args, old_lib):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", type=Path, required=True,
-                    help="directory holding the earlier decide.cu and "
-                         "probe.cu")
+                    help="directory holding the earlier decide.cu, "
+                         "sweep.cu and probe.cu")
     ap.add_argument("--old-k1-takes-hot", action="store_true",
                     help="the earlier K1 takes the hot and stats arguments")
     ap.add_argument("--k3-only", action="store_true",
                     help="compare K3 only")
+    ap.add_argument("--k2-only", action="store_true",
+                    help="compare K2 only")
+    ap.add_argument("--k2-variant", action="append", default=[],
+                    metavar="NAME=FLAGS",
+                    help="also time the current sweep.cu built with these "
+                         "extra nvcc flags (space-separated)")
     ap.add_argument("--stream", choices=("default", "side"),
                     default="default")
     ap.add_argument("--rounds", type=int, default=3,
                     help="rounds of old, new, new, old turns")
     ap.add_argument("--log2-cap", type=int, default=25)
+    ap.add_argument("--soa-log2-cap", type=int, default=24)
     ap.add_argument("--keys", type=int, default=10_000_000)
     ap.add_argument("--waves", type=int, default=8)
     ap.add_argument("--main-waves", type=int, default=4)
@@ -240,18 +361,34 @@ def main(argv=None) -> int:
 
     from gubernator_tpu_torch.ops import decide as dmod
 
+    from gubernator_tpu_torch.ops import sweep as swm
+
+    variants = dict(v.split("=", 1) for v in args.k2_variant)
+    names = (["probe"] if args.k3_only else ["sweep"] if args.k2_only
+             else ["probe", "sweep", "decide"])
     with cs.phase("device"):
         name, smi = cs.phase_device(torch)
     with cs.phase("build"):
         cs.phase_build()
-        old = build_old(args.old_csrc, args.old_k1_takes_hot)
+        old = build_old(args.old_csrc, args.old_k1_takes_hot, names,
+                        {v: f.split() for v, f in variants.items()})
     if args.stream == "side":
         torch.cuda.set_stream(torch.cuda.Stream())
-    with cs.phase("K3 old vs new"):
-        k3 = k3_ab(torch, old["probe"], args)
-        print(f"K3: {json.dumps(k3)}", flush=True)
-    k1 = sweep = None
-    if not args.k3_only:
+    k1 = k2 = k3 = sweep = None
+    if "probe" in names:
+        with cs.phase("K3 old vs new"):
+            k3 = k3_ab(torch, old["probe"], args)
+            print(f"K3: {json.dumps(k3)}", flush=True)
+    if "sweep" in names:
+        with cs.phase("K2 old vs new"):
+            versions = {"old": k2_raw(torch, old["sweep"], 1),
+                        "new": (swm.sweep_cuda, None, swm.sweep_cuda)}
+            for v in variants:
+                launch, zero, _ = k2_raw(torch, old[v], 2)
+                versions[v] = (launch, zero, None)
+            k2 = k2_ab(torch, args, versions)
+            print(f"K2: {json.dumps(k2)}", flush=True)
+    if "decide" in names:
         k1, sweep = k1_phases(torch, args, old["decide"])
 
     def means(d):
@@ -261,7 +398,9 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     print(json.dumps({"device": name, "hot_segment": dmod.HOT_SEGMENT,
                       "old_csrc": str(args.old_csrc), "stream": args.stream,
-                      "k3": {"runs": k3, "mean": means(k3)},
+                      "k2_variants": variants,
+                      "k3": k3 and {"runs": k3, "mean": means(k3)},
+                      "k2": k2 and {"runs": k2, "mean": means(k2)},
                       "k1": k1 and {"runs": k1, "mean": means(k1)},
                       "k1_by_hot": sweep}), flush=True)
     return 0

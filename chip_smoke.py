@@ -36,7 +36,11 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
 6. sweep vs plain: a 2^24-row SoA table holding 10M keys (placed with
    upsert_rows; ~30% expired, some removed) swept by K2 and by its
    plain version on two copies: key and expire_at equal, the other
-   columns untouched, the live counts equal;
+   columns untouched, the live counts equal.  K2 is then timed on
+   fresh copies, each followed by 128 MiB of writes and reads that flush
+   the L2 cache: device time (the stream spins while the host calls
+   sweep_cuda; the kernels line's "ms") and one call on an idle stream
+   (the wrapper's host work inside, "one_call_ms");
 7. classic main path: spawn_daemon with GUBER_ENGINE=xla on the GPU
    (2^24 rows, auto-grow to 2^25, a short sweep interval), the HTTP
    verify flow and a 2^40 limit, a 10M-key table (restored; a share
@@ -81,6 +85,10 @@ BUCKET_BYTES = 2 * 8 * 16 * 4
 #: launch, so that the host has queued the launch before the start event
 #: completes and the event span is device time only
 SLEEP_CYCLES = 2_000_000
+#: bytes a timed sweep's set-up writes and reads after copying the table:
+#: more than twice the H100's 50 MB L2, so the sweep reads its rows from
+#: HBM
+L2_FLUSH_BYTES = 128 << 20
 #: the answer to a request whose probe window stayed full
 TABLE_FULL = "rate limit table full"
 #: most rows a grow may drop, as a share of the rows it re-places: an
@@ -251,14 +259,25 @@ def make_main_wave(rng, pop_keys, rows_n, wave_no, taken: np.ndarray):
     return pack_wave_host(batch)
 
 
-def time_launch(torch, launch, reps: int = 5, spin: bool = True):
+def time_launch(torch, launch, reps: int = 5, spin: bool = True,
+                setup=None):
     """(median ms between CUDA events around ``launch()``, median host ms
     of the call) over ``reps`` calls.  ``spin``: the stream spins in
     torch.cuda._sleep while the host makes the call, so the event span
     is device time only; else the events bracket one call on an idle
-    stream, the host's part of the launch inside."""
+    stream, the host's part of the launch inside.  ``setup()``, when
+    given, runs before each call, outside the span.  In a CPU rehearsal
+    both times are the host clock's."""
     times, host = [], []
     for _ in range(reps):
+        if setup is not None:
+            setup()
+        if DEVICE != "cuda":
+            t = time.perf_counter()
+            launch()
+            times.append((time.perf_counter() - t) * 1e3)
+            host.append(times[-1])
+            continue
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
         if spin:
@@ -638,11 +657,11 @@ def soa_population(n_keys: int):
     return idx[keep], keys[keep]
 
 
-def phase_sweep_vs_plain(torch, args):
-    """A 2^24-row SoA table holding 10M keys (about 30% expired at the
-    sweep's now, some at exactly now, some rows removed), swept by K2
-    and by the plain version on two copies."""
-    from gubernator_tpu_torch.ops import sweep as swm
+def sweep_table(torch, args):
+    """Phase 6's table: a 2^soa_log2_cap-row SoA table holding
+    ``args.keys`` keys (about 30% expired at the sweep's now, 1000 at
+    exactly now, every 97th removed).  Returns (table state, now, keys,
+    placed, removed)."""
     from gubernator_tpu_torch.sharded import ShardedEngine
 
     cap = 1 << args.soa_log2_cap
@@ -665,11 +684,88 @@ def phase_sweep_vs_plain(torch, args):
     print(f"SoA fill: {placed} of {n} keys placed, {removed} removed in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     require(placed > 0.99 * n and removed > 0, "SoA fill")
-    st = eng.state
+    return eng.state, now, n, placed, removed
+
+
+def reclaimable(st, now) -> int:
+    """Rows of ``st`` a sweep at ``now`` reclaims: dead and not empty."""
+    return int(((st.expire_at <= now)
+                & ((st.key != 0) | (st.expire_at != 0))).sum())
+
+
+def sweep_bound_ms(rows: int, reclaim: int) -> float:
+    """K2's bytes bound: 16 B read per row (key, expire_at) and 16 B
+    written per row it reclaims, at the card's memory rate."""
+    return 16 * (rows + reclaim) / HBM_BYTES_PER_S * 1e3
+
+
+def check_sweeps(torch, now, a, b, what: str) -> float:
+    """Require two swept copies ``a`` and ``b`` of a table (state, live
+    count) equal in key, expire_at and live count, with no expired row
+    left; returns the largest difference (0)."""
+    (sa, la), (sb, lb) = a, b
+    la, lb = int(la), int(lb)
+    # in float64: a difference of two 64-bit keys must not wrap
+    err = max(abs(la - lb), *(
+        float((getattr(sa, f).double() - getattr(sb, f).double())
+              .abs().max()) for f in ("key", "expire_at")))
+    require(torch.equal(sa.key, sb.key)
+            and torch.equal(sa.expire_at, sb.expire_at),
+            f"{what} differ in key / expire_at")
+    require(la == lb == int((sa.key != 0).sum()),
+            f"{what}: live counts {la} and {lb}")
+    require(not bool(((sa.expire_at <= now) & (sa.key != 0)).any()),
+            f"{what}: an expired row survived")
+    return err
+
+
+class SweepCopies:
+    """A scratch copy of a SoA table's key / expire_at columns for timed
+    sweeps.  ``reset()`` copies the table's columns in, then writes
+    L2_FLUSH_BYTES of scratch and reads it back, so that the next sweep
+    finds none of its rows in the L2 cache, as in service (a sweep a
+    second), and no dirty line either: the write alone would leave ~50
+    MB of them, whose write-back the sweep would pay.  ``state`` is the
+    table with the copies in place of its two columns."""
+
+    def __init__(self, torch, st):
+        self.src = st
+        self.state = st._replace(key=st.key.clone(),
+                                 expire_at=st.expire_at.clone())
+        self.flush = torch.empty(L2_FLUSH_BYTES // 8, dtype=torch.int64,
+                                 device=st.key.device)
+
+    def reset(self) -> None:
+        self.state.key.copy_(self.src.key)
+        self.state.expire_at.copy_(self.src.expire_at)
+        self.flush.fill_(1)
+        self.flush.sum()
+
+
+def time_sweep(torch, copies, sweep, now, spin: bool, prepare=None):
+    """``time_launch`` of one ``sweep(copies.state, now)`` on a fresh,
+    L2-flushed copy of the table (``prepare()`` after the copy, outside
+    the span): (ms, host ms of the call)."""
+    def setup():
+        copies.reset()
+        if prepare is not None:
+            prepare()
+
+    return time_launch(torch, lambda: sweep(copies.state, now), reps=1,
+                       spin=spin, setup=setup)
+
+
+def phase_sweep_vs_plain(torch, args):
+    """Phase 6's table swept by K2 and by the plain version on two
+    copies, then K2 timed on fresh, L2-flushed copies: device time (the
+    stream spins while the host calls sweep_cuda) and one call on an
+    idle stream (the wrapper's host work inside)."""
+    from gubernator_tpu_torch.ops import sweep as swm
+
+    st, now, n, placed, removed = sweep_table(torch, args)
     others = {f: getattr(st, f).clone() for f in st._fields
               if f not in ("key", "expire_at")}
-    reclaim = int(((st.expire_at <= now)
-                   & ((st.key != 0) | (st.expire_at != 0))).sum())
+    reclaim = reclaimable(st, now)
 
     def fresh():
         return st._replace(key=st.key.clone(), expire_at=st.expire_at.clone())
@@ -677,33 +773,37 @@ def phase_sweep_vs_plain(torch, args):
     sk, sp = fresh(), fresh()
     live_k = int(swm.sweep_cuda(sk, now))
     live_p = int(swm.sweep_plain(sp, now))
-    # in float64: a difference of two 64-bit keys must not wrap
-    err = max(abs(live_k - live_p), *(
-        float((getattr(sk, f).double() - getattr(sp, f).double())
-              .abs().max()) for f in ("key", "expire_at")))
-    require(torch.equal(sk.key, sp.key)
-            and torch.equal(sk.expire_at, sp.expire_at),
-            "K2 and plain differ in key / expire_at")
-    require(live_k == live_p == int((sk.key != 0).sum()),
-            f"live counts: K2 {live_k}, plain {live_p}")
+    err = check_sweeps(torch, now, (sk, live_k), (sp, live_p),
+                       "K2 and plain")
     require(all(torch.equal(getattr(st, f), c) for f, c in others.items()),
             "a sweep touched a column other than key / expire_at")
-    require(not bool(((sk.expire_at <= now) & (sk.key != 0)).any()),
-            "an expired row survived")
-    k_ms = [elapsed_ms(torch, swm.sweep_cuda, fresh(), now)[1]
-            for _ in range(args.sweep_reps)]
-    p_ms = [elapsed_ms(torch, swm.sweep_plain, fresh(), now)[1]
-            for _ in range(args.sweep_reps)]
-    res = {"rows": cap, "keys": n, "placed": placed, "removed": removed,
-           "live": live_k, "reclaimed": reclaim, "max_abs_err": err,
-           "ms": float(np.mean(k_ms)), "ms_runs": k_ms,
+    del sk, sp, others
+    copies = SweepCopies(torch, st)
+    dev, one, host = [], [], []
+    for spin in (True, False):  # untimed: the first use of each measure
+        time_sweep(torch, copies, swm.sweep_cuda, now, spin)
+    for _ in range(args.sweep_reps):
+        dev.append(time_sweep(torch, copies, swm.sweep_cuda, now, True)[0])
+        ms, h = time_sweep(torch, copies, swm.sweep_cuda, now, False)
+        one.append(ms)
+        host.append(h)
+    p_ms = []
+    for _ in range(args.sweep_reps):
+        copies.reset()
+        p_ms.append(elapsed_ms(torch, swm.sweep_plain, copies.state, now)[1])
+    res = {"rows": st.key.numel(), "keys": n, "placed": placed,
+           "removed": removed, "live": live_k, "reclaimed": reclaim,
+           "max_abs_err": err, "ms": float(np.mean(dev)), "ms_runs": dev,
+           "one_call_ms": float(np.mean(one)), "one_call_ms_runs": one,
+           "host_ms": float(np.mean(host)),
            "plain_ms": float(np.mean(p_ms)),
-           "bound_ms": 16 * (cap + reclaim) / HBM_BYTES_PER_S * 1e3}
+           "bound_ms": sweep_bound_ms(st.key.numel(), reclaim)}
     print(f"K2 sweep of 2^{args.soa_log2_cap} rows: equal (live {live_k}, "
-          f"reclaimed {reclaim}); K2 {res['ms']} ms (runs {k_ms}), plain "
-          f"{res['plain_ms']} ms, bytes bound {res['bound_ms']} ms",
-          flush=True)
-    del eng, st, sk, sp, others
+          f"reclaimed {reclaim}); K2 device time {res['ms']} ms (runs "
+          f"{dev}), one call {res['one_call_ms']} ms (runs {one}; host "
+          f"{res['host_ms']} ms), plain {res['plain_ms']} ms, bytes bound "
+          f"{res['bound_ms']} ms", flush=True)
+    del copies, st
     return res
 
 
@@ -1265,7 +1365,7 @@ def main(argv=None) -> int:
          "launches": c["launches"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "one_call_ms": k2["one_call_ms"]},
         {"name": "probe_add", "route": "cuda",
          "source": "gubernator_tpu_torch/csrc/probe.cu",
          "replaces": "tools/pallas_probe.py:93",

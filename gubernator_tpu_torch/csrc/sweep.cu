@@ -5,88 +5,333 @@
 // _sweep_kernel (pallas_call in _sweep_2d, wrapped by
 // sweep_expired_pallas).  Same function: every row with
 // expire_at <= now gets key = 0 and expire_at = 0, and the count of rows
-// that are neither expired nor empty comes out of the same pass.
-//
-// Design.  The TPU kernel splits both int64 columns into hi/lo int32
-// words (Mosaic has no 64-bit lanes), walks (8, 128) VMEM tiles in its
-// sequential grid and carries the count in SMEM from step to step.  Here
-// the columns stay native int64: a grid-stride loop reads key[i] and
-// expire_at[i] with coalesced 8-byte loads (neighbouring threads,
-// neighbouring rows), compares expire_at <= now as a signed 64-bit value
-// (what the split-word compare computes), and writes zeros in place only
-// where a dead row still holds something: the TPU kernel rewrites every
-// row, the result is the same.  Blocks run in no order, so the count is
-// reduced per thread, then per warp with __shfl_down_sync, then per block
-// in shared memory, and added once per block with one atomicAdd on an
-// unsigned 64-bit counter: exact in any block order.  Nothing is
-// allocated here; the wrapper (ops/sweep.py) zeroes the counter.
+// that are neither expired nor empty comes out of the same pass.  The
+// TPU kernel splits both int64 columns into hi/lo int32 words (Mosaic
+// has no 64-bit lanes), walks (8, 128) VMEM tiles in its sequential grid
+// and carries the count in SMEM from step to step.  Here the columns
+// stay native int64 and the compare is a signed 64-bit one (what the
+// split-word compare computes).
 //
 // Bound.  Bytes: 16 B read per row (key, expire_at) plus 16 B written per
-// row it reclaims, at 3.35 TB/s; 2^24 rows read 268 MB, 0.080 ms.  The
-// arithmetic is one compare and one add per row.
+// row it reclaims (dead and not empty), at 3.35 TB/s: on phase 6 of
+// chip_smoke.py (2^24 rows, ~3M reclaimed) 0.094 ms.  The arithmetic is
+// a compare and an add per row.  The card cannot write less than a
+// 32-byte sector, so scattered reclaimed rows dirty more bytes than they
+// hold: with ~18% of the rows reclaimed, ~55% of the sectors of both
+// columns are written back.
+//
+// Design.  A stream at the memory rate needs ~2.3 MB in flight across
+// the card (3.35 TB/s x ~0.7 us), ~18 KB per SM, and wide accesses:
+//
+// - 16-byte vectors: each thread loads UNROLL longlong2 (two rows each)
+//   of expire_at and of key, all of them before any compare;
+// - a grid sized from the SM count (read once per device): one step per
+//   thread up to BLOCKS_PER_SM blocks on each SM, more steps beyond;
+// - zeros are written only where a dead row still holds something (the
+//   TPU kernel rewrites every row; the result is the same): one 16-byte
+//   store per column where both rows of a vector change, row by row
+//   where one does;
+// - the scalar head (one row, when the bases sit 8 bytes past a 16-byte
+//   boundary) and tail (the last row of an odd body) in the same kernel.
+//   When key and expire_at sit at different offsets from a 16-byte
+//   boundary no vector lines up in both, and the same kernel walks the
+//   rows one by one.
+//
+// The count.  Blocks run in no order, so the count is reduced per thread,
+// then per warp (__reduce_add_sync), then per block in shared memory, and
+// added once per block with one 64-bit atomicAdd: exact in any block
+// order.  There is no memset before the launch: the wrapper (ops/sweep.py)
+// keeps a ring of counters per stream, zeroed once; each launch adds
+// into its slot and zeroes the next slot, which the next launch on the
+// stream takes, so a count stays readable until the ring comes round to
+// it.  A block counts at most a few million rows, so its sum fits 32
+// bits.
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// Vectors per column per thread per step.
+#ifndef K2_UNROLL
+#define K2_UNROLL 4
+#endif
+// 1: streaming cache hints (__ldcs / __stcs) on every access.
+#ifndef K2_HINTS
+#define K2_HINTS 0
+#endif
+// Most blocks of the grid per SM.
+#ifndef K2_BLOCKS_PER_SM
+#define K2_BLOCKS_PER_SM 64
+#endif
+// 1: the TMA design below instead, each stage K2_TMA_ROWS rows.
+#ifndef K2_TMA
+#define K2_TMA 0
+#endif
+#ifndef K2_TMA_ROWS
+#define K2_TMA_ROWS 2048
+#endif
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int UNROLL = K2_UNROLL;
 
-__global__ void __launch_bounds__(THREADS)
-sweep_kernel(int64_t* __restrict__ key, int64_t* __restrict__ expire_at,
-             int64_t n, int64_t now, unsigned long long* __restrict__ live) {
-  unsigned long long cnt = 0;
-  const int64_t stride = (int64_t)gridDim.x * THREADS;
-  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t x = expire_at[i];
-    const int64_t k = key[i];
-    if (x <= now) {
-      if ((k | x) != 0) {  // an empty row is already zero
-        key[i] = 0;
-        expire_at[i] = 0;
-      }
-    } else {
-      cnt += (k != 0);
+template <class T>
+__device__ __forceinline__ T load(const T* p) {
+#if K2_HINTS
+  return __ldcs(p);
+#else
+  return *p;
+#endif
+}
+
+template <class T>
+__device__ __forceinline__ void store(T* p, T v) {
+#if K2_HINTS
+  __stcs(p, v);
+#else
+  *p = v;
+#endif
+}
+
+// Row i: zeroed if dead and not empty; returns 1 if live.
+__device__ __forceinline__ unsigned sweep_row(long long* key,
+                                              long long* exp, int64_t i,
+                                              long long now) {
+  const long long x = load(exp + i), k = load(key + i);
+  if (x <= now) {
+    if ((k | x) != 0) {
+      store(key + i, 0LL);
+      store(exp + i, 0LL);
     }
+    return 0;
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-  __shared__ unsigned long long warp_sum[WARPS];
+  return k != 0;
+}
+
+// Vector i of the aligned body (rows 2i and 2i + 1), read as k and x:
+// zeroes its dead rows that are not empty; returns its live rows.
+__device__ __forceinline__ unsigned sweep_pair(longlong2 k, longlong2 x,
+                                               longlong2* kv, longlong2* xv,
+                                               int64_t i, long long now) {
+  const bool d0 = x.x <= now, d1 = x.y <= now;
+  const bool w0 = d0 && (k.x | x.x) != 0;
+  const bool w1 = d1 && (k.y | x.y) != 0;
+  if (w0 && w1) {
+    store(kv + i, make_longlong2(0, 0));
+    store(xv + i, make_longlong2(0, 0));
+  } else if (w0 || w1) {
+    const int64_t r = 2 * i + w1;
+    store(reinterpret_cast<long long*>(kv) + r, 0LL);
+    store(reinterpret_cast<long long*>(xv) + r, 0LL);
+  }
+  return (unsigned)(!d0 && k.x != 0) + (!d1 && k.y != 0);
+}
+
+// The block's counts summed (per warp, then across warps) and added to
+// ``live`` with one atomic.
+__device__ __forceinline__ void add_block_count(unsigned cnt,
+                                                unsigned long long* live) {
+  cnt = __reduce_add_sync(0xffffffffu, cnt);
+  __shared__ unsigned warp_sum[WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warp_sum[warp] = cnt;
   __syncthreads();
   if (warp == 0) {
-    cnt = lane < WARPS ? warp_sum[lane] : 0;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-    if (lane == 0 && cnt) atomicAdd(live, cnt);
+    cnt = __reduce_add_sync(0xffffffffu, lane < WARPS ? warp_sum[lane] : 0u);
+    if (lane == 0 && cnt) atomicAdd(live, (unsigned long long)cnt);
   }
+}
+
+__global__ void __launch_bounds__(THREADS)
+sweep_kernel(long long* __restrict__ key, long long* __restrict__ exp,
+             int64_t n, long long now, int64_t head, bool vec,
+             unsigned long long* __restrict__ live,
+             unsigned long long* __restrict__ clear) {
+  const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t nthreads = (int64_t)gridDim.x * THREADS;
+  if (tid == 0) *clear = 0;  // the next launch's slot
+  unsigned cnt = 0;
+  if (!vec) {
+    for (int64_t i = tid; i < n; i += nthreads)
+      cnt += sweep_row(key, exp, i, now);
+  } else {
+    const int64_t nvec = (n - head) / 2;
+    const int64_t tail = head + nvec * 2;
+    if (tid < head) cnt += sweep_row(key, exp, tid, now);
+    if (tid < n - tail) cnt += sweep_row(key, exp, tail + tid, now);
+    longlong2* kv = reinterpret_cast<longlong2*>(key + head);
+    longlong2* xv = reinterpret_cast<longlong2*>(exp + head);
+    const int64_t step = nthreads * UNROLL;
+    for (int64_t base = (int64_t)blockIdx.x * THREADS * UNROLL + threadIdx.x;
+         base < nvec; base += step) {
+      longlong2 k[UNROLL], x[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int64_t i = base + u * THREADS;
+        if (i < nvec) {
+          x[u] = load(xv + i);
+          k[u] = load(kv + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int64_t i = base + u * THREADS;
+        if (i < nvec) cnt += sweep_pair(k[u], x[u], kv, xv, i, now);
+      }
+    }
+  }
+  add_block_count(cnt, live);
+}
+
+#if K2_TMA
+// The TMA design, for comparison (nvcc -DK2_TMA=1): a persistent grid in
+// which each block walks its tiles of K2_TMA_ROWS rows through a ring of
+// STAGES shared-memory stages.  One thread keeps the ring full with
+// cp.async.bulk copies of both columns, each stage's mbarrier counting
+// the bytes in; every thread then reads its rows from shared memory and
+// writes the zeros to device memory as the vector design does.  Rows
+// outside the aligned body (the head, the tail) are block 0's.
+constexpr int STAGES = 4;
+constexpr int TMA_VECS = K2_TMA_ROWS / 2;
+constexpr int TMA_SMEM = 2 * STAGES * TMA_VECS * (int)sizeof(longlong2);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__global__ void __launch_bounds__(THREADS)
+sweep_kernel_tma(long long* __restrict__ key, long long* __restrict__ exp,
+                 int64_t n, long long now, int64_t head,
+                 unsigned long long* __restrict__ live,
+                 unsigned long long* __restrict__ clear) {
+  extern __shared__ __align__(128) longlong2 ring[];  // [2][STAGES][VECS]
+  __shared__ __align__(8) uint64_t full[STAGES];
+  const int64_t nvec = (n - head) / 2, tail = head + 2 * nvec;
+  const int64_t tiles = (nvec + TMA_VECS - 1) / TMA_VECS;
+  longlong2* kv = reinterpret_cast<longlong2*>(key + head);
+  longlong2* xv = reinterpret_cast<longlong2*>(exp + head);
+  unsigned cnt = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *clear = 0;
+    if (head) cnt += sweep_row(key, exp, 0, now);
+    if (tail < n) cnt += sweep_row(key, exp, tail, now);
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_u32(&full[s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int64_t t, int s) {
+    const int64_t v0 = t * TMA_VECS;
+    const uint32_t bytes =
+        16u * (uint32_t)(nvec - v0 < TMA_VECS ? nvec - v0 : TMA_VECS);
+    const uint32_t bar = smem_u32(&full[s]);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(2 * bytes) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+                 "::bytes [%0], [%1], %2, [%3];"
+                 :: "r"(smem_u32(ring + s * TMA_VECS)), "l"(kv + v0),
+                    "r"(bytes), "r"(bar) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+                 "::bytes [%0], [%1], %2, [%3];"
+                 :: "r"(smem_u32(ring + (STAGES + s) * TMA_VECS)),
+                    "l"(xv + v0), "r"(bytes), "r"(bar) : "memory");
+  };
+  if (threadIdx.x == 0)
+    for (int s = 0; s < STAGES; ++s) {
+      const int64_t t = blockIdx.x + (int64_t)s * gridDim.x;
+      if (t < tiles) issue(t, s);
+    }
+  int j = 0;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+    const int s = j % STAGES;
+    const uint32_t bar = smem_u32(&full[s]), parity = (j / STAGES) & 1;
+    uint32_t done = 0;
+    while (!done)
+      asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64"
+                   " p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+                   : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    const int64_t v0 = t * TMA_VECS;
+    const int vecs = (int)(nvec - v0 < TMA_VECS ? nvec - v0 : TMA_VECS);
+    const longlong2* sk = ring + s * TMA_VECS;
+    const longlong2* sx = ring + (STAGES + s) * TMA_VECS;
+    for (int v = threadIdx.x; v < vecs; v += THREADS)
+      cnt += sweep_pair(sk[v], sx[v], kv, xv, v0 + v, now);
+    __syncthreads();  // every thread is done with stage s
+    if (threadIdx.x == 0 && t + (int64_t)STAGES * gridDim.x < tiles)
+      issue(t + (int64_t)STAGES * gridDim.x, s);
+  }
+  add_block_count(cnt, live);
+}
+#endif
+
+// Each device's SM count, read once (0: not read yet).
+constexpr int MAX_DEVICES = 64;
+std::atomic<int> sm_count[MAX_DEVICES];
+
+cudaError_t device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int known = dev < MAX_DEVICES
+      ? sm_count[dev].load(std::memory_order_relaxed) : 0;
+  if (known > 0) {
+    *sms = known;
+    return e;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < MAX_DEVICES)
+    sm_count[dev].store(*sms, std::memory_order_relaxed);
+  return e;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch K2 on ``stream`` over n rows.  ``live`` is one zeroed 64-bit
-// counter on the device; the count of live rows is added to it.
-// Returns cudaGetLastError() (0 = launched).
+// Launch K2 on ``stream`` over n rows: the count of live rows is added to
+// the 64-bit counter ``live``, and the counter ``clear`` is zeroed (the
+// next launch's ``live``).  Returns cudaGetLastError() (0 = launched).
 int guber_sweep(void* key, void* expire_at, int64_t n, int64_t now,
-                void* live, void* stream) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // enough resident blocks to fill every SM (8 x 256 threads each), no
-  // more: the grid-stride loop covers the rest of the rows
-  int64_t blocks = (n + THREADS - 1) / THREADS;
-  const int64_t full = (int64_t)sms * 8;
-  if (blocks > full) blocks = full;
+                void* live, void* clear, void* stream) {
+  int sms = 0;
+  const cudaError_t e = device_sms(&sms);
+  if (e != cudaSuccess) return (int)e;
+  // int64 columns sit 0 or 8 bytes past a 16-byte boundary
+  const uintptr_t mis = (uintptr_t)key & 15;
+  const bool vec = ((uintptr_t)expire_at & 15) == mis;
+  const int64_t head = vec && mis && n > 0 ? 1 : 0;
+#if K2_TMA
+  if (vec) {
+    cudaFuncSetAttribute(sweep_kernel_tma,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         TMA_SMEM);
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_kernel_tma,
+                                                  THREADS, TMA_SMEM);
+    const int64_t tiles = ((n - head) / 2 + TMA_VECS - 1) / TMA_VECS;
+    int64_t blocks = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    if (blocks > tiles) blocks = tiles;
+    if (blocks < 1) blocks = 1;
+    sweep_kernel_tma<<<(unsigned)blocks, THREADS, TMA_SMEM,
+                       (cudaStream_t)stream>>>(
+        (long long*)key, (long long*)expire_at, n, (long long)now, head,
+        (unsigned long long*)live, (unsigned long long*)clear);
+    return (int)cudaGetLastError();
+  }
+#endif
+  // one step per thread, at most K2_BLOCKS_PER_SM blocks on each SM
+  const int64_t per_block = vec ? (int64_t)THREADS * UNROLL * 2 : THREADS;
+  int64_t blocks = (n + per_block - 1) / per_block;
+  const int64_t most = (int64_t)sms * K2_BLOCKS_PER_SM;
+  if (blocks > most) blocks = most;
   if (blocks < 1) blocks = 1;
   sweep_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (int64_t*)key, (int64_t*)expire_at, n, now,
-      (unsigned long long*)live);
+      (long long*)key, (long long*)expire_at, n, (long long)now, head, vec,
+      (unsigned long long*)live, (unsigned long long*)clear);
   return (int)cudaGetLastError();
 }
 

@@ -85,7 +85,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.guber_decide.restype = ctypes.c_int
     lib.guber_decide_smem.argtypes = []
     lib.guber_decide_smem.restype = i64
-    lib.guber_sweep.argtypes = [p, p, ctypes.c_int64, ctypes.c_int64, p, p]
+    lib.guber_sweep.argtypes = [p, p, i64, i64, p, p, p]
     lib.guber_sweep.restype = ctypes.c_int
     lib.guber_probe_add.argtypes = [p, p, p, ctypes.c_int64, p]
     lib.guber_probe_add.restype = ctypes.c_int

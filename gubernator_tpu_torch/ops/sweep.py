@@ -13,12 +13,25 @@ behave the same on their next access, so the sweep changes no decision.
 All three update ``state.key`` and ``state.expire_at`` in place (the JAX
 sweep returns a new state) and return the live count as a 0-d int64
 device tensor; the caller reads it with one ``.item()``.
+
+A sweep on the card is one launch and allocates nothing: each stream of
+a device has a ring of ``RING`` counters, zeroed once, and each launch
+adds its count into its slot and zeroes the next one, which the next
+launch on the stream takes.  The count a sweep returns stays valid for
+``RING - 2`` further sweeps on its stream (the one after clears it).
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
+
+#: counters in each stream's ring
+RING = 64
+#: (device index, stream handle) -> [the ring, its next slot]
+_rings: dict = {}
+_rings_mu = threading.Lock()
 
 from ..core.table import TableState
 
@@ -45,17 +58,23 @@ def sweep_cuda(state: TableState, now) -> torch.Tensor:
         raise ValueError("key and expire_at must be contiguous int64 "
                          "columns of one length")
     lib = load_library()
-    live = torch.zeros(1, dtype=torch.int64, device=key.device)
-    with torch.cuda.device(key.device):
+    stream = torch.cuda.current_stream(key.device).cuda_stream
+    with _rings_mu, torch.cuda.device(key.device):
+        ring = _rings.get((key.device.index, stream))
+        if ring is None:
+            ring = _rings[(key.device.index, stream)] = [torch.zeros(
+                RING, dtype=torch.int64, device=key.device), 0]
+        counts, slot = ring
         rc = lib.guber_sweep(
             key.data_ptr(), exp.data_ptr(), ctypes.c_int64(key.numel()),
-            ctypes.c_int64(int(now)), live.data_ptr(),
-            torch.cuda.current_stream(key.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"K2 launch failed: CUDA error {rc} "
-                           f"({lib.guber_error_string(rc).decode()})")
-    sweep_cuda.launches += 1
-    return live[0]
+            ctypes.c_int64(int(now)), counts.data_ptr() + 8 * slot,
+            counts.data_ptr() + 8 * ((slot + 1) % RING), stream)
+        if rc != 0:
+            raise RuntimeError(f"K2 launch failed: CUDA error {rc} "
+                               f"({lib.guber_error_string(rc).decode()})")
+        ring[1] = (slot + 1) % RING
+        sweep_cuda.launches += 1
+    return counts[slot]
 
 
 #: K2 launches since the last reset (chip_smoke.py proves the classic

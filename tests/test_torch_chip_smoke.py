@@ -1,7 +1,8 @@
-"""chip_smoke.py's phase 4 and chip_ab.py's threshold sweep rehearsed on
-the CPU at a small size: the plain step stands in for K1 and the host
-clock for CUDA events, so the phases' wave making, table fill, checks
-and bookkeeping run here before they run on the card."""
+"""chip_smoke.py's phases 4 and 6 and chip_ab.py's threshold sweep and K2
+section rehearsed on the CPU at a small size: the plain versions stand
+in for K1 and K2 and the host clock for CUDA events, so the phases'
+wave making, table fill, checks, timing set-up and bookkeeping run here
+before they run on the card."""
 import time
 import types
 
@@ -83,3 +84,92 @@ def test_threshold_sweep_rehearses_on_the_cpu(rehearsal):
     assert all(list(v) == list(chip_ab.HOT_SWEEP) for v in sweep.values())
     assert sorted(set(launches)) == sorted(chip_ab.HOT_SWEEP)
     assert np.isfinite([t for v in sweep.values() for t in v.values()]).all()
+
+
+@pytest.fixture()
+def sweep_rehearsal(monkeypatch):
+    """Phase 6 at 2^12 rows on the CPU: the plain sweep stands in for
+    K2 (counting its calls) and the host clock for CUDA events."""
+    from gubernator_tpu_torch.ops import sweep as swm
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "L2_FLUSH_BYTES", 1 << 16)
+    calls = []
+
+    def plain_for_k2(state, now):
+        calls.append(now)
+        return swm.sweep_plain(state, now)
+
+    monkeypatch.setattr(swm, "sweep_cuda", plain_for_k2)
+    args = types.SimpleNamespace(soa_log2_cap=12, keys=2_000, sweep_reps=2,
+                                 seed=0, rounds=2)
+    return args, calls, plain_for_k2
+
+
+def test_phase6_rehearses_on_the_cpu(sweep_rehearsal):
+    args, calls, _ = sweep_rehearsal
+    res = chip_smoke.phase_sweep_vs_plain(torch, args)
+    assert res["max_abs_err"] == 0 and res["rows"] == 1 << 12
+    assert 0 < res["live"] < res["placed"] and res["reclaimed"] > 0
+    for k in ("ms", "one_call_ms", "host_ms", "plain_ms"):
+        assert res[k] > 0
+    assert len(res["ms_runs"]) == len(res["one_call_ms_runs"]) == 2
+    assert res["bound_ms"] == pytest.approx(
+        16 * ((1 << 12) + res["reclaimed"]) / chip_smoke.HBM_BYTES_PER_S
+        * 1e3)
+    # the checked sweep, one untimed sweep of each measure, then a
+    # device-time and a one-call sweep a rep
+    assert len(calls) == 1 + 2 + 2 * args.sweep_reps
+
+
+def test_sweep_copies_restore_the_table_before_each_timed_sweep(
+        sweep_rehearsal):
+    from gubernator_tpu_torch.ops import sweep as swm
+
+    args, _, _ = sweep_rehearsal
+    st, now, *_ = chip_smoke.sweep_table(torch, args)
+    key, exp = st.key.clone(), st.expire_at.clone()
+    copies = chip_smoke.SweepCopies(torch, st)
+    lives = []
+    for _ in range(3):
+        ms, host = chip_smoke.time_sweep(
+            torch, copies, lambda s, t: lives.append(int(
+                swm.sweep_plain(s, t))), now, spin=True)
+        assert ms >= 0 and host >= 0
+    # every timed sweep found the full table, and the source is intact
+    assert len(set(lives)) == 1 and lives[0] < int((key != 0).sum())
+    assert torch.equal(st.key, key) and torch.equal(st.expire_at, exp)
+    assert bool((copies.flush == 1).all())
+
+
+def test_chip_ab_k2_section_rehearses_on_the_cpu(sweep_rehearsal):
+    args, calls, plain = sweep_rehearsal
+    prepared = []
+    versions = {"old": (plain, lambda: prepared.append(1), plain),
+                "new": (plain, None, plain),
+                "v": (plain, lambda: prepared.append(1), None)}
+    res = chip_ab.k2_ab(torch, args, versions)
+    # every version checked once, then an untimed round and the timed
+    # ones: old, new, v, v, new, old, at now and at the int64 ends, and
+    # one call for old and new
+    rounds = args.rounds + 1
+    assert len(calls) == 3 + rounds * (3 * 6 + 4)
+    for m in ("device", "read_only", "all_dead"):
+        assert {v: len(t) for v, t in res[m].items()} == {
+            "old": 4, "new": 4, "v": 4}
+    assert {v: len(t) for v, t in res["one_call"].items()} == {
+        "old": 4, "new": 4}
+    assert len(prepared) == 1 + 1 + rounds * 3 * 4
+    assert res["reclaimed"] > 0 and res["bound_ms"] > 0
+
+
+def test_chip_ab_k2_refuses_a_version_that_differs(sweep_rehearsal):
+    args, _, plain = sweep_rehearsal
+
+    def misses_the_boundary(state, now):
+        return plain(state, now - 1)
+
+    with pytest.raises(RuntimeError, match="bad K2 and the plain sweep"):
+        chip_ab.k2_ab(torch, args, {"new": (plain, None, plain),
+                                    "bad": (misses_the_boundary, None,
+                                            None)})

@@ -207,6 +207,173 @@ def test_k2_equals_plain(cuda, cap):
         assert torch.equal(a, b)
 
 
+K2_MIN, K2_MAX = -2 ** 63, 2 ** 63 - 1
+
+
+def k2_table(dev, n, kind="mixed", offsets=(0, 0), seed=0):
+    """A SoA table of n rows whose key and expire_at are views
+    ``offsets`` elements into columns of their own, with one guard row
+    after each view.  Guards and pad rows are dead and not empty, so a
+    stray write shows.  Kinds: ``mixed`` (live, expired, at now, empty
+    rows; about half the keys with the top bit set), ``empty``,
+    ``all_expired`` and ``none_expired``.  Returns (the table, the two
+    whole columns)."""
+    from gubernator_tpu_torch.core.table import TableState
+
+    rng = np.random.default_rng(seed)
+    key = rng.integers(K2_MIN, K2_MAX, n, dtype=np.int64, endpoint=True)
+    exp = NOW_SOA + rng.integers(-50_000, 50_000, n)
+    if kind == "mixed":
+        exp[::7] = NOW_SOA
+        key[::5] = 0
+        exp[::5] = 0
+        key[3::11] = 0  # empty key, live expire_at
+    elif kind == "empty":
+        key[:] = 0
+        exp[:] = 0
+    elif kind == "all_expired":
+        exp = NOW_SOA - rng.integers(0, 50_000, n)
+    elif kind == "none_expired":
+        exp = NOW_SOA + rng.integers(1, 50_000, n)
+    cols = []
+    for c, off in zip((key, exp), offsets):
+        whole = np.full(n + off + 1, 7, np.int64)
+        whole[off:off + n] = c
+        cols.append(torch.from_numpy(whole).to(dev))
+    (kw, xw), (ko, xo) = cols, offsets
+    cols[1][:xo] = NOW_SOA - 1
+    cols[1][xo + n:] = NOW_SOA - 1
+    others = {f: torch.from_numpy(rng.integers(-5, 1 << 40, n)).to(dev)
+              for f in TableState._fields if f not in ("key", "expire_at")}
+    others["meta"] = others["meta"].to(torch.int32)
+    st = TableState(key=kw[ko:ko + n], expire_at=xw[xo:xo + n], **others)
+    return st, (kw, xw)
+
+
+def k2_against_plain(st, whole, now):
+    """K2 on ``st`` and the plain sweep on a CPU copy: every column, the
+    guard and pad rows and the live count bit for bit; returns the live
+    count."""
+    from gubernator_tpu_torch.ops import sweep
+
+    sp = type(st)(*[c.cpu().clone() for c in st])
+    wp = [w.cpu().clone() for w in whole]
+    before = sweep.sweep_cuda.launches
+    live_k = sweep.sweep_cuda(st, now)
+    live_p = sweep.sweep_plain(sp, now)
+    torch.cuda.synchronize()
+    assert sweep.sweep_cuda.launches == before + 1
+    assert live_k.dim() == 0 and live_k.dtype == torch.int64
+    assert int(live_k) == int(live_p)
+    for f, a, b in zip(st._fields, st, sp):
+        assert torch.equal(a.cpu(), b), f
+    for w, p, v in zip(whole, wp, (st.key, st.expire_at)):
+        off = (v.data_ptr() - w.data_ptr()) // 8
+        p[off:off + v.numel()] = v.cpu()
+        assert torch.equal(w.cpu(), p), "a row outside the view changed"
+    return int(live_k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 31, 33, (1 << 16) - 1,
+                               (1 << 16) + 1, (1 << 20) + 3])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_k2_lengths_and_bases(cuda, n, offsets):
+    """Any length, with key and expire_at 0 or 8 bytes past a 16-byte
+    boundary: alike (vectors, with a scalar head at 8) or not (row by
+    row)."""
+    st, whole = k2_table(cuda, n, offsets=offsets, seed=n)
+    k2_against_plain(st, whole, NOW_SOA)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["empty", "all_expired", "none_expired",
+                                  "mixed"])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (0, 1)])
+def test_k2_table_kinds(cuda, kind, offsets):
+    st, whole = k2_table(cuda, (1 << 16) + 5, kind, offsets)
+    live = k2_against_plain(st, whole, NOW_SOA)
+    if kind in ("empty", "all_expired"):
+        assert live == 0
+    if kind == "none_expired":
+        assert live == int((st.key != 0).sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("now", [K2_MIN, K2_MAX])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 0)])
+def test_k2_now_at_the_int64_ends(cuda, now, offsets):
+    """now = int64 min: only rows at int64 min are dead; now = int64
+    max: every row is."""
+    st, whole = k2_table(cuda, 4099, offsets=offsets)
+    st.expire_at[::13] = K2_MIN
+    st.expire_at[1::13] = K2_MAX
+    live = k2_against_plain(st, whole, now)
+    if now == K2_MAX:
+        assert live == 0 and not bool(st.key.any())
+
+
+@pytest.mark.gpu
+def test_k2_keys_with_the_top_bit_set(cuda):
+    st, whole = k2_table(cuda, 10_000)
+    st.key.copy_(st.key | K2_MIN)  # every key negative as int64
+    st.expire_at[::2] = NOW_SOA - 1
+    live = k2_against_plain(st, whole, NOW_SOA)
+    assert live == int((st.expire_at > NOW_SOA).sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (1, 0)])
+def test_k2_second_sweep_reclaims_nothing(cuda, offsets):
+    st, whole = k2_table(cuda, (1 << 16) + 1, offsets=offsets)
+    first = k2_against_plain(st, whole, NOW_SOA)
+    cols = [c.clone() for c in st]
+    assert k2_against_plain(st, whole, NOW_SOA) == first
+    assert all(torch.equal(a, b) for a, b in zip(st, cols))
+
+
+@pytest.mark.gpu
+def test_k2_one_launch_and_no_allocation_a_sweep(cuda):
+    from gubernator_tpu_torch.ops import sweep
+
+    st, _ = k2_table(cuda, 1 << 16)
+    want = int(sweep.sweep_plain(type(st)(*[c.clone() for c in st]),
+                                 NOW_SOA))
+    sweep.sweep_cuda(st, NOW_SOA)  # the stream's counters, made once
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+    before = sweep.sweep_cuda.launches
+    counts = []
+    for i in range(2 * sweep.RING + 3):
+        counts.append(sweep.sweep_cuda(st, NOW_SOA))
+        assert sweep.sweep_cuda.launches == before + i + 1
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] \
+        == allocs
+    assert [int(c) for c in counts[-sweep.RING + 1:]] == \
+        [want] * (sweep.RING - 1)
+
+
+@pytest.mark.gpu
+def test_k2_count_outlives_the_next_sweeps(cuda):
+    """A count read after RING - 2 later sweeps of another table on the
+    same stream, and after a sweep on another stream, is its own."""
+    from gubernator_tpu_torch.ops import sweep
+
+    a, _ = k2_table(cuda, 5000, "none_expired", seed=1)
+    b, _ = k2_table(cuda, 3000, "none_expired", seed=2)
+    first = sweep.sweep_cuda(a, NOW_SOA)
+    later = [sweep.sweep_cuda(b, NOW_SOA) for _ in range(sweep.RING - 2)]
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        c, _ = k2_table(cuda, 777, "none_expired", seed=3)
+        on_side = sweep.sweep_cuda(c, NOW_SOA)
+    torch.cuda.synchronize()
+    assert int(first) == int((a.key != 0).sum()) > int(later[0])
+    assert {int(x) for x in later} == {int((b.key != 0).sum())}
+    assert int(on_side) == int((c.key != 0).sum())
+
+
 @pytest.mark.gpu
 def test_k3_equals_plain(cuda):
     from gubernator_tpu_torch.ops import probe
