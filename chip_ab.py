@@ -15,12 +15,12 @@ git), for example:
 The earlier K1 must take the same plan as the current one, without the
 ``hot`` and ``stats`` arguments (or with them: ``--old-k1-takes-hot``,
 then it runs at the same threshold); the earlier K3 the same
-arguments; the earlier K2 one zeroed 64-bit counter (PR 2's and PR 3's
+arguments; the earlier K2 one zeroed 64-bit counter (a six-argument
 ``guber_sweep``), which its wrapper allocated a call.  ``--stream side``
 runs everything on a stream of its own instead of PyTorch's default
 stream.  ``--k3-only`` and ``--k2-only`` compare one kernel.
 ``--k2-variant NAME=FLAGS`` (repeatable) also builds the current
-sweep.cu with extra nvcc flags (``-DK2_UNROLL=2``, ``-DK2_HINTS=1``,
+sweep.cu with extra nvcc flags (``-DK2_UNROLL=4``,
 ``-DK2_BLOCKS_PER_SM=8``) and times each beside the two.
 
 Each pair is first checked equal on the same input (K1: outputs and the
@@ -34,15 +34,15 @@ chip_smoke.py (2^24 rows, 10M keys, ~30% expired): every version's
 sweep of a fresh copy is checked equal to the plain version (key,
 expire_at, live count, the other columns untouched), then each timed
 launch sweeps a fresh copy followed by 128 MiB of writes and reads that
-flush the L2 cache; its device time is the launch alone (the earlier kernel's
-counter is zeroed before the spin), its one call the wrapper as it was
-(the earlier one allocates and zeroes its counter).  Device time is also
-taken with nothing expired (reads only) and with everything expired
-(every non-empty row zeroed).  K1 runs on phase
-4's table of chip_smoke.py (2^25 rows, 10M keys) after the same waves;
-the threshold sweep times the current K1 on every timed mixed and
-main-path wave.  The line before the last is nvidia-smi's name and power
-limit; the last line is one JSON object with every number.
+flush the L2 cache.  Its device time is the launch alone (the earlier
+kernel's counter is zeroed before the spin), also with nothing expired
+(reads only) and with everything expired (every non-empty row zeroed);
+its one call is the wrapper as it was (the earlier one allocates and
+zeroes its counter).  K1 runs on phase 4's table of chip_smoke.py (2^25
+rows, 10M keys) after the same waves; the threshold sweep times the
+current K1 on every timed mixed and main-path wave.  The line before
+the last is nvidia-smi's name and power limit; the last line is one
+JSON object with every number.
 """
 from __future__ import annotations
 
@@ -360,7 +360,6 @@ def main(argv=None) -> int:
     import torch
 
     from gubernator_tpu_torch.ops import decide as dmod
-
     from gubernator_tpu_torch.ops import sweep as swm
 
     variants = dict(v.split("=", 1) for v in args.k2_variant)

@@ -13,29 +13,43 @@
 // split-word compare computes).
 //
 // Bound.  Bytes: 16 B read per row (key, expire_at) plus 16 B written per
-// row it reclaims (dead and not empty), at 3.35 TB/s: on phase 6 of
-// chip_smoke.py (2^24 rows, ~3M reclaimed) 0.094 ms.  The arithmetic is
-// a compare and an add per row.  The card cannot write less than a
-// 32-byte sector, so scattered reclaimed rows dirty more bytes than they
-// hold: with ~18% of the rows reclaimed, ~55% of the sectors of both
-// columns are written back.
+// row it reclaims (dead and not empty), at 3.35 TB/s.  On chip_smoke.py's
+// phase 6 table (2^24 rows, 2,963,467 reclaimed) that is 16 B x
+// (16,777,216 + 2,963,467) = 316 MB, 0.0943 ms.  The arithmetic is a
+// compare and an add per row.  That bound is out of reach: the reclaimed
+// rows lie where the hash put their keys, and device memory is written
+// in bursts, so with 18% of the rows reclaimed ~79% of each column's
+// 64-byte chunks are written back.  On an H100 the sweep takes ~0.158
+// ms, ~3 TB/s over what it moves, the rate a pure read of both columns
+// reaches (~0.090 ms, with nothing expired).
 //
 // Design.  A stream at the memory rate needs ~2.3 MB in flight across
 // the card (3.35 TB/s x ~0.7 us), ~18 KB per SM, and wide accesses:
 //
 // - 16-byte vectors: each thread loads UNROLL longlong2 (two rows each)
-//   of expire_at and of key, all of them before any compare;
+//   of expire_at and of key per step, all of them before any compare:
+//   with UNROLL 1, 32 B a thread, ~48 KB per SM at 6 resident blocks;
 // - a grid sized from the SM count (read once per device): one step per
-//   thread up to BLOCKS_PER_SM blocks on each SM, more steps beyond;
+//   thread up to BLOCKS_PER_SM blocks on each SM, more steps beyond
+//   (~4 on 2^24 rows);
 // - zeros are written only where a dead row still holds something (the
-//   TPU kernel rewrites every row; the result is the same): one 16-byte
-//   store per column where both rows of a vector change, row by row
-//   where one does;
+//   TPU kernel rewrites every row, which would move 537 MB here): one
+//   16-byte store per column where both rows of a vector change, row by
+//   row where one does;
 // - the scalar head (one row, when the bases sit 8 bytes past a 16-byte
 //   boundary) and tail (the last row of an odd body) in the same kernel.
 //   When key and expire_at sit at different offsets from a 16-byte
 //   boundary no vector lines up in both, and the same kernel walks the
 //   rows one by one.
+//
+// Measured on an H100 (chip_ab.py, PERF.md): one vector per column a
+// step took ~2% less than two or four, or the earlier kernel's 8-byte
+// loads, on the sweep, and as little as any with nothing expired; 8,
+// 16 or 32 blocks per SM with longer grid-stride loops took 1-10% more,
+// streaming cache hints (__ldcs / __stcs) 26%, and a TMA design
+// (cp.async.bulk into a ring of 4 shared-memory stages per block, one
+// thread keeping it full) 11-23%.  nvcc 12.9 -Xptxas -v: 33 registers,
+// 32 B of shared memory, no spills.
 //
 // The count.  Blocks run in no order, so the count is reduced per thread,
 // then per warp (__reduce_add_sync), then per block in shared memory, and
@@ -50,24 +64,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// Vectors per column per thread per step.
+// Vectors per column per thread per step, and most blocks of the grid per
+// SM (chip_ab.py --k2-variant builds other values).
 #ifndef K2_UNROLL
-#define K2_UNROLL 4
+#define K2_UNROLL 1
 #endif
-// 1: streaming cache hints (__ldcs / __stcs) on every access.
-#ifndef K2_HINTS
-#define K2_HINTS 0
-#endif
-// Most blocks of the grid per SM.
 #ifndef K2_BLOCKS_PER_SM
 #define K2_BLOCKS_PER_SM 64
-#endif
-// 1: the TMA design below instead, each stage K2_TMA_ROWS rows.
-#ifndef K2_TMA
-#define K2_TMA 0
-#endif
-#ifndef K2_TMA_ROWS
-#define K2_TMA_ROWS 2048
 #endif
 
 namespace {
@@ -76,33 +79,15 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int UNROLL = K2_UNROLL;
 
-template <class T>
-__device__ __forceinline__ T load(const T* p) {
-#if K2_HINTS
-  return __ldcs(p);
-#else
-  return *p;
-#endif
-}
-
-template <class T>
-__device__ __forceinline__ void store(T* p, T v) {
-#if K2_HINTS
-  __stcs(p, v);
-#else
-  *p = v;
-#endif
-}
-
 // Row i: zeroed if dead and not empty; returns 1 if live.
 __device__ __forceinline__ unsigned sweep_row(long long* key,
                                               long long* exp, int64_t i,
                                               long long now) {
-  const long long x = load(exp + i), k = load(key + i);
+  const long long x = exp[i], k = key[i];
   if (x <= now) {
     if ((k | x) != 0) {
-      store(key + i, 0LL);
-      store(exp + i, 0LL);
+      key[i] = 0;
+      exp[i] = 0;
     }
     return 0;
   }
@@ -118,12 +103,12 @@ __device__ __forceinline__ unsigned sweep_pair(longlong2 k, longlong2 x,
   const bool w0 = d0 && (k.x | x.x) != 0;
   const bool w1 = d1 && (k.y | x.y) != 0;
   if (w0 && w1) {
-    store(kv + i, make_longlong2(0, 0));
-    store(xv + i, make_longlong2(0, 0));
+    kv[i] = make_longlong2(0, 0);
+    xv[i] = make_longlong2(0, 0);
   } else if (w0 || w1) {
     const int64_t r = 2 * i + w1;
-    store(reinterpret_cast<long long*>(kv) + r, 0LL);
-    store(reinterpret_cast<long long*>(xv) + r, 0LL);
+    reinterpret_cast<long long*>(kv)[r] = 0;
+    reinterpret_cast<long long*>(xv)[r] = 0;
   }
   return (unsigned)(!d0 && k.x != 0) + (!d1 && k.y != 0);
 }
@@ -170,8 +155,8 @@ sweep_kernel(long long* __restrict__ key, long long* __restrict__ exp,
       for (int u = 0; u < UNROLL; ++u) {
         const int64_t i = base + u * THREADS;
         if (i < nvec) {
-          x[u] = load(xv + i);
-          k[u] = load(kv + i);
+          x[u] = xv[i];
+          k[u] = kv[i];
         }
       }
 #pragma unroll
@@ -183,90 +168,6 @@ sweep_kernel(long long* __restrict__ key, long long* __restrict__ exp,
   }
   add_block_count(cnt, live);
 }
-
-#if K2_TMA
-// The TMA design, for comparison (nvcc -DK2_TMA=1): a persistent grid in
-// which each block walks its tiles of K2_TMA_ROWS rows through a ring of
-// STAGES shared-memory stages.  One thread keeps the ring full with
-// cp.async.bulk copies of both columns, each stage's mbarrier counting
-// the bytes in; every thread then reads its rows from shared memory and
-// writes the zeros to device memory as the vector design does.  Rows
-// outside the aligned body (the head, the tail) are block 0's.
-constexpr int STAGES = 4;
-constexpr int TMA_VECS = K2_TMA_ROWS / 2;
-constexpr int TMA_SMEM = 2 * STAGES * TMA_VECS * (int)sizeof(longlong2);
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__global__ void __launch_bounds__(THREADS)
-sweep_kernel_tma(long long* __restrict__ key, long long* __restrict__ exp,
-                 int64_t n, long long now, int64_t head,
-                 unsigned long long* __restrict__ live,
-                 unsigned long long* __restrict__ clear) {
-  extern __shared__ __align__(128) longlong2 ring[];  // [2][STAGES][VECS]
-  __shared__ __align__(8) uint64_t full[STAGES];
-  const int64_t nvec = (n - head) / 2, tail = head + 2 * nvec;
-  const int64_t tiles = (nvec + TMA_VECS - 1) / TMA_VECS;
-  longlong2* kv = reinterpret_cast<longlong2*>(key + head);
-  longlong2* xv = reinterpret_cast<longlong2*>(exp + head);
-  unsigned cnt = 0;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    *clear = 0;
-    if (head) cnt += sweep_row(key, exp, 0, now);
-    if (tail < n) cnt += sweep_row(key, exp, tail, now);
-  }
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                   :: "r"(smem_u32(&full[s])) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  auto issue = [&](int64_t t, int s) {
-    const int64_t v0 = t * TMA_VECS;
-    const uint32_t bytes =
-        16u * (uint32_t)(nvec - v0 < TMA_VECS ? nvec - v0 : TMA_VECS);
-    const uint32_t bar = smem_u32(&full[s]);
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(bar), "r"(2 * bytes) : "memory");
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
-                 "::bytes [%0], [%1], %2, [%3];"
-                 :: "r"(smem_u32(ring + s * TMA_VECS)), "l"(kv + v0),
-                    "r"(bytes), "r"(bar) : "memory");
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
-                 "::bytes [%0], [%1], %2, [%3];"
-                 :: "r"(smem_u32(ring + (STAGES + s) * TMA_VECS)),
-                    "l"(xv + v0), "r"(bytes), "r"(bar) : "memory");
-  };
-  if (threadIdx.x == 0)
-    for (int s = 0; s < STAGES; ++s) {
-      const int64_t t = blockIdx.x + (int64_t)s * gridDim.x;
-      if (t < tiles) issue(t, s);
-    }
-  int j = 0;
-  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
-    const int s = j % STAGES;
-    const uint32_t bar = smem_u32(&full[s]), parity = (j / STAGES) & 1;
-    uint32_t done = 0;
-    while (!done)
-      asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64"
-                   " p, [%1], %2; selp.u32 %0, 1, 0, p; }"
-                   : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    const int64_t v0 = t * TMA_VECS;
-    const int vecs = (int)(nvec - v0 < TMA_VECS ? nvec - v0 : TMA_VECS);
-    const longlong2* sk = ring + s * TMA_VECS;
-    const longlong2* sx = ring + (STAGES + s) * TMA_VECS;
-    for (int v = threadIdx.x; v < vecs; v += THREADS)
-      cnt += sweep_pair(sk[v], sx[v], kv, xv, v0 + v, now);
-    __syncthreads();  // every thread is done with stage s
-    if (threadIdx.x == 0 && t + (int64_t)STAGES * gridDim.x < tiles)
-      issue(t + (int64_t)STAGES * gridDim.x, s);
-  }
-  add_block_count(cnt, live);
-}
-#endif
 
 // Each device's SM count, read once (0: not read yet).
 constexpr int MAX_DEVICES = 64;
@@ -304,25 +205,6 @@ int guber_sweep(void* key, void* expire_at, int64_t n, int64_t now,
   const uintptr_t mis = (uintptr_t)key & 15;
   const bool vec = ((uintptr_t)expire_at & 15) == mis;
   const int64_t head = vec && mis && n > 0 ? 1 : 0;
-#if K2_TMA
-  if (vec) {
-    cudaFuncSetAttribute(sweep_kernel_tma,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         TMA_SMEM);
-    int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_kernel_tma,
-                                                  THREADS, TMA_SMEM);
-    const int64_t tiles = ((n - head) / 2 + TMA_VECS - 1) / TMA_VECS;
-    int64_t blocks = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-    if (blocks > tiles) blocks = tiles;
-    if (blocks < 1) blocks = 1;
-    sweep_kernel_tma<<<(unsigned)blocks, THREADS, TMA_SMEM,
-                       (cudaStream_t)stream>>>(
-        (long long*)key, (long long*)expire_at, n, (long long)now, head,
-        (unsigned long long*)live, (unsigned long long*)clear);
-    return (int)cudaGetLastError();
-  }
-#endif
   // one step per thread, at most K2_BLOCKS_PER_SM blocks on each SM
   const int64_t per_block = vec ? (int64_t)THREADS * UNROLL * 2 : THREADS;
   int64_t blocks = (n + per_block - 1) / per_block;

@@ -27,13 +27,13 @@ import threading
 
 import torch
 
+from ..core.table import TableState
+
 #: counters in each stream's ring
 RING = 64
 #: (device index, stream handle) -> [the ring, its next slot]
 _rings: dict = {}
 _rings_mu = threading.Lock()
-
-from ..core.table import TableState
 
 
 def sweep_plain(state: TableState, now) -> torch.Tensor:
