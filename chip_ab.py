@@ -15,13 +15,12 @@ git), for example:
 The earlier K1 must take the same plan as the current one, without the
 ``hot`` and ``stats`` arguments (or with them: ``--old-k1-takes-hot``,
 then it runs at the same threshold); the earlier K3 the same
-arguments; the earlier K2 one zeroed 64-bit counter (a six-argument
-``guber_sweep``), which its wrapper allocated a call.  ``--stream side``
-runs everything on a stream of its own instead of PyTorch's default
-stream.  ``--k3-only`` and ``--k2-only`` compare one kernel.
-``--k2-variant NAME=FLAGS`` (repeatable) also builds the current
-sweep.cu with extra nvcc flags (``-DK2_UNROLL=4``,
-``-DK2_BLOCKS_PER_SM=8``) and times each beside the two.
+arguments; the earlier K2 either one zeroed 64-bit counter (a
+six-argument ``guber_sweep``, which its wrapper allocated a call) or the
+current seven arguments (then both K2s are launched raw, the same way).
+``--stream side`` runs everything on a stream of its own instead of
+PyTorch's default stream.  ``--k3-only`` and ``--k2-only`` compare one
+kernel.
 
 Each pair is first checked equal on the same input (K1: outputs and the
 whole table), then timed in turns, old, new, new, old, with two
@@ -37,18 +36,19 @@ launch sweeps a fresh copy followed by 128 MiB of writes and reads that
 flush the L2 cache.  Its device time is the launch alone (the earlier
 kernel's counter is zeroed before the spin), also with nothing expired
 (reads only) and with everything expired (every non-empty row zeroed);
-its one call is the wrapper as it was (the earlier one allocates and
-zeroes its counter).  K1 runs on phase 4's table of chip_smoke.py (2^25
-rows, 10M keys) after the same waves; the threshold sweep times the
-current K1 on every timed mixed and main-path wave.  The line before
-the last is nvidia-smi's name and power limit; the last line is one
-JSON object with every number.
+its one call is the wrapper as it was (the earlier six-argument one
+allocates and zeroes its counter).  K1 runs on phase 4's table of
+chip_smoke.py (2^25 rows, 10M keys) after the same waves; the threshold
+sweep times the current K1 on every timed mixed and main-path wave.
+The line before the last is nvidia-smi's name and power limit; the last
+line is one JSON object with every number.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -65,42 +65,37 @@ HOT_SWEEP = (0, 4, 8, 12, 16, 24, 32, 48, 64, 128, 1 << 20)
 TURNS = ("old", "new", "new", "old")
 
 
-def build_libs(sources: dict) -> dict:
-    """Each of ``sources`` ({name: (path of a .cu, extra nvcc flags)})
-    built into a library of its own under build/chip_ab/, one nvcc each,
-    started together."""
+def takes_ring(sweep_cu: Path) -> bool:
+    """Whether the ``guber_sweep`` of ``sweep_cu`` takes the current
+    seven arguments (the count's counter and the one to clear)."""
+    sig = re.search(r"int guber_sweep\(([^)]*)\)", sweep_cu.read_text())
+    return sig is not None and sig.group(1).count(",") == 6
+
+
+def build_old(csrc: Path, takes_hot: bool, names, k2_ring: bool) -> dict:
+    """The earlier sources of ``names`` (of decide, probe, sweep), each
+    built into a library of its own (one nvcc each, started together)
+    under build/chip_ab/, and bound."""
     from gubernator_tpu_torch.ops import build
 
     out_dir = build.BUILD_DIR.parent / "chip_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = build.nvcc_path()
     procs = {}
-    for name, (src, extra) in sources.items():
-        lib = out_dir / f"{name}.so"
+    for name in names:
+        lib = out_dir / f"old_{name}.so"
         procs[name] = (lib, subprocess.Popen(
-            [nvcc, *build.ARCH, *build.FLAGS, *extra, "-shared", "-o",
-             str(lib), str(src)], stdout=subprocess.PIPE,
+            [nvcc, *build.ARCH, *build.FLAGS, "-shared", "-o", str(lib),
+             str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, p) in procs.items():
         text, _ = p.communicate()
-        cs.require(p.returncode == 0, f"nvcc for {name}:\n{text}")
+        cs.require(p.returncode == 0, f"nvcc on the old {name}.cu:\n{text}")
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  ptxas ({name}):", line.strip(), flush=True)
+                print(f"  ptxas (old {name}):", line.strip(), flush=True)
         libs[name] = ctypes.CDLL(str(lib))
-    return libs
-
-
-def build_old(csrc: Path, takes_hot: bool, names, variants: dict) -> dict:
-    """The earlier sources of ``names`` (of decide, probe, sweep), and the
-    current sweep.cu once per entry of ``variants`` ({name: nvcc flags}),
-    built and bound."""
-    from gubernator_tpu_torch.ops import build
-
-    libs = build_libs({**{n: (csrc / f"{n}.cu", []) for n in names},
-                       **{v: (build.CSRC / "sweep.cu", flags)
-                          for v, flags in variants.items()}})
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     if "decide" in libs:
         libs["decide"].guber_decide.argtypes = (
@@ -110,11 +105,9 @@ def build_old(csrc: Path, takes_hot: bool, names, variants: dict) -> dict:
         libs["probe"].guber_probe_add.argtypes = [ptr, ptr, ptr, i64, ptr]
         libs["probe"].guber_probe_add.restype = ctypes.c_int
     if "sweep" in libs:
-        libs["sweep"].guber_sweep.argtypes = [ptr, ptr, i64, i64, ptr, ptr]
+        libs["sweep"].guber_sweep.argtypes = (
+            [ptr, ptr, i64, i64, ptr] + [ptr] * k2_ring + [ptr])
         libs["sweep"].guber_sweep.restype = ctypes.c_int
-    for v in variants:
-        libs[v].guber_sweep.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr]
-        libs[v].guber_sweep.restype = ctypes.c_int
     return libs
 
 
@@ -158,35 +151,36 @@ def k3_ab(torch, old_lib, args) -> dict:
     return res
 
 
-def k2_raw(torch, lib, counters: int):
+def k2_raw(torch, lib, ring: bool):
     """A raw launch of a K2 library on a table: the earlier signature (one
-    counter) when ``counters`` is 1, the current one (the count's slot
-    and the slot to clear) when 2.  Returns (launch, the counter's
-    zeroing, one call as the earlier wrapper made it)."""
-    cnt = torch.zeros(counters, dtype=torch.int64, device="cuda")
+    counter, which its wrapper allocated and zeroed a call) or, with
+    ``ring``, the current one (the count's counter and one the kernel
+    zeroes).  Returns (launch, the count's zeroing, one call as its
+    wrapper made it)."""
+    cnt = torch.zeros(2, dtype=torch.int64, device="cuda")
 
     def launch(state, now, live=cnt):
-        ptrs = [live.data_ptr()] + [live.data_ptr() + 8] * (counters - 1)
+        clear = [live.data_ptr() + 8] * ring
         rc = lib.guber_sweep(state.key.data_ptr(),
                              state.expire_at.data_ptr(), state.key.numel(),
-                             int(now), *ptrs,
+                             int(now), live.data_ptr(), *clear,
                              torch.cuda.current_stream().cuda_stream)
         cs.require(rc == 0, f"K2 launch failed: {rc}")
         return live[0]
 
     def one_call(state, now):
         return launch(state, now, torch.zeros(
-            counters, dtype=torch.int64, device=state.key.device))
+            1, dtype=torch.int64, device=state.key.device))
 
-    return launch, cnt.zero_, one_call
+    return launch, cnt.zero_, launch if ring else one_call
 
 
 def k2_ab(torch, args, versions: dict) -> dict:
-    """K2 versions ({name: (device-time call, its prepare or None, one
-    call or None)}, each call ``(state, now) -> live count``) on phase
-    6's table: each equal to the plain version, then timed in turns
-    (old, new, the variants, the variants reversed, new, old) on fresh,
-    L2-flushed copies, after one untimed round."""
+    """K2, earlier and current ({"old" / "new": (device-time call, its
+    prepare or None, one call)}, each call ``(state, now) -> live
+    count``), on phase 6's table: each equal to the plain version, then
+    timed in turns (old, new, new, old) on fresh, L2-flushed copies,
+    after one untimed round."""
     from gubernator_tpu_torch.ops import sweep as swm
 
     st, now, *_ = cs.sweep_table(torch, args)
@@ -206,25 +200,22 @@ def k2_ab(torch, args, versions: dict) -> dict:
     cs.require(all(torch.equal(getattr(st, f), c) for f, c in others.items()),
                "a sweep touched a column other than key / expire_at")
     del want, others
-    variants = [v for v in versions if v not in ("old", "new")]
-    order = ["old", "new", *variants, *variants[::-1], "new", "old"]
     # the same launch at now = int64 min, where no row is dead and the
     # sweep only reads ("read_only"), and at int64 max, where every row
     # is and it zeroes every row that is not empty ("all_dead")
     nows = {"device": now, "read_only": -2 ** 63, "all_dead": 2 ** 63 - 1}
     res = {m: {v: [] for v in versions} for m in nows}
-    res["one_call"] = {v: [] for v in versions if versions[v][2]}
+    res["one_call"] = {v: [] for v in versions}
     for r in range(args.rounds + 1):  # round 0 warms up, untimed
-        for v in order:
+        for v in TURNS:
             call, prepare, one = versions[v]
             for m, t in nows.items():
                 ms = cs.time_sweep(torch, copies, call, t, True, prepare)[0]
                 if r:
                     res[m][v].append(ms)
-            if one is not None:
-                ms = cs.time_sweep(torch, copies, one, now, False)[0]
-                if r:
-                    res["one_call"][v].append(ms)
+            ms = cs.time_sweep(torch, copies, one, now, False)[0]
+            if r:
+                res["one_call"][v].append(ms)
     res["bound_ms"] = cs.sweep_bound_ms(st.key.numel(), reclaim)
     res["reclaimed"] = reclaim
     del copies, st
@@ -339,10 +330,6 @@ def main(argv=None) -> int:
                     help="compare K3 only")
     ap.add_argument("--k2-only", action="store_true",
                     help="compare K2 only")
-    ap.add_argument("--k2-variant", action="append", default=[],
-                    metavar="NAME=FLAGS",
-                    help="also time the current sweep.cu built with these "
-                         "extra nvcc flags (space-separated)")
     ap.add_argument("--stream", choices=("default", "side"),
                     default="default")
     ap.add_argument("--rounds", type=int, default=3,
@@ -361,16 +348,16 @@ def main(argv=None) -> int:
 
     from gubernator_tpu_torch.ops import decide as dmod
     from gubernator_tpu_torch.ops import sweep as swm
+    from gubernator_tpu_torch.ops.build import load_library
 
-    variants = dict(v.split("=", 1) for v in args.k2_variant)
     names = (["probe"] if args.k3_only else ["sweep"] if args.k2_only
              else ["probe", "sweep", "decide"])
     with cs.phase("device"):
         name, smi = cs.phase_device(torch)
     with cs.phase("build"):
         cs.phase_build()
-        old = build_old(args.old_csrc, args.old_k1_takes_hot, names,
-                        {v: f.split() for v, f in variants.items()})
+        ring = "sweep" in names and takes_ring(args.old_csrc / "sweep.cu")
+        old = build_old(args.old_csrc, args.old_k1_takes_hot, names, ring)
     if args.stream == "side":
         torch.cuda.set_stream(torch.cuda.Stream())
     k1 = k2 = k3 = sweep = None
@@ -380,11 +367,10 @@ def main(argv=None) -> int:
             print(f"K3: {json.dumps(k3)}", flush=True)
     if "sweep" in names:
         with cs.phase("K2 old vs new"):
-            versions = {"old": k2_raw(torch, old["sweep"], 1),
-                        "new": (swm.sweep_cuda, None, swm.sweep_cuda)}
-            for v in variants:
-                launch, zero, _ = k2_raw(torch, old[v], 2)
-                versions[v] = (launch, zero, None)
+            versions = {"old": k2_raw(torch, old["sweep"], ring),
+                        "new": (k2_raw(torch, load_library(), True) if ring
+                                else (swm.sweep_cuda, None,
+                                      swm.sweep_cuda))}
             k2 = k2_ab(torch, args, versions)
             print(f"K2: {json.dumps(k2)}", flush=True)
     if "decide" in names:
@@ -397,7 +383,7 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     print(json.dumps({"device": name, "hot_segment": dmod.HOT_SEGMENT,
                       "old_csrc": str(args.old_csrc), "stream": args.stream,
-                      "k2_variants": variants,
+                      "k2_old_takes_ring": ring,
                       "k3": k3 and {"runs": k3, "mean": means(k3)},
                       "k2": k2 and {"runs": k2, "mean": means(k2)},
                       "k1": k1 and {"runs": k1, "mean": means(k1)},

@@ -17,8 +17,10 @@ device tensor; the caller reads it with one ``.item()``.
 A sweep on the card is one launch and allocates nothing: each stream of
 a device has a ring of ``RING`` counters, zeroed once, and each launch
 adds its count into its slot and zeroes the next one, which the next
-launch on the stream takes.  The count a sweep returns stays valid for
-``RING - 2`` further sweeps on its stream (the one after clears it).
+launch on the stream takes.  So the tensor ``sweep_cuda`` returns is a
+view of its slot: it holds this sweep's count for ``RING - 2`` further
+sweeps on its stream, then reads 0 and, after one more, that sweep's
+count.  Read it before then (the engines read it at once).
 """
 from __future__ import annotations
 
@@ -45,8 +47,10 @@ def sweep_plain(state: TableState, now) -> torch.Tensor:
 
 
 def sweep_cuda(state: TableState, now) -> torch.Tensor:
-    """Launch K2 on the current stream.  Raises on a refused launch;
-    never falls back."""
+    """Launch K2 on the current stream.  Returns the live count as a view
+    of this sweep's slot in the stream's ring, valid for ``RING - 2``
+    further sweeps on the stream (the module's docstring).  Raises on a
+    refused launch; never falls back."""
     from .build import load_library
 
     key, exp = state.key, state.expire_at
@@ -83,7 +87,9 @@ sweep_cuda.launches = 0
 
 
 def sweep(state: TableState, now) -> torch.Tensor:
-    """The sweep: the plain version for a CPU table, K2 for a CUDA one."""
+    """The sweep: the plain version for a CPU table, K2 for a CUDA one.
+    The count it returns for a CUDA table holds for ``RING - 2`` further
+    sweeps on its stream: read it before then."""
     dev = state.key.device.type
     if dev == "cuda":
         return sweep_cuda(state, now)

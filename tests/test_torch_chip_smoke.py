@@ -146,21 +146,31 @@ def test_chip_ab_k2_section_rehearses_on_the_cpu(sweep_rehearsal):
     args, calls, plain = sweep_rehearsal
     prepared = []
     versions = {"old": (plain, lambda: prepared.append(1), plain),
-                "new": (plain, None, plain),
-                "v": (plain, lambda: prepared.append(1), None)}
+                "new": (plain, None, plain)}
     res = chip_ab.k2_ab(torch, args, versions)
-    # every version checked once, then an untimed round and the timed
-    # ones: old, new, v, v, new, old, at now and at the int64 ends, and
-    # one call for old and new
+    # both versions checked once, then an untimed round and the timed
+    # ones: old, new, new, old, at now and at the int64 ends, and one
+    # call
     rounds = args.rounds + 1
-    assert len(calls) == 3 + rounds * (3 * 6 + 4)
-    for m in ("device", "read_only", "all_dead"):
+    assert len(calls) == 2 + rounds * 4 * 4
+    for m in ("device", "read_only", "all_dead", "one_call"):
         assert {v: len(t) for v, t in res[m].items()} == {
-            "old": 4, "new": 4, "v": 4}
-    assert {v: len(t) for v, t in res["one_call"].items()} == {
-        "old": 4, "new": 4}
-    assert len(prepared) == 1 + 1 + rounds * 3 * 4
+            "old": 4, "new": 4}
+    assert len(prepared) == 1 + rounds * 2 * 3
     assert res["reclaimed"] > 0 and res["bound_ms"] > 0
+
+
+def test_chip_ab_reads_the_earlier_k2_signature(tmp_path):
+    """PR 3's guber_sweep takes one counter; the current one takes the
+    count's counter and the one to clear."""
+    from gubernator_tpu_torch.ops import build
+
+    assert chip_ab.takes_ring(build.CSRC / "sweep.cu")
+    old = tmp_path / "sweep.cu"
+    old.write_text("int guber_sweep(void* key, void* expire_at, int64_t n,"
+                   "\n                int64_t now, void* live, "
+                   "void* stream) {")
+    assert not chip_ab.takes_ring(old)
 
 
 def test_chip_ab_k2_refuses_a_version_that_differs(sweep_rehearsal):

@@ -357,7 +357,9 @@ def test_k2_one_launch_and_no_allocation_a_sweep(cuda):
 @pytest.mark.gpu
 def test_k2_count_outlives_the_next_sweeps(cuda):
     """A count read after RING - 2 later sweeps of another table on the
-    same stream, and after a sweep on another stream, is its own."""
+    same stream, and after a sweep on another stream, is its own; after
+    RING - 1 it reads 0 and after RING the later sweep's count, as
+    sweep_cuda's contract says."""
     from gubernator_tpu_torch.ops import sweep
 
     a, _ = k2_table(cuda, 5000, "none_expired", seed=1)
@@ -372,6 +374,12 @@ def test_k2_count_outlives_the_next_sweeps(cuda):
     assert int(first) == int((a.key != 0).sum()) > int(later[0])
     assert {int(x) for x in later} == {int((b.key != 0).sum())}
     assert int(on_side) == int((c.key != 0).sum())
+    sweep.sweep_cuda(b, NOW_SOA)
+    torch.cuda.synchronize()
+    assert int(first) == 0
+    sweep.sweep_cuda(b, NOW_SOA)
+    torch.cuda.synchronize()
+    assert int(first) == int((b.key != 0).sum())
 
 
 @pytest.mark.gpu
