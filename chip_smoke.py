@@ -12,7 +12,8 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
 
 1. device: the card's name and nvidia-smi's name / power limit;
 2. build: K1, K2 and K3 (gubernator_tpu_torch/csrc/*.cu) with nvcc for
-   sm_90a, one nvcc per source, started together;
+   sm_90a, one nvcc per source, started together, and the host wire
+   library (csrc/wire.cpp) with the host C++ compiler;
 3. probe: K3 (the toolchain probe, an int32 add) against x + y on the
    (8, 128) input of tools/pallas_probe.py and on 2^24 elements;
 4. kernel vs plain: a 2^25-row (4 GiB) bucket table holding 10M keys,
@@ -27,12 +28,22 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
    chain, and the requests it took in closed form and one by one; K1's
    launch alone is timed on a mixed and on a main-path wave;
 5. main path: spawn_daemon on the GPU (bucket engine), the HTTP verify
-   flow, then rounds of 8 threads of 1000-request Zipf(1.1) batches
-   through V1Instance.get_rate_limits against a 10M-key table, checked
-   per key; each round prints its decisions/s and latencies, every
-   dispatcher wave and every garbage collection is timed on the host,
-   and a last, shorter round runs under torch.profiler for the device's
-   busy share.  K1's launch count must grow;
+   flow (and, where grpcio imports, the same flow over gRPC; else the
+   line "grpc: not installed"), then rounds of 8 threads of
+   1000-request Zipf(1.1) batches through V1Instance.get_rate_limits
+   against a 10M-key table, checked per key; each round prints its
+   decisions/s and latencies, every dispatcher wave and every garbage
+   collection is timed on the host, and a last, shorter round runs
+   under torch.profiler for the device's busy share.  K1's launch count
+   must grow;
+   wire path (on the same instance and table): the same traffic,
+   serialized to GetRateLimitsReq bytes by the port's encoder before
+   the clock starts, through V1Instance.get_rate_limits_wire (the C++
+   ingest, inline or coalesced waves, responses built as bytes in the
+   callers' threads), decoded by this script and checked per key with
+   the same tally; each round also prints the share of waves run
+   inline, the wave pool's hits / misses / leaks (leaks must be 0) and
+   the longest gen-2 collection.  K1's launch count must grow;
 6. sweep vs plain: a 2^24-row SoA table holding 10M keys (placed with
    upsert_rows; ~30% expired, some removed) swept by K2 and by its
    plain version on two copies: key and expire_at equal, the other
@@ -50,7 +61,9 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
    the rows between the rounds, checked per key and per grow (a grow
    drops few rows, and only the keys it dropped may restart), and a
    last, shorter round under torch.profiler.  Every decision step is
-   timed alone with CUDA events.  K2's launch count must grow.
+   timed alone with CUDA events; then one shorter checked round of
+   the same traffic as wire bytes through get_rate_limits_wire.  K2's
+   launch count must grow across the object and wire rounds.
 
 The line before the last is a JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -66,6 +79,7 @@ import threading
 import time
 import urllib.request
 from contextlib import contextmanager
+from typing import NamedTuple
 
 import numpy as np
 
@@ -193,6 +207,10 @@ def phase_build():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "stack" in line:
             print("  ptxas:", line.strip(), flush=True)
+    t0 = time.perf_counter()
+    lib = build.load_wire_library()
+    print(f"wire library build: {time.perf_counter() - t0:.2f} s "
+          f"({build.cxx_path()}) -> {lib._name}", flush=True)
 
 
 def make_wave(rng, pop_keys, pop_idx, rows_n, wave_no, log2_cap,
@@ -491,11 +509,15 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
     on_gc = time_gc(pauses)
     gc.callbacks.append(on_gc)
     decide_cuda.launches = 0
-    d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0",
-                                  cache_size=1 << args.log2_cap,
-                                  batch_rows=1024, device=DEVICE))
+    grpc = grpc_version()
+    d = spawn_daemon(DaemonConfig(
+        http_listen_address="127.0.0.1:0",
+        grpc_listen_address="127.0.0.1:0" if grpc else "",
+        cache_size=1 << args.log2_cap, batch_rows=1024, device=DEVICE))
     try:
         http_verify_flow(d.http_port)
+        if grpc:
+            grpc_verify_flow(d.grpc_port)
 
         t0 = time.perf_counter()
         fill_t = int(time.time() * 1000) - 1_000
@@ -525,14 +547,31 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
             device = None
             if profiled:
                 out, device = profile_device(
-                    torch, lambda: drive(d.instance, jobs))
+                    torch, lambda: drive(d.instance.get_rate_limits, jobs))
             else:
-                out = drive(d.instance, jobs)
+                out = drive(d.instance.get_rate_limits, jobs)
             t0, wall, lat, results = out
             tally.add(per, results)
             rounds.append((t0, wall, lat, sum(
                 len(b) for resps in results.values() for b in resps), device))
         launches = decide_cuda.launches
+
+        with phase("wire path"):
+            # the same traffic as wire bytes, on the same table and keys
+            decide_cuda.launches = 0
+            inline = time_inline(d.instance)
+            wire = wire_rounds(
+                torch, d.instance,
+                [[[zipf_ranks(rng, 1.1, len(pop_idx), 1000)
+                   for _ in range(args.profile_batches if last
+                                  else args.batches)]
+                  for _ in range(args.threads)]
+                 for last in [False] * args.rounds + [True]],
+                lambda r: f"k{pop_idx[r]:08d}", limit, duration,
+                profile_last=True)
+            wire_launches = decide_cuda.launches
+            for rec in wire:
+                tally.add(rec["per"], rec["results"])
     finally:
         d.close()  # joins the worker: every wave's record is in
         gc.callbacks.remove(on_gc)
@@ -550,22 +589,67 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
         print(f"main path round {rnd}"
               f"{' (profiled)' if rnd == args.rounds else ''}: "
               f"{json.dumps(s)}", flush=True)
+    n_obj = sum(r[3] for r in rounds)
     rounds, timed = stats, stats[:-1]
     rates = [r["decisions_per_s"] for r in timed]
+    # the tally holds both lanes' decisions: every key exact across them
     res = {"decisions_per_s": float(np.mean(rates)),
            "decisions_per_s_min": min(rates),
            "decisions_per_s_max": max(rates),
-           "requests": tally.n_req, "keys": len(tally.count),
+           "requests": n_obj, "checked_requests": tally.n_req,
+           "keys": len(tally.count),
            "p50_ms": float(np.percentile(lat_ms, 50)),
            "p99_ms": float(np.percentile(lat_ms, 99)),
            "batches": len(lat_ms), "launches": launches, "rounds": rounds}
-    print(f"main path: {tally.n_req} decisions over {len(tally.count)} keys;"
+    print(f"main path: {n_obj} decisions ({tally.n_req} with the wire "
+          f"path's, each key exact) over {len(tally.count)} keys;"
           f" {len(timed)} timed rounds: {res['decisions_per_s']} decisions/s"
           f" (min {res['decisions_per_s_min']}, max "
           f"{res['decisions_per_s_max']}); batch p50 {res['p50_ms']} ms p99 "
           f"{res['p99_ms']} ms over {res['batches']} batches; K1 launches "
           f"{launches}", flush=True)
     require(launches > 0, "the main path never launched K1")
+    res["wire"] = wire_summary(
+        [wire_round_stats(rec, waves, inline, pauses) for rec in wire],
+        wire, wire_launches, "wire path", profiled_last=True)
+    require(wire_launches > 0, "the wire path never launched K1")
+    return res
+
+
+def wire_summary(stats, recs, launches, label: str,
+                 profiled_last: bool) -> dict:
+    """Prints each wire round's stats and the timed rounds' summary (all
+    rounds but a profiled last one)."""
+    n_timed = len(stats) - 1 if profiled_last else len(stats)
+    for rnd, s in enumerate(stats):
+        print(f"{label} round {rnd}"
+              f"{' (profiled)' if rnd >= n_timed else ''}: "
+              f"{json.dumps(s)}", flush=True)
+    timed = stats[:n_timed]
+    lat_ms = np.concatenate([np.asarray(r["lat"])
+                             for r in recs[:n_timed]]) * 1e3
+    rates = [s["decisions_per_s"] for s in timed]
+    res = {"decisions_per_s": float(np.mean(rates)),
+           "decisions_per_s_min": min(rates),
+           "decisions_per_s_max": max(rates),
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "worker_busy_share": float(np.mean(
+               [s["worker_busy_share"] for s in timed])),
+           "inline_share": float(np.mean([s["inline_share"]
+                                          for s in timed])),
+           "gc_gen2_ms_max": max(s["gc_gen2_ms_max"] for s in timed),
+           "pool_leaks": sum(s["pool_leaks"] for s in stats),
+           "requests": sum(r["n_req"] for r in recs),
+           "batches": len(lat_ms), "launches": launches, "rounds": stats}
+    print(f"{label}: {res['requests']} decisions; {len(timed)} timed "
+          f"rounds: {res['decisions_per_s']} decisions/s (min "
+          f"{res['decisions_per_s_min']}, max {res['decisions_per_s_max']});"
+          f" batch p50 {res['p50_ms']} ms p99 {res['p99_ms']} ms; worker "
+          f"busy {res['worker_busy_share']}; inline share "
+          f"{res['inline_share']}; longest gen-2 collection "
+          f"{res['gc_gen2_ms_max']} ms; pool leaks {res['pool_leaks']}; "
+          f"launches {launches}", flush=True)
     return res
 
 
@@ -830,7 +914,8 @@ def phase_classic_main_path(torch, args):
     gc.callbacks.append(on_gc)
     swm.sweep_cuda.launches = 0
     d = spawn_daemon(DaemonConfig(
-        http_listen_address="127.0.0.1:0", engine="xla", cache_size=cap,
+        http_listen_address="127.0.0.1:0", grpc_listen_address="",
+        engine="xla", cache_size=cap,
         cache_autogrow_max=2 * cap, batch_rows=1024,
         sweep_interval_ms=args.classic_sweep_ms, device=DEVICE))
     try:
@@ -891,34 +976,39 @@ def phase_classic_main_path(torch, args):
             gone = lost_ids(pop_idx, pop_keys, lost)
             live_idx = pop_idx[held & ~np.isin(pop_idx, gone)]
             n_b = args.profile_batches if profiled else args.batches
-            per = []
-            for _ in range(args.threads):
-                thread = []
-                for _ in range(n_b):
-                    ids = live_idx[zipf_ranks(rng, 1.1, len(live_idx), 1000)]
-                    fresh = np.nonzero(rng.random(1000) < FRESH_SHARE)[0]
-                    ids[fresh] = -1 - n_fresh - np.arange(len(fresh))
-                    n_fresh += len(fresh)
-                    thread.append(ids)
-                per.append(thread)
+            per, n_fresh = classic_batches(rng, live_idx, args.threads, n_b,
+                                           n_fresh)
             jobs = [[[RateLimitRequest(
-                name="smoke", unique_key=(f"k{i:08d}" if i >= 0
-                                          else f"fresh{-i:09d}"),
-                hits=1, limit=limit, duration=duration) for i in ids]
+                name="smoke", unique_key=classic_key(i), hits=1,
+                limit=limit, duration=duration) for i in ids]
                 for ids in thread] for thread in per]
             device = None
             if profiled:
                 out, device = profile_device(
-                    torch, lambda: drive(d.instance, jobs))
+                    torch, lambda: drive(d.instance.get_rate_limits, jobs))
             else:
-                out = drive(d.instance, jobs)
+                out = drive(d.instance.get_rate_limits, jobs)
             t0, wall, lat, results = out
             tally.add(per, results, frozenset(
                 lost_ids(pop_idx, pop_keys, lost).tolist()))
             rounds.append((t0, wall, lat, sum(
                 len(b) for resps in results.values() for b in resps),
                 device))
+        # K2's launches over the object rounds (the wire round's count
+        # stands apart, as phase 5 keeps K1's)
         launches = swm.sweep_cuda.launches
+        with phase("classic wire path"):
+            # one shorter round of the same traffic as wire bytes
+            inline = time_inline(d.instance)
+            gone = lost_ids(pop_idx, pop_keys, lost)
+            per, n_fresh = classic_batches(
+                rng, pop_idx[held & ~np.isin(pop_idx, gone)], args.threads,
+                args.profile_batches, n_fresh)
+            wire = wire_rounds(torch, d.instance, [per], classic_key, limit,
+                               duration, profile_last=False)
+            tally.add(per, wire[0]["results"], frozenset(
+                lost_ids(pop_idx, pop_keys, lost).tolist()))
+            wire_k2 = swm.sweep_cuda.launches - launches
         # every held key is still held, but those a grow dropped
         with d.instance._engine_mu:
             still = torch.isin(torch.from_numpy(pop_keys.view(np.int64))
@@ -992,7 +1082,32 @@ def phase_classic_main_path(torch, args):
           f"{res['sweeps']} sweeps; K2 launches {launches}", flush=True)
     require(DEVICE != "cuda" or launches > 0,
             "the classic path never launched K2")
+    res["wire"] = wire_summary(
+        [wire_round_stats(wire[0], waves, inline, pauses)], wire, wire_k2,
+        "classic wire path", profiled_last=False)
     return res
+
+
+def classic_key(i: int) -> str:
+    """A population key, or (negative ids) a brand-new one."""
+    return f"k{i:08d}" if i >= 0 else f"fresh{-i:09d}"
+
+
+def classic_batches(rng, live_idx, threads: int, n_b: int, n_fresh: int):
+    """Each thread's n_b batches of 1000 ids: Zipf(1.1) over the live
+    keys, FRESH_SHARE of them brand-new (negative ids, numbered on from
+    ``n_fresh``).  Returns (batches per thread, the new n_fresh)."""
+    per = []
+    for _ in range(threads):
+        thread = []
+        for _ in range(n_b):
+            ids = live_idx[zipf_ranks(rng, 1.1, len(live_idx), 1000)]
+            fresh = np.nonzero(rng.random(1000) < FRESH_SHARE)[0]
+            ids[fresh] = -1 - n_fresh - np.arange(len(fresh))
+            n_fresh += len(fresh)
+            thread.append(ids)
+        per.append(thread)
+    return per, n_fresh
 
 
 def lost_ids(pop_idx, pop_keys, lost: list) -> np.ndarray:
@@ -1026,10 +1141,196 @@ def http_verify_flow(port: int) -> None:
           flush=True)
 
 
-def drive(inst, jobs):
-    """Each thread calls get_rate_limits on its batches in turn; returns
-    (start on the perf_counter clock, wall s, batch latencies s,
-    {thread: [responses per batch]})."""
+def grpc_version():
+    """grpcio's version, or None (printed as "grpc: not installed"): the
+    daemons then serve no gRPC and the gRPC flow is not run."""
+    try:
+        import grpc
+    except ImportError:
+        print("grpc: not installed", flush=True)
+        return None
+    print(f"grpc: {grpc.__version__}", flush=True)
+    return grpc.__version__
+
+
+class WireResp(NamedTuple):
+    """One RateLimitResp as this script decodes it."""
+
+    status: int
+    limit: int
+    remaining: int
+    reset_time: int
+    error: str
+
+
+def decode_responses(data: bytes) -> list:
+    """GetRateLimitsResp bytes → [WireResp], with this script's own
+    decoder (no protobuf): field 1 of the message repeats RateLimitResp,
+    whose varint fields 1-4 and string field 5 are read and metadata
+    (field 6) skipped."""
+
+    def varint(i):
+        v = shift = 0
+        while True:
+            b = data[i]
+            i += 1
+            v |= (b & 0x7F) << shift
+            if b < 0x80:
+                return v, i
+            shift += 7
+
+    out, i, n = [], 0, len(data)
+    while i < n:
+        require(data[i] == 0x0A, f"response tag {data[i]:#x}")
+        ln, i = varint(i + 1)
+        end = i + ln
+        f = [0, 0, 0, 0, 0]
+        err = ""
+        while i < end:
+            tag, i = varint(i)
+            if tag & 7 == 0:
+                require(1 <= tag >> 3 <= 4, f"varint field {tag >> 3}")
+                v, i = varint(i)
+                f[tag >> 3] = v - (1 << 64) if v >= 1 << 63 else v
+            else:
+                require(tag & 7 == 2, f"wire type {tag & 7}")
+                sl, i = varint(i)
+                if tag >> 3 == 5:
+                    err = data[i:i + sl].decode()
+                i += sl
+        require(i == end, "a response overran its length")
+        out.append(WireResp(f[1], f[2], f[3], f[4], err))
+    return out
+
+
+def grpc_verify_flow(port: int) -> None:
+    """The HTTP verify flow over gRPC: request bytes from the port's
+    encoder, answers read with decode_responses."""
+    import grpc
+
+    from gubernator_tpu_torch.types import RateLimitRequest
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    data = encode_get_rate_limits([RateLimitRequest(
+        name="api", unique_key="g1", hits=1, limit=3, duration=5000)])
+    ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+    try:
+        call = ch.unary_unary("/pb.gubernator.V1/GetRateLimits")
+        got = [decode_responses(call(data, timeout=60))[0]
+               for _ in range(5)]
+    finally:
+        ch.close()
+    statuses = [g.status for g in got]
+    remaining = [g.remaining for g in got]
+    require(statuses == [0, 0, 0, 1, 1] and remaining == [2, 1, 0, 0, 0],
+            f"gRPC flow: {statuses} {remaining}")
+    print(f"gRPC flow: statuses {statuses} remaining {remaining}",
+          flush=True)
+
+
+def wire_jobs(per, key_of, limit: int, duration: int):
+    """Each thread's batches of ids as GetRateLimitsReq bytes, built by
+    the port's encoder before the clock starts (one request TLV per
+    distinct key, reused; a batch is their concatenation)."""
+    from gubernator_tpu_torch.types import RateLimitRequest
+    from gubernator_tpu_torch.wire import req_to_tlv
+
+    tlv: dict = {}
+
+    def enc(i):
+        t = tlv.get(i)
+        if t is None:
+            t = tlv[i] = req_to_tlv(RateLimitRequest(
+                name="smoke", unique_key=key_of(i), hits=1, limit=limit,
+                duration=duration))
+        return t
+
+    return [[b"".join(map(enc, np.asarray(ids).tolist())) for ids in thread]
+            for thread in per]
+
+
+def time_inline(inst) -> list:
+    """Time every fused wave a caller runs inline (run_inline_wave);
+    appends (start s, end s) per wave to the returned list."""
+    disp = inst.dispatcher
+    run = disp.run_inline_wave
+    rec: list = []
+
+    def timed(fn):
+        t = time.perf_counter()
+
+        def inner():
+            out = fn()
+            rec.append((t, time.perf_counter()))
+            return out
+
+        return run(inner)
+
+    disp.run_inline_wave = timed
+    return rec
+
+
+def wire_rounds(torch, inst, per_rounds, key_of, limit, duration,
+                profile_last: bool) -> list:
+    """Drive ``per_rounds`` (per round, each thread's id batches) through
+    get_rate_limits_wire; the last round runs under torch.profiler when
+    ``profile_last``.  Returns one record per round: its clock window,
+    latencies, decoded answers, inline-wave count, pool counters and
+    device share."""
+    disp, pool = inst.dispatcher, inst.engine.wave_pool
+    out = []
+    for rnd, per in enumerate(per_rounds):
+        jobs = wire_jobs(per, key_of, limit, duration)
+        inline0, pool0 = disp.inline_waves, pool.stats()
+        device = None
+        if profile_last and rnd == len(per_rounds) - 1:
+            res, device = profile_device(
+                torch, lambda: drive(inst.get_rate_limits_wire, jobs))
+        else:
+            res = drive(inst.get_rate_limits_wire, jobs)
+        t0, wall, lat, raw = res
+        pool1 = pool.stats()
+        results = {t: [decode_responses(b) for b in batches]
+                   for t, batches in raw.items()}
+        out.append({"t0": t0, "wall": wall, "lat": lat, "per": per,
+                    "results": results, "device": device,
+                    "n_req": sum(len(b) for r in results.values()
+                                 for b in r),
+                    "inline_waves": disp.inline_waves - inline0,
+                    "pool": {k: pool1[k] - pool0[k]
+                             for k in ("hits", "misses", "leaks")}})
+        require(pool1["leaks"] == pool0["leaks"],
+                f"wave pool leaked {pool1['leaks'] - pool0['leaks']} "
+                "leases")
+    return out
+
+
+def wire_round_stats(rec, waves, inline, pauses) -> dict:
+    """round_stats of a wire round, with its inline waves beside the
+    worker's (coalesced) ones and the pool's counters."""
+    t0, wall = rec["t0"], rec["wall"]
+    s = round_stats(wall, rec["lat"],
+                    [w for w in waves if t0 <= w[0] <= t0 + wall],
+                    rec["n_req"],
+                    [p for p in pauses if t0 <= p[0] <= t0 + wall])
+    fused = [e - b for b, e in inline if t0 <= b <= t0 + wall]
+    s.update({"inline_waves": rec["inline_waves"],
+              "inline_share": rec["inline_waves"] / max(
+                  rec["inline_waves"] + s["waves"], 1),
+              "inline_fused_wave_ms_mean": float(np.mean(fused) * 1e3)
+              if fused else None,
+              "pool_hits": rec["pool"]["hits"],
+              "pool_misses": rec["pool"]["misses"],
+              "pool_leaks": rec["pool"]["leaks"]})
+    s["device"] = rec["device"]
+    return s
+
+
+def drive(call, jobs):
+    """Each thread calls ``call`` (get_rate_limits or
+    get_rate_limits_wire) on its batches in turn; returns (start on the
+    perf_counter clock, wall s, batch latencies s, {thread: [answer per
+    batch]})."""
     lat: list = []
     results: dict = {}
     failures: list = []
@@ -1039,7 +1340,7 @@ def drive(inst, jobs):
             out = []
             for batch in jobs[t]:
                 s = time.perf_counter()
-                out.append(inst.get_rate_limits(batch))
+                out.append(call(batch))
                 lat.append(time.perf_counter() - s)
             results[t] = out
         except Exception as e:  # re-raised below, after join
@@ -1110,17 +1411,40 @@ class Tally:
                     f"{got[:5]}...")
 
 
+class WaitTimedLock:
+    """The dispatcher's engine lock, recording how long the worker
+    thread waits to take it (an inline wave in a caller's thread may
+    hold it)."""
+
+    def __init__(self, lock, worker, waits: list):
+        self.lock, self.worker, self.waits = lock, worker, waits
+
+    def __enter__(self):
+        t = time.perf_counter()
+        self.lock.acquire()
+        if threading.current_thread() is self.worker:
+            self.waits.append(time.perf_counter() - t)
+        return self
+
+    def __exit__(self, *exc):
+        self.lock.release()
+
+
 def time_waves(inst) -> list:
-    """Time every dispatcher wave on the worker thread's host clock, and
-    the engine call inside it (device work and the result download
-    included).  Appends (start s, end s, jobs, rows, engine s) per wave
-    to the returned list."""
+    """Time every dispatcher wave on the worker thread's host clock, the
+    engine call inside it (device work and the result download
+    included; engine calls in callers' threads are not counted) and the
+    worker's wait for the engine lock.  Appends (start s, end s, jobs,
+    rows, engine s, lock wait s) per wave to the returned list."""
     disp, eng = inst.dispatcher, inst.engine
     run_wave, check = disp._run_wave, eng.check_packed
     rec: list = []
     engine_s: list = []
+    wait_s: list = []
 
     def timed_check(*a):
+        if threading.current_thread() is not disp._thread:
+            return check(*a)  # an inline wave or a retry in a caller
         t = time.perf_counter()
         try:
             return check(*a)
@@ -1131,11 +1455,14 @@ def time_waves(inst) -> list:
         t = time.perf_counter()
         run_wave(wave)
         rec.append((t, time.perf_counter(), len(wave),
-                    sum(len(j) for j in wave), sum(engine_s)))
+                    sum(len(j) for j in wave), sum(engine_s), sum(wait_s)))
         engine_s.clear()
+        wait_s.clear()
 
     eng.check_packed = timed_check
     disp._run_wave = timed_wave
+    disp._engine_lock = WaitTimedLock(disp._engine_lock, disp._thread,
+                                      wait_s)
     return rec
 
 
@@ -1217,34 +1544,44 @@ def time_gc(pauses: list):
 
 def round_stats(wall, lat, waves, n_req, pauses) -> dict:
     """One round's decisions/s and latencies, and what its waves show:
-    the worker's busy share of the wall, the engine's share of a wave,
-    and the garbage collections (all threads stop for them), in all and
-    inside the slowest wave."""
+    the worker's busy share of the wall, the engine's share of a wave
+    and the worker's wait for the engine lock, and the garbage
+    collections (all threads stop for them), in all and inside the
+    slowest wave."""
     lat_ms = np.asarray(lat) * 1e3
-    w = np.asarray(waves, dtype=np.float64).reshape(-1, 5)
+    w = np.asarray(waves, dtype=np.float64).reshape(-1, 6)
     wave_s = w[:, 1] - w[:, 0]
     g = np.asarray(pauses, dtype=np.float64).reshape(-1, 3)
     gc_s = g[:, 1] - g[:, 0]
+    gen2_s = gc_s[g[:, 2] == 2]
+    out = {"wall_s": wall, "decisions_per_s": n_req / wall,
+           "batches": len(lat), "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "max_ms": float(lat_ms.max()), "waves": len(w),
+           "worker_busy_share": float(wave_s.sum() / wall),
+           "gc_collections": len(g),
+           "gc_gen2_collections": len(gen2_s),
+           "gc_ms_total": float(gc_s.sum() * 1e3),
+           "gc_ms_max": float(gc_s.max() * 1e3) if len(g) else 0.0,
+           "gc_gen2_ms_max": float(gen2_s.max() * 1e3) if len(gen2_s)
+           else 0.0}
+    if not len(w):  # every wave of the round ran inline
+        return out
     slow = int(wave_s.argmax())
     in_slow = np.clip(np.minimum(g[:, 1], w[slow, 1])
                       - np.maximum(g[:, 0], w[slow, 0]), 0, None)
-    return {"wall_s": wall, "decisions_per_s": n_req / wall,
-            "batches": len(lat), "p50_ms": float(np.percentile(lat_ms, 50)),
-            "p99_ms": float(np.percentile(lat_ms, 99)),
-            "max_ms": float(lat_ms.max()), "waves": len(w),
-            "jobs_per_wave": float(w[:, 2].mean()),
-            "rows_per_wave": float(w[:, 3].mean()),
-            "wave_ms_mean": float(wave_s.mean() * 1e3),
-            "wave_ms_max": float(wave_s.max() * 1e3),
-            "engine_ms_mean": float(w[:, 4].mean() * 1e3),
-            "engine_share_of_wave": float(w[:, 4].sum() / wave_s.sum()),
-            "worker_busy_share": float(wave_s.sum() / wall),
-            "slowest_wave_engine_ms": float(w[slow, 4] * 1e3),
-            "slowest_wave_gc_ms": float(in_slow.sum() * 1e3),
-            "gc_collections": len(g),
-            "gc_gen2_collections": int((g[:, 2] == 2).sum()),
-            "gc_ms_total": float(gc_s.sum() * 1e3),
-            "gc_ms_max": float(gc_s.max() * 1e3) if len(g) else 0.0}
+    out.update({
+        "jobs_per_wave": float(w[:, 2].mean()),
+        "rows_per_wave": float(w[:, 3].mean()),
+        "wave_ms_mean": float(wave_s.mean() * 1e3),
+        "wave_ms_max": float(wave_s.max() * 1e3),
+        "engine_ms_mean": float(w[:, 4].mean() * 1e3),
+        "engine_share_of_wave": float(w[:, 4].sum() / wave_s.sum()),
+        "lock_wait_ms_mean": float(w[:, 5].mean() * 1e3),
+        "lock_wait_share_of_wave": float(w[:, 5].sum() / wave_s.sum()),
+        "slowest_wave_engine_ms": float(w[slow, 4] * 1e3),
+        "slowest_wave_gc_ms": float(in_slow.sum() * 1e3)})
+    return out
 
 
 def profile_device(torch, run):
@@ -1354,7 +1691,8 @@ def main(argv=None) -> int:
         {"name": "decide", "route": "cuda",
          "source": "gubernator_tpu_torch/csrc/decide.cu",
          "replaces": "gubernator_tpu/ops/pallas_step.py:338",
-         "launches": m["launches"], "max_abs_err": k["max_abs_err"],
+         "launches": m["launches"], "wire_launches": m["wire"]["launches"],
+         "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
          "launch_ms": k["launch_ms"],
@@ -1362,7 +1700,8 @@ def main(argv=None) -> int:
         {"name": "sweep", "route": "cuda",
          "source": "gubernator_tpu_torch/csrc/sweep.cu",
          "replaces": "gubernator_tpu/ops/pallas_sweep.py:48",
-         "launches": c["launches"], "max_abs_err": k2["max_abs_err"],
+         "launches": c["launches"], "wire_launches": c["wire"]["launches"],
+         "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "one_call_ms": k2["one_call_ms"]},

@@ -1,9 +1,10 @@
 """The daemon binary: config → spawn → wait for a signal.
 
 Usage: python -m gubernator_tpu_torch.cmd.daemon [--config FILE]
-(GUBER_HTTP_ADDRESS, GUBER_CACHE_SIZE, GUBER_BATCH_ROWS, GUBER_ENGINE,
-GUBER_CACHE_AUTOGROW_MAX, GUBER_DEVICE and GUBER_LOG_LEVEL apply; see
-config.py).  Serves on the GPU unless GUBER_DEVICE=cpu, through the
+(GUBER_GRPC_ADDRESS, GUBER_HTTP_ADDRESS, GUBER_CACHE_SIZE,
+GUBER_BATCH_ROWS, GUBER_ENGINE, GUBER_CACHE_AUTOGROW_MAX, GUBER_DEVICE
+and GUBER_LOG_LEVEL apply; see config.py; an empty GUBER_GRPC_ADDRESS
+serves no gRPC).  Serves on the GPU unless GUBER_DEVICE=cpu, through the
 bucket engine unless GUBER_ENGINE=xla selects the classic SoA engine.
 """
 from __future__ import annotations
@@ -18,6 +19,8 @@ import threading
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="gubernator-tpu-torch daemon")
     ap.add_argument("--config", default="", help="KEY=value config file")
+    ap.add_argument("--grpc", default=None,
+                    help="override GUBER_GRPC_ADDRESS (\"\" = no gRPC)")
     ap.add_argument("--http", default="", help="override GUBER_HTTP_ADDRESS")
     ap.add_argument("--device", default="", help="override GUBER_DEVICE")
     args = ap.parse_args(argv)
@@ -26,6 +29,8 @@ def main(argv=None) -> int:
     from ..daemon import spawn_daemon
 
     cfg = setup_daemon_config(conf_file=args.config)
+    if args.grpc is not None:
+        cfg.grpc_listen_address = args.grpc
     if args.http:
         cfg.http_listen_address = args.http
     if args.device:
@@ -38,7 +43,9 @@ def main(argv=None) -> int:
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
-    print(f"gubernator-tpu-torch listening http={cfg.http_listen_address} "
+    print(f"gubernator-tpu-torch listening "
+          f"grpc={cfg.grpc_listen_address or 'off'} (port {d.grpc_port}) "
+          f"http={cfg.http_listen_address} "
           f"device={cfg.device} "
           f"engine={type(d.instance.engine).__name__}", flush=True)
     stop.wait()

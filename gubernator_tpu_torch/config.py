@@ -2,7 +2,7 @@
 single-daemon slice reads, plus the ``device`` it serves on.
 
 Layering is the JAX package's: defaults < ``KEY=value`` config file <
-environment (``GUBER_*``).  Keys this slice does not read (gRPC, peers,
+environment (``GUBER_*``).  Keys the port does not read yet (peers,
 TLS, ...) are ignored, so the repository's example.conf loads as is.
 """
 from __future__ import annotations
@@ -50,6 +50,10 @@ class DaemonConfig:
     """Everything needed to spawn a daemon."""
 
     http_listen_address: str = "localhost:1050"
+    #: gRPC front door (V1 GetRateLimits / HealthCheck and
+    #: grpc.health.v1); "" serves none.  Needs grpcio: with an address
+    #: set and no grpcio the daemon raises.
+    grpc_listen_address: str = "localhost:1051"
     cache_size: int = 1 << 16
     batch_rows: int = 1024
     cache_autogrow_max: int = 0
@@ -94,6 +98,8 @@ def setup_daemon_config(conf_file: str = "",
     d = DaemonConfig()
     d.http_listen_address = conf.get("GUBER_HTTP_ADDRESS",
                                      d.http_listen_address)
+    d.grpc_listen_address = conf.get("GUBER_GRPC_ADDRESS",
+                                     d.grpc_listen_address)
     d.cache_size = int(conf.get("GUBER_CACHE_SIZE", d.cache_size))
     d.batch_rows = int(conf.get("GUBER_BATCH_ROWS", d.batch_rows))
     d.cache_autogrow_max = int(conf.get("GUBER_CACHE_AUTOGROW_MAX",

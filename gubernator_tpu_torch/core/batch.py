@@ -1,8 +1,9 @@
 """Host-side request packing: wire requests → fixed-shape numpy columns.
 
 The port's copy of the numpy packers of gubernator_tpu/core/batch.py
-(``pack_requests`` / ``pack_columns`` and their clamps) plus the packed
-wave layout and response assembly of gubernator_tpu/parallel/sharded.py
+(``pack_requests`` / ``pack_columns`` and their clamps, the pooled wave
+buffers ``WaveBufferPool`` / ``WaveLease``) plus the packed wave layout
+and response assembly of gubernator_tpu/parallel/sharded.py
 (``PACK64``/``PACK32``, ``pack_wave_host``, ``responses_from_columns``).
 Everything calendar- or string-shaped happens here, on the host; the
 device only ever sees integers.  Packed columns must stay bit-identical
@@ -10,6 +11,7 @@ to the JAX package's: the tests pack the same request lists through both.
 """
 from __future__ import annotations
 
+import threading
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
@@ -216,6 +218,113 @@ def pack_columns(
 PACK64 = ("key", "hits", "limit", "duration", "eff_ms", "greg_end",
           "burst", "now")
 PACK32 = ("behavior", "algorithm", "valid")
+
+
+class WaveLease:
+    """One leased pair of packed upload matrices (a64 [8, m] int64,
+    a32 [3, m] int32) from a :class:`WaveBufferPool`.
+
+    The holder calls :meth:`release` on every path (success, engine
+    raise, fallback) once the wave's upload has read the buffers.  The
+    engine uploads them with a blocking copy from pageable memory
+    (sharded.py › _launch_arrays: no pinning, no ``non_blocking``), so
+    the source has been read when the upload returns and the lease may
+    go back to the pool right after the launch; no CUDA event is
+    needed.  A lease dropped without release is counted as a leak by
+    the pool, which takes the buffers back."""
+
+    __slots__ = ("a64", "a32", "_pool", "_released", "__weakref__")
+
+    def __init__(self, pool: "WaveBufferPool", a64, a32):
+        self._pool = pool
+        self.a64 = a64
+        self.a32 = a32
+        self._released = False
+
+    def release(self) -> None:
+        if self._released:
+            return
+        self._released = True
+        self._pool._return(self.a64, self.a32)
+
+    def __del__(self):
+        if not self._released:
+            self._released = True
+            self._pool._record_leak()
+            self._pool._return(self.a64, self.a32)
+
+
+class WaveBufferPool:
+    """Reusable packed wave-upload pairs, keyed by wave width ``m``.
+
+    ``lease(m)`` hands back a pooled pair zeroed to ``empty_batch``
+    padding (all zeros; the caller re-fills the eff_ms row) or allocates
+    one on a miss; ``WaveLease.release`` returns it.  Thread-safe; each
+    width keeps at most ``MAX_PER_WIDTH`` free pairs, so a burst cannot
+    grow the pool without bound."""
+
+    #: free pairs kept per width
+    MAX_PER_WIDTH = 4
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        #: m → [(a64, a32), ...]
+        self._free: dict[int, list] = {}  # guarded-by: self._mu
+        self.hits = 0  # guarded-by: self._mu
+        self.misses = 0  # guarded-by: self._mu
+        self.leaks = 0  # guarded-by: self._mu
+        self.outstanding = 0  # guarded-by: self._mu
+
+    def lease(self, m: int) -> WaveLease:
+        """Lease a zeroed (a64 [8, m] int64, a32 [3, m] int32) pair."""
+        with self._mu:
+            ring = self._free.get(m)
+            buf = ring.pop() if ring else None
+            if buf is not None:
+                self.hits += 1
+            else:
+                self.misses += 1
+            self.outstanding += 1
+        if buf is not None:
+            a64, a32 = buf
+            a64.fill(0)
+            a32.fill(0)
+        else:
+            a64 = np.zeros((len(PACK64), m), np.int64)
+            a32 = np.zeros((len(PACK32), m), np.int32)
+        return WaveLease(self, a64, a32)
+
+    def _return(self, a64, a32) -> None:
+        m = a64.shape[1]
+        with self._mu:
+            self.outstanding -= 1
+            ring = self._free.setdefault(m, [])
+            if len(ring) < self.MAX_PER_WIDTH:
+                ring.append((a64, a32))
+
+    def _record_leak(self) -> None:
+        with self._mu:
+            self.leaks += 1
+
+    def stats(self) -> dict:
+        with self._mu:
+            return {"hits": self.hits, "misses": self.misses,
+                    "leaks": self.leaks, "outstanding": self.outstanding,
+                    "pooled": sum(len(v) for v in self._free.values())}
+
+
+def lease_batch(lease: WaveLease, idx) -> RequestBatch:
+    """The leased rows ``idx`` as a RequestBatch of numpy columns, as
+    numpy indexes: views into the lease for a slice, copies for an
+    index array (what must outlive the lease: the table-full retry, a
+    busy dispatcher's queued job).  ``valid`` is always a new array."""
+    a64, a32 = lease.a64, lease.a32
+    return RequestBatch(
+        key=a64[0][idx].view(np.uint64), hits=a64[1][idx],
+        limit=a64[2][idx], duration=a64[3][idx], eff_ms=a64[4][idx],
+        greg_end=a64[5][idx], behavior=a32[0][idx],
+        algorithm=a32[1][idx], burst=a64[6][idx],
+        valid=a32[2][idx] != 0, now=a64[7][idx])
 
 
 def pack_wave_host(b: RequestBatch) -> tuple[np.ndarray, np.ndarray]:

@@ -1,9 +1,16 @@
-"""Daemon: the HTTP front door around one V1Instance.
+"""Daemon: the gRPC and HTTP front doors around one V1Instance.
 
-The HTTP/JSON gateway of gubernator_tpu/daemon.py: POST
-/v1/GetRateLimits (numeric enums in and out, snake_case and camelCase
-field names) and GET /healthz (also /v1/HealthCheck).  The gRPC front
-door comes in a later slice.
+The solo daemon of gubernator_tpu/daemon.py:
+
+- gRPC on ``grpc_listen_address`` (grpc_api.py): V1 GetRateLimits as raw
+  wire bytes into ``V1Instance.get_rate_limits_wire`` (a ValueError
+  becomes INVALID_ARGUMENT), V1 HealthCheck, and grpc.health.v1.  grpcio
+  is imported only when an address is set; set and missing, the daemon
+  raises;
+- an HTTP/JSON gateway on ``http_listen_address``: POST
+  /v1/GetRateLimits (numeric enums in and out, snake_case and camelCase
+  field names) through the object lane, and GET /healthz (also
+  /v1/HealthCheck).
 """
 from __future__ import annotations
 
@@ -54,6 +61,26 @@ def _split_host_port(addr: str) -> tuple[str, int]:
     return host.strip("[]") or "0.0.0.0", int(port)
 
 
+class _V1Servicer:
+    """V1 over the instance: GetRateLimits as raw wire bytes."""
+
+    def __init__(self, instance: V1Instance):
+        self.instance = instance
+
+    def GetRateLimitsWire(self, request: bytes, context):
+        import grpc
+
+        try:
+            return self.instance.get_rate_limits_wire(request)
+        except ValueError as e:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+
+    def HealthCheck(self, request, context):
+        from .wire import health_to_pb
+
+        return health_to_pb(self.instance.health_check())
+
+
 class Daemon:
     """Use spawn_daemon() to construct."""
 
@@ -62,6 +89,8 @@ class Daemon:
         self._closed = False
         self.http_server: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
+        self.grpc_server = None
+        self.grpc_port = 0
         self.instance = V1Instance(cfg.instance_config())
         try:
             # warm-up: build the kernel and run one wave before serving
@@ -69,10 +98,36 @@ class Daemon:
                 [RateLimitRequest(name="_warmup", unique_key="w", hits=0,
                                   limit=1, duration=1000)])
             self.instance.engine.warmup()
+            if cfg.grpc_listen_address:
+                self._start_grpc(cfg.grpc_listen_address)
             self._start_http(cfg.http_listen_address)
         except BaseException:
             self.close()
             raise
+
+    def _start_grpc(self, addr: str) -> None:
+        """V1 (raw wire bytes) and grpc.health.v1 on ``addr``; raises
+        when grpcio is missing or the address cannot be bound."""
+        try:
+            import grpc
+        except ImportError as e:
+            raise RuntimeError(
+                f"grpc_listen_address={addr!r} needs grpcio, which is not "
+                "installed; set GUBER_GRPC_ADDRESS= (empty) to serve HTTP "
+                "only") from e
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .grpc_api import add_health_servicer, add_v1_servicer_raw
+
+        server = grpc.server(ThreadPoolExecutor(max_workers=32),
+                             options=[("grpc.so_reuseport", 0)])
+        add_v1_servicer_raw(server, _V1Servicer(self.instance))
+        add_health_servicer(server, self.instance)
+        port = server.add_insecure_port(addr)
+        if port == 0:
+            raise OSError(f"failed to bind {addr}")
+        server.start()
+        self.grpc_server, self.grpc_port = server, port
 
     def _start_http(self, addr: str) -> None:
         host, port = _split_host_port(addr)
@@ -132,6 +187,8 @@ class Daemon:
         if self._closed:
             return
         self._closed = True
+        if self.grpc_server is not None:
+            self.grpc_server.stop(grace=None).wait()
         if self.http_server is not None:
             self.http_server.shutdown()
             self.http_server.server_close()
@@ -141,7 +198,8 @@ class Daemon:
 def spawn_daemon(cfg: DaemonConfig) -> Daemon:
     """reference: daemon.go › SpawnDaemon."""
     d = Daemon(cfg)
-    log.info("gubernator-tpu-torch daemon up: http=%s device=%s "
-             "engine=%s", cfg.http_listen_address, cfg.device,
+    log.info("gubernator-tpu-torch daemon up: grpc=%s http=%s device=%s "
+             "engine=%s", cfg.grpc_listen_address or "off",
+             cfg.http_listen_address, cfg.device,
              type(d.instance.engine).__name__)
     return d

@@ -13,8 +13,10 @@ the sweep, the row ops and snapshot / restore.
 Domain: the step serves TOKEN and LEAKY rows whose counters are < 2^30
 and (leaky) eff < 2^31.  Out-of-domain rows are scoped per row: left
 out of the step and answered as table_full, never truncated into wrong
-decisions and never failing the other rows of the wave; the classic
-engine (``GUBER_ENGINE=xla``) serves them.  A bucket-full row gets one
+decisions and never failing the other rows of the wave, on every path
+(``check_packed``, ``launch_packed`` and the wire lane's
+``check_prepacked``, which all call ``_mask_out_of_domain``); the
+classic engine (``GUBER_ENGINE=xla``) serves them.  A bucket-full row gets one
 retry after an expiry sweep; there is no grow.
 """
 from __future__ import annotations

@@ -1,12 +1,19 @@
-"""Build and bind the port's CUDA kernels (csrc/*.cu) at first use.
+"""Build and bind the port's native libraries at first use.
 
-K1 (decide.cu), K2 (sweep.cu) and K3 (probe.cu) go into one library.
-Each source compiles with its own ``nvcc -c`` (all started together),
-then one link makes ``build/gubernator_tpu_torch/libgubertorch.so`` in
-the checkout.  A file lock serializes concurrent builds, and a hash
-of the sources and flags decides when to rebuild.  The library has a
-plain C interface and is loaded with ctypes (no PyTorch headers, so a
-build takes seconds).  Nothing here runs at import time.
+Two libraries, each with a plain C interface, loaded with ctypes:
+
+- the CUDA kernels (csrc/*.cu): K1 (decide.cu), K2 (sweep.cu) and K3
+  (probe.cu).  Each source compiles with its own ``nvcc -c`` (all
+  started together), then one link makes
+  ``build/gubernator_tpu_torch/libgubertorch.so`` in the checkout (no
+  PyTorch headers, so a build takes seconds);
+- the host wire library (csrc/wire.cpp, ops/native.py), built with the
+  host C++ compiler into ``libguberwire.so``.  It needs no CUDA, so the
+  CPU-only tests build and use it too.
+
+A file lock serializes concurrent builds, and a hash of each library's
+sources and flags decides when to rebuild it.  A failed build raises.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -26,9 +33,13 @@ BUILD_DIR = _PKG.parent / "build" / "gubernator_tpu_torch"
 LIB_NAME = "libgubertorch.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+WIRE_LIB_NAME = "libguberwire.so"
+WIRE_SOURCE = CSRC / "wire.cpp"
+CXX_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared"]
 
 _mu = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_wire_lib: ctypes.CDLL | None = None
 #: what the last build did: seconds, whether it compiled, nvcc's output
 #: (ptxas registers / spills per kernel)
 build_info: dict = {}
@@ -47,8 +58,18 @@ def nvcc_path() -> str:
     return str(path)
 
 
-def _digest(sources: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
+def cxx_path() -> str:
+    """The host C++ compiler: $CXX, else ``c++``, else ``g++``."""
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        found = shutil.which(name) if name else None
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) to build the "
+                       "wire library; set CXX")
+
+
+def _digest(sources: list[Path], flags: list[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -94,6 +115,23 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _build_once(lib_path: Path, stamp: Path, digest: str, build) -> tuple:
+    """Run ``build()`` under the build lock unless ``lib_path`` matches
+    ``digest``; returns (seconds, built, compiler output)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    built = False
+    log = ""
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (lib_path.exists() and stamp.exists()
+                and stamp.read_text() == digest):
+            log = build()
+            stamp.write_text(digest)
+            built = True
+    return time.perf_counter() - t0, built, log
+
+
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built from csrc/ if it is missing or
     stale.  Raises when it cannot be built."""
@@ -104,21 +142,62 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         sources = sorted(CSRC.glob("*.cu"))
-        digest = _digest(sources)
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        digest = _digest(sources, ARCH + FLAGS)
         lib_path = BUILD_DIR / LIB_NAME
-        stamp = BUILD_DIR / "sources.sha256"
-        t0 = time.perf_counter()
-        built = False
-        log = ""
-        with open(BUILD_DIR / "build.lock", "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            if not (lib_path.exists() and stamp.exists()
-                    and stamp.read_text() == digest):
-                log = _compile(nvcc_path(), sources, lib_path)
-                stamp.write_text(digest)
-                built = True
-        build_info.update(seconds=time.perf_counter() - t0, built=built,
-                          log=log, path=str(lib_path))
+        seconds, built, log = _build_once(
+            lib_path, BUILD_DIR / "sources.sha256", digest,
+            lambda: _compile(nvcc_path(), sources, lib_path))
+        build_info.update(seconds=seconds, built=built, log=log,
+                          path=str(lib_path))
         _lib = _bind(ctypes.CDLL(str(lib_path)))
         return _lib
+
+
+def _compile_wire(cxx: str, lib: Path) -> str:
+    tmp = lib.with_suffix(".so.tmp")
+    r = subprocess.run([cxx, *CXX_FLAGS, str(WIRE_SOURCE), "-o", str(tmp)],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"{cxx} failed on {WIRE_SOURCE.name}:\n"
+                           f"{r.stdout}{r.stderr}")
+    os.replace(tmp, lib)
+    return r.stdout + r.stderr
+
+
+def _bind_wire(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p = ctypes.c_void_p
+    i64 = ctypes.c_int64
+    u64 = ctypes.c_uint64
+    buf = ctypes.c_char_p
+    lib.gw_count_req_items.argtypes = [buf, i64]
+    lib.gw_count_req_items.restype = i64
+    lib.gw_parse_get_rate_limits.argtypes = [buf, i64, i64] + [p] * 11
+    lib.gw_parse_get_rate_limits.restype = i64
+    lib.gw_pack_wire_wave.argtypes = [buf, i64, i64, p, p, i64,
+                                      u64, u64, u64, u64] + [p] * 5
+    lib.gw_pack_wire_wave.restype = i64
+    lib.gw_resp_bound.argtypes = [i64, i64, i64]
+    lib.gw_resp_bound.restype = i64
+    lib.gw_build_responses.argtypes = [p, p, p, p, i64, i64, p, p, p, i64,
+                                       buf, p, i64]
+    lib.gw_build_responses.restype = i64
+    return lib
+
+
+def load_wire_library() -> ctypes.CDLL:
+    """The host wire library, built from csrc/wire.cpp with the host
+    C++ compiler if it is missing or stale.  Raises when it cannot be
+    built: the wire lane has no substitute."""
+    global _wire_lib
+    if _wire_lib is not None:
+        return _wire_lib
+    with _mu:
+        if _wire_lib is not None:
+            return _wire_lib
+        cxx = cxx_path()
+        lib_path = BUILD_DIR / WIRE_LIB_NAME
+        _build_once(lib_path, BUILD_DIR / "wire.sha256",
+                    _digest([WIRE_SOURCE], [cxx] + CXX_FLAGS),
+                    lambda: _compile_wire(cxx, lib_path))
+        _wire_lib = _bind_wire(ctypes.CDLL(str(lib_path)))
+        return _wire_lib

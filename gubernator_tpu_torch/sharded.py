@@ -18,9 +18,12 @@ The bucket engine (engine.py) derives from this class and overrides the
 table, the step, the domain gate, the sweep, the row ops and snapshot /
 restore, so the wave routing and the retry loop exist once.
 
-Not ported here: the wire lane (``prepack_wire`` / ``check_prepacked``)
-and the pool leases, the tier hooks, ``probe_occupant_keys`` and
-``each`` wait for their own slices.  ``XLA_EXEC_MU``,
+The wire lane: ``prepack_wire`` fills a pooled packed pair
+(core/batch.py › WaveBufferPool) straight from GetRateLimitsReq bytes in
+one C++ pass (ops/native.py), and ``check_prepacked`` runs it as one
+wave, rows outside the engine's value domain gated out first.  Not
+ported here: the tier hooks (``cold_i``), ``probe_occupant_keys`` and
+``each`` wait for the tiering and store slices.  ``XLA_EXEC_MU``,
 ``_restore_host_pin`` and the GUBER_PALLAS_SWEEP / GUBER_STEP_DONATE
 knobs work around XLA or TPU behaviour and have no counterpart: on CUDA
 the sweep is always K2, on the CPU always its plain version, and K2
@@ -35,12 +38,14 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from .core.batch import (PACK32, PACK64, RequestBatch, empty_batch,
-                         pack_requests, responses_from_columns)
+from .core.batch import (PACK32, PACK64, RequestBatch, WaveBufferPool,
+                         empty_batch, lease_batch, pack_requests,
+                         responses_from_columns)
 from .core.step import (StepOutput, _first_true, _insert, _lookup,
                         _probe_slots, decide_batch)
 from .core.table import TableState, init_soa_table, occupancy
 from .hashing import hash_request_keys
+from .ops import native as wire_native
 from .ops.decide import batch_from_packed, fused_tap_columns
 from .ops.sweep import sweep as sweep_table
 from .state import soa_to_numpy
@@ -50,6 +55,24 @@ log = logging.getLogger("gubernator_tpu_torch.sharded")
 
 #: TableState value columns addressable by the row ops (all but key)
 VALUE_COLS = tuple(f for f in TableState._fields if f != "key")
+
+
+class PrepackedWave:
+    """One fused-ingest wave: a leased packed pair whose rows [0, n) the
+    C++ pass already parsed, clamped and hashed, their mixed key hashes
+    and the OR of their behaviors (what the lanes gate on).  The holder
+    owns the lease until ``ShardedEngine.check_prepacked`` consumes it,
+    or releases it itself on a fallback path.  (The JAX wave also keeps
+    the raw hashes and request TLV ranges, for the peer and analytics
+    slices.)"""
+
+    __slots__ = ("lease", "n", "khash", "behavior_or")
+
+    def __init__(self, lease, n, khash, behavior_or):
+        self.lease = lease
+        self.n = n
+        self.khash = khash
+        self.behavior_or = behavior_or
 
 
 def resolve_device(device) -> torch.device:
@@ -97,6 +120,8 @@ class ShardedEngine:
         self.dropped_rows = 0  # rows lost to grow / row placement
         #: optional callable taking each wave's [4, B] device tap
         self.tap_sink = None
+        #: packed upload pairs of the wire lane (prepack_wire)
+        self.wave_pool = WaveBufferPool()
         self._init_table()
 
     # ---- subclass hooks ------------------------------------------------
@@ -156,7 +181,10 @@ class ShardedEngine:
     def _launch_arrays(self, a64: np.ndarray, a32: np.ndarray,
                        now_ms: int) -> torch.Tensor:
         """One wave: 2 uploads and the decision step, not waited on.
-        Returns the device result vector (5 output rows + 2 counters)."""
+        Returns the device result vector (5 output rows + 2 counters).
+        The uploads are blocking copies from pageable memory: the host
+        arrays (a leased pair on the wire lane) are read when this
+        returns, so the lease may go back to its pool."""
         batch = batch_from_packed(torch.from_numpy(a64).to(self.device),
                                   torch.from_numpy(a32).to(self.device))
         out = self._decide(batch, now_ms)
@@ -266,6 +294,67 @@ class ShardedEngine:
             for c, rc in zip(cols, r_cols):
                 c[err] = rc
         return self._merge_ood(cols, ood)
+
+    # ---- the fused wire lane (ops/native.py › pack_wire_wave) ----------
+
+    def prepack_wire(self, data: bytes, now_ms: int):
+        """One C++ pass from GetRateLimitsReq bytes into a leased packed
+        pair of the smallest wave bucket that holds the request count:
+        parse, validate, clamp (as pack_columns), key-hash and fill.
+        Returns a PrepackedWave whose lease the caller owns (every path
+        ends in check_prepacked or ``pre.lease.release()``), or None for
+        what the pass does not model (protobuf framing, Gregorian rows,
+        an empty message, more rows than the largest bucket): the caller
+        then takes the parse or the protobuf lane."""
+        cnt = wire_native.count_req_items(data)
+        if not cnt:
+            return None
+        bw = next((b for b in self.wave_buckets if cnt <= b), None)
+        if bw is None:
+            return None
+        lease = self.wave_pool.lease(bw)
+        try:
+            res = wire_native.pack_wire_wave(data, now_ms, lease.a64,
+                                             lease.a32)
+        except BaseException:
+            lease.release()
+            raise
+        if res is None:
+            lease.release()
+            return None
+        n, khash, _, behavior_or, _, _ = res
+        return PrepackedWave(lease, n, khash, behavior_or)
+
+    def check_prepacked(self, pre: PrepackedWave, now_ms: int) -> tuple:
+        """Launch a prepacked wave and download it once; check_packed's
+        columns over rows [0, pre.n) (wave order is request order).
+        Rows outside the engine's value domain are gated out of the
+        launch (their valid flag zeroed in the lease) and answered
+        table_full, as check_packed answers them.  Table-full rows copy
+        out of the lease and retry through check_packed after a sweep
+        (they changed no state).  Releases the lease on every path."""
+        n, lease = pre.n, pre.lease
+        try:
+            # views of the leased rows: the gate reads them in place
+            _, ood = self._mask_out_of_domain(lease_batch(lease,
+                                                          slice(0, n)))
+            if ood is not None:
+                lease.a32[2][ood] = 0
+            o_st, o_rem, o_rst, o_lim, o_err = self._finish_wave(
+                self._launch_arrays(lease.a64, lease.a32, now_ms))
+            cols = [o_st[:n].astype(np.int32), o_lim[:n], o_rem[:n],
+                    o_rst[:n], o_err[:n]]
+            err = np.nonzero(cols[4])[0]
+            if len(err):
+                sub = lease_batch(lease, err)
+                lease.release()
+                self.sweep(now_ms)
+                for c, rc in zip(cols, self.check_packed(
+                        sub, pre.khash[err], now_ms)):
+                    c[err] = rc
+            return self._merge_ood(cols, ood)
+        finally:
+            lease.release()
 
     def check_batch(self, reqs: Sequence[RateLimitRequest], now_ms: int
                     ) -> List[RateLimitResponse]:

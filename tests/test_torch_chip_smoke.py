@@ -183,3 +183,74 @@ def test_chip_ab_k2_refuses_a_version_that_differs(sweep_rehearsal):
         chip_ab.k2_ab(torch, args, {"new": (plain, None, plain),
                                     "bad": (misses_the_boundary, None,
                                             None)})
+
+
+@pytest.fixture()
+def path_rehearsal(monkeypatch):
+    """Phases 5 (with its wire path) and 7 (with its wire round) on the
+    CPU at a small size: the plain step stands in for K1 (counting its
+    launches, as decide_cuda does) and the host clock for CUDA events."""
+    import gubernator_tpu_torch.engine as emod
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(torch.cuda, "Event", HostEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+    def k1(rows, b, now, hot=dmod.HOT_SEGMENT, stats=None):
+        return dmod.decide_plain(rows, b, now)
+
+    def decide(rows, b, now):
+        k1.launches += 1
+        return dmod.decide_plain(rows, b, now)
+
+    k1.launches = 0
+    monkeypatch.setattr(dmod, "decide_cuda", k1)
+    monkeypatch.setattr(emod, "decide", decide)
+    return types.SimpleNamespace(
+        log2_cap=13, soa_log2_cap=12, keys=2_000, threads=3, rounds=2,
+        batches=2, profile_batches=1, seed=0, classic_rounds=2,
+        classic_sweep_ms=50)
+
+
+def test_main_and_wire_paths_rehearse_on_the_cpu(path_rehearsal):
+    args = path_rehearsal
+    pop_idx, pop_keys = chip_smoke.fit_population(args.keys, args.log2_cap)
+    res = chip_smoke.phase_main_path(torch, args, pop_idx, pop_keys)
+    wire = res["wire"]
+    assert res["launches"] > 0 and wire["launches"] > 0
+    assert wire["requests"] == res["requests"] == \
+        args.threads * (args.rounds * args.batches + args.profile_batches) \
+        * 1000
+    assert wire["pool_leaks"] == 0 and len(wire["rounds"]) == args.rounds + 1
+    for r in wire["rounds"]:
+        assert r["inline_waves"] + r["waves"] > 0
+        # every batch takes the fused lane: one lease each
+        assert r["pool_hits"] + r["pool_misses"] == r["batches"]
+        assert 0 <= r["inline_share"] <= 1
+
+
+def test_classic_path_and_wire_round_rehearse_on_the_cpu(path_rehearsal):
+    args = path_rehearsal
+    res = chip_smoke.phase_classic_main_path(torch, args)
+    wire = res["wire"]
+    assert wire["requests"] == args.threads * args.profile_batches * 1000
+    assert wire["pool_leaks"] == 0 and len(wire["rounds"]) == 1
+    assert res["capacity_after"] == 2 * res["capacity_before"]
+
+
+def test_decode_responses_reads_what_the_port_writes():
+    from gubernator_tpu.proto import gubernator_pb2 as pb
+    from gubernator_tpu_torch.ops import native
+
+    cols = (np.array([0, 1, 0], np.int32),
+            np.array([5, 2 ** 40, 0], np.int64),
+            np.array([4, 0, 0], np.int64),
+            np.array([1_765_000_000_000, 7, 0], np.int64),
+            np.zeros(3, bool))
+    data = native.build_responses_from_columns(
+        cols, 0, 3, [None, None, "rate limit table full"])
+    got = chip_smoke.decode_responses(data)
+    want = pb.GetRateLimitsResp.FromString(data).responses
+    assert [tuple(g) for g in got] == [
+        (w.status, w.limit, w.remaining, w.reset_time, w.error)
+        for w in want]

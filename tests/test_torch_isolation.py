@@ -37,6 +37,41 @@ def test_importing_every_module_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_wire_lane_loads_nothing_of_the_jax_package():
+    """The port's wire lane (C++ ingest, inline wave, response build and
+    the protobuf lane) in a fresh process: no JAX-package module is
+    loaded, and no file of gubernator_tpu/ops/ (its _native extension)
+    is mapped into the process."""
+    code = (
+        "import sys\n"
+        "from gubernator_tpu_torch.config import Config\n"
+        "from gubernator_tpu_torch.instance import V1Instance\n"
+        "from gubernator_tpu_torch.types import RateLimitRequest as R\n"
+        "from gubernator_tpu_torch.wire import encode_get_rate_limits\n"
+        "inst = V1Instance(Config(cache_size=4096, batch_rows=64, "
+        "device='cpu', sweep_interval_ms=0))\n"
+        "for extra in ({}, {'behavior': 4, 'duration': 1}, "
+        "{'metadata': {'a': 'b'}}):\n"
+        "    out = inst.get_rate_limits_wire(encode_get_rate_limits("
+        "[R(name='n', unique_key='k', limit=5, **extra)]), "
+        "1_765_000_000_000)\n"
+        "    assert out, extra\n"
+        "assert inst.dispatcher.inline_waves >= 2\n"
+        "inst.close()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'gubernator_tpu' "
+        "or m.startswith('gubernator_tpu.'))\n"
+        "maps = open('/proc/self/maps').read()\n"
+        f"mapped = sorted({{l.split()[-1] for l in maps.splitlines() "
+        f"if {str(ROOT / 'gubernator_tpu' / 'ops')!r} in l}})\n"
+        "wire = [l for l in maps.splitlines() if 'libguberwire' in l]\n"
+        "print(bad, mapped, len(wire))\n"
+        "sys.exit(1 if bad or mapped or not wire else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
