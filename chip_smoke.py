@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-GPU smoke of the PyTorch port (gubernator_tpu_torch): builds its
 CUDA kernels, holds each against its plain PyTorch version at full size,
-and drives the port's two serving paths, the HTTP daemon on the bucket
-engine (K1) and on the classic SoA engine (K2), through them.
+and drives the port's serving paths through them: the daemon on the
+bucket engine (K1), a cluster of bucket-engine daemons, and the daemon
+on the classic SoA engine (K2).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -44,6 +45,22 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
    the same tally; each round also prints the share of waves run
    inline, the wave pool's hits / misses / leaks (leaks must be 0) and
    the longest gen-2 collection.  K1's launch count must grow;
+cluster: 3 daemons in this process (cluster.start_with), each with a
+   2^24-row bucket table on the card and real gRPC over loopback; the
+   10M keys made resident on their owners by the ring; 8 callers each
+   sending phase 5's 1000-request batches to daemon (caller mod 3)
+   through its gRPC front door, the keys of the 16 hottest ranks GLOBAL
+   (limit 100) and of the next 16 GLOBAL with a limit of 10^9; 2 timed
+   rounds of 8 x 100 batches and a profiled one of 8 x 20.  Checked:
+   every non-GLOBAL key exact (phase 5's tally), touched keys held by
+   their owner alone, GLOBAL keys converged on every daemon (hits=0
+   probes, polled by attempt, with every queued GLOBAL hit flushed):
+   the same remaining as the owner's, and on the 10^9 keys exactly the
+   limit less the hits the callers sent; no failed forward or hits
+   flush, no leak; each daemon launched K1.
+   Prints each round's decisions/s, latencies and call breakdown, the
+   share of the solo wire path's rate, the forwarded share, peer
+   flushes, GLOBAL hits, broadcasts and over-admission;
 6. sweep vs plain: a 2^24-row SoA table holding 10M keys (placed with
    upsert_rows; ~30% expired, some removed) swept by K2 and by its
    plain version on two copies: key and expire_at equal, the other
@@ -111,6 +128,18 @@ TABLE_FULL = "rate limit table full"
 GROW_DROP_MAX_SHARE = 1e-4
 #: share of each classic batch sent to brand-new keys (inserts)
 FRESH_SHARE = 0.03
+#: how long the cluster phase polls for its GLOBAL keys to converge
+CONVERGE_S = 60.0
+#: daemons in the cluster phase (gubernator's own functional cluster)
+CLUSTER_NODES = 3
+#: the hottest Zipf ranks whose requests are GLOBAL with the TOKEN
+#: config's limit: their over-admission is printed
+GLOBAL_RANKS = 16
+#: the next ranks, GLOBAL with a limit above any run's hits: their
+#: remaining never saturates, so after convergence every daemon must
+#: read exactly EXACT_GLOBAL_LIMIT - the hits the callers sent
+EXACT_GLOBAL_RANKS = 16
+EXACT_GLOBAL_LIMIT = 10 ** 9
 
 
 def require(ok, what: str) -> None:
@@ -163,15 +192,41 @@ def fit_population(n_keys: int, log2_cap: int):
     idx = np.arange(int(n_keys * 1.002) + 1000, dtype=np.int64)
     keys = np.concatenate([reserved, smoke_hashes(idx)])
     bucket = (keys & np.uint64((1 << (log2_cap - 3)) - 1)).astype(np.int64)
+    sel = np.nonzero(bucket_fit(bucket)[len(reserved):])[0][:n_keys]
+    return idx[sel], keys[len(reserved):][sel]
+
+
+def bucket_fit(bucket: np.ndarray) -> np.ndarray:
+    """Mask of the entries that find room in their 8-slot bucket when
+    the entries are placed in order."""
     order = np.argsort(bucket, kind="stable")
     sb = bucket[order]
     start = np.r_[True, sb[1:] != sb[:-1]]
     pos = np.arange(len(sb))
     rank = pos - np.maximum.accumulate(np.where(start, pos, 0))
-    keep = np.zeros(len(keys), bool)
+    keep = np.zeros(len(bucket), bool)
     keep[order[rank < 8]] = True
-    sel = np.nonzero(keep[len(reserved):])[0][:n_keys]
-    return idx[sel], keys[len(reserved):][sel]
+    return keep
+
+
+def fit_cluster_population(n_keys: int, log2_cap: int, ring):
+    """n_keys key indices, hashes and owners (indices into
+    ``ring.owner_peers()``) such that every key fits its 8-slot bucket in
+    its owner's 2^log2_cap-row table beside the daemons' warm-up key:
+    the keys are placed by the ring, as the cluster routes them."""
+    from gubernator_tpu_torch.hashing import hash_request_keys
+
+    n_own = len(ring.owner_peers())
+    warm = hash_request_keys(["_warmup"], ["w"])
+    idx = np.arange(int(n_keys * 1.002) + 1000, dtype=np.int64)
+    keys = smoke_hashes(idx)
+    owners = ring.owner_indices(keys)
+    nb = 1 << (log2_cap - 3)
+    bucket = (np.concatenate([np.arange(n_own), owners]).astype(np.int64)
+              * nb + (np.concatenate([np.repeat(warm, n_own), keys])
+                      & np.uint64(nb - 1)).astype(np.int64))
+    sel = np.nonzero(bucket_fit(bucket)[n_own:])[0][:n_keys]
+    return idx[sel], keys[sel], owners[sel]
 
 
 def token_rows(keys, limit, duration, t0, remaining=None):
@@ -613,6 +668,356 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
         [wire_round_stats(rec, waves, inline, pauses) for rec in wire],
         wire, wire_launches, "wire path", profiled_last=True)
     require(wire_launches > 0, "the wire path never launched K1")
+    return res
+
+
+class _RingPeer:
+    def __init__(self, info):
+        self.info = info
+
+
+def cluster_ring(c):
+    """The ring the cluster's daemons route by, rebuilt from their peer
+    infos in the order they were joined."""
+    from gubernator_tpu_torch.peers import ReplicatedConsistentHash
+
+    ring = ReplicatedConsistentHash()
+    for d in c.daemons:
+        ring.add(_RingPeer(d.peer_info()))
+    return ring
+
+
+def count_steps(eng, counts: list, i: int) -> None:
+    """Count the decision steps (K1 launches on the card) of one
+    daemon's engine in counts[i]."""
+    decide = eng._decide
+
+    def counted(*a):
+        counts[i] += 1
+        return decide(*a)
+
+    eng._decide = counted
+
+
+def time_cluster_calls(inst, rec: dict) -> None:
+    """Record (start s, duration s) of one daemon's client wire entry in
+    rec["entry"], the device step of its owned rows inside that entry in
+    rec["local"], and its owner side of a forward RPC in rec["owner"]."""
+    inside: set = set()  # threads inside the client entry
+
+    def timed(name, key, entry=False):
+        fn = getattr(inst, name)
+
+        def wrapper(*a, **kw):
+            me = threading.get_ident()
+            if entry:
+                inside.add(me)
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if entry:
+                    inside.discard(me)
+                if key != "local" or me in inside:
+                    rec[key].append((t, time.perf_counter() - t))
+
+        setattr(inst, name, wrapper)
+
+    timed("get_rate_limits_wire", "entry", entry=True)
+    timed("_packed_check_to_bytes", "local")
+    timed("get_peer_rate_limits_wire", "owner")
+
+
+def call_breakdown(rec: dict, t0: float, wall: float) -> dict:
+    """Mean ms of the recorded calls that started in [t0, t0 + wall]."""
+    out = {}
+    for k, v in rec.items():
+        d = [dt for t, dt in v if t0 <= t <= t0 + wall]
+        out[f"{k}_calls"] = len(d)
+        out[f"{k}_ms_mean"] = float(np.mean(d) * 1e3) if d else None
+    return out
+
+
+def cluster_totals(c) -> dict:
+    """The cluster's forward, flush and GLOBAL counters, summed over its
+    daemons."""
+    out = {"forwarded": 0, "forward_failures": 0, "flushes": 0,
+           "flush_items": 0, "hits_queued": 0, "hits_flushed": 0,
+           "hits_absorbed": 0, "flush_failures": 0, "broadcasts": 0,
+           "broadcast_keys": 0, "broadcast_failures": 0, "leaks": 0}
+    for d in c.daemons:
+        inst = d.instance
+        out["forwarded"] += inst.forwarded_rows
+        out["forward_failures"] += inst.forward_failures
+        out["leaks"] += inst.engine.wave_pool.stats()["leaks"]
+        for p in inst.peers():
+            f = p.lane_stats()["forward"]
+            out["flushes"] += f["flushes"]
+            out["flush_items"] += f["items"]
+        if inst.global_manager is not None:
+            for k, v in inst.global_manager.snapshot_stats().items():
+                out[k] += v
+    return out
+
+
+def phase_cluster(torch, args, solo_rate=None):
+    """3 port daemons in this process, each with its own bucket engine
+    (K1) on DEVICE and real gRPC over loopback, joined by
+    cluster.start_with; 10M keys made resident on their owners by the
+    ring; 8 callers each sending 1000-request GetRateLimitsReq batches to
+    daemon (caller mod 3) through its gRPC front door, the keys of the
+    GLOBAL_RANKS hottest ranks GLOBAL, and of the EXACT_GLOBAL_RANKS
+    next GLOBAL with EXACT_GLOBAL_LIMIT.  Checks: non-GLOBAL keys exact
+    across the cluster, forwarded keys held by their owner alone, GLOBAL
+    keys converged on every daemon with every queued hit absorbed (the
+    EXACT_GLOBAL_LIMIT keys to the limit less the hits sent), no leak
+    and no failed forward."""
+    import grpc
+
+    from gubernator_tpu_torch import cluster
+    from gubernator_tpu_torch.config import BehaviorConfig, DaemonConfig
+    from gubernator_tpu_torch.grpc_api import raw_unary
+    from gubernator_tpu_torch.hashing import hash_request_keys
+    from gubernator_tpu_torch.ops.decide import decide_cuda
+    from gubernator_tpu_torch.types import RateLimitRequest
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    limit, duration, n_glob = 100, 3_600_000, GLOBAL_RANKS
+    n_all = GLOBAL_RANKS + EXACT_GLOBAL_RANKS  # ranks below it are GLOBAL
+
+    def limit_of(r):
+        return EXACT_GLOBAL_LIMIT if n_glob <= r < n_all else limit
+
+    # the JAX package's BehaviorConfig defaults, but degraded serves and
+    # the health gate (not ported) off
+    behaviors = BehaviorConfig(peer_degraded_fallback=False,
+                               peer_health_gate=False)
+    c = cluster.start_with([DaemonConfig(
+        grpc_listen_address="127.0.0.1:0", http_listen_address="127.0.0.1:0",
+        cache_size=1 << args.cluster_log2_cap, batch_rows=1024,
+        device=DEVICE, behaviors=behaviors)
+        for _ in range(CLUSTER_NODES)])
+    chans = []
+    try:
+        n = len(c.daemons)
+        ring = cluster_ring(c)
+        by_addr = {d.advertise_address: i for i, d in enumerate(c.daemons)}
+        owner_daemon = np.array([by_addr[p.info.grpc_address]
+                                 for p in ring.owner_peers()])
+        t0 = time.perf_counter()
+        pop_idx, pop_keys, owner_pi = fit_cluster_population(
+            args.keys, args.cluster_log2_cap, ring)
+        owner = owner_daemon[owner_pi]
+        sample = np.arange(0, len(pop_idx), max(len(pop_idx) // 300, 1))
+        require(all(c.owner_daemon_of(f"smoke_k{pop_idx[j]:08d}")
+                    is c.daemons[owner[j]] for j in sample),
+                "the smoke's ring differs from the daemons'")
+        fill_t = int(time.time() * 1000) - 1_000
+        pop_limit = np.full(len(pop_keys), limit, np.int64)
+        pop_limit[n_glob:n_all] = EXACT_GLOBAL_LIMIT
+        for i, d in enumerate(c.daemons):
+            mine = pop_keys[owner == i]
+            with d.instance._engine_mu:
+                placed = d.instance.engine.restore(token_rows(
+                    mine, pop_limit[owner == i], duration, fill_t))
+            require(placed == len(mine), f"daemon {i} placed {placed} of "
+                    f"{len(mine)} keys")
+        per_node = np.bincount(owner, minlength=n).tolist()
+        print(f"cluster fill: {len(pop_keys)} TOKEN keys on their owners "
+              f"{per_node} in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        steps = [0] * n
+        calls_rec = {"entry": [], "local": [], "owner": []}
+        for i, d in enumerate(c.daemons):
+            count_steps(d.instance.engine, steps, i)
+            time_cluster_calls(d.instance, calls_rec)
+        chans = [grpc.insecure_channel(f"127.0.0.1:{d.grpc_port}")
+                 for d in c.daemons]
+        calls = [raw_unary(chans[t % n], "GetRateLimits")
+                 for t in range(args.threads)]
+        rng = np.random.default_rng(args.seed + 3)
+        tally = Tally(limit)
+        glob_under = np.zeros(n_glob, np.int64)
+        exact_sent = np.zeros(n_all, np.int64)  # ranks n_glob.. count
+        glob_req = 0
+        n_rows = 0
+        decide_cuda.launches = 0
+        before = cluster_totals(c)
+        rounds = []
+        key_of = lambda r: f"k{pop_idx[r]:08d}"  # noqa: E731
+        for rnd in range(args.cluster_rounds + 1):
+            profiled = rnd == args.cluster_rounds
+            n_b = args.profile_batches if profiled else args.batches
+            per = [[zipf_ranks(rng, 1.1, len(pop_idx), 1000)
+                    for _ in range(n_b)] for _ in range(args.threads)]
+            jobs = wire_jobs(per, key_of, limit, duration,
+                             lambda r: 2 if r < n_all else 0, limit_of)
+            rpc = [lambda b, call=call: call(b, timeout=120)
+                   for call in calls]
+            device = None
+            if profiled and DEVICE == "cuda":
+                out, device = profile_device(torch, lambda: drive(rpc, jobs))
+            else:
+                out = drive(rpc, jobs)
+            t_start, wall, lat, raw = out
+            n_req = 0
+            plain_per, plain_res = [], {}
+            for t, thread in enumerate(per):
+                plain_per.append([])
+                plain_res[t] = []
+                for ranks, data in zip(thread, raw[t]):
+                    resps = decode_responses(data)
+                    require(len(resps) == len(ranks), "short response")
+                    n_req += len(ranks)
+                    g = ranks < n_all
+                    for r, resp in zip(ranks[g].tolist(),
+                                       [resps[j] for j in np.nonzero(g)[0]]):
+                        require(not resp.error, resp.error)
+                        if r < n_glob:
+                            glob_under[r] += resp.status == 0
+                        else:
+                            require(resp.status == 0, "a GLOBAL key "
+                                    "under a limit of 10^9 went OVER")
+                    exact_sent += np.bincount(ranks[g], minlength=n_all)
+                    glob_req += int(g.sum())
+                    plain_per[t].append(ranks[~g])
+                    plain_res[t].append([resps[j]
+                                         for j in np.nonzero(~g)[0]])
+            tally.add(plain_per, plain_res)
+            n_rows += n_req
+            lat_ms = np.asarray(lat) * 1e3
+            rec = {"wall_s": wall, "decisions_per_s": n_req / wall,
+                   "batches": len(lat),
+                   "p50_ms": float(np.percentile(lat_ms, 50)),
+                   "p99_ms": float(np.percentile(lat_ms, 99)),
+                   "max_ms": float(lat_ms.max()),
+                   "batch_ms_mean": float(lat_ms.mean()), "lat": lat,
+                   "device": device}
+            # a batch's time in its daemon's entry (the rest is the gRPC
+            # hop in and out), of which the local step; the owner side
+            # of each forward RPC
+            rec.update(call_breakdown(calls_rec, t_start, wall))
+            rounds.append(rec)
+            print(f"cluster round {rnd}{' (profiled)' if profiled else ''}:"
+                  f" {json.dumps({k: v for k, v in rec.items() if k != 'lat'})}",
+                  flush=True)
+        # the rounds' K1 launches and steps, before the probes below
+        launches, steps = decide_cuda.launches, list(steps)
+
+        # every queued GLOBAL hit reaches its owner, whose broadcast then
+        # reaches every replica: poll by attempt, with a deadline.  A
+        # flush is counted only once its RPC returns, so the counters
+        # are polled with the rest
+        b = behaviors
+        time.sleep((b.global_sync_wait_ms + b.global_broadcast_interval_ms)
+                   / 1000.0)
+        probe = encode_get_rate_limits([RateLimitRequest(
+            name="smoke", unique_key=key_of(r), hits=0, limit=limit_of(r),
+            duration=duration, behavior=2) for r in range(n_all)])
+        want = [None] * n_glob + (
+            EXACT_GLOBAL_LIMIT - exact_sent[n_glob:]).tolist()
+        deadline = time.monotonic() + CONVERGE_S
+        attempts = 0
+        while True:
+            attempts += 1
+            rem = [[x.remaining for x in decode_responses(
+                d.instance.get_rate_limits_wire(probe))] for d in c.daemons]
+            owners_rem = [rem[by_addr[ring.get(f"smoke_{key_of(r)}")
+                                      .info.grpc_address]][r]
+                          for r in range(n_all)]
+            queued = [d.instance.global_manager.queued()["hits"]
+                      if d.instance.global_manager is not None else 0
+                      for d in c.daemons]
+            totals = cluster_totals(c)
+            absorbed = totals["hits_queued"] == (totals["hits_flushed"]
+                                                 + totals["hits_absorbed"])
+            converged = (all(row == owners_rem for row in rem)
+                         and all(w is None or w == o
+                                 for w, o in zip(want, owners_rem))
+                         and not any(queued) and absorbed)
+            if converged or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        moved = {k: totals[k] - before[k] for k in totals}
+        print(f"cluster GLOBAL convergence after {attempts} attempts: "
+              f"{converged}; owner remaining {owners_rem}; 10^9-limit keys "
+              f"want {want[n_glob:]}; queued {queued}; hits queued "
+              f"{totals['hits_queued']}, flushed {totals['hits_flushed']}, "
+              f"absorbed {totals['hits_absorbed']}", flush=True)
+        require(converged, f"GLOBAL keys did not converge: {rem}; want "
+                f"{want}; queued {queued}; {totals}")
+        # a failed broadcast is not retried (JAX's too): the convergence
+        # above is what holds the replicas; it is counted and printed
+        require(totals["flush_failures"] == 0,
+                f"a GLOBAL hits flush failed: {totals}")
+        require(totals["forward_failures"] == 0,
+                f"{totals['forward_failures']} forwards failed")
+        require(totals["leaks"] == 0, f"{totals['leaks']} leases leaked")
+        tally.check()
+        # a forwarded key lives on its owner alone
+        touched = np.array(sorted(tally.count), np.int64)
+        pick = touched[np.linspace(0, len(touched) - 1,
+                                   min(len(touched), 20_000)).astype(int)]
+        kh = hash_request_keys(["smoke"] * len(pick),
+                               [key_of(r) for r in pick.tolist()])
+        held = np.zeros(len(pick), np.int64)
+        for i, d in enumerate(c.daemons):
+            with d.instance._engine_mu:
+                found, _ = d.instance.engine.gather_rows(kh)
+            require(not (found & (owner[pick] != i)).any(),
+                    f"daemon {i} holds rows it does not own")
+            held += found
+        require((held == 1).all(), "a touched key is not on its owner")
+    finally:
+        for ch in chans:
+            ch.close()
+        c.stop()
+
+    timed = rounds[:-1]
+    lat_ms = np.concatenate([np.asarray(r["lat"]) for r in timed]) * 1e3
+    rates = [r["decisions_per_s"] for r in timed]
+    over = np.maximum(glob_under - limit, 0)
+    res = {"nodes": n, "decisions_per_s": float(np.mean(rates)),
+           "decisions_per_s_rounds": rates,
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "requests": n_rows, "checked_requests": tally.n_req,
+           "global_share": glob_req / n_rows,
+           "forwarded_share": moved["forwarded"] / n_rows,
+           "forwarded_share_of_non_global": moved["forwarded"]
+           / max(n_rows - glob_req, 1),
+           "peer_flushes": moved["flushes"],
+           "items_per_flush": moved["flush_items"] / max(moved["flushes"], 1),
+           "global_hits_queued": moved["hits_queued"],
+           "global_hits_flushed": moved["hits_flushed"],
+           "broadcasts": moved["broadcasts"],
+           "broadcast_keys": moved["broadcast_keys"],
+           "broadcast_failures": moved["broadcast_failures"],
+           "global_over_admission_max": int(over.max()),
+           "global_over_admission_sum": int(over.sum()),
+           "exact_global_hits": int(exact_sent[n_glob:].sum()),
+           "launches": launches, "steps_per_daemon": steps,
+           "convergence_attempts": attempts,
+           "device": rounds[-1]["device"],
+           "share_of_solo_wire": (float(np.mean(rates)) / solo_rate
+                                  if solo_rate else None)}
+    print(f"cluster: {n} daemons, {n_rows} decisions ({tally.n_req} "
+          f"non-GLOBAL, each key exact); {len(timed)} timed rounds: "
+          f"{res['decisions_per_s']} decisions/s ({rates}); batch p50 "
+          f"{res['p50_ms']} ms p99 {res['p99_ms']} ms; GLOBAL share "
+          f"{res['global_share']}; forwarded share {res['forwarded_share']}"
+          f" ({res['forwarded_share_of_non_global']} of non-GLOBAL rows); "
+          f"{res['peer_flushes']} peer flushes, {res['items_per_flush']} "
+          f"items a flush; GLOBAL hits queued {res['global_hits_queued']}, "
+          f"flushed {res['global_hits_flushed']}; {res['broadcasts']} "
+          f"broadcasts ({res['broadcast_keys']} keys, "
+          f"{res['broadcast_failures']} failed sends); GLOBAL "
+          f"over-admission max {res['global_over_admission_max']} sum "
+          f"{res['global_over_admission_sum']}; K1 launches {launches}, "
+          f"steps per daemon {steps}; share of the solo wire path "
+          f"{res['share_of_solo_wire']}", flush=True)
+    require(launches > 0 and all(steps),
+            f"a daemon never launched K1: {steps}")
     return res
 
 
@@ -1228,10 +1633,12 @@ def grpc_verify_flow(port: int) -> None:
           flush=True)
 
 
-def wire_jobs(per, key_of, limit: int, duration: int):
+def wire_jobs(per, key_of, limit: int, duration: int,
+              behavior_of=lambda i: 0, limit_of=None):
     """Each thread's batches of ids as GetRateLimitsReq bytes, built by
     the port's encoder before the clock starts (one request TLV per
-    distinct key, reused; a batch is their concatenation)."""
+    distinct key, reused; a batch is their concatenation); ``limit_of``
+    gives a key its own limit in place of ``limit``."""
     from gubernator_tpu_torch.types import RateLimitRequest
     from gubernator_tpu_torch.wire import req_to_tlv
 
@@ -1241,8 +1648,9 @@ def wire_jobs(per, key_of, limit: int, duration: int):
         t = tlv.get(i)
         if t is None:
             t = tlv[i] = req_to_tlv(RateLimitRequest(
-                name="smoke", unique_key=key_of(i), hits=1, limit=limit,
-                duration=duration))
+                name="smoke", unique_key=key_of(i), hits=1,
+                limit=limit if limit_of is None else limit_of(i),
+                duration=duration, behavior=behavior_of(i)))
         return t
 
     return [[b"".join(map(enc, np.asarray(ids).tolist())) for ids in thread]
@@ -1328,19 +1736,20 @@ def wire_round_stats(rec, waves, inline, pauses) -> dict:
 
 def drive(call, jobs):
     """Each thread calls ``call`` (get_rate_limits or
-    get_rate_limits_wire) on its batches in turn; returns (start on the
-    perf_counter clock, wall s, batch latencies s, {thread: [answer per
-    batch]})."""
+    get_rate_limits_wire, or a list of one callable per thread) on its
+    batches in turn; returns (start on the perf_counter clock, wall s,
+    batch latencies s, {thread: [answer per batch]})."""
     lat: list = []
     results: dict = {}
     failures: list = []
 
     def caller(t):
+        fn = call[t] if isinstance(call, list) else call
         try:
             out = []
             for batch in jobs[t]:
                 s = time.perf_counter()
-                out.append(call(batch))
+                out.append(fn(batch))
                 lat.append(time.perf_counter() - s)
             results[t] = out
         except Exception as e:  # re-raised below, after join
@@ -1650,6 +2059,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-batches", type=int, default=20,
                     help="batches per thread in the profiled round")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cluster-log2-cap", type=int, default=24,
+                    help="each cluster daemon's bucket-table rows (log2)")
+    ap.add_argument("--cluster-rounds", type=int, default=2)
     args = ap.parse_args(argv)
 
     import torch
@@ -1677,13 +2089,18 @@ def main(argv=None) -> int:
     del pop_idx, pop_keys
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+    with phase("cluster"):
+        cl = phase_cluster(torch, args, m["wire"]["decisions_per_s"])
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     with phase("sweep vs plain"):
         k2 = phase_sweep_vs_plain(torch, args)
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     with phase("classic main path"):
         c = phase_classic_main_path(torch, args)
-    print(json.dumps({"main_path": m, "kernel_detail": k,
+    print(json.dumps({"main_path": m, "cluster": cl, "kernel_detail": k,
                       "classic_main_path": c, "sweep_detail": k2,
                       "probe_detail": k3}), flush=True)
     print(smi, flush=True)
@@ -1692,6 +2109,8 @@ def main(argv=None) -> int:
          "source": "gubernator_tpu_torch/csrc/decide.cu",
          "replaces": "gubernator_tpu/ops/pallas_step.py:338",
          "launches": m["launches"], "wire_launches": m["wire"]["launches"],
+         "cluster_launches": cl["launches"],
+         "cluster_steps_per_daemon": cl["steps_per_daemon"],
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": "bytes", "library_ms": None,

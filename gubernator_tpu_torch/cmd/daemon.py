@@ -2,10 +2,12 @@
 
 Usage: python -m gubernator_tpu_torch.cmd.daemon [--config FILE]
 (GUBER_GRPC_ADDRESS, GUBER_HTTP_ADDRESS, GUBER_CACHE_SIZE,
-GUBER_BATCH_ROWS, GUBER_ENGINE, GUBER_CACHE_AUTOGROW_MAX, GUBER_DEVICE
-and GUBER_LOG_LEVEL apply; see config.py; an empty GUBER_GRPC_ADDRESS
-serves no gRPC).  Serves on the GPU unless GUBER_DEVICE=cpu, through the
-bucket engine unless GUBER_ENGINE=xla selects the classic SoA engine.
+GUBER_BATCH_ROWS, GUBER_ENGINE, GUBER_CACHE_AUTOGROW_MAX, GUBER_DEVICE,
+GUBER_LOG_LEVEL, and for a cluster GUBER_PEER_DISCOVERY_TYPE,
+GUBER_PEERS, GUBER_ADVERTISE_ADDRESS, GUBER_BATCH_* and GUBER_GLOBAL_*
+apply; see config.py; an empty GUBER_GRPC_ADDRESS serves no gRPC and no
+peers).  Serves on the GPU unless GUBER_DEVICE=cpu, through the bucket
+engine unless GUBER_ENGINE=xla selects the classic SoA engine.
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ def main(argv=None) -> int:
         signal.signal(sig, lambda *_: stop.set())
     print(f"gubernator-tpu-torch listening "
           f"grpc={cfg.grpc_listen_address or 'off'} (port {d.grpc_port}) "
+          f"advertise={d.advertise_address or '-'} "
+          f"peers={len(d.instance.peers())} "
           f"http={cfg.http_listen_address} "
           f"device={cfg.device} "
           f"engine={type(d.instance.engine).__name__}", flush=True)

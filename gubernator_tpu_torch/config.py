@@ -1,15 +1,85 @@
-"""Configuration: the subset of gubernator_tpu/config.py that the port's
-single-daemon slice reads, plus the ``device`` it serves on.
+"""Configuration: the subset of gubernator_tpu/config.py that the port
+reads (one daemon, its static peers and their batching / GLOBAL
+timing), plus the ``device`` it serves on.
 
 Layering is the JAX package's: defaults < ``KEY=value`` config file <
-environment (``GUBER_*``).  Keys the port does not read yet (peers,
-TLS, ...) are ignored, so the repository's example.conf loads as is.
+environment (``GUBER_*``).  Keys the port does not read yet (TLS, other
+discovery backends, ...) are ignored, so the repository's example.conf
+loads as is.
 """
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Dict, Optional
+import re
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from .types import PeerInfo
+
+_DUR_RE = re.compile(r"(\d+(?:\.\d+)?)(ns|us|µs|ms|s|m|h)")
+_DUR_UNIT_MS = {"ns": 1e-6, "us": 1e-3, "µs": 1e-3, "ms": 1.0,
+                "s": 1000.0, "m": 60_000.0, "h": 3_600_000.0}
+
+
+def parse_duration_ms(s: str | int | float) -> int:
+    """Go-style duration string ("1m30s", "250ms") or bare number (ms)
+    → integer milliseconds."""
+    if isinstance(s, (int, float)):
+        return int(s)
+    s = s.strip()
+    if not s:
+        return 0
+    if re.fullmatch(r"-?\d+", s):
+        return int(s)
+    total, pos = 0.0, 0
+    neg = s.startswith("-")
+    if neg:
+        pos = 1
+    for m in _DUR_RE.finditer(s, pos):
+        if m.start() != pos:
+            raise ValueError(f"invalid duration: {s!r}")
+        total += float(m.group(1)) * _DUR_UNIT_MS[m.group(2)]
+        pos = m.end()
+    if pos != len(s):
+        raise ValueError(f"invalid duration: {s!r}")
+    return int(-total if neg else total)
+
+
+@dataclass
+class BehaviorConfig:
+    """Peer batching and GLOBAL timing (config.go › BehaviorConfig; ms
+    integers, the JAX package's defaults)."""
+
+    #: deadline slack of a forwarded batch (the forward RPC's deadline is
+    #: this plus 60 s) and of a caller waiting for its forward
+    batch_timeout_ms: int = 500
+    batch_wait_ms: int = 500
+    #: most requests in one forwarded peer batch
+    batch_limit: int = 1000
+    #: how long GLOBAL hits accumulate before they flush to their owner
+    global_sync_wait_ms: int = 100
+    #: deadline of a GLOBAL hits flush or broadcast RPC
+    global_timeout_ms: int = 500
+    #: most GLOBAL items in one flush or broadcast RPC
+    global_batch_limit: int = 1000
+    #: interval between the owner's broadcasts of changed GLOBAL rows
+    global_broadcast_interval_ms: int = 100
+    #: in-flight RPCs per peer per method (the send lanes' pipeline depth)
+    peer_inflight: int = 4
+    #: how long a flush waits for stragglers after draining its backlog
+    peer_coalesce_us: int = 200
+    #: re-sends of a failed flush, with linear backoff
+    peer_retry_limit: int = 2
+    peer_retry_backoff_ms: int = 25
+    #: consecutive failed flushes that open a peer's circuit (sends then
+    #: fail fast until the cooldown ends and one flush half-opens it)
+    peer_circuit_threshold: int = 3
+    peer_circuit_cooldown_ms: int = 2000
+    #: degraded serves of a failed forward and the health-gated routing
+    #: ring are not ported yet: only False is served, and True raises
+    #: when an instance is built (the JAX default is True for both)
+    peer_degraded_fallback: bool = False
+    peer_health_gate: bool = False
 
 
 @dataclass
@@ -34,6 +104,10 @@ class Config:
     #: Device the engine serves on: "cuda" (default; raises without a
     #: GPU) or "cpu" (the plain PyTorch step).
     device: str = "cuda"
+    behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
+    #: this daemon's own peer address (host:port of its gRPC listener):
+    #: the ring entry that is "self"
+    advertise_address: str = ""
 
     def set_defaults(self) -> "Config":
         """Normalize invalid values (config.go › SetDefaults)."""
@@ -61,6 +135,14 @@ class DaemonConfig:
     sweep_interval_ms: int = 30_000
     device: str = "cuda"
     log_level: str = "info"
+    #: the address peers reach this daemon at; "" = the gRPC listener's
+    #: host and bound port
+    advertise_address: str = ""
+    behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
+    #: "none" or "static" (GUBER_PEERS); other backends are not ported
+    peer_discovery_type: str = "none"
+    #: static discovery: "host:grpc_port[;host:http_port][@dc]" entries
+    static_peers: List[str] = field(default_factory=list)
 
     def instance_config(self) -> Config:
         return Config(cache_size=self.cache_size,
@@ -68,7 +150,9 @@ class DaemonConfig:
                       cache_autogrow_max=self.cache_autogrow_max,
                       engine=self.engine,
                       sweep_interval_ms=self.sweep_interval_ms,
-                      device=self.device).set_defaults()
+                      device=self.device, behaviors=self.behaviors,
+                      advertise_address=self.advertise_address
+                      ).set_defaults()
 
 
 def load_conf_file(path: str) -> Dict[str, str]:
@@ -107,4 +191,53 @@ def setup_daemon_config(conf_file: str = "",
     d.engine = conf.get("GUBER_ENGINE", d.engine)
     d.device = conf.get("GUBER_DEVICE", d.device)
     d.log_level = conf.get("GUBER_LOG_LEVEL", d.log_level)
+    d.advertise_address = conf.get("GUBER_ADVERTISE_ADDRESS",
+                                   d.advertise_address)
+
+    def get(name, default, cast):
+        return cast(conf[name]) if name in conf else default
+
+    def flag(v: str) -> bool:
+        return str(v).strip().lower() in ("1", "true", "yes", "on")
+
+    b = d.behaviors
+    b.batch_timeout_ms = get("GUBER_BATCH_TIMEOUT", b.batch_timeout_ms,
+                             parse_duration_ms)
+    b.batch_wait_ms = get("GUBER_BATCH_WAIT", b.batch_wait_ms,
+                          parse_duration_ms)
+    b.batch_limit = get("GUBER_BATCH_LIMIT", b.batch_limit, int)
+    b.global_sync_wait_ms = get("GUBER_GLOBAL_SYNC_WAIT",
+                                b.global_sync_wait_ms, parse_duration_ms)
+    b.global_timeout_ms = get("GUBER_GLOBAL_TIMEOUT", b.global_timeout_ms,
+                              parse_duration_ms)
+    b.global_batch_limit = get("GUBER_GLOBAL_BATCH_LIMIT",
+                               b.global_batch_limit, int)
+    b.global_broadcast_interval_ms = get(
+        "GUBER_GLOBAL_BROADCAST_INTERVAL", b.global_broadcast_interval_ms,
+        parse_duration_ms)
+    b.peer_degraded_fallback = get("GUBER_PEER_DEGRADED_FALLBACK",
+                                   b.peer_degraded_fallback, flag)
+    b.peer_health_gate = get("GUBER_PEER_HEALTH_GATE", b.peer_health_gate,
+                             flag)
+    d.peer_discovery_type = conf.get("GUBER_PEER_DISCOVERY_TYPE",
+                                     d.peer_discovery_type)
+    peers = conf.get("GUBER_PEERS", "")
+    if peers:
+        d.static_peers = [p.strip() for p in peers.split(",") if p.strip()]
+        if d.peer_discovery_type == "none":
+            d.peer_discovery_type = "static"
     return d
+
+
+def parse_peer_list(specs: List[str], default_dc: str = "") -> List[PeerInfo]:
+    """"host:grpc_port[;host:http_port][@dc]" strings → PeerInfo list."""
+    out = []
+    for s in specs:
+        dc = default_dc
+        if "@" in s:
+            s, _, dc = s.partition("@")
+        grpc_addr, _, http_addr = s.partition(";")
+        out.append(PeerInfo(grpc_address=grpc_addr.strip(),
+                            http_address=http_addr.strip(),
+                            datacenter=dc.strip()))
+    return out

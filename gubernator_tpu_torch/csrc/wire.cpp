@@ -4,7 +4,8 @@
 // The port's copy of the solo wire lane of gubernator_tpu/ops/_native.cpp
 // (parse_get_rate_limits, count_req_items, mix64 / pack_wire_wave,
 // build_resp_rows / build_responses_from_columns and the varint, UTF-8
-// and FNV-1a helpers they share), behind a plain C interface: the Python
+// and FNV-1a helpers they share) and of its forward-hop codec
+// (stamp_req_tlvs, split_resp_items), behind a plain C interface: the Python
 // side (ops/native.py) binds it with ctypes, which releases the GIL for
 // the call, so concurrent callers ingest and serialize in parallel.  It
 // runs on the host CPU only and is built with the host C++ compiler
@@ -388,6 +389,113 @@ int64_t gw_build_responses(const int32_t* status, const int64_t* limit,
     }
   }
   return (int64_t)(o - out);
+}
+
+// Upper bound of gw_stamp_req_tlvs's output: every slice may grow by a
+// field-10 varint (tag + up to 10 bytes) and one more length byte.
+int64_t gw_stamp_bound(int64_t n, int64_t slice_bytes) {
+  return slice_bytes + n * 12;
+}
+
+// The forward hop's bulk TLV join (gubernator_tpu/ops/_native.cpp ›
+// stamp_req_tlvs): concatenates the n request TLV slices
+// data[toff[i], toff[i] + tlen[i]) into `out`, appending
+// `created_at = stamp_ms` (field 10) to every slice whose created[i] is
+// 0, so a forwarded request applies at the caller's clock on the owner;
+// a slice that already carries a stamp goes verbatim (first hop wins).
+// Returns the bytes written, -1 on a malformed slice, -2 if `out_cap` is
+// below gw_stamp_bound.
+int64_t gw_stamp_req_tlvs(const uint8_t* data, int64_t len,
+                          const int64_t* toff, const int64_t* tlen,
+                          const int64_t* created, int64_t n,
+                          int64_t stamp_ms, uint8_t* out, int64_t out_cap) {
+  int64_t slice_bytes = 0;
+  for (int64_t i = 0; i < n; i++) slice_bytes += tlen[i];
+  if (out_cap < gw_stamp_bound(n, slice_bytes)) return -2;
+  uint8_t suffix[11];
+  uint8_t* sfx_end = put_varint(suffix + 1, (uint64_t)stamp_ms);
+  suffix[0] = 0x50;  // field 10, varint
+  const uint64_t suffix_len = (uint64_t)(sfx_end - suffix);
+  uint8_t* o = out;
+  for (int64_t i = 0; i < n; i++) {
+    if (toff[i] < 0 || tlen[i] < 2 || toff[i] + tlen[i] > len ||
+        data[toff[i]] != 0x0A)
+      return -1;
+    const uint8_t* tlv = data + toff[i];
+    const uint8_t* tend = tlv + tlen[i];
+    if (created[i] != 0) {  // the caller already stamped: verbatim
+      std::memcpy(o, tlv, (size_t)tlen[i]);
+      o += tlen[i];
+      continue;
+    }
+    const uint8_t* p = tlv + 1;
+    uint64_t plen;
+    if (!read_varint(&p, tend, &plen) || (uint64_t)(tend - p) != plen)
+      return -1;
+    *o++ = 0x0A;
+    o = put_varint(o, plen + suffix_len);
+    std::memcpy(o, p, (size_t)plen);
+    o += plen;
+    std::memcpy(o, suffix, (size_t)suffix_len);
+    o += suffix_len;
+  }
+  return (int64_t)(o - out);
+}
+
+// Delimits each top-level field-1 submessage (RateLimitResp) of a
+// GetRateLimitsResp / GetPeerRateLimitsResp (gubernator_tpu/ops/
+// _native.cpp › split_resp_items): its TLV range and its status (field
+// 1 varint, 0 when omitted).  At most `cap` items (size it with
+// gw_count_req_items: the framing is the same); returns n, or -1 on
+// malformed input, an unknown top-level field or a wire type the scan
+// does not model.
+int64_t gw_split_resp_items(const uint8_t* data, int64_t len, int64_t cap,
+                            uint64_t* tlv_off, uint64_t* tlv_len,
+                            int32_t* status) {
+  const uint8_t* p = data;
+  const uint8_t* end = data + len;
+  int64_t n = 0;
+  while (p < end) {
+    const uint8_t* tlv_start = p;
+    uint64_t tag, l;
+    if (n >= cap || !read_varint(&p, end, &tag) || tag != 0x0A ||
+        !read_varint(&p, end, &l) || (uint64_t)(end - p) < l)
+      return -1;
+    const uint8_t* q = p;
+    const uint8_t* qend = p + l;
+    p = qend;
+    int32_t st = 0;
+    while (q < qend) {
+      uint64_t t, v;
+      if (!read_varint(&q, qend, &t)) return -1;
+      switch (t & 7) {
+        case 0:
+          if (!read_varint(&q, qend, &v)) return -1;
+          if ((t >> 3) == 1) st = (int32_t)v;
+          break;
+        case 2:
+          if (!read_varint(&q, qend, &v) || (uint64_t)(qend - q) < v)
+            return -1;
+          q += v;
+          break;
+        case 1:
+          if (qend - q < 8) return -1;
+          q += 8;
+          break;
+        case 5:
+          if (qend - q < 4) return -1;
+          q += 4;
+          break;
+        default:
+          return -1;
+      }
+    }
+    tlv_off[n] = (uint64_t)(tlv_start - data);
+    tlv_len[n] = (uint64_t)(qend - tlv_start);
+    status[n] = st;
+    n++;
+  }
+  return n;
 }
 
 }  // extern "C"

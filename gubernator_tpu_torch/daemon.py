@@ -1,12 +1,15 @@
-"""Daemon: the gRPC and HTTP front doors around one V1Instance.
-
-The solo daemon of gubernator_tpu/daemon.py:
+"""Daemon: the gRPC and HTTP front doors around one V1Instance (the port
+of gubernator_tpu/daemon.py):
 
 - gRPC on ``grpc_listen_address`` (grpc_api.py): V1 GetRateLimits as raw
   wire bytes into ``V1Instance.get_rate_limits_wire`` (a ValueError
-  becomes INVALID_ARGUMENT), V1 HealthCheck, and grpc.health.v1.  grpcio
-  is imported only when an address is set; set and missing, the daemon
-  raises;
+  becomes INVALID_ARGUMENT), V1 HealthCheck, grpc.health.v1, and the
+  peer service PeersV1 (GetPeerRateLimits as raw bytes into
+  ``get_peer_rate_limits_wire``, UpdatePeerGlobals).  grpcio is imported
+  only when an address is set; set and missing, the daemon raises.  The
+  listener binds first, so a ``:0`` address advertises its bound port;
+- peers from ``peer_discovery_type`` (discovery.py: ``static`` reads
+  ``static_peers``, GUBER_PEERS) into ``V1Instance.set_peers``;
 - an HTTP/JSON gateway on ``http_listen_address``: POST
   /v1/GetRateLimits (numeric enums in and out, snake_case and camelCase
   field names) through the object lane, and GET /healthz (also
@@ -18,11 +21,13 @@ import json
 import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import List, Optional
 
 from .config import DaemonConfig
+from .discovery import make_discovery
 from .instance import V1Instance
-from .types import Behavior, RateLimitRequest
+from .netutil import resolve_host_ip, split_host_port
+from .types import Behavior, PeerInfo, RateLimitRequest
 
 log = logging.getLogger("gubernator_tpu_torch.daemon")
 
@@ -57,8 +62,8 @@ def _resp_to_json(r) -> dict:
 
 
 def _split_host_port(addr: str) -> tuple[str, int]:
-    host, _, port = addr.rpartition(":")
-    return host.strip("[]") or "0.0.0.0", int(port)
+    host, port = split_host_port(addr)
+    return host.strip("[]") or "0.0.0.0", port
 
 
 class _V1Servicer:
@@ -81,6 +86,28 @@ class _V1Servicer:
         return health_to_pb(self.instance.health_check())
 
 
+class _PeersServicer:
+    """PeersV1 over the instance: the owner side of the forward hop and
+    the replicas' side of GLOBAL broadcasts."""
+
+    def __init__(self, instance: V1Instance):
+        self.instance = instance
+
+    def GetPeerRateLimitsWire(self, request: bytes, context):
+        import grpc
+
+        try:
+            return self.instance.get_peer_rate_limits_wire(request)
+        except ValueError as e:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+
+    def UpdatePeerGlobals(self, request, context):
+        from .proto import peers_pb2 as peers_pb
+
+        self.instance.update_peer_globals(list(request.globals))
+        return peers_pb.UpdatePeerGlobalsResp()
+
+
 class Daemon:
     """Use spawn_daemon() to construct."""
 
@@ -91,23 +118,36 @@ class Daemon:
         self._http_thread: Optional[threading.Thread] = None
         self.grpc_server = None
         self.grpc_port = 0
-        self.instance = V1Instance(cfg.instance_config())
+        self.instance: Optional[V1Instance] = None
+        self.discovery = None
+        self.advertise_address = cfg.advertise_address
         try:
+            if cfg.grpc_listen_address:
+                self._bind_grpc(cfg.grpc_listen_address)
+            elif cfg.peer_discovery_type not in ("", "none"):
+                raise ValueError("peer discovery needs a gRPC listener: "
+                                 "set grpc_listen_address")
+            icfg = cfg.instance_config()
+            icfg.advertise_address = self.advertise_address
+            self.instance = V1Instance(icfg)
             # warm-up: build the kernel and run one wave before serving
             self.instance.get_rate_limits(
                 [RateLimitRequest(name="_warmup", unique_key="w", hits=0,
                                   limit=1, duration=1000)])
             self.instance.engine.warmup()
-            if cfg.grpc_listen_address:
-                self._start_grpc(cfg.grpc_listen_address)
+            if self.grpc_server is not None:
+                self._serve_grpc()
             self._start_http(cfg.http_listen_address)
+            self.discovery = make_discovery(cfg, self.peer_info(),
+                                            self.instance.set_peers)
         except BaseException:
             self.close()
             raise
 
-    def _start_grpc(self, addr: str) -> None:
-        """V1 (raw wire bytes) and grpc.health.v1 on ``addr``; raises
-        when grpcio is missing or the address cannot be bound."""
+    def _bind_grpc(self, addr: str) -> None:
+        """Bind the gRPC listener (not serving yet), so the advertise
+        address can name its real port; raises when grpcio is missing
+        or the address cannot be bound."""
         try:
             import grpc
         except ImportError as e:
@@ -117,17 +157,36 @@ class Daemon:
                 "only") from e
         from concurrent.futures import ThreadPoolExecutor
 
-        from .grpc_api import add_health_servicer, add_v1_servicer_raw
-
         server = grpc.server(ThreadPoolExecutor(max_workers=32),
                              options=[("grpc.so_reuseport", 0)])
-        add_v1_servicer_raw(server, _V1Servicer(self.instance))
-        add_health_servicer(server, self.instance)
         port = server.add_insecure_port(addr)
         if port == 0:
             raise OSError(f"failed to bind {addr}")
-        server.start()
         self.grpc_server, self.grpc_port = server, port
+        host, _ = split_host_port(addr)
+        adv = self.cfg.advertise_address or f"{host}:{port}"
+        adv_host, adv_port = split_host_port(adv)
+        if adv_port == 0:
+            adv = f"{adv_host}:{port}"
+        self.advertise_address = resolve_host_ip(adv)
+
+    def _serve_grpc(self) -> None:
+        """V1 (raw wire bytes), PeersV1 and grpc.health.v1."""
+        from .grpc_api import (add_health_servicer, add_peers_servicer_raw,
+                               add_v1_servicer_raw)
+
+        add_v1_servicer_raw(self.grpc_server, _V1Servicer(self.instance))
+        add_peers_servicer_raw(self.grpc_server,
+                               _PeersServicer(self.instance))
+        add_health_servicer(self.grpc_server, self.instance)
+        self.grpc_server.start()
+
+    def set_peers(self, infos: List[PeerInfo]) -> None:
+        self.instance.set_peers(infos)
+
+    def peer_info(self) -> PeerInfo:
+        return PeerInfo(grpc_address=self.advertise_address,
+                        http_address=self.cfg.http_listen_address)
 
     def _start_http(self, addr: str) -> None:
         host, port = _split_host_port(addr)
@@ -182,24 +241,29 @@ class Daemon:
         self._http_thread.start()
 
     def close(self) -> None:
-        """Stop the listener first, so no request lands after the
-        instance closed."""
+        """Stop discovery and the listeners first, so no request lands
+        after the instance closed; the instance then flushes its GLOBAL
+        manager and drains its peer clients."""
         if self._closed:
             return
         self._closed = True
+        if self.discovery is not None:
+            self.discovery.close()
         if self.grpc_server is not None:
             self.grpc_server.stop(grace=None).wait()
         if self.http_server is not None:
             self.http_server.shutdown()
             self.http_server.server_close()
-        self.instance.close()
+        if self.instance is not None:
+            self.instance.close()
 
 
 def spawn_daemon(cfg: DaemonConfig) -> Daemon:
     """reference: daemon.go › SpawnDaemon."""
     d = Daemon(cfg)
-    log.info("gubernator-tpu-torch daemon up: grpc=%s http=%s device=%s "
-             "engine=%s", cfg.grpc_listen_address or "off",
-             cfg.http_listen_address, cfg.device,
+    log.info("gubernator-tpu-torch daemon up: grpc=%s http=%s "
+             "advertise=%s device=%s engine=%s",
+             cfg.grpc_listen_address or "off", cfg.http_listen_address,
+             d.advertise_address or "-", cfg.device,
              type(d.instance.engine).__name__)
     return d

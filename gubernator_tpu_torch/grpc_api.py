@@ -1,11 +1,12 @@
-"""gRPC service registration and client stubs: the port's copy of the
-parts of gubernator_tpu/grpc_api.py that a solo daemon serves.
+"""gRPC service registration and client stubs: the port's copy of
+gubernator_tpu/grpc_api.py.
 
 Written by hand on grpc's generic-handler API (no generated
 ``*_pb2_grpc``); method paths and wire format are those of generated
 code: /pb.gubernator.V1/GetRateLimits and /pb.gubernator.V1/HealthCheck,
-plus the standard /grpc.health.v1.Health/Check and Watch.  Imports
-grpcio, so only a daemon that serves gRPC imports this module.
+/pb.gubernator.PeersV1/GetPeerRateLimits and UpdatePeerGlobals, plus
+the standard /grpc.health.v1.Health/Check and Watch.  Imports grpcio, so
+only a daemon that serves gRPC imports this module.
 """
 from __future__ import annotations
 
@@ -15,8 +16,10 @@ import time
 import grpc
 
 from .proto import gubernator_pb2 as pb
+from .proto import peers_pb2 as peers_pb
 
 V1_SERVICE = "pb.gubernator.V1"
+PEERS_SERVICE = "pb.gubernator.PeersV1"
 HEALTH_SERVICE = "grpc.health.v1.Health"
 
 
@@ -36,6 +39,25 @@ def add_v1_servicer_raw(server: grpc.Server, servicer) -> None:
     }
     server.add_generic_rpc_handlers(
         (grpc.method_handlers_generic_handler(V1_SERVICE, handlers),))
+
+
+def add_peers_servicer_raw(server: grpc.Server, servicer) -> None:
+    """PeersV1 with GetPeerRateLimits as raw bytes in and out
+    (``servicer.GetPeerRateLimitsWire(data, ctx) -> bytes``, the C++
+    lane on the owner); UpdatePeerGlobals keeps the generated classes
+    (a cold path)."""
+    handlers = {
+        "GetPeerRateLimits": grpc.unary_unary_rpc_method_handler(
+            servicer.GetPeerRateLimitsWire,
+            request_deserializer=None, response_serializer=None),
+        "UpdatePeerGlobals": grpc.unary_unary_rpc_method_handler(
+            servicer.UpdatePeerGlobals,
+            request_deserializer=peers_pb.UpdatePeerGlobalsReq.FromString,
+            response_serializer=(
+                peers_pb.UpdatePeerGlobalsResp.SerializeToString)),
+    }
+    server.add_generic_rpc_handlers(
+        (grpc.method_handlers_generic_handler(PEERS_SERVICE, handlers),))
 
 
 #: grpc.health.v1.HealthCheckResponse: field 1, ServingStatus
@@ -111,9 +133,33 @@ class V1Stub:
             response_deserializer=pb.HealthCheckResp.FromString)
 
 
+class PeersV1Stub:
+    """Client stub for the PeersV1 service."""
+
+    def __init__(self, channel: grpc.Channel):
+        self.GetPeerRateLimits = channel.unary_unary(
+            f"/{PEERS_SERVICE}/GetPeerRateLimits",
+            request_serializer=(
+                peers_pb.GetPeerRateLimitsReq.SerializeToString),
+            response_deserializer=peers_pb.GetPeerRateLimitsResp.FromString)
+        self.UpdatePeerGlobals = channel.unary_unary(
+            f"/{PEERS_SERVICE}/UpdatePeerGlobals",
+            request_serializer=(
+                peers_pb.UpdatePeerGlobalsReq.SerializeToString),
+            response_deserializer=peers_pb.UpdatePeerGlobalsResp.FromString)
+
+
 def raw_unary(channel: grpc.Channel, method: str,
               service: str = V1_SERVICE):
     """Bytes-in / bytes-out unary call handle (identity serializers) on
-    ``service``; wire format is that of the typed stubs.  The JAX
-    package's peer service (its default there) is not ported yet."""
+    ``service``; wire format is that of the typed stubs.  The peer send
+    lanes (peer_client.py) ship joined TLV slices through these on
+    PEERS_SERVICE."""
     return channel.unary_unary(f"/{service}/{method}")
+
+
+def dial_peer(address: str) -> grpc.Channel:
+    """A channel to a peer (peer_client.go › dialPeer); TLS is not
+    ported."""
+    return grpc.insecure_channel(address,
+                                 options=[("grpc.enable_retries", 1)])

@@ -32,6 +32,24 @@ def mix64_np(x: np.ndarray) -> np.ndarray:
     return x
 
 
+def mix64(x: int) -> int:
+    """Scalar splitmix64 finalizer (the constants of mix64_np)."""
+    m = 0xFFFFFFFFFFFFFFFF
+    x &= m
+    x ^= x >> 30
+    x = (x * 0xBF58476D1CE4E5B9) & m
+    x ^= x >> 27
+    x = (x * 0x94D049BB133111EB) & m
+    x ^= x >> 31
+    return x
+
+
+def mixed_fnv1a64(data: bytes) -> int:
+    """FNV-1a + the finalizer: the peer ring's hash (raw FNV clusters
+    on short similar keys)."""
+    return mix64(fnv1a64(data))
+
+
 def hash_key(name: str, unique_key: str) -> int:
     """64-bit identity hash of one rate limit, never 0."""
     return int(hash_keys([name + "_" + unique_key])[0])

@@ -181,6 +181,12 @@ def _bind_wire(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gw_build_responses.argtypes = [p, p, p, p, i64, i64, p, p, p, i64,
                                        buf, p, i64]
     lib.gw_build_responses.restype = i64
+    lib.gw_stamp_bound.argtypes = [i64, i64]
+    lib.gw_stamp_bound.restype = i64
+    lib.gw_stamp_req_tlvs.argtypes = [buf, i64, p, p, p, i64, i64, p, i64]
+    lib.gw_stamp_req_tlvs.restype = i64
+    lib.gw_split_resp_items.argtypes = [buf, i64, i64, p, p, p]
+    lib.gw_split_resp_items.restype = i64
     return lib
 
 

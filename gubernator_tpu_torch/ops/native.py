@@ -1,7 +1,7 @@
 """Python face of the host wire library (csrc/wire.cpp, ctypes).
 
-The functions of gubernator_tpu/ops/native.py that the solo wire lane
-needs, with the same names and return shapes.  The library is built at
+The functions of gubernator_tpu/ops/native.py that the wire lane and
+its forward hop need, with the same names and return shapes.  The library is built at
 first use (ops/build.py › load_wire_library); a failed build raises, and
 there is no numpy or protobuf substitute for these functions.  Each call
 releases the GIL for its native part (ctypes does), so concurrent
@@ -131,3 +131,48 @@ def build_responses_from_columns(result_cols, row_lo: int, row_hi: int,
     if size < 0:
         raise RuntimeError("response buffer below its bound")
     return out[:size].tobytes()
+
+
+def stamp_req_tlvs(data: bytes, tlv_off: np.ndarray, tlv_len: np.ndarray,
+                   created_at: np.ndarray, stamp_ms: int) -> bytes:
+    """Join the given request TLV slices of ``data``, appending
+    ``created_at = stamp_ms`` (field 10) to every slice that carries no
+    caller stamp (created_at[i] == 0): the forward hop's bulk
+    caller-clock stamp (wire.tlv_with_created is the one-slice twin).
+    Raises ValueError on a malformed slice."""
+    data = _as_bytes(data)
+    off = np.ascontiguousarray(tlv_off, "<i8")
+    ln = np.ascontiguousarray(tlv_len, "<i8")
+    created = np.ascontiguousarray(created_at, "<i8")
+    n = len(off)
+    if len(ln) != n or len(created) != n:
+        raise ValueError("malformed request TLV slice")
+    lib = load_wire_library()
+    out = np.empty(lib.gw_stamp_bound(n, int(ln.sum())), np.uint8)
+    size = lib.gw_stamp_req_tlvs(data, len(data), _ptr(off), _ptr(ln),
+                                 _ptr(created), n, int(stamp_ms),
+                                 _ptr(out), len(out))
+    if size == -1:
+        raise ValueError("malformed request TLV slice")
+    if size < 0:
+        raise RuntimeError("stamp buffer below its bound")
+    return out[:size].tobytes()
+
+
+def split_resp_items(data: bytes):
+    """RateLimitResp-list wire bytes (GetRateLimitsResp or
+    GetPeerRateLimitsResp: both carry the item on field 1) → (tlv_off
+    u64[n], tlv_len u64[n], status i32[n]), or None on malformed
+    input."""
+    data = _as_bytes(data)
+    lib = load_wire_library()
+    n = lib.gw_count_req_items(data, len(data))
+    if n < 0:
+        return None
+    off, ln = np.empty(n, "<u8"), np.empty(n, "<u8")
+    st = np.empty(n, "<i4")
+    got = lib.gw_split_resp_items(data, len(data), n, _ptr(off), _ptr(ln),
+                                  _ptr(st))
+    if got < 0:
+        return None
+    return off, ln, st

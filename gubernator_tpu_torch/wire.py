@@ -1,6 +1,6 @@
 """Dataclass ↔ wire converters: the port's copy of the helpers of
-gubernator_tpu/wire.py that the solo wire lane and the gRPC front door
-need, plus a protobuf-free request encoder.
+gubernator_tpu/wire.py that the wire lane, its forward hop and the gRPC
+front door need, plus a protobuf-free request encoder.
 
 The ``*_pb`` converters speak the generated classes of proto/ and import
 protobuf when called.  ``req_to_tlv`` and ``encode_get_rate_limits``
@@ -109,3 +109,84 @@ def req_to_tlv(r: RateLimitRequest) -> bytes:
 def encode_get_rate_limits(reqs: Iterable[RateLimitRequest]) -> bytes:
     """A serialized GetRateLimitsReq, without protobuf."""
     return b"".join(map(req_to_tlv, reqs))
+
+
+def _tlv_payload(tlv: bytes) -> bytes:
+    """The RateLimitReq payload of one ``requests`` TLV (tag 0x0a,
+    varint length, payload)."""
+    i, shift, ln = 1, 0, 0
+    while True:
+        b = tlv[i]
+        ln |= (b & 0x7F) << shift
+        i += 1
+        if not b & 0x80:
+            break
+        shift += 7
+    return tlv[i:i + ln]
+
+
+def _append_to_tlv(tlv: bytes, field_bytes: bytes) -> bytes:
+    payload = _tlv_payload(tlv) + field_bytes
+    return b"\x0a" + _varint(len(payload)) + payload
+
+
+def req_from_tlv(tlv: bytes) -> RateLimitRequest:
+    """A request object from one verbatim ``requests`` TLV: the deferred
+    prototype of the GLOBAL queues, built at flush cadence, never on
+    the request path.  ``created_at`` (field 10, which the generated
+    classes do not declare) is read by hand."""
+    payload = _tlv_payload(tlv)
+    req = req_from_pb(_pb().RateLimitReq.FromString(payload))
+    req.created_at = tlv_created_at_payload(payload)
+    return req
+
+
+def tlv_created_at_payload(payload: bytes) -> int:
+    """``created_at`` (field 10 varint, last value wins) of a
+    RateLimitReq payload; 0 when absent or on framing this scan does not
+    model."""
+    i, n, created = 0, len(payload), 0
+
+    def varint():
+        nonlocal i
+        v, shift = 0, 0
+        while i < n:
+            b = payload[i]
+            v |= (b & 0x7F) << shift
+            i += 1
+            if not b & 0x80:
+                break
+            shift += 7
+        return v
+
+    while i < n:
+        tag = varint()
+        field_no, wt = tag >> 3, tag & 7
+        if wt == 0:
+            v = varint()
+            if field_no == 10:
+                created = v
+        elif wt == 2:
+            ln = varint()  # read first: varint() moves i
+            i += ln
+        elif wt == 1:
+            i += 8
+        elif wt == 5:
+            i += 4
+        else:
+            return 0
+    return created
+
+
+def tlv_with_hits(tlv: bytes, hits: int) -> bytes:
+    """A request TLV with ``hits`` replaced, without parsing it: a field-3
+    varint is appended (proto3: the last value wins, for protobuf and
+    the C++ lane alike).  The GLOBAL flush sends per-key sums this way."""
+    return _append_to_tlv(tlv, b"\x18" + _varint(int(hits)))
+
+
+def tlv_with_created(tlv: bytes, created_ms: int) -> bytes:
+    """A request TLV with ``created_at`` (field 10) appended: the
+    caller's clock, so the owner applies the request at it
+    (ops/native.py › stamp_req_tlvs is the bulk twin)."""
+    return _append_to_tlv(tlv, b"\x50" + _varint(int(created_ms)))

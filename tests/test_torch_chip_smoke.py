@@ -1,5 +1,6 @@
-"""chip_smoke.py's phases 4 and 6 and chip_ab.py's threshold sweep and K2
-section rehearsed on the CPU at a small size: the plain versions stand
+"""chip_smoke.py's phases 4, 5, 6, 7 and its cluster phase, and
+chip_ab.py's threshold sweep and K2 section, rehearsed on the CPU at a
+small size: the plain versions stand
 in for K1 and K2 and the host clock for CUDA events, so the phases'
 wave making, table fill, checks, timing set-up and bookkeeping run here
 before they run on the card."""
@@ -236,6 +237,72 @@ def test_classic_path_and_wire_round_rehearse_on_the_cpu(path_rehearsal):
     assert wire["requests"] == args.threads * args.profile_batches * 1000
     assert wire["pool_leaks"] == 0 and len(wire["rounds"]) == 1
     assert res["capacity_after"] == 2 * res["capacity_before"]
+
+
+def cluster_args(path_rehearsal):
+    args = path_rehearsal
+    args.cluster_log2_cap, args.cluster_rounds = 12, 1
+    args.batches = args.profile_batches = 1
+    return args
+
+
+def test_cluster_phase_rehearses_on_the_cpu(path_rehearsal):
+    args = cluster_args(path_rehearsal)
+    res = chip_smoke.phase_cluster(torch, args, solo_rate=1e6)
+    assert res["nodes"] == 3 and len(res["steps_per_daemon"]) == 3
+    assert all(res["steps_per_daemon"]) and res["launches"] > 0
+    assert res["requests"] == args.threads * 1000 * (
+        args.cluster_rounds * args.batches + args.profile_batches)
+    # the 32 hottest ranks of Zipf(1.1) over 2000 keys (16 at the TOKEN
+    # limit, 16 at 10^9): about 60% of the requests are GLOBAL; about
+    # two thirds of the rest are forwarded
+    assert 0.5 < res["global_share"] < 0.7
+    assert res["exact_global_hits"] > 0
+    assert 0.5 < res["forwarded_share_of_non_global"] < 0.85
+    assert res["peer_flushes"] > 0 and res["items_per_flush"] >= 1
+    assert res["global_hits_queued"] == res["global_hits_flushed"] > 0
+    assert res["broadcasts"] > 0
+    assert res["global_over_admission_sum"] >= \
+        res["global_over_admission_max"] >= 0
+    assert 0 < res["share_of_solo_wire"]
+    assert len(res["decisions_per_s_rounds"]) == args.cluster_rounds
+
+
+@pytest.mark.parametrize("fault",
+                         ["no broadcast", "lost hits flush", "lost forward"])
+def test_cluster_phase_stops_on_a_fault(path_rehearsal, monkeypatch, fault):
+    """A replica that drops the owner's broadcasts never converges; GLOBAL
+    hits that never reach their owner leave it short of the hits sent
+    (the counters agree: only the owner's row shows it); a forward that
+    fails answers error rows: each stops the run."""
+    from gubernator_tpu_torch.global_manager import GlobalManager
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.peer_client import PeerClient
+
+    args = cluster_args(path_rehearsal)
+    monkeypatch.setattr(chip_smoke, "CONVERGE_S", 1.0)
+    if fault == "no broadcast":
+        monkeypatch.setattr(V1Instance, "update_peer_globals",
+                            lambda self, updates: None)
+        what = "GLOBAL keys did not converge"
+    elif fault == "lost hits flush":
+        def lose(self):
+            with self._mu:
+                hits, self._hits = self._hits, {}
+                raw, self._hits_raw = self._hits_raw, {}
+                self.stats["hits_flushed"] += sum(
+                    a for q in (hits, raw) for _, a, _ in q.values())
+
+        monkeypatch.setattr(GlobalManager, "_hits_tick", lose)
+        what = "GLOBAL keys did not converge"
+    else:
+        def refuse(self, data, n_items):
+            raise ConnectionError("forced")
+
+        monkeypatch.setattr(PeerClient, "forward_raw", refuse)
+        what = "while fetching rate limit from peer"
+    with pytest.raises(RuntimeError, match=what):
+        chip_smoke.phase_cluster(torch, args)
 
 
 def test_decode_responses_reads_what_the_port_writes():

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points default to the GPU, raising where there is none."""
+"""The port stands alone: it imports neither JAX nor the JAX package (its
+wire lane and its cluster path included), and its entry points default
+to the GPU, raising where there is none."""
 import ast
 import pkgutil
 import subprocess
@@ -23,6 +24,9 @@ def all_modules():
 def test_importing_every_module_loads_no_jax():
     mods = all_modules()
     assert "gubernator_tpu_torch.ops.decide" in mods
+    for m in ("peers", "peer_client", "global_manager", "discovery",
+              "cluster", "interval", "netutil"):
+        assert f"gubernator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -72,6 +76,41 @@ def test_wire_lane_loads_nothing_of_the_jax_package():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_cluster_path_loads_nothing_of_the_jax_package():
+    """The cluster path (ring, forward hop over gRPC, GLOBAL manager,
+    peer service) in a fresh process: two port daemons on the CPU, a
+    forwarded row and a GLOBAL row through daemon 0's object and wire
+    lanes; no JAX-package module is loaded."""
+    code = (
+        "import sys\n"
+        "from gubernator_tpu_torch import cluster\n"
+        "from gubernator_tpu_torch.types import RateLimitRequest as R\n"
+        "from gubernator_tpu_torch.wire import encode_get_rate_limits\n"
+        "c = cluster.start(2, device='cpu')\n"
+        "try:\n"
+        "    inst = c.instance_at(0)\n"
+        "    far = next(i for i in range(200) if c.owner_daemon_of("
+        "f'n_k{i}') is c.daemon_at(1))\n"
+        "    reqs = [R(name='n', unique_key=f'k{i}', limit=5, "
+        "duration=60000, behavior=2 * (i % 2)) for i in range(8)]\n"
+        "    reqs.append(R(name='n', unique_key=f'k{far}', limit=5, "
+        "duration=60000))\n"
+        "    assert not any(r.error for r in inst.get_rate_limits(reqs))\n"
+        "    assert inst.get_rate_limits_wire(encode_get_rate_limits(reqs))\n"
+        "    assert inst.forwarded_rows > 0, inst.forwarded_rows\n"
+        "    assert inst.global_manager is not None\n"
+        "finally:\n"
+        "    c.stop()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'gubernator_tpu' "
+        "or m.startswith('gubernator_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -90,6 +129,7 @@ def test_source_imports_no_jax(path):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from gubernator_tpu_torch import cluster
     from gubernator_tpu_torch.config import Config, DaemonConfig
     from gubernator_tpu_torch.daemon import spawn_daemon
     from gubernator_tpu_torch.engine import BucketEngine
@@ -107,6 +147,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         V1Instance(Config(engine="xla"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cluster.start(2)
     assert Config().device == DaemonConfig().device == "cuda"
 
 
