@@ -40,11 +40,33 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
    wire path (on the same instance and table): the same traffic,
    serialized to GetRateLimitsReq bytes by the port's encoder before
    the clock starts, through V1Instance.get_rate_limits_wire (the C++
-   ingest, inline or coalesced waves, responses built as bytes in the
-   callers' threads), decoded by this script and checked per key with
-   the same tally; each round also prints the share of waves run
-   inline, the wave pool's hits / misses / leaks (leaks must be 0) and
-   the longest gen-2 collection.  K1's launch count must grow;
+   ingest, inline, coalesced or pipelined waves, responses built as
+   bytes in the callers' threads), decoded by this script and checked
+   per key with the same tally; each round also prints the share of
+   waves run inline, the wave pool's hits / misses / leaks (leaks must
+   be 0) and the longest gen-2 collection.  K1's launch count must
+   grow.
+   The daemon's dispatcher runs its default on the card: the launch /
+   sync pipeline (``packed_pipelined`` waves, no inline wave); at least
+   one wave must launch behind another (ring slot 1).  Then:
+   metrics: /metrics scraped over HTTP after the object rounds must
+   count the api requests and OVER_LIMIT answers this script sent and
+   saw since the daemon started (warm-up and verify flows included),
+   as many wave durations as the dispatcher reports waves, and no
+   leaked wave lease; /healthz?deep=1 after the wire rounds: not
+   stalled, no timeout, nothing queued, the pipeline at its depth;
+   the wire path again with GUBER_PIPELINE=0 (the dispatcher rebuilt on
+   the same engine and table), checked per key, printed beside the
+   pipelined rounds (rates, p50 / p99, inline share, the worker's lock
+   wait);
+   admission: one round of wire traffic with the admission bound at
+   ADMISSION_ROWS rows: some batches must shed (ResourceExhausted,
+   queue_full), the admitted ones are checked per key, and the shed
+   counter must equal the rows shed;
+   drain: the daemon closes with a DRAIN_GRACE_MS drain window: within
+   it /healthz answers 503 "draining" and a request still serves; after
+   it a request sheds with "draining", and the flight recorder holds
+   drain_started and drain_completed;
 cluster: 3 daemons in this process (cluster.start_with), each with a
    2^24-row bucket table on the card and real gRPC over loopback; the
    10M keys made resident on their owners by the ring; 8 callers each
@@ -79,8 +101,9 @@ cluster: 3 daemons in this process (cluster.start_with), each with a
    drops few rows, and only the keys it dropped may restart), and a
    last, shorter round under torch.profiler.  Every decision step is
    timed alone with CUDA events; then one shorter checked round of
-   the same traffic as wire bytes through get_rate_limits_wire.  K2's
-   launch count must grow across the object and wire rounds.
+   the same traffic as wire bytes through get_rate_limits_wire (the
+   pipeline on), and one more with GUBER_PIPELINE=0, printed side by
+   side.  K2's launch count must grow across the object and wire rounds.
 
 The line before the last is a JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -130,6 +153,11 @@ GROW_DROP_MAX_SHARE = 1e-4
 FRESH_SHARE = 0.03
 #: how long the cluster phase polls for its GLOBAL keys to converge
 CONVERGE_S = 60.0
+#: rows the admission round lets queue before it sheds: under one
+#: round's backlog (8 callers' 1000-row batches)
+ADMISSION_ROWS = 1500
+#: the phase-5 daemon's drain window (DaemonConfig.drain_grace_ms)
+DRAIN_GRACE_MS = 2000
 #: daemons in the cluster phase (gubernator's own functional cluster)
 CLUSTER_NODES = 3
 #: the hottest Zipf ranks whose requests are GLOBAL with the TOKEN
@@ -568,22 +596,30 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
     d = spawn_daemon(DaemonConfig(
         http_listen_address="127.0.0.1:0",
         grpc_listen_address="127.0.0.1:0" if grpc else "",
-        cache_size=1 << args.log2_cap, batch_rows=1024, device=DEVICE))
+        cache_size=1 << args.log2_cap, batch_rows=1024, device=DEVICE,
+        drain_grace_ms=DRAIN_GRACE_MS))
+    inst = d.instance
+    key_of = lambda r: f"k{pop_idx[r]:08d}"  # noqa: E731
     try:
-        http_verify_flow(d.http_port)
-        if grpc:
-            grpc_verify_flow(d.grpc_port)
+        # the /metrics tally: the daemon's warm-up request, then the
+        # verify flows (over gRPC too: every wire lane counts as api)
+        api, over = 1, 0
+        for flow in [http_verify_flow] + ([grpc_verify_flow] if grpc else []):
+            n, o = flow(d.grpc_port if flow is grpc_verify_flow
+                        else d.http_port)
+            api += n
+            over += o
 
         t0 = time.perf_counter()
         fill_t = int(time.time() * 1000) - 1_000
-        with d.instance._engine_mu:
-            placed = d.instance.engine.restore(
+        with inst._engine_mu:
+            placed = inst.engine.restore(
                 token_rows(pop_keys, limit, duration, fill_t))
         print(f"fill: {placed} TOKEN keys in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         require(placed == len(pop_keys), f"fill placed {placed} keys")
 
-        waves = time_waves(d.instance)
+        timer = WaveTimer(inst)
         rng = np.random.default_rng(args.seed + 1)
         tally = Tally(limit)
         rounds = []
@@ -593,8 +629,7 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
             n_b = args.profile_batches if profiled else args.batches
             per = [[zipf_ranks(rng, 1.1, len(pop_idx), 1000)
                     for _ in range(n_b)] for _ in range(args.threads)]
-            jobs = [[[RateLimitRequest(name="smoke",
-                                       unique_key=f"k{pop_idx[r]:08d}",
+            jobs = [[[RateLimitRequest(name="smoke", unique_key=key_of(r),
                                        hits=1, limit=limit,
                                        duration=duration)
                       for r in ranks] for ranks in thread]
@@ -602,31 +637,50 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
             device = None
             if profiled:
                 out, device = profile_device(
-                    torch, lambda: drive(d.instance.get_rate_limits, jobs))
+                    torch, lambda: drive(inst.get_rate_limits, jobs))
             else:
-                out = drive(d.instance.get_rate_limits, jobs)
+                out = drive(inst.get_rate_limits, jobs)
             t0, wall, lat, results = out
             tally.add(per, results)
             rounds.append((t0, wall, lat, sum(
                 len(b) for resps in results.values() for b in resps), device))
         launches = decide_cuda.launches
+        metrics = check_metrics(d, api + tally.n_req, over + tally.over)
+
+        def wire_per(n_rounds, profiled_last):
+            return [[[zipf_ranks(rng, 1.1, len(pop_idx), 1000)
+                      for _ in range(args.profile_batches if last
+                                     else args.batches)]
+                     for _ in range(args.threads)]
+                    for last in [False] * n_rounds + [True] * profiled_last]
 
         with phase("wire path"):
-            # the same traffic as wire bytes, on the same table and keys
+            # the same traffic as wire bytes, on the same table and keys,
+            # through the default (pipelined) dispatcher
             decide_cuda.launches = 0
-            inline = time_inline(d.instance)
-            wire = wire_rounds(
-                torch, d.instance,
-                [[[zipf_ranks(rng, 1.1, len(pop_idx), 1000)
-                   for _ in range(args.profile_batches if last
-                                  else args.batches)]
-                  for _ in range(args.threads)]
-                 for last in [False] * args.rounds + [True]],
-                lambda r: f"k{pop_idx[r]:08d}", limit, duration,
-                profile_last=True)
+            inline = time_inline(inst.dispatcher)
+            wire = wire_rounds(torch, inst, wire_per(args.rounds, True),
+                               key_of, limit, duration, profile_last=True)
             wire_launches = decide_cuda.launches
             for rec in wire:
                 tally.add(rec["per"], rec["results"])
+            health = check_deep_health(d)
+        with phase("wire path, pipeline off"):
+            with pipeline_env("0"):
+                rebuild_dispatcher(inst, timer)
+            decide_cuda.launches = 0
+            time_inline(inst.dispatcher, inline)
+            off = wire_rounds(torch, inst, wire_per(args.rounds, False),
+                              key_of, limit, duration, profile_last=False)
+            off_launches = decide_cuda.launches
+            for rec in off:
+                tally.add(rec["per"], rec["results"])
+            rebuild_dispatcher(inst, timer)  # the default dispatcher again
+        with phase("admission"):
+            shed = admission_round(inst, rng, len(pop_idx), key_of, limit,
+                                   duration, args, tally)
+        with phase("drain"):
+            drain = drain_check(d)
     finally:
         d.close()  # joins the worker: every wave's record is in
         gc.callbacks.remove(on_gc)
@@ -635,7 +689,7 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
     lat_ms = np.concatenate([np.asarray(r[2]) for r in rounds[:-1]]) * 1e3
     stats = []
     for rnd, (t0, wall, lat, n_req, device) in enumerate(rounds):
-        s = round_stats(wall, lat, [w for w in waves
+        s = round_stats(wall, lat, [w for w in timer.rec
                                     if t0 <= w[0] <= t0 + wall], n_req,
                         [p for p in pauses if t0 <= p[0] <= t0 + wall])
         if rnd == args.rounds:
@@ -647,7 +701,7 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
     n_obj = sum(r[3] for r in rounds)
     rounds, timed = stats, stats[:-1]
     rates = [r["decisions_per_s"] for r in timed]
-    # the tally holds both lanes' decisions: every key exact across them
+    # the tally holds every lane's decisions: every key exact across them
     res = {"decisions_per_s": float(np.mean(rates)),
            "decisions_per_s_min": min(rates),
            "decisions_per_s_max": max(rates),
@@ -655,19 +709,40 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
            "keys": len(tally.count),
            "p50_ms": float(np.percentile(lat_ms, 50)),
            "p99_ms": float(np.percentile(lat_ms, 99)),
-           "batches": len(lat_ms), "launches": launches, "rounds": rounds}
-    print(f"main path: {n_obj} decisions ({tally.n_req} with the wire "
-          f"path's, each key exact) over {len(tally.count)} keys;"
-          f" {len(timed)} timed rounds: {res['decisions_per_s']} decisions/s"
-          f" (min {res['decisions_per_s_min']}, max "
-          f"{res['decisions_per_s_max']}); batch p50 {res['p50_ms']} ms p99 "
-          f"{res['p99_ms']} ms over {res['batches']} batches; K1 launches "
-          f"{launches}", flush=True)
+           "batches": len(lat_ms), "launches": launches, "rounds": rounds,
+           "metrics": metrics, "healthz_deep": health,
+           "admission": shed, "drain": drain}
+    print(f"main path: {n_obj} decisions ({tally.n_req} with the wire, "
+          f"pipeline-off and admission rounds', each key exact) over "
+          f"{len(tally.count)} keys; {len(timed)} timed rounds: "
+          f"{res['decisions_per_s']} decisions/s (min "
+          f"{res['decisions_per_s_min']}, max {res['decisions_per_s_max']});"
+          f" batch p50 {res['p50_ms']} ms p99 {res['p99_ms']} ms over "
+          f"{res['batches']} batches; K1 launches {launches}", flush=True)
     require(launches > 0, "the main path never launched K1")
     res["wire"] = wire_summary(
-        [wire_round_stats(rec, waves, inline, pauses) for rec in wire],
+        [wire_round_stats(rec, timer, inline, pauses) for rec in wire],
         wire, wire_launches, "wire path", profiled_last=True)
-    require(wire_launches > 0, "the wire path never launched K1")
+    res["wire_pipeline_off"] = wire_summary(
+        [wire_round_stats(rec, timer, inline, pauses) for rec in off],
+        off, off_launches, "wire path, pipeline off", profiled_last=False)
+    res["pipeline"] = pipeline_compare("wire path", res["wire"],
+                                       res["wire_pipeline_off"])
+    print(f"pipeline: depth {health['pipeline_depth']}, "
+          f"{res['wire']['pipelined_waves']} packed_pipelined waves, "
+          f"largest slot {res['wire']['max_slot']}, inline share "
+          f"{res['wire']['inline_share']}, K1 launches {wire_launches}",
+          flush=True)
+    require(wire_launches > 0 and off_launches > 0,
+            "a wire path never launched K1")
+    require(res["wire"]["pipelined_waves"] > 0
+            and res["wire"]["inline_share"] == 0,
+            "the wire path did not run pipelined")
+    # a CPU rehearsal's few callers may always share one wave
+    require(DEVICE != "cuda" or (res["wire"]["max_slot"] or 0) > 0,
+            "no pipelined wave launched behind another")
+    require(res["wire_pipeline_off"]["pipelined_waves"] == 0,
+            "the pipeline-off rounds pipelined")
     return res
 
 
@@ -1034,6 +1109,9 @@ def wire_summary(stats, recs, launches, label: str,
     lat_ms = np.concatenate([np.asarray(r["lat"])
                              for r in recs[:n_timed]]) * 1e3
     rates = [s["decisions_per_s"] for s in timed]
+    waits = [s["lock_wait_share_of_wave"] for s in timed
+             if "lock_wait_share_of_wave" in s]
+    slots = [s["max_slot"] for s in stats if s["max_slot"] is not None]
     res = {"decisions_per_s": float(np.mean(rates)),
            "decisions_per_s_min": min(rates),
            "decisions_per_s_max": max(rates),
@@ -1043,6 +1121,10 @@ def wire_summary(stats, recs, launches, label: str,
                [s["worker_busy_share"] for s in timed])),
            "inline_share": float(np.mean([s["inline_share"]
                                           for s in timed])),
+           "lock_wait_share_of_wave": (float(np.mean(waits)) if waits
+                                       else None),
+           "pipelined_waves": sum(s["pipelined_waves"] for s in stats),
+           "max_slot": max(slots) if slots else None,
            "gc_gen2_ms_max": max(s["gc_gen2_ms_max"] for s in timed),
            "pool_leaks": sum(s["pool_leaks"] for s in stats),
            "requests": sum(r["n_req"] for r in recs),
@@ -1052,10 +1134,229 @@ def wire_summary(stats, recs, launches, label: str,
           f"{res['decisions_per_s_min']}, max {res['decisions_per_s_max']});"
           f" batch p50 {res['p50_ms']} ms p99 {res['p99_ms']} ms; worker "
           f"busy {res['worker_busy_share']}; inline share "
-          f"{res['inline_share']}; longest gen-2 collection "
-          f"{res['gc_gen2_ms_max']} ms; pool leaks {res['pool_leaks']}; "
-          f"launches {launches}", flush=True)
+          f"{res['inline_share']}; worker lock wait "
+          f"{res['lock_wait_share_of_wave']} of a wave; pipelined waves "
+          f"{res['pipelined_waves']} (largest slot {res['max_slot']}); "
+          f"longest gen-2 collection {res['gc_gen2_ms_max']} ms; pool "
+          f"leaks {res['pool_leaks']}; launches {launches}", flush=True)
     return res
+
+
+def pipeline_compare(label: str, on: dict, off: dict) -> dict:
+    """The wire path with the pipeline on and off, side by side from one
+    run: rates, p50 / p99, inline share and the worker's lock wait."""
+    keys = ("decisions_per_s", "p50_ms", "p99_ms", "inline_share",
+            "lock_wait_share_of_wave", "worker_busy_share",
+            "pipelined_waves", "max_slot", "launches")
+    out = {k: {"on": on[k], "off": off[k]} for k in keys}
+    print(f"{label} pipeline on vs off: {json.dumps(out)}", flush=True)
+    return out
+
+
+@contextmanager
+def pipeline_env(value: str):
+    """GUBER_PIPELINE set to ``value`` inside (a dispatcher reads it when
+    it is built), restored after."""
+    import os
+
+    old = os.environ.get("GUBER_PIPELINE")
+    os.environ["GUBER_PIPELINE"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GUBER_PIPELINE"]
+        else:
+            os.environ["GUBER_PIPELINE"] = old
+
+
+def rebuild_dispatcher(inst, timer) -> None:
+    """A new dispatcher on the instance's engine (it reads the GUBER_*
+    knobs anew) in place of the current one, which finishes its waves
+    and stops; the timer times the new one."""
+    old = inst.dispatcher
+    inst.dispatcher = inst._make_dispatcher()
+    old.close()
+    timer.attach(inst.dispatcher)
+
+
+def scrape_metrics(port: int) -> dict:
+    """GET /metrics → {(sample name, sorted label pairs): value}."""
+    from prometheus_client.parser import text_string_to_metric_families
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as r:
+        ctype = r.headers.get("Content-Type", "")
+        text = r.read().decode()
+    require(ctype.startswith("text/plain"), f"/metrics content type {ctype}")
+    return {(smp.name, tuple(sorted(smp.labels.items()))): smp.value
+            for fam in text_string_to_metric_families(text)
+            for smp in fam.samples}
+
+
+def check_metrics(d, api: int, over: int) -> dict:
+    """/metrics against the script's own tally: GetRateLimits requests
+    of call type api since the daemon started, OVER_LIMIT answers, the
+    wave-duration histogram's count against the waves the dispatcher
+    reports, and no leaked wave lease."""
+    m = scrape_metrics(d.http_port)
+    got = {"getratelimit_api": m[("gubernator_getratelimit_total",
+                                  (("calltype", "api"),))],
+           "api_sent": api,
+           "over_limit": m[("gubernator_over_limit_total", ())],
+           "over_answers": over,
+           "wave_duration_count": m[(
+               "gubernator_dispatcher_wave_duration_count", ())],
+           "dispatcher_waves": d.instance.dispatcher.debug_stats()["waves"],
+           "wave_buffer_leaks": m[("gubernator_wave_buffer_leaks_total",
+                                   ())]}
+    print(f"metrics: {json.dumps(got)}", flush=True)
+    require(got["getratelimit_api"] == api,
+            f"/metrics counts {got['getratelimit_api']} api requests, "
+            f"{api} sent")
+    require(got["over_limit"] == over,
+            f"/metrics counts {got['over_limit']} OVER_LIMIT, {over} seen")
+    require(got["wave_duration_count"] == got["dispatcher_waves"],
+            "wave-duration histogram and dispatcher disagree on waves")
+    require(got["wave_buffer_leaks"] == 0, "a wave lease leaked")
+    return got
+
+
+def get_json(port: int, path: str) -> tuple:
+    """(HTTP status, JSON body) of a GET, error statuses included."""
+    import urllib.error
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def check_deep_health(d) -> dict:
+    """/healthz?deep=1 after the rounds: healthy, no stalled wave, no
+    timed-out caller, nothing queued, the pipeline at its depth."""
+    code, body = get_json(d.http_port, "/healthz?deep=1")
+    disp = body["dispatcher"]
+    got = {"code": code, "status": body["status"],
+           "stalled": disp["stalled"], "timeouts": disp["timeouts"],
+           "queued_rows": disp["admission"]["queued_rows"],
+           "pipeline_depth": disp["pipeline_depth"],
+           "waves": disp["waves"], "stall_events": disp["stall_events"],
+           "peers": body["peers"]}
+    print(f"healthz deep: {json.dumps(got)}", flush=True)
+    require(code == 200 and body["status"] == "healthy", f"healthz {code}")
+    require(not disp["stalled"] and disp["timeouts"] == 0
+            and disp["admission"]["queued_rows"] == 0,
+            f"dispatcher state {disp}")
+    require(disp["pipeline_depth"] == d.instance.dispatcher.pipeline_depth
+            > 0, f"pipeline depth {disp['pipeline_depth']}")
+    return got
+
+
+def admission_round(inst, rng, n_keys: int, key_of, limit: int,
+                    duration: int, args, tally) -> dict:
+    """One round of wire traffic with the admission bound lowered to
+    ADMISSION_ROWS: some batches must shed with ResourceExhausted
+    (queue_full), the admitted ones are checked per key, and the shed
+    counter must equal the rows the callers saw shed."""
+    from gubernator_tpu_torch.dispatcher import ResourceExhausted
+
+    disp, m = inst.dispatcher, inst.metrics.registry
+
+    def shed_count():
+        return m.get_sample_value("gubernator_admission_shed_total",
+                                  {"reason": "queue_full"}) or 0.0
+
+    per = [[zipf_ranks(rng, 1.1, n_keys, 1000) for _ in range(args.batches)]
+           for _ in range(args.threads)]
+    jobs = wire_jobs(per, key_of, limit, duration)
+    errors: list = []
+
+    def call(data):
+        try:
+            return inst.get_rate_limits_wire(data)
+        except ResourceExhausted as e:
+            errors.append(str(e))
+            return None
+
+    shed0, saved = shed_count(), disp.admission_limit
+    disp.admission_limit = ADMISSION_ROWS
+    try:
+        t0, wall, lat, raw = drive(call, jobs)
+    finally:
+        disp.admission_limit = saved
+    kept = {t: [decode_responses(b) for b in raw[t] if b is not None]
+            for t in raw}
+    kept_per = [[ids for ids, b in zip(per[t], raw[t]) if b is not None]
+                for t in range(len(per))]
+    shed_rows = sum(len(ids) for t in range(len(per))
+                    for ids, b in zip(per[t], raw[t]) if b is None)
+    tally.add(kept_per, kept)
+    got = {"limit_rows": ADMISSION_ROWS, "batches": len(lat),
+           "shed_batches": len(errors), "shed_rows": shed_rows,
+           "shed_counter": shed_count() - shed0,
+           "admitted_decisions": sum(len(b) for r in kept.values()
+                                     for b in r),
+           "decisions_per_s": sum(len(b) for r in kept.values()
+                                  for b in r) / wall}
+    print(f"admission: {json.dumps(got)}", flush=True)
+    require(errors and all("queue_full" in e for e in errors),
+            f"admission round shed {len(errors)} batches")
+    require(got["shed_counter"] == shed_rows,
+            f"shed counter {got['shed_counter']}, {shed_rows} rows shed")
+    return got
+
+
+def drain_check(d) -> dict:
+    """Close the daemon in a thread: within its drain window /healthz
+    answers 503 "draining" and a request still serves; after it a
+    request sheds with "draining"; the recorder holds drain_started and
+    drain_completed."""
+    from gubernator_tpu_torch.dispatcher import ResourceExhausted
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    inst, port = d.instance, d.http_port
+    closer = threading.Thread(target=d.close, name="drain")
+    t0 = time.perf_counter()
+    closer.start()
+    code = body = None
+    while time.perf_counter() - t0 < DRAIN_GRACE_MS / 2000:
+        code, body = get_json(port, "/healthz")
+        if code == 503:
+            break
+        time.sleep(0.005)
+    seen_ms = (time.perf_counter() - t0) * 1e3
+    require(code == 503 and body["status"] == "draining",
+            f"healthz during the drain: {code} {body}")
+    served = post_one(port, {"name": "drain", "uniqueKey": "d1", "hits": 1,
+                             "limit": 3, "duration": 5000})
+    served_ms = (time.perf_counter() - t0) * 1e3
+    require(not served["error"] and served["remaining"] == 2,
+            f"request in the drain window: {served}")
+    require(served_ms < DRAIN_GRACE_MS, "served after the drain window")
+    closer.join(timeout=120)
+    require(not closer.is_alive(), "close() did not return")
+    closed_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        inst.get_rate_limits([RateLimitRequest(
+            name="drain", unique_key="d2", hits=1, limit=3, duration=5000)])
+        shed = None
+    except ResourceExhausted as e:
+        shed = str(e)
+    kinds = [e["kind"] for e in inst.recorder.events()]
+    got = {"grace_ms": DRAIN_GRACE_MS, "draining_seen_ms": seen_ms,
+           "served_ms": served_ms, "closed_ms": closed_ms,
+           "shed_after": shed,
+           "events": [k for k in kinds if k.startswith("drain")]}
+    print(f"drain: {json.dumps(got)}", flush=True)
+    require(shed is not None and "draining" in shed,
+            f"a request after the drain: {shed}")
+    require(closed_ms >= DRAIN_GRACE_MS, "close() returned inside the grace")
+    require("drain_started" in kinds and "drain_completed" in kinds,
+            f"recorder events {kinds[-5:]}")
+    return got
 
 
 def elapsed_ms(torch, fn, *a):
@@ -1357,7 +1658,7 @@ def phase_classic_main_path(torch, args):
         cap_before, sweeps_before = eng.cap_local, eng.sweep_count
         dropped_before = eng.dropped_rows
 
-        waves = time_waves(d.instance)
+        timer = WaveTimer(d.instance)
         steps = time_steps(torch, eng)
         lost: list = []
         record_grows(torch, eng, lost)
@@ -1402,18 +1703,31 @@ def phase_classic_main_path(torch, args):
         # K2's launches over the object rounds (the wire round's count
         # stands apart, as phase 5 keeps K1's)
         launches = swm.sweep_cuda.launches
-        with phase("classic wire path"):
-            # one shorter round of the same traffic as wire bytes
-            inline = time_inline(d.instance)
+        def classic_wire_round():
+            """One shorter round of the same traffic as wire bytes,
+            checked per key; returns its record."""
+            nonlocal n_fresh
             gone = lost_ids(pop_idx, pop_keys, lost)
             per, n_fresh = classic_batches(
                 rng, pop_idx[held & ~np.isin(pop_idx, gone)], args.threads,
                 args.profile_batches, n_fresh)
-            wire = wire_rounds(torch, d.instance, [per], classic_key, limit,
-                               duration, profile_last=False)
-            tally.add(per, wire[0]["results"], frozenset(
+            rec = wire_rounds(torch, d.instance, [per], classic_key, limit,
+                              duration, profile_last=False)
+            tally.add(per, rec[0]["results"], frozenset(
                 lost_ids(pop_idx, pop_keys, lost).tolist()))
+            return rec
+
+        with phase("classic wire path"):
+            inline = time_inline(d.instance.dispatcher)
+            wire = classic_wire_round()
             wire_k2 = swm.sweep_cuda.launches - launches
+        with phase("classic wire path, pipeline off"):
+            with pipeline_env("0"):
+                rebuild_dispatcher(d.instance, timer)
+            time_inline(d.instance.dispatcher, inline)
+            k2_before = swm.sweep_cuda.launches
+            off = classic_wire_round()
+            off_k2 = swm.sweep_cuda.launches - k2_before
         # every held key is still held, but those a grow dropped
         with d.instance._engine_mu:
             still = torch.isin(torch.from_numpy(pop_keys.view(np.int64))
@@ -1443,7 +1757,7 @@ def phase_classic_main_path(torch, args):
     tally.check(exclude=frozenset(gone.tolist()))
     stats = []
     for rnd, (t0, wall, lat, n_req, device) in enumerate(rounds):
-        s = round_stats(wall, lat, [w for w in waves
+        s = round_stats(wall, lat, [w for w in timer.rec
                                     if t0 <= w[0] <= t0 + wall], n_req,
                         [p for p in pauses if t0 <= p[0] <= t0 + wall])
         s.update(step_stats(torch, [x for x in steps
@@ -1488,8 +1802,17 @@ def phase_classic_main_path(torch, args):
     require(DEVICE != "cuda" or launches > 0,
             "the classic path never launched K2")
     res["wire"] = wire_summary(
-        [wire_round_stats(wire[0], waves, inline, pauses)], wire, wire_k2,
+        [wire_round_stats(wire[0], timer, inline, pauses)], wire, wire_k2,
         "classic wire path", profiled_last=False)
+    res["wire_pipeline_off"] = wire_summary(
+        [wire_round_stats(off[0], timer, inline, pauses)], off, off_k2,
+        "classic wire path, pipeline off", profiled_last=False)
+    res["pipeline"] = pipeline_compare("classic wire path", res["wire"],
+                                       res["wire_pipeline_off"])
+    require(res["wire"]["pipelined_waves"] > 0
+            and res["wire_pipeline_off"]["pipelined_waves"] == 0,
+            "the classic wire rounds did not run with the pipeline on, "
+            "then off")
     return res
 
 
@@ -1532,9 +1855,9 @@ def post_one(port: int, req: dict) -> dict:
         return json.loads(resp.read())["responses"][0]
 
 
-def http_verify_flow(port: int) -> None:
+def http_verify_flow(port: int) -> tuple:
     """limit=3 over 5 calls: statuses [0,0,0,1,1], remaining
-    [2,1,0,0,0]."""
+    [2,1,0,0,0].  Returns (requests sent, OVER_LIMIT answers)."""
     got = [post_one(port, {"name": "api", "uniqueKey": "u1", "hits": 1,
                            "limit": 3, "duration": 5000})
            for _ in range(5)]
@@ -1544,6 +1867,7 @@ def http_verify_flow(port: int) -> None:
             f"HTTP flow: {statuses} {remaining}")
     print(f"HTTP flow: statuses {statuses} remaining {remaining}",
           flush=True)
+    return len(got), statuses.count(1)
 
 
 def grpc_version():
@@ -1608,9 +1932,10 @@ def decode_responses(data: bytes) -> list:
     return out
 
 
-def grpc_verify_flow(port: int) -> None:
+def grpc_verify_flow(port: int) -> tuple:
     """The HTTP verify flow over gRPC: request bytes from the port's
-    encoder, answers read with decode_responses."""
+    encoder, answers read with decode_responses.  Returns (requests
+    sent, OVER_LIMIT answers)."""
     import grpc
 
     from gubernator_tpu_torch.types import RateLimitRequest
@@ -1631,6 +1956,7 @@ def grpc_verify_flow(port: int) -> None:
             f"gRPC flow: {statuses} {remaining}")
     print(f"gRPC flow: statuses {statuses} remaining {remaining}",
           flush=True)
+    return len(got), statuses.count(1)
 
 
 def wire_jobs(per, key_of, limit: int, duration: int,
@@ -1657,14 +1983,14 @@ def wire_jobs(per, key_of, limit: int, duration: int,
             for thread in per]
 
 
-def time_inline(inst) -> list:
-    """Time every fused wave a caller runs inline (run_inline_wave);
-    appends (start s, end s) per wave to the returned list."""
-    disp = inst.dispatcher
+def time_inline(disp, rec=None) -> list:
+    """Time every wave a caller runs inline on ``disp``
+    (run_inline_wave); appends (start s, end s) per wave to ``rec`` (a
+    new list when None), which it returns."""
     run = disp.run_inline_wave
-    rec: list = []
+    rec = [] if rec is None else rec
 
-    def timed(fn):
+    def timed(fn, *a, **k):
         t = time.perf_counter()
 
         def inner():
@@ -1672,7 +1998,7 @@ def time_inline(inst) -> list:
             rec.append((t, time.perf_counter()))
             return out
 
-        return run(inner)
+        return run(inner, *a, **k)
 
     disp.run_inline_wave = timed
     return rec
@@ -1713,14 +2039,16 @@ def wire_rounds(torch, inst, per_rounds, key_of, limit, duration,
     return out
 
 
-def wire_round_stats(rec, waves, inline, pauses) -> dict:
+def wire_round_stats(rec, timer, inline, pauses) -> dict:
     """round_stats of a wire round, with its inline waves beside the
-    worker's (coalesced) ones and the pool's counters."""
+    worker's (coalesced or pipelined) ones, the pipelined launches and
+    their largest ring slot, and the pool's counters."""
     t0, wall = rec["t0"], rec["wall"]
     s = round_stats(wall, rec["lat"],
-                    [w for w in waves if t0 <= w[0] <= t0 + wall],
+                    [w for w in timer.rec if t0 <= w[0] <= t0 + wall],
                     rec["n_req"],
                     [p for p in pauses if t0 <= p[0] <= t0 + wall])
+    s.update(timer.pipelined(t0, wall))
     fused = [e - b for b, e in inline if t0 <= b <= t0 + wall]
     s.update({"inline_waves": rec["inline_waves"],
               "inline_share": rec["inline_waves"] / max(
@@ -1783,6 +2111,8 @@ class Tally:
         self.dropped_full = 0
         self.under: dict = {}
         self.count: dict = {}
+        #: OVER_LIMIT answers, for the /metrics check
+        self.over = 0
 
     def add(self, per, results, dropped=frozenset()) -> None:
         from gubernator_tpu_torch.types import Status
@@ -1803,6 +2133,7 @@ class Tally:
                     if resp.status == Status.UNDER_LIMIT:
                         self.under.setdefault(r, []).append(resp.remaining)
                     else:
+                        self.over += 1
                         require(resp.remaining == 0,
                                 "an OVER row with remaining > 0")
 
@@ -1839,40 +2170,97 @@ class WaitTimedLock:
         self.lock.release()
 
 
-def time_waves(inst) -> list:
-    """Time every dispatcher wave on the worker thread's host clock, the
-    engine call inside it (device work and the result download
-    included; engine calls in callers' threads are not counted) and the
-    worker's wait for the engine lock.  Appends (start s, end s, jobs,
-    rows, engine s, lock wait s) per wave to the returned list."""
-    disp, eng = inst.dispatcher, inst.engine
-    run_wave, check = disp._run_wave, eng.check_packed
-    rec: list = []
-    engine_s: list = []
-    wait_s: list = []
+class WaveTimer:
+    """Times every dispatcher wave on the worker thread's host clock: a
+    coalesced one (``_run_wave``), and a pipelined one from its launch
+    (``_launch_packed_jobs``) to its sync (``_sync_and_resolve``),
+    counting only the worker's time in those two calls; the engine calls
+    inside them (device work and the result download included; engine
+    calls in callers' threads, and the check_packed retry inside a sync,
+    are not counted apart) and the worker's wait for the engine lock.
+    ``rec`` gets (start s, start + worker s, jobs, rows, engine s, lock
+    wait s) per wave, ``slots`` (launch s, ring slot) per pipelined
+    launch.  ``attach`` times a rebuilt dispatcher of the instance."""
 
-    def timed_check(*a):
-        if threading.current_thread() is not disp._thread:
-            return check(*a)  # an inline wave or a retry in a caller
-        t = time.perf_counter()
-        try:
-            return check(*a)
-        finally:
-            engine_s.append(time.perf_counter() - t)
+    def __init__(self, inst):
+        self.inst = inst
+        self.rec: list = []
+        self.slots: list = []
+        self._engine_s: list = []
+        self._wait_s: list = []
+        #: wave id → the launch's part of a pipelined wave's record
+        self._open: dict = {}
+        self._in_engine = False
+        eng = inst.engine
+        for name in ("check_packed", "launch_packed", "sync_packed"):
+            setattr(eng, name, self._timed_engine(getattr(eng, name)))
+        self.attach(inst.dispatcher)
 
-    def timed_wave(wave):
-        t = time.perf_counter()
-        run_wave(wave)
-        rec.append((t, time.perf_counter(), len(wave),
-                    sum(len(j) for j in wave), sum(engine_s), sum(wait_s)))
-        engine_s.clear()
-        wait_s.clear()
+    def _timed_engine(self, call):
+        def run(*a, **k):
+            if (threading.current_thread() is not self.inst.dispatcher._thread
+                    or self._in_engine):
+                return call(*a, **k)
+            self._in_engine = True
+            t = time.perf_counter()
+            try:
+                return call(*a, **k)
+            finally:
+                self._engine_s.append(time.perf_counter() - t)
+                self._in_engine = False
 
-    eng.check_packed = timed_check
-    disp._run_wave = timed_wave
-    disp._engine_lock = WaitTimedLock(disp._engine_lock, disp._thread,
-                                      wait_s)
-    return rec
+        return run
+
+    def _take(self) -> tuple:
+        """(engine s, lock wait s) since the last take."""
+        out = (sum(self._engine_s), sum(self._wait_s))
+        self._engine_s.clear()
+        self._wait_s.clear()
+        return out
+
+    def attach(self, disp) -> None:
+        run_wave = disp._run_wave
+        launch, sync = disp._launch_packed_jobs, disp._sync_and_resolve
+
+        def timed_wave(wave):
+            self._take()
+            t = time.perf_counter()
+            run_wave(wave)
+            self.rec.append((t, time.perf_counter(), len(wave),
+                             sum(len(j) for j in wave)) + self._take())
+
+        def timed_launch(jobs, slot):
+            self._take()
+            t = time.perf_counter()
+            out = launch(jobs, slot)
+            self.slots.append((t, slot))
+            if out is not None:
+                self._open[out[2]] = (t, time.perf_counter() - t, len(jobs),
+                                      sum(len(j) for j in jobs)) \
+                    + self._take()
+            return out
+
+        def timed_sync(jobs, token, wid):
+            self._take()
+            t = time.perf_counter()
+            sync(jobs, token, wid)
+            dur = time.perf_counter() - t
+            t0, launch_s, n_jobs, rows, eng_s, wait_s = self._open.pop(wid)
+            more_eng, more_wait = self._take()
+            self.rec.append((t0, t0 + launch_s + dur, n_jobs, rows,
+                             eng_s + more_eng, wait_s + more_wait))
+
+        disp._run_wave = timed_wave
+        disp._launch_packed_jobs = timed_launch
+        disp._sync_and_resolve = timed_sync
+        disp._engine_lock = WaitTimedLock(disp._engine_lock, disp._thread,
+                                          self._wait_s)
+
+    def pipelined(self, t0: float, wall: float) -> dict:
+        """The pipelined launches of a window and their largest slot."""
+        slots = [s for t, s in self.slots if t0 <= t <= t0 + wall]
+        return {"pipelined_waves": len(slots),
+                "max_slot": max(slots) if slots else None}
 
 
 def time_steps(torch, eng) -> list:
@@ -2109,6 +2497,7 @@ def main(argv=None) -> int:
          "source": "gubernator_tpu_torch/csrc/decide.cu",
          "replaces": "gubernator_tpu/ops/pallas_step.py:338",
          "launches": m["launches"], "wire_launches": m["wire"]["launches"],
+         "wire_pipeline_off_launches": m["wire_pipeline_off"]["launches"],
          "cluster_launches": cl["launches"],
          "cluster_steps_per_daemon": cl["steps_per_daemon"],
          "max_abs_err": k["max_abs_err"],
@@ -2120,6 +2509,7 @@ def main(argv=None) -> int:
          "source": "gubernator_tpu_torch/csrc/sweep.cu",
          "replaces": "gubernator_tpu/ops/pallas_sweep.py:48",
          "launches": c["launches"], "wire_launches": c["wire"]["launches"],
+         "wire_pipeline_off_launches": c["wire_pipeline_off"]["launches"],
          "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",

@@ -143,6 +143,11 @@ class DaemonConfig:
     peer_discovery_type: str = "none"
     #: static discovery: "host:grpc_port[;host:http_port][@dc]" entries
     static_peers: List[str] = field(default_factory=list)
+    #: graceful-shutdown drain window (ms, GUBER_DRAIN_GRACE): close()
+    #: answers /healthz with 503 "draining" for this long, still serving,
+    #: before it sheds new requests and stops the listeners; 0 skips the
+    #: wait (the drain events still fire)
+    drain_grace_ms: int = 0
 
     def instance_config(self) -> Config:
         return Config(cache_size=self.cache_size,
@@ -219,6 +224,8 @@ def setup_daemon_config(conf_file: str = "",
                                    b.peer_degraded_fallback, flag)
     b.peer_health_gate = get("GUBER_PEER_HEALTH_GATE", b.peer_health_gate,
                              flag)
+    d.drain_grace_ms = get("GUBER_DRAIN_GRACE", d.drain_grace_ms,
+                           parse_duration_ms)
     d.peer_discovery_type = conf.get("GUBER_PEER_DISCOVERY_TYPE",
                                      d.peer_discovery_type)
     peers = conf.get("GUBER_PEERS", "")

@@ -261,7 +261,8 @@ class WaveBufferPool:
     padding (all zeros; the caller re-fills the eff_ms row) or allocates
     one on a miss; ``WaveLease.release`` returns it.  Thread-safe; each
     width keeps at most ``MAX_PER_WIDTH`` free pairs, so a burst cannot
-    grow the pool without bound."""
+    grow the pool without bound.  ``metrics`` (a Metrics registry,
+    bound by V1Instance) gets the hit / miss / leak counters."""
 
     #: free pairs kept per width
     MAX_PER_WIDTH = 4
@@ -274,6 +275,7 @@ class WaveBufferPool:
         self.misses = 0  # guarded-by: self._mu
         self.leaks = 0  # guarded-by: self._mu
         self.outstanding = 0  # guarded-by: self._mu
+        self.metrics = None  # bound by V1Instance after construction
 
     def lease(self, m: int) -> WaveLease:
         """Lease a zeroed (a64 [8, m] int64, a32 [3, m] int32) pair."""
@@ -289,9 +291,13 @@ class WaveBufferPool:
             a64, a32 = buf
             a64.fill(0)
             a32.fill(0)
+            if self.metrics is not None:
+                self.metrics.wave_buffer_pool_hit.inc()
         else:
             a64 = np.zeros((len(PACK64), m), np.int64)
             a32 = np.zeros((len(PACK32), m), np.int32)
+            if self.metrics is not None:
+                self.metrics.wave_buffer_pool_miss.inc()
         return WaveLease(self, a64, a32)
 
     def _return(self, a64, a32) -> None:
@@ -305,6 +311,8 @@ class WaveBufferPool:
     def _record_leak(self) -> None:
         with self._mu:
             self.leaks += 1
+        if self.metrics is not None:
+            self.metrics.wave_buffer_leaks.inc()
 
     def stats(self) -> dict:
         with self._mu:

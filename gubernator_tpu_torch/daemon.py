@@ -5,28 +5,42 @@ of gubernator_tpu/daemon.py):
   wire bytes into ``V1Instance.get_rate_limits_wire`` (a ValueError
   becomes INVALID_ARGUMENT), V1 HealthCheck, grpc.health.v1, and the
   peer service PeersV1 (GetPeerRateLimits as raw bytes into
-  ``get_peer_rate_limits_wire``, UpdatePeerGlobals).  grpcio is imported
-  only when an address is set; set and missing, the daemon raises.  The
-  listener binds first, so a ``:0`` address advertises its bound port;
+  ``get_peer_rate_limits_wire``, UpdatePeerGlobals).  A shed batch
+  (``ResourceExhausted``) aborts with RESOURCE_EXHAUSTED; the call's
+  remaining deadline scopes admission (``request_deadline``).  grpcio is
+  imported only when an address is set; set and missing, the daemon
+  raises.  The listener binds first, so a ``:0`` address advertises its
+  bound port;
 - peers from ``peer_discovery_type`` (discovery.py: ``static`` reads
   ``static_peers``, GUBER_PEERS) into ``V1Instance.set_peers``;
 - an HTTP/JSON gateway on ``http_listen_address``: POST
   /v1/GetRateLimits (numeric enums in and out, snake_case and camelCase
-  field names) through the object lane, and GET /healthz (also
-  /v1/HealthCheck).
+  field names) through the object lane (a shed batch answers 429), GET
+  /healthz (also /v1/HealthCheck; ``?deep=1`` adds the dispatcher's and
+  the peer lanes' state), GET /metrics (the instance's Prometheus
+  registry) and GET /debug/events (its flight recorder, filtered by
+  ``limit``, ``kind``, ``since_seq``, ``tenant`` and ``trace``).
+
+``close()`` drains first: /healthz answers 503 "draining" while requests
+still serve for ``drain_grace_ms``, then new requests shed and the
+listeners stop.
 """
 from __future__ import annotations
 
 import json
 import logging
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
+from urllib.parse import parse_qs, urlsplit
 
 from .config import DaemonConfig
 from .discovery import make_discovery
+from .dispatcher import ResourceExhausted, request_deadline
 from .instance import V1Instance
 from .netutil import resolve_host_ip, split_host_port
+from .telemetry import exc_text
 from .types import Behavior, PeerInfo, RateLimitRequest
 
 log = logging.getLogger("gubernator_tpu_torch.daemon")
@@ -75,10 +89,14 @@ class _V1Servicer:
     def GetRateLimitsWire(self, request: bytes, context):
         import grpc
 
-        try:
-            return self.instance.get_rate_limits_wire(request)
-        except ValueError as e:
-            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        with request_deadline(context.time_remaining()):
+            try:
+                return self.instance.get_rate_limits_wire(request)
+            except ValueError as e:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT, exc_text(e))
+            except ResourceExhausted as e:
+                context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED,
+                              exc_text(e))
 
     def HealthCheck(self, request, context):
         from .wire import health_to_pb
@@ -96,10 +114,14 @@ class _PeersServicer:
     def GetPeerRateLimitsWire(self, request: bytes, context):
         import grpc
 
-        try:
-            return self.instance.get_peer_rate_limits_wire(request)
-        except ValueError as e:
-            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        with request_deadline(context.time_remaining()):
+            try:
+                return self.instance.get_peer_rate_limits_wire(request)
+            except ValueError as e:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT, exc_text(e))
+            except ResourceExhausted as e:
+                context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED,
+                              exc_text(e))
 
     def UpdatePeerGlobals(self, request, context):
         from .proto import peers_pb2 as peers_pb
@@ -114,6 +136,9 @@ class Daemon:
     def __init__(self, cfg: DaemonConfig):
         self.cfg = cfg
         self._closed = False
+        #: True from the moment close() starts: /healthz answers 503
+        #: "draining" through the grace window
+        self._draining = False
         self.http_server: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
         self.grpc_server = None
@@ -141,7 +166,9 @@ class Daemon:
             self.discovery = make_discovery(cfg, self.peer_info(),
                                             self.instance.set_peers)
         except BaseException:
-            self.close()
+            # a half-built daemon leaks no listener or thread
+            self._closed = True
+            self._teardown()
             raise
 
     def _bind_grpc(self, addr: str) -> None:
@@ -198,23 +225,35 @@ class Daemon:
             def log_message(self, fmt, *args):  # quiet
                 log.debug("http: " + fmt, *args)
 
-            def _send(self, code: int, body: bytes):
+            def _send(self, code: int, body: bytes,
+                      ctype: str = "application/json"):
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
 
             def do_GET(self):
-                if self.path.split("?")[0] not in ("/healthz",
-                                                   "/v1/HealthCheck"):
+                parts = urlsplit(self.path)
+                path, q = parts.path, parse_qs(parts.query)
+                if path == "/metrics":
+                    self._send(200, daemon.instance.metrics.render(),
+                               "text/plain; version=0.0.4")
+                elif path in ("/healthz", "/v1/HealthCheck"):
+                    code, body = daemon.health(
+                        q.get("deep", ["0"])[-1] not in ("", "0", "false"))
+                    self._send(code, json.dumps(body).encode())
+                elif path == "/debug/events":
+                    self._send(200, json.dumps(
+                        {"events": daemon.instance.recorder.events(
+                            limit=_int_arg(q, "limit"),
+                            kind=q.get("kind", [""])[-1] or None,
+                            since_seq=_int_arg(q, "since_seq"),
+                            tenant=q.get("tenant", [""])[-1] or None,
+                            trace=q.get("trace", [""])[-1] or None)}
+                    ).encode())
+                else:
                     self._send(404, b'{"error":"not found"}')
-                    return
-                h = daemon.instance.health_check()
-                self._send(200 if h.status == "healthy" else 503,
-                           json.dumps({"status": h.status,
-                                       "message": h.message,
-                                       "peer_count": h.peer_count}).encode())
 
             def do_POST(self):
                 if self.path not in ("/v1/GetRateLimits",
@@ -228,7 +267,14 @@ class Daemon:
                             for o in payload.get("requests", [])]
                     resps = daemon.instance.get_rate_limits(reqs)
                 except ValueError as e:
-                    self._send(400, json.dumps({"error": str(e)}).encode())
+                    self._send(400, json.dumps(
+                        {"error": exc_text(e)}).encode())
+                    return
+                except ResourceExhausted as e:
+                    # admission shed or drain: the HTTP analog of gRPC
+                    # RESOURCE_EXHAUSTED
+                    self._send(429, json.dumps(
+                        {"error": exc_text(e)}).encode())
                     return
                 self._send(200, json.dumps({
                     "responses": [_resp_to_json(r) for r in resps]}).encode())
@@ -240,13 +286,50 @@ class Daemon:
             name=f"http-{addr}")
         self._http_thread.start()
 
+    def health(self, deep: bool) -> tuple:
+        """(HTTP code, body) of /healthz: 503 "draining" once close()
+        began; else the instance's health check, and with ``deep`` the
+        dispatcher's ``debug_stats()`` and each peer's ``lane_stats()``
+        (the SLO and memory blocks of the JAX daemon wait for their
+        subsystems)."""
+        inst = self.instance
+        if self._draining:
+            return 503, {"status": "draining",
+                         "message": "daemon is shutting down",
+                         "peer_count": len(inst.peers())}
+        h = inst.health_check()
+        body = {"status": h.status, "message": h.message,
+                "peer_count": h.peer_count}
+        if deep:
+            body["dispatcher"] = inst.dispatcher.debug_stats()
+            body["peers"] = {p.info.grpc_address: p.lane_stats()
+                             for p in inst.peers()}
+        return (200 if h.status == "healthy" else 503), body
+
     def close(self) -> None:
-        """Stop discovery and the listeners first, so no request lands
-        after the instance closed; the instance then flushes its GLOBAL
-        manager and drains its peer clients."""
+        """Graceful shutdown: drain first.  /healthz answers 503
+        "draining" and requests still serve for ``drain_grace_ms`` (load
+        balancers stop routing before connections die); then the
+        dispatcher sheds new ingress, discovery and the listeners stop,
+        and the instance flushes its GLOBAL manager and drains its peer
+        clients."""
         if self._closed:
             return
         self._closed = True
+        self._draining = True
+        inst = self.instance
+        if inst is not None:
+            inst.recorder.record("drain_started",
+                                 grace_ms=self.cfg.drain_grace_ms)
+            inst.metrics.draining.set(1)
+            if self.cfg.drain_grace_ms > 0:
+                time.sleep(self.cfg.drain_grace_ms / 1000.0)
+            inst.dispatcher.drain()
+        self._teardown()
+        if inst is not None:
+            inst.recorder.record("drain_completed")
+
+    def _teardown(self) -> None:
         if self.discovery is not None:
             self.discovery.close()
         if self.grpc_server is not None:
@@ -256,6 +339,15 @@ class Daemon:
             self.http_server.server_close()
         if self.instance is not None:
             self.instance.close()
+
+
+def _int_arg(q: dict, name: str) -> Optional[int]:
+    """A query argument as a positive int, None when absent, 0 or
+    malformed."""
+    try:
+        return int(q.get(name, ["0"])[-1]) or None
+    except ValueError:
+        return None
 
 
 def spawn_daemon(cfg: DaemonConfig) -> Daemon:

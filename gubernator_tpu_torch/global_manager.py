@@ -15,8 +15,11 @@ verbatim request TLV slices keyed by their raw FNV-1a hash (prototypes
 are parsed at flush cadence, off the request path).  A flush merges the
 two in raw-hash space and ships one TLV per key, with the summed hits
 appended, on the owners' forward lanes; a failed flush puts its
-aggregates back on the queue.  Metrics, the conservation audit, fault
-points and tracing wait for their slices.
+aggregates back on the queue.  The manager feeds the instance's
+``Metrics`` (queue length, broadcast counter and duration, and
+``check_error`` for failed flushes and sends) and records ``error`` and
+``broadcast`` events in its flight recorder.  The conservation audit,
+fault points and tracing wait for their slices.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from typing import Dict, List, Tuple
 from .config import BehaviorConfig
 from .hashing import fnv1a64
 from .interval import IntervalLoop
-from .peer_client import exc_text
+from .telemetry import exc_text
 from .types import RateLimitRequest
 from .wire import _varint, req_from_tlv, req_to_tlv, tlv_with_hits
 
@@ -51,9 +54,10 @@ class GlobalManager:
     #: (the loops retry every tick)
     ERROR_TTL_S = 60.0
 
-    def __init__(self, instance, behaviors: BehaviorConfig):
+    def __init__(self, instance, behaviors: BehaviorConfig, metrics):
         self.instance = instance
         self.behaviors = behaviors
+        self.metrics = metrics
         self._mu = threading.Lock()
         #: arrival order across both lanes: on a merge the prototype with
         #: the highest seq wins ("latest config wins")
@@ -95,6 +99,7 @@ class GlobalManager:
             self._hits[req.key] = (req, acc + inc, self._seq)
             self.stats["hits_queued"] += inc
             n = len(self._hits) + len(self._hits_raw)
+        self.metrics.queue_length.set(n)
         if n >= self.behaviors.global_batch_limit:
             self._hits_loop.poke()
 
@@ -119,6 +124,7 @@ class GlobalManager:
             self._hits_raw[khash] = (tlv, acc + inc, self._seq)
             self.stats["hits_queued"] += inc
             n = len(self._hits_raw) + len(self._hits)
+        self.metrics.queue_length.set(n)
         if n >= self.behaviors.global_batch_limit:
             self._hits_loop.poke()
 
@@ -151,6 +157,8 @@ class GlobalManager:
                 q = self._hits_raw if isinstance(proto, bytes) else self._hits
                 p0, a0, s0 = q.get(k, (proto, 0, 0))
                 q[k] = (proto if seq >= s0 else p0, a0 + acc, max(s0, seq))
+            n = len(self._hits) + len(self._hits_raw)
+        self.metrics.queue_length.set(n)
 
     # ---- the hits loop (global.go › runAsyncHits) ----------------------
 
@@ -161,6 +169,7 @@ class GlobalManager:
         with self._mu:
             hits, self._hits = self._hits, {}
             hits_raw, self._hits_raw = self._hits_raw, {}
+        self.metrics.queue_length.set(0)
         if not hits and not hits_raw:
             return
         merged: Dict[int, Tuple[object, int, int]] = dict(hits_raw)
@@ -223,7 +232,11 @@ class GlobalManager:
                 failures += 1
                 errors.append(f"global hits sync to {addr}: "
                               f"{exc_text(e)}")
+                self.metrics.check_error_counter.labels(
+                    error="global_hits_sync").inc()
                 log.warning(errors[-1])
+                self._record_event("error", stage="global_hits_sync",
+                                   error=errors[-1])
                 continue
             flushed += sum(e[2] for e in ent)
         with self._mu:
@@ -253,6 +266,7 @@ class GlobalManager:
                 updates[req.key] = (seq, req)
         if not updates:
             return
+        t0 = time.perf_counter()
         inst = self.instance
         msgs = inst.build_global_updates([r for _, r in updates.values()])
         if not msgs:
@@ -285,14 +299,25 @@ class GlobalManager:
                     failed.add(addr)
                     errors.append(f"global broadcast to {addr}: "
                                   f"{exc_text(e)}")
+                    self.metrics.check_error_counter.labels(
+                        error="global_broadcast").inc()
                     log.warning(errors[-1])
         with self._mu:
             self.stats["broadcasts"] += 1
             self.stats["broadcast_keys"] += len(msgs)
             self.stats["broadcast_failures"] += len(failed)
         self._record(errors)
+        self.metrics.global_broadcast_counter.inc()
+        self.metrics.broadcast_duration.observe(time.perf_counter() - t0)
+        self._record_event("broadcast", keys=len(msgs), peers=len(peers),
+                           errors=len(errors),
+                           error=("; ".join(errors) or None))
 
     # ---- errors (health_check) -----------------------------------------
+
+    def _record_event(self, kind: str, **fields) -> None:
+        """An event in the instance's flight recorder."""
+        self.instance.recorder.record(kind, **fields)
 
     def _record(self, errors) -> None:
         """A tick's errors: a clean tick clears, a failing one stamps."""

@@ -30,10 +30,16 @@ lane's answers:
 - protobuf: metadata, empty names or keys, unknown fields.
 
 A failed forward answers its rows with the error row the JAX instance
-gives with ``peer_degraded_fallback=False``.  Degraded serves, the
-health-gated ring, the handover of moved rows, MULTI_REGION
-replication, the GLOBAL hot set, analytics, metrics and tracing wait
-for their slices.
+gives with ``peer_degraded_fallback=False``.
+
+Each instance owns a ``Metrics`` registry and a ``FlightRecorder``
+(served by the daemon at /metrics and /debug/events), shared with its
+dispatcher, wave pool, peer clients and GLOBAL manager.  Every client
+entry asks the dispatcher's admission control first, before any engine
+work (``ResourceExhausted`` when it sheds), then counts its requests.
+Degraded serves, the health-gated ring, the handover of moved rows,
+MULTI_REGION replication, the GLOBAL hot set, analytics and tracing
+wait for their slices.
 """
 from __future__ import annotations
 
@@ -54,13 +60,15 @@ from .engine import BucketEngine
 from .global_manager import GlobalManager
 from .gregorian import gregorian_rate_duration_ms
 from .hashing import hash_keys, hash_request_keys, mix64_np
+from .metrics import Metrics
 from .ops import native as wire_native
-from .peer_client import PeerClient, exc_text
+from .peer_client import ErrCircuitOpen, ErrClosing, PeerClient
 from .peers import ReplicatedConsistentHash
 from .sharded import ShardedEngine, autogrow_limit_per_shard
+from .telemetry import FlightRecorder, exc_text
 from .types import (MAX_BATCH_SIZE, Algorithm, Behavior,
                     HealthCheckResponse, PeerInfo, RateLimitRequest,
-                    RateLimitResponse)
+                    RateLimitResponse, Status)
 
 log = logging.getLogger("gubernator_tpu_torch.instance")
 
@@ -86,6 +94,19 @@ def _req_stamped(req: RateLimitRequest, now: int) -> RateLimitRequest:
     if req.created_at or not created_at_fwd_enabled():
         return req
     return replace(req, created_at=now)
+
+
+def _forward_fail_reason(e: Optional[BaseException]) -> str:
+    """The low-cardinality reason label of gubernator_forward_failed."""
+    if isinstance(e, ErrCircuitOpen):
+        return "circuit_open"
+    if isinstance(e, ErrClosing):
+        return "closing"
+    if isinstance(e, TimeoutError):
+        return "timeout"
+    if isinstance(e, RuntimeError) and "short" in (str(e) or ""):
+        return "short_response"
+    return "rpc_error"
 
 
 def resolve_engine_kind(selector: str) -> str:
@@ -114,15 +135,18 @@ class V1Instance:
                 "peer_degraded_fallback and peer_health_gate are not "
                 "ported yet; set both to False")
         self.config = config
+        self.metrics = Metrics()
+        #: bounded structured-event ring: wave launches / stalls /
+        #: timeouts, sheds, the drain, GLOBAL broadcasts and errors
+        self.recorder = FlightRecorder()
         # at least 1024 rows, a power of two (the JAX instance's
         # per-shard floor at one shard)
         cap = 1 << (max(config.cache_size, 1024) - 1).bit_length()
         self.engine = self._build_engine(
             resolve_engine_kind(config.engine), cap, config)
+        self.engine.wave_pool.metrics = self.metrics
         self._engine_mu = threading.Lock()
-        self.dispatcher = Dispatcher(
-            self.engine, max_wave=self.engine.wave_buckets[-1],
-            lock=self._engine_mu)
+        self.dispatcher = self._make_dispatcher()
         self._last_sweep = clock_ms()
         self._closed = False
         self._picker = ReplicatedConsistentHash()  # guarded-by: self._peer_mu
@@ -134,6 +158,14 @@ class V1Instance:
         self._fwd_mu = threading.Lock()
         self.forwarded_rows = 0  # guarded-by: self._fwd_mu
         self.forward_failures = 0  # guarded-by: self._fwd_mu
+
+    def _make_dispatcher(self) -> Dispatcher:
+        """A dispatcher over this instance's engine, lock, registry and
+        recorder; the GUBER_* dispatcher knobs are read now."""
+        return Dispatcher(self.engine,
+                          max_wave=self.engine.wave_buckets[-1],
+                          lock=self._engine_mu, metrics=self.metrics,
+                          recorder=self.recorder)
 
     @staticmethod
     def _build_engine(kind: str, cap: int, config: Config):
@@ -166,7 +198,8 @@ class V1Instance:
             for info in infos:
                 existing = old.pop(info.grpc_address, None)
                 picker.add(existing if existing is not None else
-                           PeerClient(info, self.config.behaviors))
+                           PeerClient(info, self.config.behaviors,
+                                      metrics=self.metrics))
             self._picker = picker
         for departed in old.values():
             threading.Thread(target=departed.shutdown, daemon=True,
@@ -207,8 +240,8 @@ class V1Instance:
     def _ensure_global_manager(self) -> GlobalManager:
         with self._gm_mu:
             if self.global_manager is None:
-                self.global_manager = GlobalManager(self,
-                                                    self.config.behaviors)
+                self.global_manager = GlobalManager(
+                    self, self.config.behaviors, self.metrics)
             return self.global_manager
 
     def _count_forward(self, rows: int, failed: int = 0) -> None:
@@ -216,18 +249,41 @@ class V1Instance:
             self.forwarded_rows += rows
             self.forward_failures += failed
 
+    def _count_failed_forward(self, addr: str, err, rows: int) -> None:
+        self.metrics.check_error_counter.labels(
+            error="peer_forward").inc(rows)
+        self.metrics.forward_failed.labels(
+            peer_addr=addr, reason=_forward_fail_reason(err)).inc(rows)
+
     # ---- the object lane ------------------------------------------------
 
     def get_rate_limits(self, reqs: Sequence[RateLimitRequest],
                         now_ms: Optional[int] = None
                         ) -> List[RateLimitResponse]:
-        """Batch entry point (gubernator.go › GetRateLimits)."""
+        """Batch entry point (gubernator.go › GetRateLimits).  Raises
+        ResourceExhausted when admission control sheds the batch."""
         if len(reqs) > MAX_BATCH_SIZE:
             raise ValueError(
                 f"Requests.RateLimits list too large; max size is "
                 f"{MAX_BATCH_SIZE}")
+        self.dispatcher.admit(len(reqs))
         now = clock_ms() if now_ms is None else now_ms
-        return self._get_rate_limits(reqs, now)
+        return self._counted("api", len(reqs), None,
+                             lambda: self._get_rate_limits(reqs, now))
+
+    def _counted(self, calltype: str, n: int, lane: Optional[str], run):
+        """``run()`` as one GetRateLimits call of ``n`` requests: counted
+        by call type (and lane), timed, in the concurrent-checks gauge."""
+        m = self.metrics
+        m.getratelimit_counter.labels(calltype=calltype).inc(n)
+        if lane is not None:
+            m.wire_lane_counter.labels(lane=lane).inc(n)
+        m.concurrent_checks.inc()
+        try:
+            with m.time_func("GetRateLimits"):
+                return run()
+        finally:
+            m.concurrent_checks.dec()
 
     def _get_rate_limits(self, reqs, now) -> List[RateLimitResponse]:
         responses: List[Optional[RateLimitResponse]] = [None] * len(reqs)
@@ -258,11 +314,13 @@ class V1Instance:
         # forwards first, so their RPCs overlap the device step
         futures = [(i, self._forward_one(peer, req, now),
                     peer.info.grpc_address) for i, peer, req in fwd]
+        over = 0
         if local_idx:
             local = self.dispatcher.check_batch(
                 [reqs[i] for i in local_idx], now)
             for i, resp in zip(local_idx, local):
                 responses[i] = resp
+                over += resp.status == Status.OVER_LIMIT
         if glob_q:
             # only now: a broadcast tick before the step above would
             # gather a row that does not exist yet and drop the update
@@ -278,11 +336,14 @@ class V1Instance:
         for i, f, addr in futures:
             try:
                 responses[i] = f.result(timeout=timeout)
+                over += responses[i].status == Status.OVER_LIMIT
             except Exception as e:  # noqa: BLE001 - the row's answer
                 failed += 1
+                self._count_failed_forward(addr, e, 1)
                 responses[i] = RateLimitResponse(
                     error=f"while fetching rate limit from peer {addr}: "
                           f"{exc_text(e)}")
+        self.metrics.over_limit_counter.inc(over)
         if futures:
             self._count_forward(len(futures), failed)
         self._maybe_sweep(now)
@@ -323,9 +384,20 @@ class V1Instance:
     def health_check(self) -> HealthCheckResponse:
         """reference: gubernator.go › HealthCheck: healthy and the peer
         count, or unhealthy with the GLOBAL manager's last error (a
-        failed hits flush or broadcast, for ERROR_TTL_S).  The table's
-        occupancy stays with the engine (``occupancy`` /
-        ``occupancy_and_saturation``)."""
+        failed hits flush or broadcast, for ERROR_TTL_S).  Refreshes the
+        table gauges (live rows, capacity, dropped rows and, on the
+        bucket engine, the share of full buckets) from one device
+        reduction under the engine lock."""
+        m = self.metrics
+        with self._engine_mu:
+            if hasattr(self.engine, "occupancy_and_saturation"):
+                occ, full, total = self.engine.occupancy_and_saturation()
+                m.bucket_saturation.set(full / max(total, 1))
+            else:
+                occ = self.engine.occupancy()
+            m.cache_size.set(int(occ))
+            m.dropped_rows.set(self.engine.dropped_rows)
+            m.cache_capacity.set(self.engine.cap_local)
         gm = self.global_manager
         err = gm.last_error if gm is not None else ""
         return HealthCheckResponse(status="unhealthy" if err else "healthy",
@@ -341,7 +413,8 @@ class V1Instance:
         the batch qualifies, else the parse lane, else the protobuf
         lane; a message protobuf cannot decode raises ValueError, and so
         does a batch of more than MAX_BATCH_SIZE requests on every
-        lane."""
+        lane.  Raises ResourceExhausted when admission control sheds
+        the batch."""
         data = bytes(data) if not isinstance(data, bytes) else data
         picker = self._clustered_picker()
         if picker is None:
@@ -350,20 +423,31 @@ class V1Instance:
                 return out
         parsed = wire_native.parse_get_rate_limits(data)
         if parsed is not None:
-            if parsed["n"] > MAX_BATCH_SIZE:
+            n = parsed["n"]
+            if n > MAX_BATCH_SIZE:
                 raise ValueError(
                     f"Requests.RateLimits list too large; max size is "
                     f"{MAX_BATCH_SIZE}")
             now = clock_ms() if now_ms is None else now_ms
+            self.dispatcher.admit(n)
             if picker is not None:
-                out = self._wire_check_clustered(parsed, data, now, picker)
+                lane = "wire_clustered"
+                run = lambda: self._wire_check_clustered(  # noqa: E731
+                    parsed, data, now, picker)
             else:
                 # alone, GLOBAL with no hot set is the local path;
                 # MULTI_REGION rows are decided locally (their
                 # replication is not ported)
-                out = self._wire_check_columns(parsed, now)
-            self._maybe_sweep(now)
-            return out
+                lane = "wire_local"
+                run = lambda: self._wire_check_columns(  # noqa: E731
+                    parsed, now)
+
+            def run_and_sweep():
+                out = run()
+                self._maybe_sweep(now)
+                return out
+
+            return self._counted("api", n, lane, run_and_sweep)
         return self._wire_pb2(data, now_ms)
 
     #: behaviors the fused lane hands to the parse lane (JAX: their
@@ -385,9 +469,18 @@ class V1Instance:
             raise ValueError(
                 f"Requests.RateLimits list too large; max size is "
                 f"{MAX_BATCH_SIZE}")
-        out = self._run_fused(pre, now)
-        self._maybe_sweep(now)
-        return out
+        try:
+            self.dispatcher.admit(pre.n)
+        except BaseException:
+            pre.lease.release()
+            raise
+
+        def run():
+            out = self._run_fused(pre, now)
+            self._maybe_sweep(now)
+            return out
+
+        return self._counted("api", pre.n, "wire_local", run)
 
     def _run_fused(self, pre, now: int) -> bytes:
         """Run a prepacked wave and serialize its responses.  Idle: one
@@ -396,7 +489,7 @@ class V1Instance:
         callers' waves."""
         disp, n = self.dispatcher, pre.n
         out = disp.run_inline_wave(
-            lambda: self.engine.check_prepacked(pre, now))
+            lambda: self.engine.check_prepacked(pre, now), nreq=n)
         if out is not disp._BUSY:
             return self._columns_to_bytes(out, 0, n)
         try:
@@ -407,11 +500,13 @@ class V1Instance:
         view = disp.check_packed_view(batch, pre.khash, now)
         return self._columns_to_bytes(view.cols, view.lo, view.hi)
 
-    @staticmethod
-    def _columns_to_bytes(cols, lo: int, hi: int, errs=None) -> bytes:
-        """Rows [lo, hi) of result columns → response bytes; ``errs``
-        maps a row (relative to lo) to its error, and table-full rows
-        without one answer ``rate limit table full``."""
+    def _columns_to_bytes(self, cols, lo: int, hi: int, errs=None) -> bytes:
+        """Rows [lo, hi) of result columns → response bytes (their
+        OVER_LIMIT rows counted); ``errs`` maps a row (relative to lo) to
+        its error, and table-full rows without one answer ``rate limit
+        table full``."""
+        self.metrics.over_limit_counter.inc(
+            int((cols[0][lo:hi] == Status.OVER_LIMIT).sum()))
         full = np.nonzero(cols[4][lo:hi])[0]
         errors = None
         if errs or len(full):
@@ -528,9 +623,12 @@ class V1Instance:
                 sp = wire_native.split_resp_items(rbytes)
                 if sp is not None and sp[0].size == idxs.size:
                     self._splice(item_tlvs, idxs, rbytes, sp)
+                    self.metrics.over_limit_counter.inc(
+                        int((sp[2] == Status.OVER_LIMIT).sum()))
                     continue
                 err = RuntimeError("malformed or short peer response batch")
             failed += int(idxs.size)
+            self._count_failed_forward(addr, err, int(idxs.size))
             m = int(idxs.size)
             zeros = np.zeros(m, np.int64)
             ebytes = wire_native.build_responses_from_columns(
@@ -595,6 +693,8 @@ class V1Instance:
             return []
         now = clock_ms() if now_ms is None else now_ms
         reqs = list(reqs)
+        self.metrics.getratelimit_counter.labels(calltype="peer").inc(
+            len(reqs))
         resps = self.dispatcher.check_batch(reqs, now)
         for req in reqs:
             if int(req.behavior) & int(Behavior.GLOBAL):
@@ -620,6 +720,7 @@ class V1Instance:
                 "'PeerRequest.rate_limits' list too large; max size is "
                 f"{self.config.behaviors.batch_limit}")
         now = clock_ms() if now_ms is None else now_ms
+        self._count_peer_wire(parsed["n"])
         out = self._wire_check_columns(parsed, now)
         if parsed["behavior_or"] & int(Behavior.GLOBAL):
             glob = (parsed["behavior"] & int(Behavior.GLOBAL)) != 0
@@ -645,7 +746,12 @@ class V1Instance:
             raise ValueError(
                 "'PeerRequest.rate_limits' list too large; max size is "
                 f"{self.config.behaviors.batch_limit}")
+        self._count_peer_wire(pre.n)
         return self._run_fused(pre, now)
+
+    def _count_peer_wire(self, n: int) -> None:
+        self.metrics.getratelimit_counter.labels(calltype="peer").inc(n)
+        self.metrics.wire_lane_counter.labels(lane="peer_wire").inc(n)
 
     def _wire_peer_pb2(self, data: bytes, now_ms: Optional[int]) -> bytes:
         """The protobuf lane of a forwarded batch."""
@@ -658,6 +764,8 @@ class V1Instance:
             msg = peers_pb.GetPeerRateLimitsReq.FromString(data)
         except DecodeError as e:
             raise ValueError(f"invalid GetPeerRateLimitsReq: {e}") from e
+        self.metrics.wire_lane_counter.labels(
+            lane="peer_pb2_fallback").inc(len(msg.requests))
         resps = self.get_peer_rate_limits(
             [req_from_pb(m) for m in msg.requests], now_ms=now_ms)
         out = peers_pb.GetPeerRateLimitsResp()
@@ -763,6 +871,8 @@ class V1Instance:
             msg = pb.GetRateLimitsReq.FromString(data)
         except DecodeError as e:
             raise ValueError(f"invalid GetRateLimitsReq: {e}") from e
+        self.metrics.wire_lane_counter.labels(
+            lane="pb2_fallback").inc(len(msg.requests))
         resps = self.get_rate_limits([req_from_pb(m) for m in msg.requests],
                                      now_ms=now_ms)
         out = pb.GetRateLimitsResp()

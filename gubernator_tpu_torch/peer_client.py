@@ -17,8 +17,10 @@ the same lane; GLOBAL hit flushes and owner broadcasts ride it too
 (global_manager.py).  The JAX package keeps a legacy object-batching
 flusher for when its C++ codec is not built; the port's wire library
 always builds (or the build raises), so that flusher is not ported.
-Metrics, tracing, fault points and the health-gated routing ring's
-probes wait for their slices.
+With a ``Metrics`` registry the lanes feed the send-buffer depth, the
+flush size and wait, in-flight RPCs, retries, the circuit's opens and
+state and ``batch_send_duration``.  Tracing, fault points and the
+health-gated routing ring's probes wait for their slices.
 
 Shutdown drains in-flight flushes before it closes the channel.
 """
@@ -34,16 +36,11 @@ from typing import List, Optional, Sequence
 from .config import BehaviorConfig
 from .grpc_api import PEERS_SERVICE, PeersV1Stub, dial_peer, raw_unary
 from .ops import native as wire_native
+from .telemetry import exc_text
 from .types import Behavior, PeerInfo, RateLimitRequest, RateLimitResponse
 from .wire import req_to_pb, req_to_tlv, resp_from_pb
 
 log = logging.getLogger("gubernator_tpu_torch.peer")
-
-
-def exc_text(e: BaseException) -> str:
-    """Non-empty text of any exception (a bare TimeoutError str()s
-    empty)."""
-    return str(e) or repr(e)
 
 
 class ErrClosing(Exception):
@@ -59,14 +56,15 @@ class ErrCircuitOpen(Exception):
 class _Entry:
     """One send-buffer entry: ``n_items`` request TLVs in the lane's
     shared buffer; ``future`` resolves to this entry's contiguous slice
-    of the response bytes."""
+    of the response bytes; ``t_enq`` is when it was queued."""
 
-    __slots__ = ("nbytes", "n_items", "future")
+    __slots__ = ("nbytes", "n_items", "future", "t_enq")
 
     def __init__(self, nbytes: int, n_items: int, future: Future):
         self.nbytes = nbytes
         self.n_items = n_items
         self.future = future
+        self.t_enq = time.monotonic()
 
 
 class _SendLane:
@@ -116,6 +114,7 @@ class _SendLane:
             self._buf += data
             self._entries.append(_Entry(len(data), int(n_items), fut))
             self._queued_items += int(n_items)
+            depth = self._queued_items
             if self._thread is None or not self._thread.is_alive():
                 self._thread = threading.Thread(
                     target=self._run, daemon=True,
@@ -123,6 +122,10 @@ class _SendLane:
                          f"{self.client.info.grpc_address}")
                 self._thread.start()
             self._cond.notify_all()
+        m = self.client._metrics
+        if m is not None:
+            m.peer_send_buffer_depth.labels(
+                peer_addr=self.client.info.grpc_address).set(depth)
         return fut
 
     # ---- flusher -------------------------------------------------------
@@ -186,6 +189,15 @@ class _SendLane:
                     self._cond.wait(0.2)
                 self.flushes += 1
                 self.items += items
+                depth_now = self._queued_items
+            m = self.client._metrics
+            if m is not None:
+                m.peer_send_buffer_depth.labels(
+                    peer_addr=self.client.info.grpc_address).set(depth_now)
+                m.peer_flush_size.observe(items)
+                now = time.monotonic()
+                for e in batch:
+                    m.peer_flush_wait.observe(max(now - e.t_enq, 0.0))
             self._launch(batch, b"".join(parts), attempt=0)
 
     def _launch(self, entries: List[_Entry], data: bytes,
@@ -200,35 +212,52 @@ class _SendLane:
             self._fail(entries, ErrCircuitOpen(
                 f"peer {client.info.grpc_address} circuit open"))
             return
+        t0 = time.perf_counter()
         try:
             rpc = client._raw_call(self.method).future(
                 data, timeout=self.rpc_timeout_s)
         except Exception as e:  # noqa: BLE001 - incl. a closed channel
-            self._on_done(None, entries, data, attempt, err=e)
+            self._on_done(None, entries, data, attempt, t0, err=e)
             return
         with self._cond:
             self._inflight += 1
+        m = client._metrics
+        if m is not None:
+            m.peer_inflight_rpcs.labels(
+                peer_addr=client.info.grpc_address).inc()
         rpc.add_done_callback(
-            lambda f: self._rpc_done(f, entries, data, attempt))
+            lambda f: self._rpc_done(f, entries, data, attempt, t0))
 
-    def _rpc_done(self, f, entries, data, attempt) -> None:
+    def _rpc_done(self, f, entries, data, attempt, t0) -> None:
         """grpc callback thread: resolve the futures off the flusher."""
         with self._cond:
             self._inflight -= 1
             self._cond.notify_all()
+        m = self.client._metrics
+        if m is not None:
+            m.peer_inflight_rpcs.labels(
+                peer_addr=self.client.info.grpc_address).dec()
         try:
             rbytes = f.result()
         except Exception as e:  # noqa: BLE001 - RpcError et al.
-            self._on_done(None, entries, data, attempt, err=e)
+            self._on_done(None, entries, data, attempt, t0, err=e)
             return
-        self._on_done(rbytes, entries, data, attempt)
+        self._on_done(rbytes, entries, data, attempt, t0)
 
-    def _on_done(self, rbytes, entries, data, attempt,
+    def _on_done(self, rbytes, entries, data, attempt, t0,
                  err: Optional[BaseException] = None) -> None:
         client = self.client
+        m = client._metrics
+        if m is not None:
+            m.batch_send_duration.labels(
+                peer_addr=client.info.grpc_address).observe(
+                    time.perf_counter() - t0)
         if err is not None:
             if (attempt < self.retries and not self._closing
                     and not client._circuit_blocked()):
+                if m is not None:
+                    m.peer_retry_counter.labels(
+                        peer_addr=client.info.grpc_address).inc()
                 log.warning("peer flush to %s failed (attempt %d/%d), "
                             "retrying: %s", client.info.grpc_address,
                             attempt + 1, self.retries + 1, exc_text(err))
@@ -313,9 +342,12 @@ class _SendLane:
 class PeerClient:
     """One gRPC channel + the columnar send lanes to a single peer."""
 
-    def __init__(self, info: PeerInfo, behaviors: BehaviorConfig):
+    def __init__(self, info: PeerInfo, behaviors: BehaviorConfig,
+                 metrics=None):
         self.info = info
         self.behaviors = behaviors
+        #: the owning instance's Metrics registry (optional)
+        self._metrics = metrics
         self._channel = None  # guarded-by: self._lock
         self._stub: Optional[PeersV1Stub] = None  # guarded-by: self._lock
         self._raw_calls: dict = {}  # guarded-by: self._lock
@@ -378,6 +410,11 @@ class PeerClient:
             log.warning("peer %s circuit OPEN after %d consecutive flush "
                         "failures; failing fast for %.1fs",
                         self.info.grpc_address, failures, cooldown)
+            if self._metrics is not None:
+                self._metrics.peer_circuit_open_counter.labels(
+                    peer_addr=self.info.grpc_address).inc()
+                self._metrics.peer_circuit_state.labels(
+                    peer_addr=self.info.grpc_address).set(1)
 
     def _record_success(self) -> None:
         with self._circ_mu:
@@ -387,6 +424,9 @@ class PeerClient:
         if was_open:
             log.info("peer %s circuit closed (probe flush succeeded)",
                      self.info.grpc_address)
+            if self._metrics is not None:
+                self._metrics.peer_circuit_state.labels(
+                    peer_addr=self.info.grpc_address).set(0)
 
     def lane_stats(self) -> dict:
         """Both send lanes' counters and the circuit's state."""

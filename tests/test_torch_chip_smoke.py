@@ -196,6 +196,11 @@ def path_rehearsal(monkeypatch):
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(torch.cuda, "Event", HostEvent)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    # the daemons pipeline as they do on the card by default
+    monkeypatch.setenv("GUBER_PIPELINE", "1")
+    # below one batch: every batch of the admission round sheds, so the
+    # rehearsal's result does not depend on its few callers' timing
+    monkeypatch.setattr(chip_smoke, "ADMISSION_ROWS", 999)
 
     def k1(rows, b, now, hot=dmod.HOT_SEGMENT, stats=None):
         return dmod.decide_plain(rows, b, now)
@@ -223,11 +228,31 @@ def test_main_and_wire_paths_rehearse_on_the_cpu(path_rehearsal):
         args.threads * (args.rounds * args.batches + args.profile_batches) \
         * 1000
     assert wire["pool_leaks"] == 0 and len(wire["rounds"]) == args.rounds + 1
-    for r in wire["rounds"]:
+    off = res["wire_pipeline_off"]
+    assert len(off["rounds"]) == args.rounds and off["pool_leaks"] == 0
+    for r in wire["rounds"] + off["rounds"]:
         assert r["inline_waves"] + r["waves"] > 0
         # every batch takes the fused lane: one lease each
         assert r["pool_hits"] + r["pool_misses"] == r["batches"]
         assert 0 <= r["inline_share"] <= 1
+    assert wire["pipelined_waves"] > 0 and wire["inline_share"] == 0
+    assert off["pipelined_waves"] == 0 and off["launches"] > 0
+    assert set(res["pipeline"]["p99_ms"]) == {"on", "off"}
+    m = res["metrics"]
+    assert m["getratelimit_api"] == m["api_sent"] == 1 + 5 + 5 + \
+        res["requests"]
+    assert m["over_limit"] == m["over_answers"] > 4
+    assert m["wave_duration_count"] == m["dispatcher_waves"] > 0
+    h = res["healthz_deep"]
+    assert (h["stalled"], h["timeouts"], h["queued_rows"],
+            h["pipeline_depth"]) == (False, 0, 0, 2)
+    a = res["admission"]
+    assert a["shed_batches"] == a["batches"] == args.threads * args.batches
+    assert a["shed_counter"] == a["shed_rows"] == a["batches"] * 1000
+    dr = res["drain"]
+    assert "draining" in dr["shed_after"]
+    assert dr["served_ms"] < dr["grace_ms"] <= dr["closed_ms"]
+    assert dr["events"] == ["drain_started", "drain_completed"]
 
 
 def test_classic_path_and_wire_round_rehearse_on_the_cpu(path_rehearsal):
@@ -236,6 +261,9 @@ def test_classic_path_and_wire_round_rehearse_on_the_cpu(path_rehearsal):
     wire = res["wire"]
     assert wire["requests"] == args.threads * args.profile_batches * 1000
     assert wire["pool_leaks"] == 0 and len(wire["rounds"]) == 1
+    off = res["wire_pipeline_off"]
+    assert off["requests"] == wire["requests"] and off["pool_leaks"] == 0
+    assert wire["pipelined_waves"] > 0 and off["pipelined_waves"] == 0
     assert res["capacity_after"] == 2 * res["capacity_before"]
 
 
@@ -321,3 +349,95 @@ def test_decode_responses_reads_what_the_port_writes():
     assert [tuple(g) for g in got] == [
         (w.status, w.limit, w.remaining, w.reset_time, w.error)
         for w in want]
+
+
+@pytest.fixture()
+def cpu_daemon(monkeypatch):
+    """A pipelined CPU daemon of the smoke's phase 5 shape (small)."""
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+
+    monkeypatch.setenv("GUBER_PIPELINE", "1")
+    d = spawn_daemon(DaemonConfig(
+        http_listen_address="127.0.0.1:0", grpc_listen_address="",
+        cache_size=1 << 12, batch_rows=256, device="cpu",
+        drain_grace_ms=chip_smoke.DRAIN_GRACE_MS))
+    try:
+        yield d
+    finally:
+        d.close()
+
+
+def test_metrics_check_holds_and_catches_a_miscount(cpu_daemon):
+    d = cpu_daemon
+    api, over = chip_smoke.http_verify_flow(d.http_port)
+    got = chip_smoke.check_metrics(d, api + 1, over)  # + the warm-up
+    assert got["getratelimit_api"] == 6 and got["over_limit"] == 2
+    with pytest.raises(RuntimeError, match="api requests"):
+        chip_smoke.check_metrics(d, api, over)
+    with pytest.raises(RuntimeError, match="OVER_LIMIT"):
+        chip_smoke.check_metrics(d, api + 1, over + 1)
+
+
+def test_deep_health_check_wants_the_pipeline(cpu_daemon, monkeypatch):
+    d = cpu_daemon
+    assert chip_smoke.check_deep_health(d)["pipeline_depth"] == 2
+    with chip_smoke.pipeline_env("0"):
+        timer = chip_smoke.WaveTimer(d.instance)
+        chip_smoke.rebuild_dispatcher(d.instance, timer)
+    with pytest.raises(RuntimeError, match="pipeline depth 0"):
+        chip_smoke.check_deep_health(d)
+    import os
+    assert os.environ["GUBER_PIPELINE"] == "1"
+
+
+def test_admission_round_sheds_and_checks_the_rest(cpu_daemon, monkeypatch):
+    """Admitted batches are checked per key; shed ones counted apart, the
+    counter equal to the rows shed (a bound at 1.5 batches here)."""
+    d = cpu_daemon
+    args = types.SimpleNamespace(threads=6, batches=3)
+    tally = chip_smoke.Tally(100)
+    got = chip_smoke.admission_round(
+        d.instance, np.random.default_rng(0), 500, lambda r: f"k{r}", 100,
+        3_600_000, args, tally)
+    assert got["batches"] == 18 and got["shed_batches"] > 0
+    assert got["shed_counter"] == got["shed_rows"] == \
+        1000 * got["shed_batches"]
+    assert tally.n_req == got["admitted_decisions"] == \
+        1000 * (18 - got["shed_batches"])
+    tally.check()
+    assert d.instance.dispatcher.admission_limit == \
+        d.instance.dispatcher.ADMISSION_LIMIT_WAVES * 2048
+
+
+def test_drain_check_sees_503_then_a_shed(cpu_daemon):
+    got = chip_smoke.drain_check(cpu_daemon)
+    assert got["events"] == ["drain_started", "drain_completed"]
+    assert got["draining_seen_ms"] < got["served_ms"] < \
+        chip_smoke.DRAIN_GRACE_MS <= got["closed_ms"]
+
+
+def test_wave_timer_times_pipelined_and_coalesced_waves(cpu_daemon):
+    """Pipelined waves get one record from launch to sync and a slot;
+    after a rebuild with the pipeline off, coalesced waves get theirs."""
+    from gubernator_tpu_torch.types import RateLimitRequest
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    inst = cpu_daemon.instance
+    timer = chip_smoke.WaveTimer(inst)
+    data = encode_get_rate_limits([RateLimitRequest(
+        name="t", unique_key=f"k{i}", hits=1, limit=5, duration=60_000)
+        for i in range(10)])
+    t0 = time.perf_counter()
+    inst.get_rate_limits_wire(data)
+    inst.get_rate_limits([RateLimitRequest(name="t", unique_key="o",
+                                           limit=5)])
+    assert len(timer.rec) == 2 and [r[3] for r in timer.rec] == [10, 1]
+    assert timer.pipelined(t0, 60) == {"pipelined_waves": 1, "max_slot": 0}
+    with chip_smoke.pipeline_env("0"):
+        chip_smoke.rebuild_dispatcher(inst, timer)
+    inline = chip_smoke.time_inline(inst.dispatcher)
+    inst.get_rate_limits_wire(data)
+    assert len(inline) == 1 and len(timer.slots) == 1
+    for start, end, jobs, rows, engine_s, wait_s in timer.rec:
+        assert end >= start and jobs == 1 and 0 <= engine_s <= end - start

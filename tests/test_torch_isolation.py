@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package (its
-wire lane and its cluster path included), and its entry points default
-to the GPU, raising where there is none."""
+wire lane, its cluster path and one daemon's lifecycle included), and
+its entry points default to the GPU, raising where there is none."""
 import ast
 import pkgutil
 import subprocess
@@ -25,7 +25,8 @@ def test_importing_every_module_loads_no_jax():
     mods = all_modules()
     assert "gubernator_tpu_torch.ops.decide" in mods
     for m in ("peers", "peer_client", "global_manager", "discovery",
-              "cluster", "interval", "netutil"):
+              "cluster", "interval", "netutil", "telemetry", "metrics",
+              "cmd.healthcheck"):
         assert f"gubernator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -101,6 +102,48 @@ def test_cluster_path_loads_nothing_of_the_jax_package():
         "    assert inst.global_manager is not None\n"
         "finally:\n"
         "    c.stop()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'gubernator_tpu' "
+        "or m.startswith('gubernator_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_lifecycle_path_loads_nothing_of_the_jax_package():
+    """One daemon's lifecycle in a fresh process: pipelined waves, a
+    shed, /metrics, /healthz?deep=1, /debug/events, the healthcheck CLI
+    and a drained close; no JAX-package module is loaded."""
+    code = (
+        "import os, sys, urllib.request\n"
+        "os.environ['GUBER_PIPELINE'] = '1'\n"
+        "from gubernator_tpu_torch.cmd import healthcheck\n"
+        "from gubernator_tpu_torch.config import DaemonConfig\n"
+        "from gubernator_tpu_torch.daemon import spawn_daemon\n"
+        "from gubernator_tpu_torch.dispatcher import ResourceExhausted\n"
+        "from gubernator_tpu_torch.types import RateLimitRequest as R\n"
+        "from gubernator_tpu_torch.wire import encode_get_rate_limits\n"
+        "d = spawn_daemon(DaemonConfig(http_listen_address='127.0.0.1:0', "
+        "grpc_listen_address='', cache_size=4096, device='cpu', "
+        "drain_grace_ms=50))\n"
+        "inst, base = d.instance, f'http://127.0.0.1:{d.http_port}'\n"
+        "assert inst.get_rate_limits_wire(encode_get_rate_limits("
+        "[R(name='n', unique_key='k', limit=5)]))\n"
+        "inst.dispatcher.admission_limit = 1\n"
+        "try:\n"
+        "    inst.get_rate_limits([R(name='n', unique_key='k', limit=5)] * 2)\n"
+        "    raise SystemExit('no shed')\n"
+        "except ResourceExhausted:\n"
+        "    pass\n"
+        "for path in ('/metrics', '/healthz?deep=1', '/debug/events'):\n"
+        "    assert urllib.request.urlopen(base + path).read()\n"
+        "assert healthcheck.main(['--url', base + '/healthz', "
+        "'--deep']) == 0\n"
+        "assert 'packed_pipelined' in [e['wave_kind'] for e in "
+        "inst.recorder.events(kind='wave_launched')]\n"
+        "d.close()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gubernator_tpu' "
         "or m.startswith('gubernator_tpu.'))\n"
