@@ -82,7 +82,36 @@ cluster: 3 daemons in this process (cluster.start_with), each with a
    flush, no leak; each daemon launched K1.
    Prints each round's decisions/s, latencies and call breakdown, the
    share of the solo wire path's rate, the forwarded share, peer
-   flushes, GLOBAL hits, broadcasts and over-admission;
+   flushes, GLOBAL hits, broadcasts and over-admission.  The daemons run
+   the JAX package's BehaviorConfig defaults (degraded serves and the
+   health-gated ring on); no row of a healthy round may come back
+   degraded.
+   outage (on the same daemons and tables): daemons 0 and 1 arm
+   peer_send@<daemon 2>:error through POST /debug/faults and 8 callers
+   send the same traffic to them only (caller mod 2), with 64 keys of
+   daemon 2 (OUTAGE_KEYS) at a limit of 10^9.  Windows: degraded (the
+   failed forwards answered degraded, until just before the first
+   health gate may eject daemon 2: no batch is in flight when a gate
+   flips), rehomed (one timed round of --outage-batches once both gates
+   ejected it), recovered (one timed round once the faults are cleared
+   and both gates readmitted it; the callers pause across each flip,
+   and a hits=0 request on a daemon's own key reads its gate).  Prints
+   each window's decisions/s, p50 / p99, rows degraded and error rows,
+   the ms from arming to ring_ejected and from clearing to
+   ring_readmitted, the ring generations, gubernator_degraded_served
+   and _fault_injected, the ms until the GLOBAL hit queues drained, K1
+   launches and the over-admission of daemon 2's limit-100 keys.
+   Checked: no error row but `rate limit table full` on a key of daemon
+   2 where it never lived, degraded rows in the first two windows and
+   none in the third, the degraded counter equal to the rows flagged,
+   two generation bumps on daemons 0 and 1, the 64 keys on daemon 2 at
+   exactly 10^9 less the hits sent, daemons 0 and 1's own keys exact,
+   no leak;
+   handover: a 4th daemon (2^22 rows) joins with handover_on_reshard on
+   all four (set_peers on each); every moved row it placed equals its
+   state before the join, the rows its full buckets refused are exactly
+   its dropped_rows count and the count its buckets predict, and no old
+   owner still holds a moved row; prints the step's ms and rows moved;
 6. sweep vs plain: a 2^24-row SoA table holding 10M keys (placed with
    upsert_rows; ~30% expired, some removed) swept by K2 and by its
    plain version on two copies: key and expire_at equal, the other
@@ -168,6 +197,23 @@ GLOBAL_RANKS = 16
 #: read exactly EXACT_GLOBAL_LIMIT - the hits the callers sent
 EXACT_GLOBAL_RANKS = 16
 EXACT_GLOBAL_LIMIT = 10 ** 9
+#: BehaviorConfig fields the cluster overrides; empty on the card (the
+#: JAX package's defaults: fallback and gate on, eject and readmit at
+#: 3000 ms, circuit cooldown 2000 ms); a CPU rehearsal shortens them
+CLUSTER_BEHAVIOR_OVERRIDES: dict = {}
+#: keys owned by daemon 2 whose debits the outage phase reads exactly
+OUTAGE_KEYS = 64
+OUTAGE_LIMIT = 10 ** 9
+#: the degraded window's callers stop this long before the first health
+#: gate is due to eject daemon 2, so that no batch is in flight when a
+#: gate flips (a row rehomed to a daemon whose gate has not flipped yet
+#: is absorbed into its shard: the documented transition window)
+OUTAGE_MARGIN_S = 1.0
+#: batches per caller available to the degraded window
+OUTAGE_MAX_BATCHES = 200
+#: how long a gate flip or a handover may take before the run stops
+FLIP_S = 60.0
+HANDOVER_S = 900.0
 
 
 def require(ok, what: str) -> None:
@@ -777,7 +823,8 @@ def count_steps(eng, counts: list, i: int) -> None:
 def time_cluster_calls(inst, rec: dict) -> None:
     """Record (start s, duration s) of one daemon's client wire entry in
     rec["entry"], the device step of its owned rows inside that entry in
-    rec["local"], and its owner side of a forward RPC in rec["owner"]."""
+    rec["local"], its owner side of a forward RPC in rec["owner"], and
+    each degraded serve (step and protobuf build) in rec["degraded"]."""
     inside: set = set()  # threads inside the client entry
 
     def timed(name, key, entry=False):
@@ -801,6 +848,7 @@ def time_cluster_calls(inst, rec: dict) -> None:
     timed("get_rate_limits_wire", "entry", entry=True)
     timed("_packed_check_to_bytes", "local")
     timed("get_peer_rate_limits_wire", "owner")
+    timed("_serve_degraded_wire", "degraded")
 
 
 def call_breakdown(rec: dict, t0: float, wall: float) -> dict:
@@ -831,7 +879,7 @@ def cluster_totals(c) -> dict:
             out["flush_items"] += f["items"]
         if inst.global_manager is not None:
             for k, v in inst.global_manager.snapshot_stats().items():
-                out[k] += v
+                out[k] = out.get(k, 0) + v
     return out
 
 
@@ -863,10 +911,9 @@ def phase_cluster(torch, args, solo_rate=None):
     def limit_of(r):
         return EXACT_GLOBAL_LIMIT if n_glob <= r < n_all else limit
 
-    # the JAX package's BehaviorConfig defaults, but degraded serves and
-    # the health gate (not ported) off
-    behaviors = BehaviorConfig(peer_degraded_fallback=False,
-                               peer_health_gate=False)
+    # the JAX package's BehaviorConfig defaults (degraded serves and the
+    # health gate on)
+    behaviors = BehaviorConfig(**CLUSTER_BEHAVIOR_OVERRIDES)
     c = cluster.start_with([DaemonConfig(
         grpc_listen_address="127.0.0.1:0", http_listen_address="127.0.0.1:0",
         cache_size=1 << args.cluster_log2_cap, batch_rows=1024,
@@ -902,7 +949,7 @@ def phase_cluster(torch, args, solo_rate=None):
               f"{per_node} in {time.perf_counter() - t0:.2f} s", flush=True)
 
         steps = [0] * n
-        calls_rec = {"entry": [], "local": [], "owner": []}
+        calls_rec = {"entry": [], "local": [], "owner": [], "degraded": []}
         for i, d in enumerate(c.daemons):
             count_steps(d.instance.engine, steps, i)
             time_cluster_calls(d.instance, calls_rec)
@@ -943,6 +990,9 @@ def phase_cluster(torch, args, solo_rate=None):
                 for ranks, data in zip(thread, raw[t]):
                     resps = decode_responses(data)
                     require(len(resps) == len(ranks), "short response")
+                    require(not any(r.degraded for r in resps),
+                            "a row was served degraded in the healthy "
+                            "cluster")
                     n_req += len(ranks)
                     g = ranks < n_all
                     for r, resp in zip(ranks[g].tolist(),
@@ -1013,7 +1063,7 @@ def phase_cluster(torch, args, solo_rate=None):
             if converged or time.monotonic() > deadline:
                 break
             time.sleep(0.05)
-        moved = {k: totals[k] - before[k] for k in totals}
+        moved = {k: totals[k] - before.get(k, 0) for k in totals}
         print(f"cluster GLOBAL convergence after {attempts} attempts: "
               f"{converged}; owner remaining {owners_rem}; 10^9-limit keys "
               f"want {want[n_glob:]}; queued {queued}; hits queued "
@@ -1043,6 +1093,15 @@ def phase_cluster(torch, args, solo_rate=None):
                     f"daemon {i} holds rows it does not own")
             held += found
         require((held == 1).all(), "a touched key is not on its owner")
+        ctx = OutageContext(
+            ring=ring, owner=owner, pop_idx=pop_idx, pop_keys=pop_keys,
+            tally=tally, key_of=key_of, limit=limit, duration=duration,
+            n_glob=n_glob, n_all=n_all, chans=chans, behaviors=behaviors,
+            seed=args.seed + 4, fill_t=fill_t, calls_rec=calls_rec,
+            healthy_rate=float(np.mean([r["decisions_per_s"]
+                                        for r in rounds[:-1]])))
+        outage = phase_outage(torch, args, c, ctx)
+        handover = phase_handover(args, c, ctx)
     finally:
         for ch in chans:
             ch.close()
@@ -1075,7 +1134,8 @@ def phase_cluster(torch, args, solo_rate=None):
            "convergence_attempts": attempts,
            "device": rounds[-1]["device"],
            "share_of_solo_wire": (float(np.mean(rates)) / solo_rate
-                                  if solo_rate else None)}
+                                  if solo_rate else None),
+           "outage": outage, "handover": handover}
     print(f"cluster: {n} daemons, {n_rows} decisions ({tally.n_req} "
           f"non-GLOBAL, each key exact); {len(timed)} timed rounds: "
           f"{res['decisions_per_s']} decisions/s ({rates}); batch p50 "
@@ -1093,6 +1153,446 @@ def phase_cluster(torch, args, solo_rate=None):
           f"{res['share_of_solo_wire']}", flush=True)
     require(launches > 0 and all(steps),
             f"a daemon never launched K1: {steps}")
+    return res
+
+
+class OutageContext(NamedTuple):
+    """What the outage and handover steps take over from the cluster
+    phase: its ring, population, owners (daemon per population rank),
+    tally, traffic shape and channels."""
+
+    ring: object
+    owner: np.ndarray
+    pop_idx: np.ndarray
+    pop_keys: np.ndarray
+    tally: object
+    key_of: object
+    limit: int
+    duration: int
+    n_glob: int
+    n_all: int
+    chans: list
+    behaviors: object
+    seed: int
+    fill_t: int
+    calls_rec: dict
+    healthy_rate: float
+
+
+def post_json(port: int, path: str, body: dict) -> dict:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def metric_total(inst, name: str) -> float:
+    """The sum of a family's samples named ``name`` over its labels."""
+    return sum(smp.value for fam in inst.metrics.registry.collect()
+               for smp in fam.samples if smp.name == name)
+
+
+def outage_ranks(ctx, log2_cap: int) -> np.ndarray:
+    """OUTAGE_KEYS ranks of non-GLOBAL keys owned by daemon 2, the
+    hottest first, whose buckets on daemons 0 and 1 have room for the
+    rows their degraded serves create there."""
+    nb = 1 << (log2_cap - 3)
+    bucket = (ctx.pop_keys & np.uint64(nb - 1)).astype(np.int64)
+    room = [np.bincount(bucket[ctx.owner == i], minlength=nb)
+            for i in (0, 1)]
+    cand = np.nonzero(ctx.owner == 2)[0]
+    cand = cand[cand >= ctx.n_all]
+    ok = (room[0][bucket[cand]] < 6) & (room[1][bucket[cand]] < 6)
+    ranks = cand[ok][:OUTAGE_KEYS]
+    require(len(ranks) == OUTAGE_KEYS, "too few outage keys")
+    return ranks
+
+
+def peer_of(inst, addr: str):
+    return next(p for p in inst.peers() if p.info.grpc_address == addr)
+
+
+def first_eject_due(c, addr: str, eject_s: float):
+    """The monotonic instant the first of daemons 0 and 1 may eject
+    ``addr`` (its circuit-open streak plus peer_eject_after_ms), None
+    before either streak began."""
+    dues = []
+    for d in c.daemons[:2]:
+        p = peer_of(d.instance, addr)
+        with p._circ_mu:
+            since = p._route_bad_since
+        if since:
+            dues.append(since + eject_s)
+    return min(dues) if dues else None
+
+
+def await_ring_events(c, kind: str, seq0: list, poke, bound_s: float):
+    """Poll daemons 0 and 1 until each has recorded a ``kind`` event
+    after its seq0; a daemon without one gets ``poke(i)`` (a hits=0
+    request on a key it owns: the gate is read on a request).  Returns
+    each daemon's first such event."""
+    deadline = time.monotonic() + bound_s
+    got = [None, None]
+    while True:
+        for i in (0, 1):
+            if got[i] is None:
+                ev = c.daemons[i].instance.recorder.events(
+                    kind=kind, since_seq=seq0[i])
+                if ev:
+                    got[i] = ev[0]
+                else:
+                    poke(i)
+        if all(got) or time.monotonic() > deadline:
+            break
+        time.sleep(0.02)
+    require(all(got), f"{kind} missing on a daemon: {got}")
+    return got
+
+
+def phase_outage(torch, args, c, ctx) -> dict:
+    """The cluster's failure path on the cluster phase's daemons and
+    tables: daemons 0 and 1 arm ``peer_send@<daemon 2>:error`` through
+    POST /debug/faults, and 8 callers send the cluster phase's traffic
+    to them only (caller mod 2), with OUTAGE_KEYS keys of daemon 2 at
+    OUTAGE_LIMIT.  Windows: degraded (the failed forwards served
+    degraded, until just before the first gate may eject daemon 2),
+    rehomed (one timed round once both gates ejected it), recovered (one
+    timed round once the faults are cleared and both gates readmitted
+    it; callers pause across each flip).  Checks: no error row but
+    `rate limit table full` on a key of daemon 2 served where it never
+    lived; degraded rows in the first two windows and none in the last;
+    gubernator_degraded_served equal to the rows flagged; two
+    generation bumps on daemons 0 and 1; daemon 2's OUTAGE_KEYS rows at
+    exactly OUTAGE_LIMIT less the hits sent once the queues drained;
+    daemons 0 and 1's own non-GLOBAL keys exact; no lease leaked."""
+    from gubernator_tpu_torch.grpc_api import raw_unary
+    from gubernator_tpu_torch.ops.decide import decide_cuda
+    from gubernator_tpu_torch.types import RateLimitRequest
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    b = ctx.behaviors
+    d2 = c.daemons[2]
+    addr2 = d2.advertise_address
+    out_ranks = outage_ranks(ctx, args.cluster_log2_cap)
+    is_out = np.zeros(len(ctx.pop_idx), bool)
+    is_out[out_ranks] = True
+    # a fresh row at OUTAGE_LIMIT on their owner, so a debit reads exactly
+    with d2.instance._engine_mu:
+        placed = d2.instance.engine.upsert_rows(
+            ctx.pop_keys[out_ranks],
+            token_rows(ctx.pop_keys[out_ranks], OUTAGE_LIMIT, ctx.duration,
+                       ctx.fill_t))
+    require(placed == OUTAGE_KEYS, f"placed {placed} outage rows")
+
+    def limit_of(r):
+        return (OUTAGE_LIMIT if is_out[r] else EXACT_GLOBAL_LIMIT
+                if ctx.n_glob <= r < ctx.n_all else ctx.limit)
+
+    own_rank = [int(np.nonzero((ctx.owner == i) & ~is_out
+                               & (np.arange(len(ctx.owner)) >= ctx.n_all)
+                               )[0][0]) for i in (0, 1)]
+
+    def poke(i):
+        r = own_rank[i]
+        c.daemons[i].instance.get_rate_limits_wire(encode_get_rate_limits(
+            [RateLimitRequest(name="smoke", unique_key=ctx.key_of(r),
+                              hits=0, limit=ctx.limit,
+                              duration=ctx.duration)]))
+
+    rng = np.random.default_rng(ctx.seed)
+    calls = [raw_unary(ctx.chans[t % 2], "GetRateLimits")
+             for t in range(args.threads)]
+    rpc = [lambda x, call=call: call(x, timeout=120) for call in calls]
+
+    def jobs_of(n_b):
+        per = [[zipf_ranks(rng, 1.1, len(ctx.pop_idx), 1000)
+                for _ in range(n_b)] for _ in range(args.threads)]
+        return per, wire_jobs(per, ctx.key_of, ctx.limit, ctx.duration,
+                              lambda r: 2 if r < ctx.n_all else 0, limit_of)
+
+    sent_out = np.zeros(len(ctx.pop_idx), np.int64)
+    under2 = np.zeros(len(ctx.pop_idx), np.int64)
+    windows = {}
+
+    def account(name, per, t0, wall, lat, raw):
+        """One window's answers: counted, checked and tallied."""
+        # every error row is `rate limit table full` (checked below)
+        n_req = deg = full = 0
+        plain_per, plain_res = [], {}
+        for t in range(len(per)):
+            plain_per.append([])
+            plain_res[t] = []
+            for ranks, data in zip(per[t], raw.get(t, [])):
+                resps = decode_responses(data)
+                require(len(resps) == len(ranks), "short response")
+                n_req += len(ranks)
+                own = ctx.owner[ranks]
+                for r, o, resp in zip(ranks.tolist(), own.tolist(), resps):
+                    deg += bool(resp.degraded)
+                    if resp.error:
+                        # a degraded serve inserts a row where the key
+                        # never lived: its bucket may be full
+                        require(resp.error == TABLE_FULL and o == 2
+                                and not is_out[r], f"{name} window: "
+                                f"error row for rank {r}: {resp.error}")
+                        full += 1
+                        continue
+                    if o == 2 and r >= ctx.n_all and resp.status == 0:
+                        under2[r] += 1
+                np.add.at(sent_out, ranks[is_out[ranks]], 1)
+                mine = (ranks >= ctx.n_all) & (own != 2)
+                plain_per[t].append(ranks[mine])
+                plain_res[t].append([resps[j]
+                                     for j in np.nonzero(mine)[0]])
+        ctx.tally.add(plain_per, plain_res)
+        lat_ms = np.asarray(lat) * 1e3
+        rec = {"decisions": n_req, "wall_s": wall,
+               "decisions_per_s": n_req / wall if wall else None,
+               "batches": len(lat),
+               "p50_ms": float(np.percentile(lat_ms, 50)),
+               "p99_ms": float(np.percentile(lat_ms, 99)),
+               "share_of_healthy_cluster": (n_req / wall / ctx.healthy_rate
+                                            if wall else None),
+               "degraded_rows": deg, "error_rows": full}
+        # a batch's time in its daemon's entry, of which the owned rows'
+        # step, and the owner side of each forward RPC
+        rec.update(call_breakdown(ctx.calls_rec, t0, wall))
+        windows[name] = rec
+        print(f"outage {name} window: {json.dumps(rec)}", flush=True)
+        return rec
+
+    insts = [d.instance for d in c.daemons]
+    gen0 = [i.metrics.registry.get_sample_value("gubernator_ring_generation")
+            for i in insts]
+    leaks0 = sum(i.engine.wave_pool.stats()["leaks"] for i in insts)
+    deg_metric0 = sum(metric_total(i, "gubernator_degraded_served_total")
+                      for i in insts)
+    fault_metric0 = sum(metric_total(i, "gubernator_fault_injected_total")
+                        for i in insts)
+    decide_cuda.launches = 0
+    seq0 = [insts[i].recorder.events()[-1]["seq"] for i in (0, 1)]
+    spec = f"peer_send@{addr2}:error"
+
+    # 1-2. the degraded window: armed, traffic until just before the
+    # first gate may flip, then the callers pause until both flipped
+    per, jobs = jobs_of(OUTAGE_MAX_BATCHES)
+    t_arm = time.time()
+    for d in c.daemons[:2]:
+        got = post_json(d.http_port, "/debug/faults", {"spec": spec})
+        require(got["armed"] and got["spec"] == spec, f"arming: {got}")
+    eject_s = b.peer_eject_after_ms / 1000.0
+
+    def stop():
+        due = first_eject_due(c, addr2, eject_s)
+        return due is not None and time.monotonic() >= due - OUTAGE_MARGIN_S
+
+    starts: list = []
+    t0, wall, lat, raw = drive(rpc, jobs, stop=stop, starts=starts)
+    require(stop(), "the degraded window ran out of batches before "
+            "daemon 2's circuit opened")
+    for i in (0, 1):
+        require(not insts[i].recorder.events(kind="ring_ejected",
+                                             since_seq=seq0[i]),
+                "a gate flipped while the degraded window's callers ran")
+    rec = account("degraded", per, t0, wall, lat, raw)
+    opened = min(s for s in (peer_of(insts[i], addr2)._route_bad_since
+                             for i in (0, 1)) if s)
+    before_open = [x[1] * 1e3 for x in starts if x[0] < opened]
+    rec["batches_before_circuit_open"] = len(before_open)
+    rec["p99_ms_before_circuit_open"] = (
+        float(np.percentile(before_open, 99)) if before_open else None)
+    ejected = await_ring_events(c, "ring_ejected", seq0, poke, FLIP_S)
+    eject_ms = [e["t_ms"] - t_arm * 1000 for e in ejected]
+    print(f"outage: ring_ejected {eject_ms} ms after arming (daemons 0, "
+          f"1); p99 before the circuit opened "
+          f"{rec['p99_ms_before_circuit_open']} ms over "
+          f"{len(before_open)} batches", flush=True)
+
+    # 3. the rehomed window: both gates flipped, one timed round; then
+    # the faults clear and the callers pause until both readmitted
+    seq1 = [insts[i].recorder.events()[-1]["seq"] for i in (0, 1)]
+    per, jobs = jobs_of(args.outage_batches)
+    t0, wall, lat, raw = drive(rpc, jobs)
+    account("rehomed", per, t0, wall, lat, raw)
+    for i in (0, 1):
+        require(not insts[i].recorder.events(kind="ring_readmitted",
+                                             since_seq=seq1[i]),
+                "daemon 2 readmitted while armed")
+    t_clear = time.time()
+    for d in c.daemons[:2]:
+        got = post_json(d.http_port, "/debug/faults", {"clear": True})
+        require(not got["armed"], f"clearing: {got}")
+    readmitted = await_ring_events(c, "ring_readmitted", seq1, poke, FLIP_S)
+    readmit_ms = [e["t_ms"] - t_clear * 1000 for e in readmitted]
+    print(f"outage: ring_readmitted {readmit_ms} ms after clearing",
+          flush=True)
+
+    # 4. the recovered window, then the degraded hits drain to daemon 2
+    per, jobs = jobs_of(args.outage_batches)
+    t0, wall, lat, raw = drive(rpc, jobs)
+    account("recovered", per, t0, wall, lat, raw)
+    t_drain = time.perf_counter()
+    deadline = time.monotonic() + CONVERGE_S
+    while True:
+        totals = cluster_totals(c)
+        queued = [i.global_manager.queued()["hits"]
+                  if i.global_manager is not None else 0 for i in insts]
+        drained = not any(queued) and totals["hits_queued"] == (
+            totals["hits_flushed"] + totals["hits_absorbed"])
+        if drained or time.monotonic() > deadline:
+            break
+        time.sleep(0.01)
+    drain_ms = (time.perf_counter() - t_drain) * 1e3
+    require(drained, f"the GLOBAL hit queues did not drain: {queued}, "
+            f"{totals}")
+    time.sleep(b.global_sync_wait_ms / 1000.0)
+    launches = decide_cuda.launches
+
+    with d2.instance._engine_mu:
+        found, cols = d2.instance.engine.gather_rows(
+            ctx.pop_keys[out_ranks])
+    want = OUTAGE_LIMIT - sent_out[out_ranks]
+    require(found.all(), "an outage key left its owner")
+    require((cols["remaining"] == want).all(),
+            f"outage keys not exact on daemon 2: remaining "
+            f"{cols['remaining'][:8].tolist()}, want {want[:8].tolist()}")
+    ctx.tally.check()
+    gen1 = [i.metrics.registry.get_sample_value("gubernator_ring_generation")
+            for i in insts]
+    deg_metric = sum(metric_total(i, "gubernator_degraded_served_total")
+                     for i in insts) - deg_metric0
+    fault_metric = sum(metric_total(i, "gubernator_fault_injected_total")
+                       for i in insts) - fault_metric0
+    leaks = sum(i.engine.wave_pool.stats()["leaks"] for i in insts) - leaks0
+    flagged = sum(w["degraded_rows"] for w in windows.values())
+    lim100 = (ctx.owner == 2) & ~is_out
+    lim100[:ctx.n_all] = False
+    cluster_under = np.zeros(len(ctx.pop_idx), np.int64)
+    for r, v in ctx.tally.under.items():
+        if r >= 0:
+            cluster_under[r] = len(v)
+    over = np.maximum(cluster_under + under2 - ctx.limit, 0)[lim100]
+    res = {"windows": windows, "eject_ms_after_arming": eject_ms,
+           "readmit_ms_after_clearing": readmit_ms,
+           "ring_generation_before": gen0, "ring_generation_after": gen1,
+           "degraded_served": deg_metric, "rows_flagged": flagged,
+           "fault_injected": fault_metric, "drain_ms": drain_ms,
+           "launches": launches, "leaks": leaks,
+           "outage_hits": int(sent_out[out_ranks].sum()),
+           "over_admission_max": int(over.max()) if over.size else 0,
+           "over_admission_sum": int(over.sum()),
+           "hits_degraded": totals.get("hits_degraded", 0),
+           "healthy_cluster_decisions_per_s": ctx.healthy_rate}
+    print(f"outage: {json.dumps({k: v for k, v in res.items() if k != 'windows'})}",
+          flush=True)
+    require(windows["degraded"]["degraded_rows"] > 0
+            and windows["rehomed"]["degraded_rows"] > 0,
+            "no row was served degraded during the outage")
+    require(windows["recovered"]["degraded_rows"] == 0,
+            "rows were served degraded after daemon 2 was readmitted")
+    require(deg_metric == flagged,
+            f"gubernator_degraded_served {deg_metric} != {flagged} rows "
+            "flagged")
+    require(all(g1 - g0 == 2 for g0, g1 in zip(gen0[:2], gen1[:2])),
+            f"ring generations {gen0} -> {gen1}: not two bumps each")
+    require(leaks == 0, f"{leaks} leases leaked")
+    require(launches > 0, "K1 never launched in the outage phase")
+    return res
+
+
+def phase_handover(args, c, ctx) -> dict:
+    """A 4th daemon (a 2^handover_log2_cap-row table) joins the cluster
+    with handover_on_reshard on every daemon, through set_peers on all
+    four: each old daemon sends the rows it owned that the new ring
+    gives the newcomer.  Checks: every moved row the newcomer placed
+    reads back (gather_rows) equal to its state before the join; the
+    rows it could not place (their 8-slot bucket full) are exactly as
+    many as its buckets predict (its dropped_rows counts them, and again
+    for a chunk re-sent after a deadline); no old owner still holds a
+    moved row."""
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.hashing import hash_request_keys
+
+    for d in c.daemons:
+        d.instance.config.handover_on_reshard = True
+    d3 = spawn_daemon(DaemonConfig(
+        grpc_listen_address="127.0.0.1:0", http_listen_address="127.0.0.1:0",
+        cache_size=1 << args.handover_log2_cap, batch_rows=1024,
+        device=DEVICE, behaviors=ctx.behaviors, handover_on_reshard=True))
+    c.daemons.append(d3)
+    new_ring = cluster_ring(c)
+    by_addr = {d.advertise_address: i for i, d in enumerate(c.daemons)}
+    old_of = np.array([by_addr[p.info.grpc_address]
+                       for p in ctx.ring.owner_peers()])
+    new_of = np.array([by_addr[p.info.grpc_address]
+                       for p in new_ring.owner_peers()])
+    fields = ("meta", "limit", "duration", "eff_ms", "remaining", "t_ms",
+              "expire_at")
+    moved = []  # per old daemon: (keys, {field: values})
+    for i, d in enumerate(c.daemons[:3]):
+        with d.instance._engine_mu:
+            snap = d.instance.engine.snapshot()
+        keys = np.asarray(snap["key"], np.uint64)
+        m = ((old_of[ctx.ring.owner_indices(keys)] == i)
+             & (new_of[new_ring.owner_indices(keys)] == 3))
+        moved.append((keys[m], {f: np.asarray(snap[f])[m] for f in fields}))
+        del snap, keys
+    n_moved = sum(len(k) for k, _ in moved)
+    keys = np.concatenate([k for k, _ in moved])
+    nb = 1 << (args.handover_log2_cap - 3)
+    warm = hash_request_keys(["_warmup"], ["w"])
+    cnt = np.bincount((np.concatenate([warm, keys]) & np.uint64(nb - 1))
+                      .astype(np.int64), minlength=nb)
+    predicted = int(np.maximum(cnt - 8, 0).sum())
+    dropped0 = d3.instance.engine.dropped_rows
+    seq0 = [d.instance.recorder.events()[-1]["seq"] for d in c.daemons[:3]]
+    infos = [d.peer_info() for d in c.daemons]
+    t0 = time.perf_counter()
+    for d in c.daemons:
+        d.set_peers(infos)
+    deadline = time.monotonic() + HANDOVER_S
+    done = [None] * 3
+    while True:
+        for i, d in enumerate(c.daemons[:3]):
+            if done[i] is None and len(moved[i][0]):
+                ev = d.instance.recorder.events(kind="handover",
+                                                since_seq=seq0[i])
+                done[i] = ev[0] if ev else None
+        if all(x is not None or not len(moved[i][0])
+               for i, x in enumerate(done)) or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    ms = (time.perf_counter() - t0) * 1e3
+    require(all(x is not None or not len(moved[i][0])
+                for i, x in enumerate(done)), f"handover unfinished: {done}")
+    sent = sum(x["rows"] for x in done if x is not None)
+    dropped = d3.instance.engine.dropped_rows - dropped0
+    with d3.instance._engine_mu:
+        found, cols = d3.instance.engine.gather_rows(keys)
+    for f in fields:
+        want = np.concatenate([v[f] for _, v in moved])
+        require((cols[f][found] == want[found]).all(),
+                f"a handed-over row differs from its state before the "
+                f"join in {f}")
+    held = 0
+    for i, d in enumerate(c.daemons[:3]):
+        with d.instance._engine_mu:
+            f_old, _ = d.instance.engine.gather_rows(moved[i][0])
+        held += int(f_old.sum())
+    res = {"ms": ms, "rows_moved": n_moved, "rows_sent": sent,
+           "rows_placed": int(found.sum()), "rows_dropped": dropped,
+           "rows_dropped_predicted": predicted, "still_on_old_owner": held,
+           "table_rows": 1 << args.handover_log2_cap}
+    print(f"handover: {json.dumps(res)}", flush=True)
+    require(sent == n_moved, f"sent {sent} of {n_moved} moved rows")
+    require(held == 0, f"{held} moved rows still on their old owner")
+    # a chunk re-sent after a deadline (the upsert is idempotent) counts
+    # its refused rows again in dropped_rows
+    require(n_moved - int(found.sum()) == predicted <= dropped,
+            f"placed {int(found.sum())} of {n_moved}; {dropped} dropped, "
+            f"{predicted} predicted by the buckets")
     return res
 
 
@@ -1883,20 +2383,35 @@ def grpc_version():
 
 
 class WireResp(NamedTuple):
-    """One RateLimitResp as this script decodes it."""
+    """One RateLimitResp as this script decodes it; ``degraded`` is its
+    metadata's ``degraded_peer`` ("" when the row was not served
+    degraded)."""
 
     status: int
     limit: int
     remaining: int
     reset_time: int
     error: str
+    degraded: str = ""
+
+
+def _metadata_entry(data: bytes) -> tuple:
+    """One map<string, string> entry (key field 1, value field 2)."""
+    out, i = ["", ""], 0
+    while i < len(data):
+        tag = data[i]
+        ln = data[i + 1]
+        require(tag in (0x0A, 0x12) and ln < 0x80, "metadata entry")
+        out[(tag >> 3) - 1] = data[i + 2:i + 2 + ln].decode()
+        i += 2 + ln
+    return tuple(out)
 
 
 def decode_responses(data: bytes) -> list:
     """GetRateLimitsResp bytes → [WireResp], with this script's own
     decoder (no protobuf): field 1 of the message repeats RateLimitResp,
-    whose varint fields 1-4 and string field 5 are read and metadata
-    (field 6) skipped."""
+    whose varint fields 1-4, string field 5 and metadata entries (field
+    6; the ``degraded_peer`` value is kept) are read."""
 
     def varint(i):
         v = shift = 0
@@ -1914,7 +2429,7 @@ def decode_responses(data: bytes) -> list:
         ln, i = varint(i + 1)
         end = i + ln
         f = [0, 0, 0, 0, 0]
-        err = ""
+        err = deg = ""
         while i < end:
             tag, i = varint(i)
             if tag & 7 == 0:
@@ -1926,9 +2441,13 @@ def decode_responses(data: bytes) -> list:
                 sl, i = varint(i)
                 if tag >> 3 == 5:
                     err = data[i:i + sl].decode()
+                elif tag >> 3 == 6:
+                    k, v = _metadata_entry(data[i:i + sl])
+                    if k == "degraded_peer":
+                        deg = v
                 i += sl
         require(i == end, "a response overran its length")
-        out.append(WireResp(f[1], f[2], f[3], f[4], err))
+        out.append(WireResp(f[1], f[2], f[3], f[4], err, deg))
     return out
 
 
@@ -2062,11 +2581,13 @@ def wire_round_stats(rec, timer, inline, pauses) -> dict:
     return s
 
 
-def drive(call, jobs):
+def drive(call, jobs, stop=None, starts=None):
     """Each thread calls ``call`` (get_rate_limits or
     get_rate_limits_wire, or a list of one callable per thread) on its
-    batches in turn; returns (start on the perf_counter clock, wall s,
-    batch latencies s, {thread: [answer per batch]})."""
+    batches in turn, until ``stop()`` (checked before each batch) is
+    true; returns (start on the perf_counter clock, wall s, batch
+    latencies s, {thread: [answer per batch sent]}).  ``starts``
+    collects (batch start on the monotonic clock, latency s)."""
     lat: list = []
     results: dict = {}
     failures: list = []
@@ -2076,9 +2597,14 @@ def drive(call, jobs):
         try:
             out = []
             for batch in jobs[t]:
+                if stop is not None and stop():
+                    break
+                m0 = time.monotonic()
                 s = time.perf_counter()
                 out.append(fn(batch))
                 lat.append(time.perf_counter() - s)
+                if starts is not None:
+                    starts.append((m0, lat[-1]))
             results[t] = out
         except Exception as e:  # re-raised below, after join
             failures.append(e)
@@ -2450,6 +2976,11 @@ def main(argv=None) -> int:
     ap.add_argument("--cluster-log2-cap", type=int, default=24,
                     help="each cluster daemon's bucket-table rows (log2)")
     ap.add_argument("--cluster-rounds", type=int, default=2)
+    ap.add_argument("--outage-batches", type=int, default=50,
+                    help="batches per caller in the outage phase's "
+                         "rehomed and recovered rounds")
+    ap.add_argument("--handover-log2-cap", type=int, default=22,
+                    help="the joining daemon's bucket-table rows (log2)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2500,6 +3031,7 @@ def main(argv=None) -> int:
          "wire_pipeline_off_launches": m["wire_pipeline_off"]["launches"],
          "cluster_launches": cl["launches"],
          "cluster_steps_per_daemon": cl["steps_per_daemon"],
+         "outage_launches": cl["outage"]["launches"],
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": "bytes", "library_ms": None,

@@ -4,15 +4,18 @@ gubernator_tpu/cluster.py; cluster/cluster.go › Start / StartWith).
 Boots N real daemons in one process, each with its own engine on the
 chosen device and real gRPC over loopback, and joins them by their
 advertise addresses.  Every listener binds port 0, so no port is picked
-and then lost to another process.  The JAX package's subprocess group
+and then lost to another process; ``restart`` binds the stopped
+daemon's bound addresses again.  The JAX package's subprocess group
 (SO_REUSEPORT front door) is not ported.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import List, Optional
 
 from .config import BehaviorConfig, DaemonConfig
 from .daemon import Daemon, spawn_daemon
+from .types import PeerInfo
 
 
 class Cluster:
@@ -20,6 +23,9 @@ class Cluster:
         self.daemons = daemons
 
     # cluster.go's names
+    def peer_at(self, i: int) -> PeerInfo:
+        return self.daemons[i].peer_info()
+
     def instance_at(self, i: int):
         return self.daemons[i].instance
 
@@ -34,6 +40,24 @@ class Cluster:
             if d.advertise_address == addr:
                 return d
         raise LookupError(f"no daemon for owner {addr}")
+
+    def restart(self, i: int) -> Daemon:
+        """Stop daemon ``i`` and spawn it again on the addresses it had
+        bound (a fresh table), then give every daemon the peer list
+        again (cluster.go › Restart)."""
+        old = self.daemons[i]
+        http = f"{old.cfg.http_listen_address.rsplit(':', 1)[0]}:" \
+               f"{old.http_port}"
+        cfg = replace(old.cfg, grpc_listen_address=old.advertise_address,
+                      http_listen_address=http,
+                      advertise_address=old.advertise_address)
+        old.close()
+        d = spawn_daemon(cfg)
+        self.daemons[i] = d
+        infos = [dm.peer_info() for dm in self.daemons]
+        for dm in self.daemons:
+            dm.set_peers(infos)
+        return d
 
     def stop(self) -> None:
         for d in self.daemons:

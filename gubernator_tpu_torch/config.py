@@ -1,6 +1,6 @@
 """Configuration: the subset of gubernator_tpu/config.py that the port
-reads (one daemon, its static peers and their batching / GLOBAL
-timing), plus the ``device`` it serves on.
+reads (one daemon, its static peers, their batching / GLOBAL timing and
+failure handling), plus the ``device`` it serves on.
 
 Layering is the JAX package's: defaults < ``KEY=value`` config file <
 environment (``GUBER_*``).  Keys the port does not read yet (TLS, other
@@ -75,11 +75,18 @@ class BehaviorConfig:
     #: fail fast until the cooldown ends and one flush half-opens it)
     peer_circuit_threshold: int = 3
     peer_circuit_cooldown_ms: int = 2000
-    #: degraded serves of a failed forward and the health-gated routing
-    #: ring are not ported yet: only False is served, and True raises
-    #: when an instance is built (the JAX default is True for both)
-    peer_degraded_fallback: bool = False
-    peer_health_gate: bool = False
+    #: a failed forward's eligible rows (no RESET_REMAINING,
+    #: DRAIN_OVER_LIMIT or MULTI_REGION) are answered from the local
+    #: shard, flagged ``metadata.degraded``, and their hits reconcile to
+    #: the owner through the GLOBAL hit queues; False answers error rows
+    peer_degraded_fallback: bool = True
+    #: the health-gated routing ring: a peer whose circuit has stayed
+    #: open for peer_eject_after_ms leaves the ring requests route by
+    #: (its keys rehome and serve degraded), and returns after staying
+    #: recovered for peer_readmit_after_ms
+    peer_health_gate: bool = True
+    peer_eject_after_ms: int = 3000
+    peer_readmit_after_ms: int = 3000
 
 
 @dataclass
@@ -108,6 +115,11 @@ class Config:
     #: this daemon's own peer address (host:port of its gRPC listener):
     #: the ring entry that is "self"
     advertise_address: str = ""
+    #: on a membership change or a flip of the health gate, rows whose
+    #: routing owner moved are handed to the new owner over the peer
+    #: wire instead of starting afresh there (the reference's behavior,
+    #: and this default, is to reset them)
+    handover_on_reshard: bool = False
 
     def set_defaults(self) -> "Config":
         """Normalize invalid values (config.go › SetDefaults)."""
@@ -148,6 +160,8 @@ class DaemonConfig:
     #: before it sheds new requests and stops the listeners; 0 skips the
     #: wait (the drain events still fire)
     drain_grace_ms: int = 0
+    #: Config.handover_on_reshard (GUBER_HANDOVER_ON_RESHARD)
+    handover_on_reshard: bool = False
 
     def instance_config(self) -> Config:
         return Config(cache_size=self.cache_size,
@@ -156,7 +170,8 @@ class DaemonConfig:
                       engine=self.engine,
                       sweep_interval_ms=self.sweep_interval_ms,
                       device=self.device, behaviors=self.behaviors,
-                      advertise_address=self.advertise_address
+                      advertise_address=self.advertise_address,
+                      handover_on_reshard=self.handover_on_reshard
                       ).set_defaults()
 
 
@@ -224,6 +239,12 @@ def setup_daemon_config(conf_file: str = "",
                                    b.peer_degraded_fallback, flag)
     b.peer_health_gate = get("GUBER_PEER_HEALTH_GATE", b.peer_health_gate,
                              flag)
+    b.peer_eject_after_ms = get("GUBER_PEER_EJECT_AFTER",
+                                b.peer_eject_after_ms, parse_duration_ms)
+    b.peer_readmit_after_ms = get("GUBER_PEER_READMIT_AFTER",
+                                  b.peer_readmit_after_ms, parse_duration_ms)
+    d.handover_on_reshard = get("GUBER_HANDOVER_ON_RESHARD",
+                                d.handover_on_reshard, flag)
     d.drain_grace_ms = get("GUBER_DRAIN_GRACE", d.drain_grace_ms,
                            parse_duration_ms)
     d.peer_discovery_type = conf.get("GUBER_PEER_DISCOVERY_TYPE",

@@ -19,7 +19,11 @@ of gubernator_tpu/daemon.py):
   /healthz (also /v1/HealthCheck; ``?deep=1`` adds the dispatcher's and
   the peer lanes' state), GET /metrics (the instance's Prometheus
   registry) and GET /debug/events (its flight recorder, filtered by
-  ``limit``, ``kind``, ``since_seq``, ``tenant`` and ``trace``).
+  ``limit``, ``kind``, ``since_seq``, ``tenant`` and ``trace``), GET
+  /debug/faults (the armed faultpoints, their counters, the catalog)
+  and POST /debug/faults (``{"spec": "peer_send@host:port:error",
+  "seed": 7}`` arms, ``{"clear": true}`` disarms; a malformed spec
+  answers 400 and changes nothing).
 
 ``close()`` drains first: /healthz answers 503 "draining" while requests
 still serve for ``drain_grace_ms``, then new requests shed and the
@@ -252,10 +256,33 @@ class Daemon:
                             tenant=q.get("tenant", [""])[-1] or None,
                             trace=q.get("trace", [""])[-1] or None)}
                     ).encode())
+                elif path == "/debug/faults":
+                    self._send(200, json.dumps(
+                        daemon.instance.faults.describe()).encode())
                 else:
                     self._send(404, b'{"error":"not found"}')
 
+            def _post_faults(self):
+                """Arm or clear this daemon's faultpoints at run time."""
+                faults = daemon.instance.faults
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    payload = json.loads(self.rfile.read(length) or b"{}")
+                    if payload.get("clear"):
+                        out = faults.clear()
+                    else:
+                        out = faults.arm(payload.get("spec", ""),
+                                         seed=payload.get("seed"))
+                except (ValueError, TypeError) as e:
+                    self._send(400, json.dumps(
+                        {"error": exc_text(e)}).encode())
+                    return
+                self._send(200, json.dumps(out).encode())
+
             def do_POST(self):
+                if self.path == "/debug/faults":
+                    self._post_faults()
+                    return
                 if self.path not in ("/v1/GetRateLimits",
                                      "/v1/V1/GetRateLimits"):
                     self._send(404, b'{"error":"not found"}')

@@ -34,8 +34,12 @@ are serialized by one lock, which the instance's row-level operations
   A caller that waits past RESULT_TIMEOUT_S (GUBER_RESULT_TIMEOUT_S)
   gets a TimeoutError that says what the waves were doing.
 
-Not ported: fault points, wave spans and the analytics tap wait for the
-fault, tracing and analytics slices.
+- **Faults.** With a ``FaultSet`` (faults.py) the dispatcher runs the
+  ``dispatch_*`` and ``device_step`` faultpoints at the JAX package's
+  sites; each costs one attribute read while disarmed.
+
+Not ported: wave spans and the analytics tap wait for the tracing and
+analytics slices.
 """
 from __future__ import annotations
 
@@ -159,8 +163,11 @@ class Dispatcher:
     def __init__(self, engine, max_wave: int = 8192,
                  max_delay_ms: float = 0.2,
                  lock: Optional[threading.Lock] = None,
-                 metrics=None, recorder=None, clock=time.monotonic):
+                 metrics=None, recorder=None, clock=time.monotonic,
+                 faults=None):
         self.engine = engine
+        #: the owning instance's FaultSet (optional)
+        self._faults = faults
         self.max_wave = max_wave
         # the coalescing window: GUBER_COALESCE_US overrides the
         # constructor default; malformed values keep it, negative ones
@@ -308,6 +315,11 @@ class Dispatcher:
         return self._wait(self._submit(_Job(now_ms, batch=batch,
                                             khash=khash)))
 
+    def _fault(self, point: str) -> None:
+        f = self._faults
+        if f is not None and f.armed:
+            f.fire(point)
+
     def _wait(self, job: _Job):
         try:
             return job.future.result(timeout=self.RESULT_TIMEOUT_S)
@@ -354,6 +366,7 @@ class Dispatcher:
             try:
                 self._wave_mark(wid, "pack")
                 with self._engine_lock:
+                    self._fault("device_step")
                     out = fn()
                 self._wave_mark(wid, "device")
             except Exception as e:  # noqa: BLE001 - recorded, re-raised
@@ -427,6 +440,7 @@ class Dispatcher:
         self._draining = True
 
     def _submit(self, job: _Job) -> _Job:
+        self._fault("dispatch_enqueue")
         n = len(job)
         self.admit(n)
         job.t_enq = self._clock()
@@ -722,9 +736,23 @@ class Dispatcher:
             self._dequeued(job)
             if total + len(job) > self.max_wave:
                 self._carry = job
+                try:
+                    # delay parks the carried job across the wave
+                    # boundary; error fails it, never launched
+                    self._fault("dispatch_carry")
+                except Exception as e:  # noqa: BLE001 - injected only
+                    self._carry = None
+                    _fail([job], e)
                 break
             wave.append(job)
             total += len(job)
+        try:
+            # delay widens the window between collecting this wave and
+            # launching it: concurrent callers land in the NEXT wave
+            self._fault("dispatch_merge")
+        except Exception as e:  # noqa: BLE001 - injected only
+            _fail(wave, e)
+            return []
         return wave
 
     def _run(self) -> None:
@@ -765,9 +793,11 @@ class Dispatcher:
         to the watchdog, from launch until its sync resolves."""
         wid = self._wave_begin("packed_pipelined", jobs, slot=slot)
         try:
+            self._fault("dispatch_launch")
             batch, khash = _concat([(j.batch, j.khash) for j in jobs])
             now = max(j.now_ms for j in jobs)
             with self._engine_lock:
+                self._fault("device_step")
                 token = self.engine.launch_packed(batch, khash, now)
             # the launch's host routing and upload are pack work; device
             # time runs from here until sync_packed returns
@@ -780,9 +810,12 @@ class Dispatcher:
 
     def _sync_and_resolve(self, jobs: List[_Job], token, wid: int) -> None:
         try:
+            self._fault("dispatch_sync")
             cols = self.engine.sync_packed(token,
                                            engine_lock=self._engine_lock)
             self._wave_mark(wid, "device")
+            # delay holds the splice while later waves launch
+            self._fault("dispatch_splice")
             views, a = [], 0
             for j in jobs:
                 b = a + len(j.khash)
@@ -810,6 +843,7 @@ class Dispatcher:
                 else "list" if n_list == len(wave) else "merged")
         wid = self._wave_begin(kind, wave)
         try:
+            self._fault("dispatch_launch")
             parts = []  # (job, batch, khash, errors or None)
             for j in wave:
                 if j.reqs is not None:
@@ -825,8 +859,10 @@ class Dispatcher:
             now = max(j.now_ms for j in wave)
             self._wave_mark(wid, "pack")
             with self._engine_lock:
+                self._fault("device_step")
                 cols = self.engine.check_packed(batch, khash, now)
             self._wave_mark(wid, "device")
+            self._fault("dispatch_splice")
             results, a = [], 0
             for j, _, kh, errs in parts:
                 b = a + len(kh)

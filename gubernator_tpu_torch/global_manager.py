@@ -15,11 +15,18 @@ verbatim request TLV slices keyed by their raw FNV-1a hash (prototypes
 are parsed at flush cadence, off the request path).  A flush merges the
 two in raw-hash space and ships one TLV per key, with the summed hits
 appended, on the owners' forward lanes; a failed flush puts its
-aggregates back on the queue.  The manager feeds the instance's
+aggregates back on the queue, and an owner whose circuit is open has its
+aggregates parked until a send can pass (they are not rebuilt every
+tick).  The manager feeds the instance's
 ``Metrics`` (queue length, broadcast counter and duration, and
 ``check_error`` for failed flushes and sends) and records ``error`` and
-``broadcast`` events in its flight recorder.  The conservation audit,
-fault points and tracing wait for their slices.
+``broadcast`` events in its flight recorder.  Hits that a degraded
+serve queued (``degraded=True``: their owner was unreachable or their
+key rehomed) ride the same queues and reconcile exactly once the owner
+answers; they are counted apart (``hits_degraded``).  The instance's
+``FaultSet`` may abort a tick at its start (``global_hits``,
+``global_broadcast``), before any queue is popped, so nothing is lost.
+The conservation audit and tracing wait for their slices.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ import threading
 import time
 from concurrent.futures import Future
 from typing import Dict, List, Tuple
+
+import numpy as np
 
 from .config import BehaviorConfig
 from .hashing import fnv1a64
@@ -70,10 +79,14 @@ class GlobalManager:
         self._hits_raw: Dict[int, Tuple[bytes, int, int]] = {}  # guarded-by: self._mu
         #: raw key hash → (seq, request TLV): the wire lane, owner side
         self._updates_raw: Dict[int, Tuple[int, bytes]] = {}  # guarded-by: self._mu
+        #: owner address → {raw key hash: (prototype, hits, seq)}: the
+        #: aggregates held back while that owner's circuit is open
+        self._parked: Dict[str, Dict[int, tuple]] = {}  # guarded-by: self._mu
         #: totals since start: hits queued, hits the owners acknowledged,
         #: hits absorbed (this daemon owns the key), hit flushes that
         #: failed, broadcasts sent and those that failed
-        self.stats = {"hits_queued": 0, "hits_flushed": 0,
+        self.stats = {"hits_queued": 0, "hits_degraded": 0,
+                      "hits_flushed": 0,
                       "hits_absorbed": 0, "flush_failures": 0,
                       "broadcasts": 0, "broadcast_keys": 0,
                       "broadcast_failures": 0}  # guarded-by: self._mu
@@ -89,15 +102,19 @@ class GlobalManager:
 
     # ---- producers (the request path) ----------------------------------
 
-    def queue_hits(self, req: RateLimitRequest) -> None:
+    def queue_hits(self, req: RateLimitRequest,
+                   degraded: bool = False) -> None:
         """Add ``req``'s hits to its key's aggregate for the next flush
-        to the owner (global.go › QueueHits)."""
+        to the owner (global.go › QueueHits); ``degraded`` marks hits
+        a degraded serve queued."""
         inc = max(int(req.hits), 0)
         with self._mu:
             self._seq += 1
             _, acc, _ = self._hits.get(req.key, (req, 0, 0))
             self._hits[req.key] = (req, acc + inc, self._seq)
             self.stats["hits_queued"] += inc
+            if degraded:
+                self.stats["hits_degraded"] += inc
             n = len(self._hits) + len(self._hits_raw)
         self.metrics.queue_length.set(n)
         if n >= self.behaviors.global_batch_limit:
@@ -113,7 +130,8 @@ class GlobalManager:
         if n >= self.behaviors.global_batch_limit:
             self._bcast_loop.poke()
 
-    def queue_hits_raw(self, khash: int, tlv: bytes, hits: int) -> None:
+    def queue_hits_raw(self, khash: int, tlv: bytes, hits: int,
+                       degraded: bool = False) -> None:
         """The wire lane's ``queue_hits``: ``khash`` is the key's raw
         FNV-1a hash, ``tlv`` its latest request TLV (the prototype; a
         hits=0 entry refreshes it too)."""
@@ -123,6 +141,8 @@ class GlobalManager:
             _, acc, _ = self._hits_raw.get(khash, (tlv, 0, 0))
             self._hits_raw[khash] = (tlv, acc + inc, self._seq)
             self.stats["hits_queued"] += inc
+            if degraded:
+                self.stats["hits_degraded"] += inc
             n = len(self._hits_raw) + len(self._hits)
         self.metrics.queue_length.set(n)
         if n >= self.behaviors.global_batch_limit:
@@ -141,10 +161,13 @@ class GlobalManager:
         """What waits for the next ticks: keys and hits to flush, keys to
         broadcast."""
         with self._mu:
-            return {"hit_keys": len(self._hits) + len(self._hits_raw),
+            parked = [e for q in self._parked.values() for e in q.values()]
+            return {"hit_keys": len(self._hits) + len(self._hits_raw)
+                    + len(parked),
                     "hits": (sum(a for _, a, _ in self._hits.values())
                              + sum(a for _, a, _ in
-                                   self._hits_raw.values())),
+                                   self._hits_raw.values())
+                             + sum(a for _, a, _ in parked)),
                     "update_keys": len(self._updates)
                     + len(self._updates_raw)}
 
@@ -160,37 +183,90 @@ class GlobalManager:
             n = len(self._hits) + len(self._hits_raw)
         self.metrics.queue_length.set(n)
 
+    def _fault_tick(self, point: str, stage: str) -> bool:
+        """The loops' faultpoint: True aborts this tick (its queues are
+        not popped yet, so nothing is lost); the error reads as the
+        tick's own."""
+        f = self.instance.faults
+        if not f.armed:
+            return False
+        try:
+            f.fire(point)
+        except Exception as e:  # noqa: BLE001 - incl. FaultInjected
+            msg = f"{stage}: {exc_text(e)}"
+            log.warning(msg)
+            self._record([msg])
+            return True
+        return False
+
     # ---- the hits loop (global.go › runAsyncHits) ----------------------
+
+    @staticmethod
+    def _merge_into(dst: dict, src: dict) -> None:
+        """Merge raw-hash-space aggregates: the prototype of the later
+        arrival wins, hits add up."""
+        for kh, (proto, acc, seq) in src.items():
+            cur = dst.get(kh)
+            if cur is None:
+                dst[kh] = (proto, acc, seq)
+            else:
+                p0, a0, s0 = cur
+                dst[kh] = (proto if seq >= s0 else p0, a0 + acc,
+                           max(s0, seq))
 
     def _hits_tick(self) -> None:
         """Flush every key's aggregate to its owner: both lanes' queues
         merge in raw-hash space, one TLV per key with the summed hits,
-        per-owner payloads on the owners' forward lanes."""
+        per-owner payloads on the owners' forward lanes.
+
+        The aggregates of an owner whose circuit is open are parked
+        instead of built into a payload that would fail at once and be
+        requeued: a dead owner's backlog (every degraded serve's hits)
+        then costs its new arrivals, not its whole size, every tick.
+        They rejoin the flush as soon as the circuit lets a send through
+        (its half-open probe), and the tick still reports the failure as
+        a refused send would."""
+        if self._fault_tick("global_hits", "global hits flush"):
+            return
         with self._mu:
             hits, self._hits = self._hits, {}
             hits_raw, self._hits_raw = self._hits_raw, {}
-        self.metrics.queue_length.set(0)
-        if not hits and not hits_raw:
-            return
-        merged: Dict[int, Tuple[object, int, int]] = dict(hits_raw)
-        for key, (req, acc, seq) in hits.items():
-            kh = fnv1a64(key.encode("utf-8"))
-            cur = merged.get(kh)
-            if cur is None:
-                merged[kh] = (req, acc, seq)
-            else:
-                proto, a0, s0 = cur
-                merged[kh] = (req if seq >= s0 else proto, a0 + acc,
-                              max(s0, seq))
+            parked = self._parked
+        # lock-free: only this tick's thread adds or removes parked owners
+        self.metrics.queue_length.set(sum(len(v) for v in parked.values()))
         inst = self.instance
+        peers = {p.info.grpc_address: p for p in inst.peers()}
+        merged: Dict[int, Tuple[object, int, int]] = dict(hits_raw)
+        self._merge_into(merged, {
+            fnv1a64(key.encode("utf-8")): v for key, v in hits.items()})
+        for addr in list(parked):
+            p = peers.get(addr)
+            if p is None or not p._circuit_blocked():
+                with self._mu:
+                    back = self._parked.pop(addr)
+                self._merge_into(merged, back)
+        if not merged and not parked:
+            return
+        keys = np.fromiter(merged.keys(), np.uint64, len(merged))
+        owners = inst.owners_by_raw_khash(keys)
         by_owner: Dict[str, Tuple[object, List[bytes], List[tuple]]] = {}
+        to_park: Dict[str, dict] = {}
+        blocked: Dict[str, bool] = {}
         absorbed = 0
-        for kh, (proto, acc, seq) in merged.items():
+        for j, (kh, (proto, acc, seq)) in enumerate(merged.items()):
             if acc <= 0:
                 continue
-            peer = inst.owner_by_raw_khash(kh)
+            peer = None if owners is None else owners[0][owners[1][j]]
             if peer is None or inst.is_self(peer):
                 absorbed += acc  # the owner: applied already
+                continue
+            addr = peer.info.grpc_address
+            b = blocked.get(addr)
+            if b is None:
+                b = blocked[addr] = (addr in parked
+                                     or peer._circuit_blocked())
+            if b:
+                to_park.setdefault(addr, {})[kh] = (proto, acc, seq)
                 continue
             if isinstance(proto, bytes):
                 tlv = tlv_with_hits(proto, acc)
@@ -204,8 +280,7 @@ class GlobalManager:
                     algorithm=proto.algorithm, behavior=proto.behavior,
                     burst=proto.burst))
                 entry = (proto.key, proto, acc, seq)
-            slot = by_owner.setdefault(peer.info.grpc_address,
-                                       (peer, [], []))
+            slot = by_owner.setdefault(addr, (peer, [], []))
             slot[1].append(tlv)
             slot[2].append(entry)
         futs = []
@@ -221,6 +296,14 @@ class GlobalManager:
                 futs.append((addr, fut, entries[i:i + limit]))
         errors = []
         flushed = failures = 0
+        with self._mu:
+            for addr, entries in to_park.items():
+                self._merge_into(self._parked.setdefault(addr, {}), entries)
+            held = sorted(self._parked)
+        for addr in held:
+            # what forward_raw would have raised for this owner
+            failures += 1
+            self._flush_error(errors, addr, f"peer {addr} circuit open")
         deadline = (time.monotonic() + self.behaviors.global_timeout_ms
                     / 1000.0 + FLUSH_SLACK_S)
         for addr, fut, ent in futs:
@@ -230,13 +313,7 @@ class GlobalManager:
                 # apply once the owner is reachable
                 self._requeue_hits(ent)
                 failures += 1
-                errors.append(f"global hits sync to {addr}: "
-                              f"{exc_text(e)}")
-                self.metrics.check_error_counter.labels(
-                    error="global_hits_sync").inc()
-                log.warning(errors[-1])
-                self._record_event("error", stage="global_hits_sync",
-                                   error=errors[-1])
+                self._flush_error(errors, addr, exc_text(e))
                 continue
             flushed += sum(e[2] for e in ent)
         with self._mu:
@@ -245,11 +322,21 @@ class GlobalManager:
             self.stats["flush_failures"] += failures
         self._record(errors)
 
+    def _flush_error(self, errors: list, addr: str, text: str) -> None:
+        errors.append(f"global hits sync to {addr}: {text}")
+        self.metrics.check_error_counter.labels(
+            error="global_hits_sync").inc()
+        log.warning(errors[-1])
+        self._record_event("error", stage="global_hits_sync",
+                           error=errors[-1])
+
     # ---- the broadcast loop (global.go › runBroadcasts) ----------------
 
     def _broadcast_tick(self) -> None:
         """Owner side: send the changed keys' authoritative rows to every
         other peer (UpdatePeerGlobals), each message serialized once."""
+        if self._fault_tick("global_broadcast", "global broadcast"):
+            return
         with self._mu:
             updates, self._updates = self._updates, {}
             updates_raw, self._updates_raw = self._updates_raw, {}

@@ -29,15 +29,38 @@ lane's answers:
   take the device step, responses spliced back in request order;
 - protobuf: metadata, empty names or keys, unknown fields.
 
-A failed forward answers its rows with the error row the JAX instance
-gives with ``peer_degraded_fallback=False``.
+The failure path (the JAX package's defaults):
+
+- **Degraded serves** (``peer_degraded_fallback``): a failed forward's
+  eligible rows (no RESET_REMAINING, DRAIN_OVER_LIMIT or MULTI_REGION)
+  are answered from the local shard, flagged ``metadata.degraded`` /
+  ``degraded_peer``, and their hits queued per key to the true owner on
+  the GLOBAL hit queues (reconciled once it answers); ineligible rows
+  answer error rows naming the peer.  The degraded response build uses
+  protobuf (the C++ response build has no metadata lane); it runs only for
+  such rows.
+- **The health-gated ring** (``peer_health_gate``): requests route by
+  the membership ring less the peers whose circuit stayed open for
+  ``peer_eject_after_ms`` (``_routing_picker``; the membership ring
+  itself while nothing is ejected).  Rows rehomed to this daemon serve
+  degraded, on both lanes and on the owner side of a forward.  Ejected
+  peers are probed every ``peer_circuit_cooldown_ms`` and readmitted
+  after staying recovered for ``peer_readmit_after_ms``.  Reconcile
+  targets (``owner_of``, ``owners_by_raw_khash``) stay on the membership
+  ring.
+- **Handover** (``handover_on_reshard``): on a membership change or a
+  gate flip, rows this daemon owned whose routing owner moved are sent
+  to the new owner (UpdatePeerGlobals with ``key_hash`` and ``eff_ms``)
+  and dropped here; a failed delivery leaves the row in place.
+- **Faults**: a per-instance ``FaultSet`` (faults.py) from GUBER_FAULT,
+  shared with the dispatcher, the peer clients and the GLOBAL manager;
+  ``wire_ingest`` fires before the C++ parse.
 
 Each instance owns a ``Metrics`` registry and a ``FlightRecorder``
 (served by the daemon at /metrics and /debug/events), shared with its
 dispatcher, wave pool, peer clients and GLOBAL manager.  Every client
 entry asks the dispatcher's admission control first, before any engine
 work (``ResourceExhausted`` when it sheds), then counts its requests.
-Degraded serves, the health-gated ring, the handover of moved rows,
 MULTI_REGION replication, the GLOBAL hot set, analytics and tracing
 wait for their slices.
 """
@@ -57,9 +80,11 @@ from .config import Config
 from .core.batch import lease_batch, pack_columns
 from .dispatcher import Dispatcher
 from .engine import BucketEngine
+from .faults import FaultSet
 from .global_manager import GlobalManager
 from .gregorian import gregorian_rate_duration_ms
-from .hashing import hash_keys, hash_request_keys, mix64_np
+from .hashing import hash_keys, hash_request_keys, mix64_np, mixed_fnv1a64
+from .interval import IntervalLoop
 from .metrics import Metrics
 from .ops import native as wire_native
 from .peer_client import ErrCircuitOpen, ErrClosing, PeerClient
@@ -126,19 +151,20 @@ def resolve_engine_kind(selector: str) -> str:
 
 
 class V1Instance:
-    """Device engine + dispatcher for one peerless daemon."""
+    """One daemon: its device engine, dispatcher, peers and GLOBAL
+    manager."""
 
     def __init__(self, config: Config):
-        b = config.behaviors
-        if b.peer_degraded_fallback or b.peer_health_gate:
-            raise ValueError(
-                "peer_degraded_fallback and peer_health_gate are not "
-                "ported yet; set both to False")
         self.config = config
         self.metrics = Metrics()
         #: bounded structured-event ring: wave launches / stalls /
-        #: timeouts, sheds, the drain, GLOBAL broadcasts and errors
+        #: timeouts, sheds, the drain, GLOBAL broadcasts and errors, ring
+        #: ejections, degraded serves, handovers, armed faults
         self.recorder = FlightRecorder()
+        #: this instance's faultpoints (GUBER_FAULT, POST /debug/faults)
+        self.faults = FaultSet.from_env()
+        self.faults.metrics = self.metrics
+        self.faults.recorder = self.recorder
         # at least 1024 rows, a power of two (the JAX instance's
         # per-shard floor at one shard)
         cap = 1 << (max(config.cache_size, 1024) - 1).bit_length()
@@ -158,14 +184,33 @@ class V1Instance:
         self._fwd_mu = threading.Lock()
         self.forwarded_rows = 0  # guarded-by: self._fwd_mu
         self.forward_failures = 0  # guarded-by: self._fwd_mu
+        # the health gate: the peers ejected from routing, the routing
+        # ring built without them (None: the membership ring), its
+        # generation, and the loop probing ejected peers
+        self._gate_bad: frozenset = frozenset()  # guarded-by: self._peer_mu
+        self._gate_picker = None  # guarded-by: self._peer_mu
+        self._ring_gen = 0  # guarded-by: self._peer_mu
+        self._probe_loop: Optional[IntervalLoop] = None  # guarded-by: self._gm_mu
+        # handover passes: one at a time; a newer generation supersedes
+        self._handover_mu = threading.Lock()
+        self._handover_gen_mu = threading.Lock()
+        self._handover_gen = 0  # guarded-by: self._handover_gen_mu
 
     def _make_dispatcher(self) -> Dispatcher:
-        """A dispatcher over this instance's engine, lock, registry and
-        recorder; the GUBER_* dispatcher knobs are read now."""
+        """A dispatcher over this instance's engine, lock, registry,
+        recorder and faultpoints; the GUBER_* dispatcher knobs are read
+        now."""
         return Dispatcher(self.engine,
                           max_wave=self.engine.wave_buckets[-1],
                           lock=self._engine_mu, metrics=self.metrics,
-                          recorder=self.recorder)
+                          recorder=self.recorder, faults=self.faults)
+
+    def _fault_point(self, point: str, tag: Optional[str] = None) -> None:
+        """An instance-level faultpoint (one attribute read while
+        disarmed)."""
+        f = self.faults
+        if f.armed:
+            f.fire(point, tag)
 
     @staticmethod
     def _build_engine(kind: str, cap: int, config: Config):
@@ -189,21 +234,35 @@ class V1Instance:
     def set_peers(self, infos: Sequence[PeerInfo]) -> None:
         """Build a new ring from ``infos`` and swap it in, keeping the
         clients of peers that stay and draining those of peers that
-        left.  Keys re-home silently and moved keys start afresh (the
-        reference's behavior; the JAX package's optional handover of
-        moved rows is not ported)."""
+        left; the health gate starts afresh.  Keys re-home and moved
+        keys start afresh (the reference's behavior), unless
+        ``handover_on_reshard`` hands their rows to the new owners."""
         with self._peer_mu:
+            old_picker = self._picker  # immutable: the handover's "before"
             old = {p.info.grpc_address: p for p in self._picker.peers()}
             picker = self._picker.new()
             for info in infos:
                 existing = old.pop(info.grpc_address, None)
                 picker.add(existing if existing is not None else
                            PeerClient(info, self.config.behaviors,
-                                      metrics=self.metrics))
+                                      metrics=self.metrics,
+                                      faults=self.faults))
             self._picker = picker
+            # a membership change invalidates the gated view: the next
+            # routing lookup derives it again from live health
+            self._gate_bad = frozenset()
+            self._gate_picker = None
+            self._ring_gen += 1
+            gen = self._ring_gen
+        self.metrics.ring_generation.set(gen)
+        self.metrics.ring_ejected_peers.set(0)
         for departed in old.values():
             threading.Thread(target=departed.shutdown, daemon=True,
                              name="peer-shutdown").start()
+        have_others = any(info.grpc_address != self._self_addr
+                          for info in infos)
+        if self.config.handover_on_reshard and have_others:
+            self._start_handover(old_picker, "handover")
 
     def peers(self) -> List[PeerClient]:
         with self._peer_mu:
@@ -216,13 +275,16 @@ class V1Instance:
                 return None
             return self._picker.get(key)
 
-    def owner_by_raw_khash(self, khash_raw: int) -> Optional[PeerClient]:
-        """The owner of a RAW (unmixed) FNV-1a key hash: the wire lanes'
-        GLOBAL queue key."""
+    def owners_by_raw_khash(self, khash_raw: np.ndarray):
+        """The membership owners of RAW (unmixed) FNV-1a key hashes, the
+        wire lanes' GLOBAL queue keys: (the ring's peers, an index into
+        them per hash), or None alone."""
         with self._peer_mu:
-            if not self._picker.peers():
-                return None
-            return self._picker.get_by_raw_hash(khash_raw)
+            picker = self._picker
+        if not picker.peers():
+            return None
+        return picker.owner_peers(), picker.owner_indices(mix64_np(
+            np.asarray(khash_raw, np.uint64)))
 
     def is_self(self, peer: PeerClient) -> bool:
         return peer.info.grpc_address == self._self_addr
@@ -236,6 +298,217 @@ class V1Instance:
         if any(not self.is_self(p) for p in picker.peers()):
             return picker
         return None
+
+    # ---- the health-gated routing ring ----------------------------------
+
+    def _routing_picker(self):
+        """The ring requests route by: the membership ring less the peers
+        whose circuit stayed open for ``peer_eject_after_ms`` (their keys
+        rehome to the next ring point, as on a ring built without them),
+        readmitted after ``peer_readmit_after_ms`` recovered.  It never
+        empties the ring, and while nothing is ejected it is the
+        membership ring itself (one lock and one health read a peer).  A
+        flip bumps the generation and emits ``ring_ejected`` /
+        ``ring_readmitted`` off the lock."""
+        b = self.config.behaviors
+        if not b.peer_health_gate:
+            with self._peer_mu:
+                return self._picker
+        eject_s = max(int(b.peer_eject_after_ms), 0) / 1e3
+        readmit_s = max(int(b.peer_readmit_after_ms), 0) / 1e3
+        with self._peer_mu:
+            picker = self._picker
+            peers = picker.peers()
+            if not peers:
+                return picker
+            bad = frozenset(
+                p.info.grpc_address for p in peers
+                if not self.is_self(p)
+                and not p.route_healthy(eject_s, readmit_s))
+            if len(bad) >= len(peers):
+                # every peer unhealthy: the membership ring is the
+                # least wrong answer
+                bad = frozenset()
+            if bad == self._gate_bad:
+                return (self._gate_picker
+                        if self._gate_picker is not None else picker)
+            old_bad = self._gate_bad
+            old_routing = (self._gate_picker
+                           if self._gate_picker is not None else picker)
+            gated = None
+            if bad:
+                gated = picker.new()
+                for p in peers:
+                    if p.info.grpc_address not in bad:
+                        gated.add(p)
+            self._gate_bad = bad
+            self._gate_picker = gated
+            self._ring_gen += 1
+            gen = self._ring_gen
+        self.metrics.ring_generation.set(gen)
+        self.metrics.ring_ejected_peers.set(len(bad))
+        for addr in sorted(bad - old_bad):
+            log.warning("ring: peer %s EJECTED from routing (circuit open "
+                        "> %.1fs); its keys rehome until readmit", addr,
+                        eject_s)
+            self.recorder.record("ring_ejected", peer=addr, generation=gen)
+        for addr in sorted(old_bad - bad):
+            log.info("ring: peer %s readmitted to routing (recovered "
+                     "> %.1fs)", addr, readmit_s)
+            self.recorder.record("ring_readmitted", peer=addr,
+                                 generation=gen)
+        if bad:
+            self._ensure_probe_loop()
+        if self.config.handover_on_reshard:
+            # keys moved between live daemons: their rows follow them
+            self._start_handover(old_routing, "handover-rehome")
+        return gated if gated is not None else picker
+
+    def _route_owner_of(self, key: str) -> Optional[PeerClient]:
+        """``owner_of`` through the health-gated ring (where a request
+        for ``key`` goes); reconcile targets keep ``owner_of``."""
+        picker = self._routing_picker()
+        if not picker.peers():
+            return None
+        return picker.get(key)
+
+    def _ensure_probe_loop(self) -> None:
+        with self._gm_mu:
+            if self._probe_loop is None and not self._closed:
+                iv = max(int(self.config.behaviors.peer_circuit_cooldown_ms),
+                         100)
+                self._probe_loop = IntervalLoop(
+                    iv, self._probe_ejected, name="ring-health-probe")
+
+    def _probe_ejected(self) -> None:
+        """One empty flush to every ejected peer, so a recovered peer's
+        circuit can close (its rehomed keys send it no traffic); a
+        failure keeps the circuit open."""
+        with self._peer_mu:
+            bad = self._gate_bad
+            peers = list(self._picker.peers())
+        for p in peers:
+            if p.info.grpc_address in bad:
+                try:
+                    p.probe()
+                except Exception:  # noqa: BLE001 - best effort
+                    pass
+
+    # ---- handover of moved rows ------------------------------------------
+
+    @staticmethod
+    def _uses_default_hash(picker) -> bool:
+        """Routing by table key hash is valid only on the default hash
+        pipeline (the table's keys ARE mixed FNV-1a of the identity)."""
+        return getattr(picker, "_hash", None) is mixed_fnv1a64
+
+    def _start_handover(self, old_picker, name: str) -> None:
+        with self._handover_gen_mu:
+            self._handover_gen += 1
+            gen = self._handover_gen
+        threading.Thread(target=self._handover_moved_rows,
+                         args=(old_picker, gen), daemon=True,
+                         name=name).start()
+
+    def _handover_superseded(self, gen: int) -> bool:
+        with self._handover_gen_mu:
+            return self._handover_gen != gen
+
+    def _handover_moved_rows(self, old_picker, gen: int) -> None:
+        """Send every live row this daemon OWNED under ``old_picker`` and
+        no longer owns on the routing ring to its new owner
+        (UpdatePeerGlobals with ``key_hash`` and ``eff_ms``, so a leaky
+        row's fixed point moves losslessly), then drop it here.  Rows
+        held only as another owner's replicas stay.  The moved rows are
+        picked by ``owner_indices`` over the snapshot's whole key
+        column.  A delivery that fails three times leaves its rows in
+        place (the new owner then serves a fresh bucket, the
+        reference's reset).  A newer pass (``gen``) supersedes this one
+        before its next chunk."""
+        picker = self._routing_picker()
+        if not self._uses_default_hash(picker) or (
+                old_picker.peers()
+                and not self._uses_default_hash(old_picker)):
+            log.warning("handover_on_reshard needs the default picker "
+                        "hash; skipping handover")
+            return
+        with self._handover_mu:
+            if self._handover_superseded(gen):
+                return
+            with self._engine_mu:
+                snap = self.engine.snapshot()
+            keys = np.asarray(snap["key"], np.uint64)
+            if not keys.size:
+                return
+            try:
+                moved = np.ones(keys.size, bool)
+                if old_picker.peers():
+                    # only rows we owned may move (alone we owned all)
+                    old_self = [i for i, p in enumerate(
+                        old_picker.owner_peers()) if self.is_self(p)]
+                    moved &= np.isin(old_picker.owner_indices(keys),
+                                     old_self)
+                new_peers = picker.owner_peers()
+                new_owner = picker.owner_indices(keys)
+            except RuntimeError:
+                return  # the ring emptied meanwhile
+            new_self = [i for i, p in enumerate(new_peers)
+                        if self.is_self(p)]
+            moved &= ~np.isin(new_owner, new_self)
+            if not moved.any():
+                return
+            limit = self.config.behaviors.global_batch_limit
+            sent = 0
+            targets = np.unique(new_owner[moved])
+            for pi in targets.tolist():
+                peer = new_peers[pi]
+                addr = peer.info.grpc_address
+                rows = np.nonzero(moved & (new_owner == pi))[0]
+                for a in range(0, rows.size, limit):
+                    if self._handover_superseded(gen):
+                        log.info("handover superseded after %d rows", sent)
+                        return
+                    chunk = rows[a:a + limit]
+                    if self._deliver_rows(peer, addr, snap, chunk):
+                        with self._engine_mu:
+                            self.engine.remove_rows(keys[chunk])
+                        sent += int(chunk.size)
+            log.info("handover: moved %d rows to %d peers", sent,
+                     targets.size)
+            self.recorder.record("handover", rows=sent,
+                                 peers=int(targets.size))
+
+    def _deliver_rows(self, peer, addr: str, snap: dict, rows) -> bool:
+        """Snapshot ``rows`` as UpdatePeerGlobal messages to ``peer``;
+        three attempts (the upsert is idempotent), True once delivered.
+        ``remaining`` is the raw value (a leaky row's fixed point): the
+        receiver sees ``eff_ms`` and does not rescale it."""
+        from .proto import gubernator_pb2 as pb
+        from .proto import peers_pb2 as peers_pb
+
+        col = {f: np.asarray(snap[f])[rows].tolist()
+               for f in ("key", "meta", "eff_ms", "duration", "t_ms",
+                         "burst", "limit", "remaining", "expire_at")}
+        batch = [peers_pb.UpdatePeerGlobal(
+            key_hash=k, eff_ms=max(eff, 1), algorithm=meta & 1,
+            duration=dur, created_at=t, burst=burst,
+            update=pb.RateLimitResp(status=(meta >> 1) & 1, limit=lim,
+                                    remaining=rem, reset_time=exp))
+            for k, meta, eff, dur, t, burst, lim, rem, exp in zip(
+                col["key"], col["meta"], col["eff_ms"], col["duration"],
+                col["t_ms"], col["burst"], col["limit"], col["remaining"],
+                col["expire_at"])]
+        for attempt in range(3):
+            try:
+                peer.update_peer_globals(batch)
+                return True
+            except Exception as e:  # noqa: BLE001 - retried, then left
+                log.warning("handover to %s failed (attempt %d/3): %s",
+                            addr, attempt + 1, exc_text(e))
+                self.recorder.record_error("handover_error", e, peer=addr,
+                                           attempt=attempt + 1)
+                time.sleep(0.5 * (attempt + 1))
+        return False
 
     def _ensure_global_manager(self) -> GlobalManager:
         with self._gm_mu:
@@ -290,8 +563,15 @@ class V1Instance:
         local_idx: List[int] = []
         glob_q: List[tuple] = []  # (request, we own it), after the step
         fwd: List[tuple] = []  # (request index, owner, request)
-        picker = self._clustered_picker()
+        deg_local: List[tuple] = []  # (request index, membership owner)
+        membership = self._clustered_picker()
+        # the routing ring, hoisted out of the loop; beside the
+        # membership ring it tells a rehomed row (a degraded serve)
+        rpick = (self._routing_picker() if membership is not None
+                 else None)
+        gate_active = rpick is not None and rpick is not membership
         GLOBAL = int(Behavior.GLOBAL)  # hot loop: plain-int flag tests
+        EXCL = int(self._DEGRADED_EXCLUDED)
         for i, req in enumerate(reqs):
             if not req.unique_key:
                 responses[i] = RateLimitResponse(
@@ -299,21 +579,26 @@ class V1Instance:
             elif not req.name:
                 responses[i] = RateLimitResponse(
                     error="field 'name' cannot be empty")
-            elif picker is None:
+            elif membership is None:
                 local_idx.append(i)
+            elif int(req.behavior) & GLOBAL:
+                # answered from the local replica; reconciled later with
+                # the membership owner
+                local_idx.append(i)
+                glob_q.append((req, self.is_self(membership.get(req.key))))
             else:
-                owner = picker.get(req.key)
-                if int(req.behavior) & GLOBAL:
-                    # answered from the local replica; reconciled later
-                    local_idx.append(i)
-                    glob_q.append((req, self.is_self(owner)))
-                elif self.is_self(owner):
-                    local_idx.append(i)
-                else:
+                owner = rpick.get(req.key)
+                if not self.is_self(owner):
                     fwd.append((i, owner, req))
+                    continue
+                local_idx.append(i)
+                if gate_active and not int(req.behavior) & EXCL:
+                    mowner = membership.get(req.key)
+                    if not self.is_self(mowner):
+                        deg_local.append((i, mowner.info.grpc_address))
         # forwards first, so their RPCs overlap the device step
         futures = [(i, self._forward_one(peer, req, now),
-                    peer.info.grpc_address) for i, peer, req in fwd]
+                    peer.info.grpc_address, req) for i, peer, req in fwd]
         over = 0
         if local_idx:
             local = self.dispatcher.check_batch(
@@ -321,6 +606,17 @@ class V1Instance:
             for i, resp in zip(local_idx, local):
                 responses[i] = resp
                 over += resp.status == Status.OVER_LIMIT
+        if deg_local:
+            # rows rehomed here by an ejection: flagged, and their hits
+            # reconciled to the membership owner once it is back
+            gm = self._ensure_global_manager()
+            for i, addr in deg_local:
+                resp = responses[i]
+                if resp.error:
+                    continue
+                self._flag_degraded(resp, addr)
+                gm.queue_hits(_req_stamped(reqs[i], now), degraded=True)
+                self.metrics.degraded_served.labels(peer_addr=addr).inc()
         if glob_q:
             # only now: a broadcast tick before the step above would
             # gather a row that does not exist yet and drop the update
@@ -333,21 +629,60 @@ class V1Instance:
         b = self.config.behaviors
         timeout = (b.batch_timeout_ms + b.batch_wait_ms) / 1000.0 + 30.0
         failed = 0
-        for i, f, addr in futures:
+        deg_failed: List[tuple] = []  # (request index, request, owner)
+        for i, f, addr, req in futures:
             try:
                 responses[i] = f.result(timeout=timeout)
                 over += responses[i].status == Status.OVER_LIMIT
             except Exception as e:  # noqa: BLE001 - the row's answer
                 failed += 1
                 self._count_failed_forward(addr, e, 1)
-                responses[i] = RateLimitResponse(
-                    error=f"while fetching rate limit from peer {addr}: "
-                          f"{exc_text(e)}")
+                if (b.peer_degraded_fallback
+                        and not int(req.behavior) & EXCL):
+                    deg_failed.append((i, req, addr))
+                else:
+                    responses[i] = RateLimitResponse(
+                        error=f"while fetching rate limit from peer "
+                              f"{addr}: {exc_text(e)}")
+        if deg_failed:
+            over += self._degrade_failed_objects(deg_failed, responses, now)
         self.metrics.over_limit_counter.inc(over)
         if futures:
             self._count_forward(len(futures), failed)
         self._maybe_sweep(now)
         return responses  # type: ignore[return-value]
+
+    def _degrade_failed_objects(self, deg_failed, responses, now) -> int:
+        """The object lane's failed forwards served degraded: one local
+        step, the answers flagged and their hits queued to the owner;
+        returns the OVER_LIMIT answers.  If the step fails the rows
+        answer error rows."""
+        try:
+            dresps = self.dispatcher.check_batch(
+                [req for _, req, _ in deg_failed], now)
+        except Exception as e:  # noqa: BLE001 - error rows, not a failed batch
+            for i, _req, addr in deg_failed:
+                responses[i] = RateLimitResponse(
+                    error=f"while fetching rate limit from peer {addr}: "
+                          f"{exc_text(e)}")
+            return 0
+        gm = self._ensure_global_manager()
+        over = 0
+        for (i, req, addr), resp in zip(deg_failed, dresps):
+            if not resp.error:
+                self._flag_degraded(resp, addr)
+                gm.queue_hits(_req_stamped(req, now), degraded=True)
+                self.metrics.degraded_served.labels(peer_addr=addr).inc()
+                over += resp.status == Status.OVER_LIMIT
+            responses[i] = resp
+        self.recorder.record("degraded", peer=deg_failed[0][2],
+                             rows=len(deg_failed))
+        return over
+
+    @staticmethod
+    def _flag_degraded(resp: RateLimitResponse, addr: str) -> None:
+        resp.metadata["degraded"] = "true"
+        resp.metadata["degraded_peer"] = addr
 
     @staticmethod
     def _forward_one(peer: PeerClient, req: RateLimitRequest,
@@ -415,6 +750,7 @@ class V1Instance:
         does a batch of more than MAX_BATCH_SIZE requests on every
         lane.  Raises ResourceExhausted when admission control sheds
         the batch."""
+        self._fault_point("wire_ingest")
         data = bytes(data) if not isinstance(data, bytes) else data
         picker = self._clustered_picker()
         if picker is None:
@@ -544,17 +880,20 @@ class V1Instance:
     # ---- the clustered wire lane ----------------------------------------
 
     def _wire_check_clustered(self, parsed: dict, data: bytes, now: int,
-                              picker) -> bytes:
-        """C++ parse → batch hash → ring split by owner → each remote
-        owner's rows forwarded as verbatim request TLV slices (stamped
-        with this daemon's clock) → the device step for owned rows,
-        overlapped with the RPCs → response TLVs spliced back in request
-        order.  GLOBAL rows are answered from the local replica and never
-        forwarded; their reconcile is queued per unique key as raw TLV
-        prototypes, after the step.  A failed forward answers its rows
-        with error rows, that sub-batch only."""
+                              membership) -> bytes:
+        """C++ parse → batch hash → split by owner on the routing ring →
+        each remote owner's rows forwarded as verbatim request TLV slices
+        (stamped with this daemon's clock) → the device step for owned
+        rows, overlapped with the RPCs → response TLVs spliced back in
+        request order.  GLOBAL rows are answered from the local replica
+        and never forwarded; their reconcile is queued per unique key as
+        raw TLV prototypes, after the step.  Rows rehomed here by the
+        health gate, and the eligible rows of a failed forward, serve
+        degraded; the other rows of a failed forward answer error
+        rows."""
         n = parsed["n"]
         raw = mix64_np(parsed["khash_raw"])
+        picker = self._routing_picker()
         peer_list = picker.owner_peers()
         # before the zero remap, as picker.get(key) hashes
         owners = picker.owner_indices(raw)
@@ -563,6 +902,18 @@ class V1Instance:
         created = parsed["created_at"]
         self_pi = [pi for pi, p in enumerate(peer_list) if self.is_self(p)]
         local_mask = np.isin(owners, self_pi)
+        # rows rehomed here by an ejection serve DEGRADED: answered
+        # locally, flagged, their hits queued to the membership owner
+        deg_mask = _NO_ROWS
+        m_owners = m_peers = None
+        if picker is not membership and \
+                self.config.behaviors.peer_degraded_fallback:
+            m_peers = membership.owner_peers()
+            m_owners = membership.owner_indices(raw)
+            m_self = [pi for pi, p in enumerate(m_peers) if self.is_self(p)]
+            deg_mask = (local_mask & ~np.isin(m_owners, m_self)
+                        & ((parsed["behavior"]
+                            & int(self._DEGRADED_EXCLUDED)) == 0))
         if parsed["behavior_or"] & int(Behavior.GLOBAL):
             glob_mask = (parsed["behavior"] & int(Behavior.GLOBAL)) != 0
         else:
@@ -573,6 +924,10 @@ class V1Instance:
                     parsed, data, glob_mask, stamp_ms=now):
                 glob_queue.append((k, tlv, a, int(owners[i]) in self_pi))
             local_mask = local_mask | glob_mask
+            if deg_mask.size:
+                # GLOBAL rows have their own reconcile queue: degrading
+                # them too would queue their hits twice
+                deg_mask = deg_mask & ~glob_mask
         item_tlvs: List[Optional[bytes]] = [None] * n
         groups = []
         for pi in np.unique(owners[~local_mask]):
@@ -590,6 +945,20 @@ class V1Instance:
             except Exception as e:  # noqa: BLE001 - circuit open, closing
                 send_err = e
             groups.append((idxs, fut, send_err, peer.info.grpc_address))
+        if deg_mask.size and deg_mask.any():
+            for pi in np.unique(m_owners[deg_mask]):
+                didx = np.nonzero(deg_mask & (m_owners == pi))[0]
+                addr = m_peers[int(pi)].info.grpc_address
+                try:
+                    tlvs = self._serve_degraded_wire(parsed, data, didx, kh,
+                                                     now, addr)
+                    for j, i in enumerate(didx):
+                        item_tlvs[int(i)] = tlvs[j]
+                except Exception as e:  # noqa: BLE001 - belt rows below
+                    log.warning("degraded serve for %d rehomed rows "
+                                "(owner %s) failed: %s", didx.size, addr,
+                                exc_text(e))
+            local_mask = local_mask & ~deg_mask
         local_idx = np.nonzero(local_mask)[0]
         if local_idx.size:
             lbytes = self._packed_check_to_bytes(kh[local_idx], parsed,
@@ -617,7 +986,7 @@ class V1Instance:
             if fut is not None:
                 try:
                     rbytes = fut.result(timeout=fwd_wait)
-                except Exception as e:  # noqa: BLE001 - error rows below
+                except Exception as e:  # noqa: BLE001 - degraded or errors
                     err = e
             if rbytes is not None:
                 sp = wire_native.split_resp_items(rbytes)
@@ -629,16 +998,190 @@ class V1Instance:
                 err = RuntimeError("malformed or short peer response batch")
             failed += int(idxs.size)
             self._count_failed_forward(addr, err, int(idxs.size))
-            m = int(idxs.size)
-            zeros = np.zeros(m, np.int64)
-            ebytes = wire_native.build_responses_from_columns(
-                (np.zeros(m, np.int32), zeros, zeros, zeros), 0, m,
-                [f"while fetching rate limit from peer {addr}: "
-                 f"{exc_text(err)}"] * m)
-            self._splice(item_tlvs, idxs, ebytes)
+            served = self._degrade_failed_forward(parsed, data, idxs, kh,
+                                                  now, addr, item_tlvs)
+            rest = idxs[~served]
+            if rest.size:
+                self._error_rows(
+                    item_tlvs, rest,
+                    f"while fetching rate limit from peer {addr}: "
+                    f"{exc_text(err)}")
         if groups:
             self._count_forward(forwarded, failed)
+        miss = [i for i, t in enumerate(item_tlvs) if t is None]
+        if miss:
+            # belt: a failed degraded serve still answers its rows
+            self._error_rows(item_tlvs, miss, "degraded-mode serve failed")
         return b"".join(item_tlvs)  # type: ignore[arg-type]
+
+    def _error_rows(self, item_tlvs: list, idxs, msg: str) -> None:
+        """Answer rows ``idxs`` with zeroed error rows carrying ``msg``."""
+        m = len(idxs)
+        zeros = np.zeros(m, np.int64)
+        ebytes = wire_native.build_responses_from_columns(
+            (np.zeros(m, np.int32), zeros, zeros, zeros), 0, m, [msg] * m)
+        self._splice(item_tlvs, idxs, ebytes)
+
+    # ---- degraded serves ------------------------------------------------
+
+    #: behaviors never served from a row that is not the owner's: RESET
+    #: and DRAIN change state the reconcile queue cannot carry, and
+    #: MULTI_REGION replication must start at the region's owner
+    _DEGRADED_EXCLUDED = (Behavior.RESET_REMAINING
+                          | Behavior.DRAIN_OVER_LIMIT
+                          | Behavior.MULTI_REGION)
+
+    def _serve_degraded_wire(self, parsed: dict, data: bytes,
+                             idxs: np.ndarray, kh: np.ndarray, now: int,
+                             peer_addr: str) -> List[bytes]:
+        """Answer rows ``idxs`` from the local shard in degraded mode: one
+        step over the sub-batch (``check_packed_view``), responses
+        flagged ``degraded`` / ``degraded_peer`` (built with protobuf:
+        the C++ response build has no metadata lane, and this runs only on the
+        failure path), and the hits queued per unique key for reconcile
+        to the owner.  One response TLV per row of ``idxs``."""
+        from .proto import gubernator_pb2 as pb
+        from .wire import _varint
+
+        batch, errs = pack_columns(
+            kh[idxs], parsed["hits"][idxs], parsed["limit"][idxs],
+            parsed["duration"][idxs], parsed["algorithm"][idxs],
+            parsed["behavior"][idxs], parsed["burst"][idxs], now,
+            created_at=parsed["created_at"][idxs])
+        view = self.dispatcher.check_packed_view(batch, kh[idxs], now)
+        st, lim, rem, rst, full = view.sliced()
+        self.metrics.over_limit_counter.inc(
+            int((st == Status.OVER_LIMIT).sum()))
+        out: List[bytes] = []
+        flagged = 0
+        for j in range(int(idxs.size)):
+            msg = pb.RateLimitResp(
+                status=int(st[j]), limit=int(lim[j]),
+                remaining=int(rem[j]), reset_time=int(rst[j]))
+            if errs and j in errs:
+                msg.error = errs[j]
+            elif bool(full[j]):
+                msg.error = wire_native.TABLE_FULL
+            else:
+                msg.metadata["degraded"] = "true"
+                msg.metadata["degraded_peer"] = peer_addr
+                flagged += 1
+            payload = msg.SerializeToString()
+            out.append(b"\x0a" + _varint(len(payload)) + payload)
+        # reconcile on recovery: the sub-batch's hits per unique key on
+        # the raw hit queue (a failed flush requeues them)
+        mask = np.zeros(parsed["n"], bool)
+        mask[idxs] = True
+        gm = self._ensure_global_manager()
+        for k, tlv, a, _i in self._raw_queue_groups(parsed, data, mask,
+                                                    stamp_ms=now):
+            gm.queue_hits_raw(k, tlv, a, degraded=True)
+        self.metrics.degraded_served.labels(peer_addr=peer_addr).inc(flagged)
+        self.recorder.record("degraded", peer=peer_addr, rows=int(idxs.size))
+        return out
+
+    def _degrade_failed_forward(self, parsed: dict, data: bytes,
+                                idxs: np.ndarray, kh: np.ndarray, now: int,
+                                addr: str, item_tlvs: list) -> np.ndarray:
+        """A failed forward's eligible rows served degraded (written into
+        ``item_tlvs``); returns the mask, aligned with ``idxs``, of the
+        rows served.  Excluded behaviors, or every row when the fallback
+        is off, are left for the caller's error rows."""
+        served = np.zeros(int(idxs.size), bool)
+        if not self.config.behaviors.peer_degraded_fallback:
+            return served
+        elig = (parsed["behavior"][idxs]
+                & int(self._DEGRADED_EXCLUDED)) == 0
+        if not elig.any():
+            return served
+        sub = idxs[elig]
+        try:
+            tlvs = self._serve_degraded_wire(parsed, data, sub, kh, now,
+                                             addr)
+        except Exception as e:  # noqa: BLE001 - error rows instead
+            log.warning("degraded serve for %d rows (owner %s) failed: %s",
+                        sub.size, addr, exc_text(e))
+            return served
+        for j, i in enumerate(sub):
+            item_tlvs[int(i)] = tlvs[j]
+        served[elig] = True
+        return served
+
+    def _peer_degraded_rewrite(self, parsed: dict, data: bytes, out: bytes,
+                               stamp_ms: Optional[int] = None) -> bytes:
+        """The owner side of a rehome: a forwarded row whose MEMBERSHIP
+        owner this daemon's gate has ejected was routed here by another
+        daemon's gated ring.  Its local apply (done by the caller) is a
+        degraded serve: its response is flagged and its hits queued to
+        the true owner, or they would be absorbed into this shard.  Runs
+        only while the gate has ejected peers."""
+        from .proto import gubernator_pb2 as pb
+
+        bad = self._gate_bad  # lock-free: one frozenset read
+        with self._peer_mu:
+            mpick = self._picker
+        if not bad or not mpick.peers() or not self._uses_default_hash(
+                mpick):
+            return out
+        peers_l = mpick.owner_peers()
+        bad_pi = [pi for pi, p in enumerate(peers_l)
+                  if p.info.grpc_address in bad]
+        if not bad_pi:
+            return out
+        owners = mpick.owner_indices(mix64_np(parsed["khash_raw"]))
+        # GLOBAL rows are excluded too: as acting owner this daemon
+        # queues their broadcasts already
+        mask = (np.isin(owners, bad_pi)
+                & ((parsed["behavior"]
+                    & int(self._DEGRADED_EXCLUDED | Behavior.GLOBAL)) == 0))
+        if not mask.any():
+            return out
+        gm = self._ensure_global_manager()
+        for k, tlv, a, _i in self._raw_queue_groups(parsed, data, mask,
+                                                    stamp_ms=stamp_ms):
+            gm.queue_hits_raw(k, tlv, a, degraded=True)
+        ro, rl, _ = wire_native.split_resp_items(out)
+        items: List[bytes] = []
+        by_addr: dict = {}
+        for j in range(parsed["n"]):
+            tlv = out[int(ro[j]):int(ro[j] + rl[j])]
+            if mask[j]:
+                m = pb.GetRateLimitsResp.FromString(tlv)
+                r = m.responses[0]
+                if not r.error:
+                    addr = peers_l[int(owners[j])].info.grpc_address
+                    r.metadata["degraded"] = "true"
+                    r.metadata["degraded_peer"] = addr
+                    by_addr[addr] = by_addr.get(addr, 0) + 1
+                    tlv = m.SerializeToString()
+            items.append(tlv)
+        for addr, cnt in by_addr.items():
+            self.metrics.degraded_served.labels(peer_addr=addr).inc(cnt)
+        if by_addr:
+            self.recorder.record("degraded", peer=min(by_addr),
+                                 rows=sum(by_addr.values()), rehomed=True)
+        return b"".join(items)
+
+    def _peer_degraded_objects(self, reqs, resps, now: int) -> None:
+        """``_peer_degraded_rewrite`` for a forwarded batch of request
+        objects (the protobuf lane)."""
+        bad = self._gate_bad  # lock-free: one frozenset read
+        with self._peer_mu:
+            mpick = self._picker
+        if not bad or not mpick.peers():
+            return
+        excl = int(self._DEGRADED_EXCLUDED | Behavior.GLOBAL)
+        for req, resp in zip(reqs, resps):
+            if resp.error or int(req.behavior) & excl:
+                continue
+            owner = mpick.get(req.key)
+            addr = owner.info.grpc_address
+            if addr not in bad or self.is_self(owner):
+                continue
+            self._flag_degraded(resp, addr)
+            self._ensure_global_manager().queue_hits(
+                _req_stamped(req, now), degraded=True)
+            self.metrics.degraded_served.labels(peer_addr=addr).inc()
 
     @staticmethod
     def _splice(item_tlvs: list, idxs, rbytes: bytes, sp=None) -> None:
@@ -699,6 +1242,10 @@ class V1Instance:
         for req in reqs:
             if int(req.behavior) & int(Behavior.GLOBAL):
                 self._ensure_global_manager().queue_update(req)
+        # rows whose membership owner this daemon's gate has ejected
+        # were rehomed here: flagged, their hits reconciled
+        if self._gate_bad and self.config.behaviors.peer_degraded_fallback:
+            self._peer_degraded_objects(reqs, resps, now)
         return resps
 
     def get_peer_rate_limits_wire(self, data: bytes,
@@ -707,11 +1254,18 @@ class V1Instance:
         forward hop (its items are field 1, as in GetRateLimitsReq, so
         the C++ lanes apply as they are).  Forwarded rows always apply
         locally; GLOBAL rows mark their keys for the next broadcast,
-        after the step."""
+        after the step.  While the health gate has ejected peers, rows
+        whose membership owner is ejected were rehomed here and serve
+        degraded (the parse lane; the fused lane is skipped then)."""
+        self._fault_point("wire_ingest")
         data = bytes(data) if not isinstance(data, bytes) else data
-        out = self._wire_peer_fused(data, now_ms)
-        if out is not None:
-            return out
+        # one attribute read in the steady state
+        gate_rehome = (bool(self._gate_bad)
+                       and self.config.behaviors.peer_degraded_fallback)
+        if not gate_rehome:
+            out = self._wire_peer_fused(data, now_ms)
+            if out is not None:
+                return out
         parsed = wire_native.parse_get_rate_limits(data)
         if parsed is None:
             return self._wire_peer_pb2(data, now_ms)
@@ -728,6 +1282,9 @@ class V1Instance:
             for k, tlv, _a, _i in self._raw_queue_groups(parsed, data,
                                                          glob):
                 gm.queue_update_raw(k, tlv)
+        if gate_rehome:
+            out = self._peer_degraded_rewrite(parsed, data, out,
+                                              stamp_ms=now)
         return out
 
     def _wire_peer_fused(self, data: bytes,
@@ -880,11 +1437,16 @@ class V1Instance:
         return out.SerializeToString()
 
     def close(self) -> None:
-        """Flush the GLOBAL manager, drain the peer clients, then stop
-        the dispatcher (the engine's one user)."""
+        """Stop the health prober, flush the GLOBAL manager, drain the
+        peer clients, then stop the dispatcher (the engine's one
+        user)."""
         if self._closed:
             return
-        self._closed = True
+        with self._gm_mu:
+            self._closed = True
+            probe = self._probe_loop
+        if probe is not None:
+            probe.close()
         if self.global_manager is not None:
             self.global_manager.close()
         for p in self.peers():

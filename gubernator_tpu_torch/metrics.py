@@ -8,10 +8,10 @@ cluster runs several daemons in one process).
 Registered: the families of the subsystems the port has (serving
 counters, table gauges, the wire lane, the dispatcher's waves, stall
 watchdog and pipeline, the wave pool, admission and drain, the peer
-lanes and circuit, forwards, GLOBAL queue and broadcasts).  The JAX
-families of subsystems not ported yet (hot set, fused Pallas counters,
-compile ledger, scenarios, analytics, degraded serving, the
-health-gated ring, fault injection, mesh-GLOBAL, tiering, tenants, SLO,
+lanes and circuit, forwards, GLOBAL queue and broadcasts, degraded
+serves, the health-gated ring, fault injection).  The JAX families of
+subsystems not ported yet (hot set, fused Pallas counters, compile
+ledger, scenarios, analytics, mesh-GLOBAL, tiering, tenants, SLO,
 fleet, memory ledger) are not registered; ROADMAP lists them beside
 their subsystems.
 """
@@ -194,6 +194,29 @@ class Metrics:
             buckets=_BUCKETS, registry=r)
         self.global_broadcast_counter = Counter(
             "gubernator_broadcast", "GLOBAL broadcasts sent", registry=r)
+        # ---- the failure path: degraded serves, the gated ring, faults ----
+        self.degraded_served = Counter(
+            "gubernator_degraded_served",
+            "requests answered locally in degraded mode while their "
+            "owner was unreachable or their keys were rehomed "
+            "(response carries metadata degraded=true; hits reconcile "
+            "to the owner through the GLOBAL hit-flush queues)",
+            ["peer_addr"], registry=r)
+        self.ring_generation = Gauge(
+            "gubernator_ring_generation",
+            "monotonic generation of the health-gated routing ring; "
+            "bumps when a peer is ejected or readmitted (flap detector: "
+            "one outage should cost exactly two bumps)", registry=r)
+        self.ring_ejected_peers = Gauge(
+            "gubernator_ring_ejected_peers",
+            "peers currently ejected from the routing ring by the "
+            "health gate (their keys are rehomed until readmit)",
+            registry=r)
+        self.fault_injected = Counter(
+            "gubernator_fault_injected",
+            "times an armed faultpoint fired (faults.py; 0 in healthy "
+            "operation — nonzero means a chaos run is active)",
+            ["point"], registry=r)
 
     @contextmanager
     def time_func(self, name: str):

@@ -19,8 +19,16 @@ flusher for when its C++ codec is not built; the port's wire library
 always builds (or the build raises), so that flusher is not ported.
 With a ``Metrics`` registry the lanes feed the send-buffer depth, the
 flush size and wait, in-flight RPCs, retries, the circuit's opens and
-state and ``batch_send_duration``.  Tracing, fault points and the
-health-gated routing ring's probes wait for their slices.
+state and ``batch_send_duration``.  With a ``FaultSet`` the lanes run
+the ``peer_send``, ``peer_recv`` and ``peer_circuit`` faultpoints, tagged
+with the peer's address.
+
+Beside the circuit each client keeps its routing health for the
+instance's health-gated ring (``route_healthy``): a circuit-open streak
+that lasts ``peer_eject_after_ms`` ejects the peer, and it returns only
+after staying recovered for ``peer_readmit_after_ms``.  ``probe`` sends
+one empty globals flush, so an ejected peer (whose keys rehome and send
+it no traffic) can close its circuit.  Tracing waits for its slice.
 
 Shutdown drains in-flight flushes before it closes the channel.
 """
@@ -214,6 +222,8 @@ class _SendLane:
             return
         t0 = time.perf_counter()
         try:
+            # a faulted send takes the path of a real dial failure
+            client._fault("peer_send")
             rpc = client._raw_call(self.method).future(
                 data, timeout=self.rpc_timeout_s)
         except Exception as e:  # noqa: BLE001 - incl. a closed channel
@@ -239,6 +249,9 @@ class _SendLane:
                 peer_addr=self.client.info.grpc_address).dec()
         try:
             rbytes = f.result()
+            # a response lost after the RPC succeeded (the retry path's
+            # idempotence)
+            self.client._fault("peer_recv")
         except Exception as e:  # noqa: BLE001 - RpcError et al.
             self._on_done(None, entries, data, attempt, t0, err=e)
             return
@@ -343,11 +356,14 @@ class PeerClient:
     """One gRPC channel + the columnar send lanes to a single peer."""
 
     def __init__(self, info: PeerInfo, behaviors: BehaviorConfig,
-                 metrics=None):
+                 metrics=None, faults=None):
         self.info = info
         self.behaviors = behaviors
         #: the owning instance's Metrics registry (optional)
         self._metrics = metrics
+        #: the owning instance's FaultSet (optional): the peer_send,
+        #: peer_recv and peer_circuit points, tagged with this address
+        self._faults = faults
         self._channel = None  # guarded-by: self._lock
         self._stub: Optional[PeersV1Stub] = None  # guarded-by: self._lock
         self._raw_calls: dict = {}  # guarded-by: self._lock
@@ -359,6 +375,12 @@ class PeerClient:
         self._consec_failures = 0  # guarded-by: self._circ_mu
         self._open_until = 0.0  # guarded-by: self._circ_mu
         self._circuit_opens = 0  # guarded-by: self._circ_mu
+        # routing health: the start of the current circuit-open streak
+        # (0 while healthy), when the last streak ended, and whether the
+        # peer is out of the routing ring until the readmit window passes
+        self._route_bad_since = 0.0  # guarded-by: self._circ_mu
+        self._route_recovered_at = 0.0  # guarded-by: self._circ_mu
+        self._route_ejected = False  # guarded-by: self._circ_mu
         #: typed GetPeerRateLimits calls (the NO_BATCHING forwards)
         self.single_calls = 0  # guarded-by: self._lock
         self._forward_lane = _SendLane(
@@ -389,7 +411,18 @@ class PeerClient:
 
     # ---- circuit breaker -----------------------------------------------
 
+    def _fault(self, point: str) -> None:
+        """Fire a faultpoint tagged with this peer's address (one
+        attribute read while disarmed)."""
+        f = self._faults
+        if f is not None and f.armed:
+            f.fire(point, self.info.grpc_address)
+
     def _circuit_blocked(self) -> bool:
+        f = self._faults
+        if (f is not None and f.armed
+                and f.should("peer_circuit", self.info.grpc_address)):
+            return True
         with self._circ_mu:
             return time.monotonic() < self._open_until
 
@@ -406,6 +439,11 @@ class PeerClient:
             self._open_until = now + cooldown
             self._circuit_opens += 1
             failures = self._consec_failures
+            # the open streak starts at the FIRST open and survives
+            # failed half-open probes; only a success ends it
+            if self._route_bad_since == 0.0:
+                self._route_bad_since = now
+            self._route_recovered_at = 0.0
         if not was_open:
             log.warning("peer %s circuit OPEN after %d consecutive flush "
                         "failures; failing fast for %.1fs",
@@ -421,6 +459,9 @@ class PeerClient:
             was_open = self._open_until > 0
             self._consec_failures = 0
             self._open_until = 0.0
+            if self._route_bad_since:
+                self._route_bad_since = 0.0
+                self._route_recovered_at = time.monotonic()
         if was_open:
             log.info("peer %s circuit closed (probe flush succeeded)",
                      self.info.grpc_address)
@@ -428,12 +469,54 @@ class PeerClient:
                 self._metrics.peer_circuit_state.labels(
                     peer_addr=self.info.grpc_address).set(0)
 
+    def circuit_open(self) -> bool:
+        """The circuit's state as a sender sees it (deep health)."""
+        return self._circuit_blocked()
+
+    def route_healthy(self, eject_after_s: float,
+                      readmit_after_s: float) -> bool:
+        """Routing health with hysteresis: False ejects this peer from
+        the health-gated ring.  A circuit-open streak must last
+        ``eject_after_s`` before the peer is ejected (a blip moves no
+        key); once ejected, it returns only after staying recovered for
+        ``readmit_after_s``, so a peer flapping inside the window stays
+        out and its keys rehome once per outage."""
+        now = time.monotonic()
+        with self._circ_mu:
+            if self._route_bad_since:
+                if now - self._route_bad_since >= eject_after_s:
+                    self._route_ejected = True
+                    return False
+                return True
+            if self._route_ejected:
+                if (self._route_recovered_at
+                        and now - self._route_recovered_at
+                        >= readmit_after_s):
+                    self._route_ejected = False
+                    return True
+                return False
+            return True
+
+    def probe(self) -> Optional[Future]:
+        """One empty flush on the globals lane: the health prober's
+        half-open probe of an ejected peer (an UpdatePeerGlobals of no
+        items, which the peer answers trivially; a success closes the
+        circuit and starts the readmit clock).  The flush's future, or
+        None while closing or with the circuit open."""
+        if self._closing.is_set():
+            return None
+        try:
+            return self._globals_lane.enqueue(b"", 0)
+        except (ErrClosing, ErrCircuitOpen):
+            return None
+
     def lane_stats(self) -> dict:
         """Both send lanes' counters and the circuit's state."""
         with self._circ_mu:
             circ = {"open": time.monotonic() < self._open_until,
                     "consecutive_failures": self._consec_failures,
-                    "opens": self._circuit_opens}
+                    "opens": self._circuit_opens,
+                    "route_ejected": self._route_ejected}
         with self._lock:
             single = self.single_calls
         return {"circuit": circ, "forward": self._forward_lane.stats(),

@@ -267,15 +267,23 @@ def test_classic_path_and_wire_round_rehearse_on_the_cpu(path_rehearsal):
     assert res["capacity_after"] == 2 * res["capacity_before"]
 
 
-def cluster_args(path_rehearsal):
+def cluster_args(path_rehearsal, monkeypatch):
+    """The cluster phase at a small size; its outage phase with shorter
+    gate and circuit timings than the card's (the JAX defaults) and a
+    small joining table."""
     args = path_rehearsal
     args.cluster_log2_cap, args.cluster_rounds = 12, 1
     args.batches = args.profile_batches = 1
+    args.outage_batches, args.handover_log2_cap = 2, 11
+    monkeypatch.setattr(chip_smoke, "CLUSTER_BEHAVIOR_OVERRIDES", dict(
+        peer_eject_after_ms=2000, peer_readmit_after_ms=500,
+        peer_circuit_cooldown_ms=300))
+    monkeypatch.setattr(chip_smoke, "OUTAGE_MARGIN_S", 0.8)
     return args
 
 
-def test_cluster_phase_rehearses_on_the_cpu(path_rehearsal):
-    args = cluster_args(path_rehearsal)
+def test_cluster_phase_rehearses_on_the_cpu(path_rehearsal, monkeypatch):
+    args = cluster_args(path_rehearsal, monkeypatch)
     res = chip_smoke.phase_cluster(torch, args, solo_rate=1e6)
     assert res["nodes"] == 3 and len(res["steps_per_daemon"]) == 3
     assert all(res["steps_per_daemon"]) and res["launches"] > 0
@@ -294,6 +302,28 @@ def test_cluster_phase_rehearses_on_the_cpu(path_rehearsal):
         res["global_over_admission_max"] >= 0
     assert 0 < res["share_of_solo_wire"]
     assert len(res["decisions_per_s_rounds"]) == args.cluster_rounds
+    # the outage phase, rehearsed: degraded rows in the degraded and
+    # rehomed windows only, all counted, two ring flips on daemons 0
+    # and 1 alone, the degraded hits queued as flagged, K1 launched
+    out = res["outage"]
+    w = out["windows"]
+    assert w["degraded"]["degraded_rows"] > 0
+    assert w["rehomed"]["degraded_rows"] > 0
+    assert w["recovered"]["degraded_rows"] == 0
+    assert out["degraded_served"] == out["rows_flagged"] == sum(
+        x["degraded_rows"] for x in w.values())
+    assert out["hits_degraded"] >= out["rows_flagged"]
+    assert [b - a for a, b in zip(out["ring_generation_before"],
+                                  out["ring_generation_after"])] == [2, 2, 0]
+    assert out["fault_injected"] > 0 and out["launches"] > 0
+    assert out["leaks"] == 0 and out["outage_hits"] > 0
+    assert all(ms > 0 for ms in out["eject_ms_after_arming"]
+               + out["readmit_ms_after_clearing"])
+    # the handover: every moved row sent, placed or counted dropped
+    ho = res["handover"]
+    assert ho["rows_moved"] == ho["rows_sent"] > 0
+    assert ho["rows_placed"] + ho["rows_dropped"] == ho["rows_moved"]
+    assert ho["still_on_old_owner"] == 0
 
 
 @pytest.mark.parametrize("fault",
@@ -302,12 +332,12 @@ def test_cluster_phase_stops_on_a_fault(path_rehearsal, monkeypatch, fault):
     """A replica that drops the owner's broadcasts never converges; GLOBAL
     hits that never reach their owner leave it short of the hits sent
     (the counters agree: only the owner's row shows it); a forward that
-    fails answers error rows: each stops the run."""
+    fails answers its rows degraded: each stops the run."""
     from gubernator_tpu_torch.global_manager import GlobalManager
     from gubernator_tpu_torch.instance import V1Instance
     from gubernator_tpu_torch.peer_client import PeerClient
 
-    args = cluster_args(path_rehearsal)
+    args = cluster_args(path_rehearsal, monkeypatch)
     monkeypatch.setattr(chip_smoke, "CONVERGE_S", 1.0)
     if fault == "no broadcast":
         monkeypatch.setattr(V1Instance, "update_peer_globals",
@@ -328,7 +358,8 @@ def test_cluster_phase_stops_on_a_fault(path_rehearsal, monkeypatch, fault):
             raise ConnectionError("forced")
 
         monkeypatch.setattr(PeerClient, "forward_raw", refuse)
-        what = "while fetching rate limit from peer"
+        # the default behaviors answer a failed forward degraded
+        what = "served degraded in the healthy cluster"
     with pytest.raises(RuntimeError, match=what):
         chip_smoke.phase_cluster(torch, args)
 
@@ -344,11 +375,18 @@ def test_decode_responses_reads_what_the_port_writes():
             np.zeros(3, bool))
     data = native.build_responses_from_columns(
         cols, 0, 3, [None, None, "rate limit table full"])
+    # and a degraded row, as the port's protobuf build writes it
+    msg = pb.GetRateLimitsResp()
+    r = msg.responses.add(status=0, limit=9, remaining=3, reset_time=11)
+    r.metadata["degraded"] = "true"
+    r.metadata["degraded_peer"] = "127.0.0.1:5001"
+    data += msg.SerializeToString()
     got = chip_smoke.decode_responses(data)
     want = pb.GetRateLimitsResp.FromString(data).responses
     assert [tuple(g) for g in got] == [
-        (w.status, w.limit, w.remaining, w.reset_time, w.error)
-        for w in want]
+        (w.status, w.limit, w.remaining, w.reset_time, w.error,
+         w.metadata.get("degraded_peer", "")) for w in want]
+    assert got[-1].degraded == "127.0.0.1:5001"
 
 
 @pytest.fixture()

@@ -11,8 +11,12 @@ package's on ``make_mesh(n=1)``), driven through daemon 0:
   JAX cluster's values (tests/test_functional.py's and
   tests/test_wire_clustered_global.py's flows);
 - a stopped peer's rows answer the legacy error row the JAX daemons
-  answer with ``peer_degraded_fallback=False``, and the failed GLOBAL
-  flush turns health unhealthy with JAX's message.
+  answer with ``peer_degraded_fallback=False`` (both packages pinned to
+  it there, on purpose), and the failed GLOBAL flush turns health
+  unhealthy with JAX's message.
+
+Every other test runs both packages' default behaviors (degraded serves
+and the health gate on), which are equal.
 
 Exact equality everywhere; convergence is polled by attempt count."""
 import time
@@ -37,8 +41,9 @@ CAP = 1 << 12
 FIELDS = ("name", "unique_key", "hits", "limit", "duration", "algorithm",
           "behavior", "burst")
 TIMING = dict(batch_timeout_ms=30, batch_wait_ms=30, global_sync_wait_ms=40,
-              global_broadcast_interval_ms=40, global_timeout_ms=2000,
-              peer_degraded_fallback=False, peer_health_gate=False)
+              global_broadcast_interval_ms=40, global_timeout_ms=2000)
+#: the legacy answer to a failed forward: error rows, no gate
+LEGACY = dict(peer_degraded_fallback=False, peer_health_gate=False)
 GLOBAL, NO_BATCHING = 2, 1
 #: attempts of 50 ms (plus an RPC round trip each) before a convergence
 #: check gives up
@@ -53,25 +58,27 @@ def jax_env():
         yield
 
 
-def port_cfgs(n: int):
+def port_cfgs(n: int, **extra):
     return [DaemonConfig(grpc_listen_address="127.0.0.1:0",
                          http_listen_address="127.0.0.1:0", cache_size=CAP,
                          batch_rows=64, device="cpu",
-                         behaviors=BehaviorConfig(**TIMING))
+                         behaviors=BehaviorConfig(**TIMING, **extra))
             for _ in range(n)]
 
 
-def jax_cfgs(n: int):
+def jax_cfgs(n: int, **extra):
     return [JaxDaemonConfig(grpc_listen_address="127.0.0.1:0",
                             http_listen_address="127.0.0.1:0",
-                            cache_size=CAP, behaviors=JaxBehaviors(**TIMING))
+                            cache_size=CAP,
+                            behaviors=JaxBehaviors(**TIMING, **extra))
             for _ in range(n)]
 
 
-def start_jax(n: int):
+def start_jax(n: int, **extra):
     from gubernator_tpu.parallel import make_mesh
 
-    return jax_cluster_mod.start_with(jax_cfgs(n), mesh=make_mesh(n=1))
+    return jax_cluster_mod.start_with(jax_cfgs(n, **extra),
+                                      mesh=make_mesh(n=1))
 
 
 @pytest.fixture(scope="module")
@@ -378,9 +385,10 @@ def test_stopped_peer_answers_the_legacy_error_as_jax(jax_env):
     health unhealthy with JAX's message."""
     answers, health = [], []
     for start, conv, resp_cls in (
-            (lambda: cluster_mod.start_with(port_cfgs(2)), lambda r: r,
-             pb.GetRateLimitsResp),
-            (lambda: start_jax(2), to_jax, jax_pb.GetRateLimitsResp)):
+            (lambda: cluster_mod.start_with(port_cfgs(2, **LEGACY)),
+             lambda r: r, pb.GetRateLimitsResp),
+            (lambda: start_jax(2, **LEGACY), to_jax,
+             jax_pb.GetRateLimitsResp)):
         c = start()
         try:
             dead = c.daemon_at(1)

@@ -167,6 +167,52 @@ def test_engine_serves_through_k1(cuda):
         [0, 0, 0, 1, 1]
 
 
+@pytest.mark.gpu
+def test_degraded_serve_runs_through_k1(cuda):
+    """A forward to a peer nothing listens on fails; its rows are served
+    degraded on the card (one step through K1) and answer as the same
+    serve on the CPU (the plain version), flagged with the peer."""
+    import socket
+
+    from gubernator_tpu_torch.config import Config
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+    from gubernator_tpu_torch.types import PeerInfo, RateLimitRequest
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        dead = f"127.0.0.1:{sk.getsockname()[1]}"
+    me = "127.0.0.1:1"
+    got = []
+    for dev in ("cuda", "cpu"):
+        inst = V1Instance(Config(device=dev, cache_size=1 << 12,
+                                 batch_rows=64, sweep_interval_ms=0,
+                                 advertise_address=me))
+        try:
+            inst.set_peers([PeerInfo(grpc_address=me),
+                            PeerInfo(grpc_address=dead)])
+            keys = [f"k{i}" for i in range(300)
+                    if inst.owner_of(f"dg_k{i}").info.grpc_address
+                    == dead][:4]
+            reqs = [RateLimitRequest(name="dg", unique_key=k, hits=h,
+                                     limit=3, duration=60_000)
+                    for k in keys for h in (1, 2, 1)]
+            before = dmod.decide_cuda.launches
+            out = pb.GetRateLimitsResp.FromString(inst.get_rate_limits_wire(
+                encode_get_rate_limits(reqs), 1_760_000_000_000)).responses
+            if dev == "cuda":
+                assert dmod.decide_cuda.launches > before
+            got.append([(r.status, r.remaining, r.reset_time, r.error,
+                         dict(r.metadata)) for r in out])
+        finally:
+            inst.close()
+    assert got[0] == got[1]
+    assert all(m == {"degraded": "true", "degraded_peer": dead}
+               for *_, m in got[0])
+    assert [g[1] for g in got[0][:3]] == [2, 0, 0]
+
+
 # ---- K2, K3, the SoA step and the classic engine -----------------------
 
 def soa_table(dev, cap, seed):

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (its
-wire lane, its cluster path and one daemon's lifecycle included), and
-its entry points default to the GPU, raising where there is none."""
+wire lane, its cluster path, one daemon's lifecycle and the cluster's
+failure path included), and its entry points default to the GPU,
+raising where there is none."""
 import ast
 import pkgutil
 import subprocess
@@ -26,7 +27,7 @@ def test_importing_every_module_loads_no_jax():
     assert "gubernator_tpu_torch.ops.decide" in mods
     for m in ("peers", "peer_client", "global_manager", "discovery",
               "cluster", "interval", "netutil", "telemetry", "metrics",
-              "cmd.healthcheck"):
+              "cmd.healthcheck", "faults"):
         assert f"gubernator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -152,6 +153,61 @@ def test_lifecycle_path_loads_nothing_of_the_jax_package():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_failure_path_loads_nothing_of_the_jax_package():
+    """The failure path in a fresh process: a 3-daemon port cluster on
+    the CPU with short gate timings, a fault armed over HTTP, degraded
+    serves, an ejection and a readmission, a handover to a 4th daemon;
+    no JAX-package module is loaded."""
+    code = (
+        "import json, sys, time, urllib.request\n"
+        "from gubernator_tpu_torch import cluster\n"
+        "from gubernator_tpu_torch.config import BehaviorConfig\n"
+        "from gubernator_tpu_torch.types import RateLimitRequest as R\n"
+        "from gubernator_tpu_torch.wire import encode_get_rate_limits\n"
+        "b = BehaviorConfig(peer_eject_after_ms=200, "
+        "peer_readmit_after_ms=200, peer_circuit_cooldown_ms=100)\n"
+        "c = cluster.start(3, device='cpu', behaviors=b, "
+        "handover_on_reshard=True)\n"
+        "try:\n"
+        "    d0, d2 = c.daemon_at(0), c.daemon_at(2)\n"
+        "    far = [f'k{i}' for i in range(300) if c.owner_daemon_of("
+        "f'n_k{i}') is d2][:4]\n"
+        "    reqs = [R(name='n', unique_key=k, limit=5, duration=60000) "
+        "for k in far]\n"
+        "    body = json.dumps({'spec': "
+        "f'peer_send@{d2.advertise_address}:error'}).encode()\n"
+        "    urllib.request.urlopen(urllib.request.Request("
+        "f'http://127.0.0.1:{d0.http_port}/debug/faults', data=body, "
+        "method='POST')).read()\n"
+        "    inst = d0.instance\n"
+        "    for _ in range(60):\n"
+        "        assert inst.get_rate_limits_wire(encode_get_rate_limits("
+        "reqs))\n"
+        "        if inst.recorder.events(kind='ring_ejected'):\n"
+        "            break\n"
+        "        time.sleep(0.05)\n"
+        "    assert inst.recorder.events(kind='ring_ejected')\n"
+        "    inst.faults.clear()\n"
+        "    for _ in range(100):\n"
+        "        inst.get_rate_limits(reqs)\n"
+        "        if inst.recorder.events(kind='ring_readmitted'):\n"
+        "            break\n"
+        "        time.sleep(0.05)\n"
+        "    assert inst.recorder.events(kind='ring_readmitted')\n"
+        "    assert inst.recorder.events(kind='degraded')\n"
+        "    c.restart(2)\n"
+        "finally:\n"
+        "    c.stop()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'gubernator_tpu' "
+        "or m.startswith('gubernator_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
 
 
 def _imports(path: Path):

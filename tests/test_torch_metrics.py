@@ -9,8 +9,9 @@ to the JAX package's:
   V1Instance on the CPU (object, fused, parse and protobuf lanes, then
   queue-full and drain sheds), the deterministic samples are equal:
   requests by call type, OVER_LIMIT decisions, live rows, sheds by
-  reason; and a forward to a dead peer counts the same check errors and
-  failed forwards in both.
+  reason; and a forward to a dead peer counts the same check errors,
+  failed forwards and degraded serves in both (the JAX package's
+  default behaviors, which the port's now equal).
 """
 import socket
 
@@ -40,10 +41,6 @@ NOT_PORTED = {
     "analytics": {"gubernator_topkey_overlimit_total",
                   "gubernator_analytics_waves_tapped",
                   "gubernator_analytics_tap_dropped"},
-    "degraded serving": {"gubernator_degraded_served"},
-    "health-gated ring": {"gubernator_ring_generation",
-                          "gubernator_ring_ejected_peers"},
-    "fault injection": {"gubernator_fault_injected"},
     "mesh-GLOBAL": {"gubernator_mesh_global_folds",
                     "gubernator_mesh_global_fold_errors",
                     "gubernator_mesh_global_staleness_seconds",
@@ -75,7 +72,7 @@ def families(m):
 
 def test_every_port_family_has_its_jax_namesake():
     port, ref = families(Metrics()), families(JaxMetrics())
-    assert len(port) == 38
+    assert len(port) == 42
     for attr, fam in port.items():
         assert ref.get(attr) == fam, attr
 
@@ -167,7 +164,8 @@ def dead_address() -> str:
 def test_failed_forward_counts_match_jax(monkeypatch):
     """One object-lane and one wire-lane row owned by a dead peer: each
     package counts two peer_forward check errors and two failed forwards
-    (reason rpc_error) against that peer."""
+    (reason rpc_error) against that peer, and serves both rows degraded
+    (counted by peer)."""
     from gubernator_tpu.config import BehaviorConfig as JaxBehaviors
     from gubernator_tpu.config import Config as JaxConfig
     from gubernator_tpu.instance import V1Instance as JaxInstance
@@ -175,14 +173,13 @@ def test_failed_forward_counts_match_jax(monkeypatch):
 
     quiet_jax(monkeypatch)
     me, dead = "127.0.0.1:1", dead_address()
-    timing = dict(peer_degraded_fallback=False, peer_health_gate=False)
     port = V1Instance(Config(cache_size=CAP, batch_rows=64, device="cpu",
                              sweep_interval_ms=0, advertise_address=me,
-                             behaviors=BehaviorConfig(**timing)))
+                             behaviors=BehaviorConfig()))
     ref = JaxInstance(JaxConfig(cache_size=CAP, batch_rows=64,
                                 sweep_interval_ms=0, hot_set_capacity=0,
                                 advertise_address=me,
-                                behaviors=JaxBehaviors(**timing)))
+                                behaviors=JaxBehaviors()))
     got = []
     try:
         port.set_peers([PeerInfo(grpc_address=me),
@@ -193,15 +190,17 @@ def test_failed_forward_counts_match_jax(monkeypatch):
         req = dict(name="fwd", unique_key=key, hits=1, limit=5,
                    duration=60_000)
         for inst, cls in ((port, RateLimitRequest), (ref, JaxReq)):
-            assert inst.get_rate_limits([cls(**req)])[0].error
+            r = inst.get_rate_limits([cls(**req)])[0]
+            assert (r.error, r.metadata["degraded_peer"]) == ("", dead)
             assert inst.get_rate_limits_wire(encode_get_rate_limits(
                 [RateLimitRequest(**req)]))
             got.append([sample(inst.metrics, n, **lb) for n, lb in (
                 ("gubernator_check_error_total", {"error": "peer_forward"}),
                 ("gubernator_forward_failed_total",
                  {"peer_addr": dead, "reason": "rpc_error"}),
-                ("gubernator_getratelimit_total", {"calltype": "api"}))])
+                ("gubernator_getratelimit_total", {"calltype": "api"}),
+                ("gubernator_degraded_served_total", {"peer_addr": dead}))])
     finally:
         port.close()
         ref.close()
-    assert got[0] == got[1] == [2.0, 2.0, 2.0]
+    assert got[0] == got[1] == [2.0, 2.0, 2.0, 2.0]

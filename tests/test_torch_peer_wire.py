@@ -168,8 +168,7 @@ def engines(request, monkeypatch):
                                       batch_per_shard=64) if bucket else None)
         inst = JaxInstance(JaxConfig(
             cache_size=CAP, batch_rows=64, sweep_interval_ms=0,
-            hot_set_capacity=0, behaviors=JaxBehaviors(
-                peer_degraded_fallback=False, peer_health_gate=False)),
+            hot_set_capacity=0, behaviors=JaxBehaviors()),
             engine=engine)
         made.append(inst)
         return inst

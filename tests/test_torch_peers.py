@@ -180,11 +180,61 @@ def test_interval_loop_ticks_pokes_and_flushes_on_close():
     assert not loop._thread.is_alive()
 
 
-def test_behaviors_not_ported_raise():
-    from gubernator_tpu_torch.config import BehaviorConfig, Config
-    from gubernator_tpu_torch.instance import V1Instance
+def test_defaults_equal_jax():
+    """The port's BehaviorConfig(), Config() and DaemonConfig() defaults
+    equal the JAX package's on every field both have (the failure path's
+    included: degraded serves and the health gate on, eject and readmit
+    at 3000 ms, no handover), and the device is the port's own field."""
+    import dataclasses
 
-    for kw in ({"peer_degraded_fallback": True},
-               {"peer_health_gate": True}):
-        with pytest.raises(ValueError, match="not ported yet"):
-            V1Instance(Config(device="cpu", behaviors=BehaviorConfig(**kw)))
+    from gubernator_tpu import config as jax_config
+    from gubernator_tpu_torch import config as port_config
+
+    for name in ("BehaviorConfig", "Config", "DaemonConfig"):
+        port = getattr(port_config, name)()
+        ref = getattr(jax_config, name)()
+        shared = ({f.name for f in dataclasses.fields(port)}
+                  & {f.name for f in dataclasses.fields(ref)}) - {
+            "behaviors"}
+        assert len(shared) >= 6, name
+        for f in sorted(shared):
+            assert getattr(port, f) == getattr(ref, f), (name, f)
+    b = port_config.BehaviorConfig()
+    assert (b.peer_degraded_fallback, b.peer_health_gate,
+            b.peer_eject_after_ms, b.peer_readmit_after_ms) == (
+        True, True, 3000, 3000)
+    assert port_config.Config().handover_on_reshard is False
+
+
+def test_failure_path_options_serve():
+    """An instance with every failure-path option on serves, and the
+    config keys parse as the JAX package parses them."""
+    from gubernator_tpu.config import setup_daemon_config as jax_setup
+    from gubernator_tpu_torch.config import (BehaviorConfig, Config,
+                                             setup_daemon_config)
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    inst = V1Instance(Config(
+        device="cpu", cache_size=4096, handover_on_reshard=True,
+        behaviors=BehaviorConfig(peer_degraded_fallback=True,
+                                 peer_health_gate=True)))
+    try:
+        r = inst.get_rate_limits([RateLimitRequest(
+            name="n", unique_key="k", limit=5, duration=60_000)])[0]
+        assert (r.error, r.remaining) == ("", 4)
+    finally:
+        inst.close()
+    env = {"GUBER_PEER_EJECT_AFTER": "1.5s",
+           "GUBER_PEER_READMIT_AFTER": "250ms",
+           "GUBER_HANDOVER_ON_RESHARD": "true",
+           "GUBER_PEER_HEALTH_GATE": "0",
+           "GUBER_PEER_DEGRADED_FALLBACK": "off"}
+    port, ref = setup_daemon_config(env=env), jax_setup(env=env)
+    for f in ("peer_eject_after_ms", "peer_readmit_after_ms",
+              "peer_health_gate", "peer_degraded_fallback"):
+        assert getattr(port.behaviors, f) == getattr(ref.behaviors, f), f
+    assert port.handover_on_reshard is ref.handover_on_reshard is True
+    assert port.instance_config().handover_on_reshard is True
+    assert (port.behaviors.peer_eject_after_ms,
+            port.behaviors.peer_readmit_after_ms) == (1500, 250)
