@@ -2,8 +2,9 @@
 """On-GPU smoke of the PyTorch port (gubernator_tpu_torch): builds its
 CUDA kernels, holds each against its plain PyTorch version at full size,
 and drives the port's serving paths through them: the daemon on the
-bucket engine (K1), a cluster of bucket-engine daemons, and the daemon
-on the classic SoA engine (K2).
+bucket engine (K1), a cluster of bucket-engine daemons, the daemon on
+the classic SoA engine (K2), and a daemon whose 10M keys outgrow its
+table, served by the cold tier behind it.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -59,6 +60,18 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
    the same engine and table), checked per key, printed beside the
    pipelined rounds (rates, p50 / p99, inline share, the worker's lock
    wait);
+   topkeys: /debug/topkeys after those rounds (every tap folded first):
+   the TOPKEYS_CHECKED hottest ranks present, each count at most the
+   hits sent plus its err and, with no tap dropped, at least the hits
+   sent; the taps dropped are printed;
+   analytics off: one wire round and one object round with the
+   analytics detached (the instance's taps and device tap unhooked, as
+   JAX's bench detaches them; the worker stays, idle), after the
+   default rounds, each printed beside them (``... analytics on vs
+   off:`` lines); then one object round of 8 x profile-batches with the
+   analytics on and one detached, each under a host profile (the CPU
+   seconds of the dispatcher's and the analytics' workers, a stack
+   sample every 5 ms);
    admission: one round of wire traffic with the admission bound at
    ADMISSION_ROWS rows: some batches must shed (ResourceExhausted,
    queue_full), the admitted ones are checked per key, and the shed
@@ -133,6 +146,31 @@ cluster: 3 daemons in this process (cluster.start_with), each with a
    the same traffic as wire bytes through get_rate_limits_wire (the
    pipeline on), and one more with GUBER_PIPELINE=0, printed side by
    side.  K2's launch count must grow across the object and wire rounds.
+8. tiers: a daemon on the bucket engine with GUBER_TIER_COLD=1, the
+   analytics on and a snapshot path, its table 2^23 rows (1 GiB, a
+   quarter of phase 5's; the one cut, so the 10M keys outgrow it).
+   The FileLoader writes the 10M-key population (TOKEN rows as phase 5
+   has them, every 10th LEAKY, every 100th at a limit of 2^40) and the
+   daemon restores it: the rows on the device plus the cold rows must
+   be every row written, none dropped, each row in the tier its bucket
+   predicts (every 2^40 row cold); prints the file's load and the
+   restore ms, and the item path against the column path on 1M rows.
+   Then rounds of phase 5's wire traffic (2 timed of 8 x 100, a
+   profiled 8 x 20), every key exact whatever its tier, each printing
+   decisions/s, p50 / p99, cold-served rows and their share,
+   promotions, demotions, aborted migrations and the resolve ms;
+   promotions and K1 launches must be > 0.  Every cold key a resolve
+   offers for promotion is logged with the rank it read and the
+   outcome (untracked, under the threshold, outside K1's domain, no
+   colder victim, aborted, promoted), printed by the key's population
+   rank (``tiers admission:``).  Then 2^40 requests on new
+   keys through both lanes, answered exactly from the cold tier;
+   remove() of a device and a cold key (gone, the next request fresh);
+   close() writes the snapshot (ms, bytes) and a second daemon restores
+   both tiers equal, row for row; last, an object-lane round with a
+   counting Store on a small instance with the cold tier (on_change =
+   answers, get = misses, each key in one tier) and the same traffic
+   as wire bytes through the object path, answering the same.
 
 The line before the last is a JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -147,7 +185,7 @@ import sys
 import threading
 import time
 import urllib.request
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import NamedTuple
 
 import numpy as np
@@ -214,6 +252,18 @@ OUTAGE_MAX_BATCHES = 200
 #: how long a gate flip or a handover may take before the run stops
 FLIP_S = 60.0
 HANDOVER_S = 900.0
+#: /debug/topkeys after phase 5: the hottest ranks checked, out of the
+#: keys the document is asked for
+TOPKEYS_CHECKED = 16
+TOPKEYS_LIMIT = 64
+#: the tiers phase's population: every TIER_LEAKY_EVERY-th row LEAKY,
+#: every TIER_OOD_EVERY-th at a limit of OOD_LIMIT (outside K1's domain)
+TIER_LEAKY_EVERY = 10
+TIER_OOD_EVERY = 100
+OOD_LIMIT = 1 << 40
+#: rows of the item path against the column path (a Loader's items are
+#: Python objects: the whole population would take minutes)
+ITEM_PATH_ROWS = 1_000_000
 
 
 def require(ok, what: str) -> None:
@@ -722,6 +772,32 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
             for rec in off:
                 tally.add(rec["per"], rec["results"])
             rebuild_dispatcher(inst, timer)  # the default dispatcher again
+        with phase("topkeys"):
+            topkeys = check_topkeys(d, tally, pop_keys)
+        with phase("analytics off"):
+            # one wire round and one object round with the analytics
+            # detached, after the topkeys check (the sketch misses them)
+            decide_cuda.launches = 0
+            with analytics_detached(inst):
+                noana = wire_rounds(torch, inst, wire_per(1, False), key_of,
+                                    limit, duration, profile_last=False)
+                noana_launches = decide_cuda.launches
+                per = [[zipf_ranks(rng, 1.1, len(pop_idx), 1000)
+                        for _ in range(args.batches)]
+                       for _ in range(args.threads)]
+                jobs = [[[RateLimitRequest(name="smoke",
+                                           unique_key=key_of(r), hits=1,
+                                           limit=limit, duration=duration)
+                          for r in ranks] for ranks in thread]
+                        for thread in per]
+                obj_off = drive(inst.get_rate_limits, jobs)
+            for rec in noana:
+                tally.add(rec["per"], rec["results"])
+            tally.add(per, obj_off[3])
+        with phase("object lane host profile"):
+            host_profile = profiled_object_rounds(
+                inst, rng, len(pop_idx), key_of, limit, duration, args,
+                timer, pauses, tally)
         with phase("admission"):
             shed = admission_round(inst, rng, len(pop_idx), key_of, limit,
                                    duration, args, tally)
@@ -774,6 +850,26 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
         off, off_launches, "wire path, pipeline off", profiled_last=False)
     res["pipeline"] = pipeline_compare("wire path", res["wire"],
                                        res["wire_pipeline_off"])
+    res["topkeys"] = topkeys
+    res["wire_analytics_off"] = wire_summary(
+        [wire_round_stats(rec, timer, inline, pauses) for rec in noana],
+        noana, noana_launches, "wire path, analytics off",
+        profiled_last=False)
+    res["analytics"] = analytics_compare("wire path", res["wire"],
+                                         res["wire_analytics_off"])
+    t0, wall, lat, results = obj_off
+    off = round_stats(wall, lat, [w for w in timer.rec
+                                  if t0 <= w[0] <= t0 + wall],
+                      sum(len(b) for r in results.values() for b in r),
+                      [p for p in pauses if t0 <= p[0] <= t0 + wall])
+    res["object_analytics_off"] = off
+    print(f"object lane, analytics off round: {json.dumps(off)}", flush=True)
+    res["object_analytics"] = {
+        k: {"on": res[k], "off": off[k]}
+        for k in ("decisions_per_s", "p50_ms", "p99_ms")}
+    print(f"object lane analytics on vs off: "
+          f"{json.dumps(res['object_analytics'])}", flush=True)
+    res["object_host_profile"] = host_profile
     print(f"pipeline: depth {health['pipeline_depth']}, "
           f"{res['wire']['pipelined_waves']} packed_pipelined waves, "
           f"largest slot {res['wire']['max_slot']}, inline share "
@@ -1654,20 +1750,26 @@ def pipeline_compare(label: str, on: dict, off: dict) -> dict:
 
 
 @contextmanager
-def pipeline_env(value: str):
-    """GUBER_PIPELINE set to ``value`` inside (a dispatcher reads it when
-    it is built), restored after."""
+def scoped_env(name: str, value: str):
+    """``name`` set to ``value`` inside (instances and dispatchers read
+    their GUBER_* knobs when built), restored after."""
     import os
 
-    old = os.environ.get("GUBER_PIPELINE")
-    os.environ["GUBER_PIPELINE"] = value
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            del os.environ["GUBER_PIPELINE"]
+            del os.environ[name]
         else:
-            os.environ["GUBER_PIPELINE"] = old
+            os.environ[name] = old
+
+
+def pipeline_env(value: str):
+    """GUBER_PIPELINE set to ``value`` inside (a dispatcher reads it when
+    it is built), restored after."""
+    return scoped_env("GUBER_PIPELINE", value)
 
 
 def rebuild_dispatcher(inst, timer) -> None:
@@ -2948,6 +3050,686 @@ def profile_device(torch, run):
                  "ms_by_kind": by_kind}
 
 
+def check_topkeys(d, tally, key_hashes) -> dict:
+    """/debug/topkeys after phase 5's rounds (all taps folded first): the
+    16 hottest ranks are present, each count at most the hits sent plus
+    its ``err``, and, where no tap was dropped, at least the hits sent
+    (Space-Saving's bounds).  ``key_hashes[r]`` is rank r's key hash."""
+    ana = d.instance.analytics
+    require(ana.flush(timeout=120.0), "analytics flush timed out")
+    code, doc = get_json(d.http_port, f"/debug/topkeys?limit={TOPKEYS_LIMIT}")
+    require(code == 200, f"/debug/topkeys {code}")
+    by_hash = {int(e["khash"], 16): e for e in doc["keys"]}
+    dropped = metric_total(d.instance,
+                           "gubernator_analytics_tap_dropped_total")
+    rows = []
+    for r in range(TOPKEYS_CHECKED):
+        e = by_hash.get(int(key_hashes[r]))
+        require(e is not None, f"rank {r} missing from /debug/topkeys")
+        sent = tally.count.get(r, 0)
+        require(e["hits"] <= sent + e["err"],
+                f"rank {r}: count {e['hits']} > sent {sent} + err {e['err']}")
+        if dropped == 0:
+            require(e["hits"] >= sent,
+                    f"rank {r}: count {e['hits']} < sent {sent}")
+        rows.append({"rank": r, "sent": sent, "count": e["hits"],
+                     "err": e["err"], "over_limit": e["over_limit"]})
+    out = {"taps_dropped": dropped, "waves_tapped": doc["waves_tapped"],
+           "tracked_keys": doc["tracked_keys"], "width": doc["width"],
+           "total_hits_observed": doc["total_hits_observed"],
+           "admission_error_bound": doc["admission_error_bound"],
+           "hottest": rows}
+    print(f"topkeys: {json.dumps(out)}", flush=True)
+    return out
+
+
+class HostProfile:
+    """A host profile of a window: the CPU seconds of the daemon's
+    long-lived threads (the dispatcher's worker, the analytics worker)
+    from each thread's CPU clock and the process's, and a stack sample
+    of every thread each ``period_s``, tallied per thread by the
+    innermost frame of this repo's code (``waiting:`` when the leaf is
+    a lock or queue wait).  The sampler takes the GIL too, so compare
+    only windows that ran it."""
+
+    THREADS = ("device-dispatcher", "key-analytics")
+
+    def __init__(self, period_s: float = 0.005):
+        self.period_s = period_s
+        self.result: dict = {}
+
+    @staticmethod
+    def _cpu(t) -> float:
+        return time.clock_gettime(time.pthread_getcpuclockid(t.ident))
+
+    @staticmethod
+    def _label(frame) -> str:
+        import os
+
+        leaf = os.path.basename(frame.f_code.co_filename)
+        f = frame
+        while f is not None:
+            fn = f.f_code.co_filename
+            if "gubernator_tpu_torch" in fn or fn.endswith("chip_smoke.py"):
+                at = f"{os.path.basename(fn)}:{f.f_code.co_name}"
+                break
+            f = f.f_back
+        else:
+            at = f"{leaf}:{frame.f_code.co_name}"
+        return f"waiting: {at}" if leaf in ("threading.py", "queue.py") \
+            else at
+
+    def _run(self) -> None:
+        from collections import Counter
+
+        while not self._stop.wait(self.period_s):
+            names = {t.ident: t.name for t in threading.enumerate()}
+            for ident, frame in sys._current_frames().items():
+                name = names.get(ident, "")
+                if name == "host-profile":
+                    continue
+                group = name if name in self.THREADS else "others"
+                self._samples.setdefault(group, Counter())[
+                    self._label(frame)] += 1
+            self._n += 1
+
+    def __enter__(self):
+        self._stop = threading.Event()
+        self._samples: dict = {}
+        self._n = 0
+        self._clock0 = {t.name: (t, self._cpu(t))
+                        for t in threading.enumerate()
+                        if t.name in self.THREADS}
+        self._t0, self._p0 = time.perf_counter(), time.process_time()
+        self._th = threading.Thread(target=self._run, name="host-profile",
+                                    daemon=True)
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._th.join()
+        wall = time.perf_counter() - self._t0
+        threads = {}
+        for name, (t, c0) in self._clock0.items():
+            if t.is_alive():
+                cpu = self._cpu(t) - c0
+                threads[name] = {"cpu_s": cpu, "cpu_share_of_wall": cpu / wall}
+        self.result = {
+            "wall_s": wall, "process_cpu_s": time.process_time() - self._p0,
+            "samples": self._n, "threads": threads,
+            "top": {g: [[k, v] for k, v in c.most_common(8)]
+                    for g, c in sorted(self._samples.items())}}
+
+
+def profiled_object_rounds(inst, rng, n_keys, key_of, limit, duration,
+                           args, timer, pauses, tally) -> dict:
+    """One object-lane round of 8 x ``profile_batches`` with the
+    analytics on, then one detached, each under a HostProfile: where the
+    host's time goes with and without the default analytics."""
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    out = {"order": ["on", "off"]}
+    for state in out["order"]:
+        per = [[zipf_ranks(rng, 1.1, n_keys, 1000)
+                for _ in range(args.profile_batches)]
+               for _ in range(args.threads)]
+        jobs = [[[RateLimitRequest(name="smoke", unique_key=key_of(r),
+                                   hits=1, limit=limit, duration=duration)
+                  for r in ranks] for ranks in thread] for thread in per]
+        with (analytics_detached(inst) if state == "off"
+              else nullcontext()), HostProfile() as prof:
+            t0, wall, lat, results = drive(inst.get_rate_limits, jobs)
+        tally.add(per, results)
+        st = round_stats(wall, lat, [w for w in timer.rec
+                                     if t0 <= w[0] <= t0 + wall],
+                         sum(len(b) for r in results.values() for b in r),
+                         [p for p in pauses if t0 <= p[0] <= t0 + wall])
+        out[state] = {"round": st, "profile": prof.result}
+        print(f"object lane host profile, analytics {state}: "
+              f"{json.dumps(out[state])}", flush=True)
+    return out
+
+
+def analytics_compare(label: str, on: dict, off: dict) -> dict:
+    """The wire path with the analytics on (the default) and detached,
+    side by side from one run."""
+    keys = ("decisions_per_s", "p50_ms", "p99_ms", "worker_busy_share",
+            "launches")
+    out = {k: {"on": on[k], "off": off[k]} for k in keys}
+    print(f"{label} analytics on vs off: {json.dumps(out)}", flush=True)
+    return out
+
+
+@contextmanager
+def analytics_detached(inst):
+    """The instance's analytics detached from the serving path (the
+    dispatcher's taps and the engine's device tap): what an instance
+    built under GUBER_ANALYTICS=0 serves with, on the same table."""
+    ana, sink = inst.dispatcher.analytics, inst.engine.tap_sink
+    inst.dispatcher.analytics = None
+    inst.engine.tap_sink = None
+    try:
+        yield
+    finally:
+        inst.dispatcher.analytics = ana
+        inst.engine.tap_sink = sink
+
+
+def tier_population(n_keys: int, limit: int, duration: int, t0: int):
+    """The snapshot the tiers phase restores: phase 5's key names
+    (smoke_k%08d, rank r = index r), TOKEN rows at ``limit`` and full,
+    every TIER_LEAKY_EVERY-th row LEAKY (full), every TIER_OOD_EVERY-th
+    at a limit of 2^40 (outside K1's domain).  Returns (row columns,
+    the 2^40 rows' mask)."""
+    idx = np.arange(n_keys, dtype=np.int64)
+    rows = token_rows(smoke_hashes(idx), limit, duration, t0)
+    leaky = idx % TIER_LEAKY_EVERY == TIER_LEAKY_EVERY // 2
+    ood = idx % TIER_OOD_EVERY == 0
+    rows["meta"][leaky] = 1
+    rows["remaining"][leaky] = limit * duration  # td units: full
+    rows["limit"][ood] = OOD_LIMIT
+    rows["burst"][ood] = OOD_LIMIT
+    rows["remaining"][ood] = OOD_LIMIT
+    return rows, ood
+
+
+def predicted_cold(keys: np.ndarray, ood: np.ndarray, log2_cap: int):
+    """The rows a restore into an empty 2^log2_cap-row bucket table puts
+    in the cold tier: every 2^40 row, and each in-domain row that finds
+    its 8-slot bucket full when the rows are placed in order."""
+    nb = 1 << (log2_cap - 3)
+    cold = ood.copy()
+    ind = np.nonzero(~ood)[0]
+    bucket = (keys[ind] & np.uint64(nb - 1)).astype(np.int64)
+    cold[ind[~bucket_fit(bucket)]] = True
+    return cold
+
+
+def tier_union(inst) -> dict:
+    """Both tiers' rows as store.py columns sorted by key."""
+    parts = [inst.engine.snapshot()]
+    cold = inst._tier.snapshot_arrays()
+    if cold is not None:
+        parts.append(cold)
+    cols = {f: np.concatenate([np.asarray(p[f]) for p in parts])
+            for f in parts[0]}
+    order = np.argsort(cols["key"], kind="stable")
+    return {f: c[order] for f, c in cols.items()}
+
+
+class AdmissionLog:
+    """Why each cold key that a resolve offered for admission was, or
+    was not, promoted.  It wraps one TierController's rank feed,
+    ``_admit``, ``promote`` and ``_pick_victim`` on the instance (the
+    smoke's instrumentation, not the port's): the rank logged is the one
+    ``_admit`` read.  The flight recorder's ring is overrun by wave
+    events within a round, so the log is kept here."""
+
+    BANDS = (100, 1_000, 10_000)
+
+    def __init__(self, tier):
+        from collections import Counter
+
+        self.tier = tier
+        self.offers: Counter = Counter()
+        self.final: dict = {}  # khash -> (reason, rank read)
+        self.promoted: list = []  # (khash, rank read)
+        self._admitting, self._why = False, None
+        self._saved = {f: getattr(tier, f) for f in
+                       ("rank_fn", "_admit", "promote", "_pick_victim")}
+        rank_fn, admit, promote, pick = self._saved.values()
+        thr = tier.promote_threshold
+
+        def logged_rank(kh):
+            r = rank_fn(kh)
+            if self._admitting and r < thr:
+                self._note(kh, r, "untracked" if r == 0
+                           else "under_threshold")
+            return r
+
+        def logged_admit(engine, khs):
+            self._admitting = True
+            try:
+                admit(engine, khs)
+            finally:
+                self._admitting = False
+
+        def logged_promote(engine, kh, rank):
+            self._admitting, self._why = False, None
+            row = tier.peek_row(kh)
+            gate = getattr(engine, "tier_row_admissible", None)
+            outside = (row is not None and gate is not None and not gate(
+                tuple(row.values())))
+            d0 = tier.demotions
+            try:
+                ok = promote(engine, kh, rank)
+            finally:
+                self._admitting = True
+            if ok:
+                why = ("promoted_evicting" if tier.demotions > d0
+                       else "promoted_free_slot")
+                self.promoted.append((int(kh), int(rank)))
+            else:
+                why = ("outside_domain" if outside
+                       else self._why or "aborted")
+            self._note(kh, rank, why)
+            return ok
+
+        def logged_pick(engine, kh, rank):
+            v = pick(engine, kh, rank)
+            if v is None:
+                self._why = "no_colder_victim"
+            return v
+
+        tier.rank_fn, tier._admit = logged_rank, logged_admit
+        tier.promote, tier._pick_victim = logged_promote, logged_pick
+
+    def _note(self, kh, rank, why):
+        self.offers[why] += 1
+        self.final[int(kh)] = (why, int(rank))
+
+    def close(self) -> None:
+        for f, v in self._saved.items():
+            setattr(self.tier, f, v)
+
+    def summary(self, pop_keys: np.ndarray, analytics) -> dict:
+        """Offers and distinct keys by reason, the distinct keys by their
+        population rank's band, and each promotion's population rank
+        (``pop_keys[r]`` is rank r's key hash)."""
+        pop_keys = np.asarray(pop_keys).astype(np.uint64)
+        order = np.argsort(pop_keys)
+
+        def pop_rank(khs):
+            khs = np.asarray(khs, np.uint64)
+            at = np.clip(np.searchsorted(pop_keys[order], khs), 0,
+                         len(order) - 1)
+            return np.where(pop_keys[order][at] == khs, order[at], -1)
+
+        keys = list(self.final)
+        ranks = pop_rank(keys)
+        edges = (0,) + self.BANDS + (len(pop_keys),)
+        bands = {}
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            sel = [self.final[k][0] for k, r in zip(keys, ranks)
+                   if lo <= r < hi]
+            bands[f"{lo}-{hi}"] = {w: sel.count(w) for w in sorted(set(sel))}
+        reasons = [v[0] for v in self.final.values()]
+        tracked = analytics.rank_distribution(limit=analytics.sketch.width)
+        return {
+            "threshold": self.tier.promote_threshold,
+            "sketch_width": analytics.sketch.width,
+            "sketch_floor": min(tracked) if tracked else 0,
+            "offers": dict(self.offers),
+            "keys": {w: reasons.count(w) for w in sorted(set(reasons))},
+            "keys_by_population_rank": bands,
+            "promoted": [{"population_rank": int(r), "sketch_rank": k}
+                         for (_, k), r in zip(
+                             self.promoted,
+                             pop_rank([kh for kh, _ in self.promoted]))]}
+
+
+def tier_stats_delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in ("cold_served", "promotions",
+                                     "demotions", "migrations_aborted")}
+
+
+def item_path_ms(torch, rows: dict, n: int, log2_cap: int) -> dict:
+    """A Loader's item path against the FileLoader's column path on the
+    first ``n`` rows: items_from_arrays, arrays_from_items and a restore
+    into a fresh table, against normalized_arrays and the same restore
+    (each into its own table on the card)."""
+    from gubernator_tpu_torch.engine import BucketEngine
+    from gubernator_tpu_torch.store import (arrays_from_items,
+                                            items_from_arrays,
+                                            normalized_arrays)
+
+    sub = {f: c[:n] for f, c in rows.items()}
+    out = {"rows": n}
+    for path in ("item", "column"):
+        eng = BucketEngine(device=DEVICE, capacity=1 << log2_cap)
+        t = time.perf_counter()
+        arrays = (arrays_from_items(items_from_arrays(sub))
+                  if path == "item" else normalized_arrays(sub))
+        eng.restore(arrays)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        out[f"{path}_ms"] = (time.perf_counter() - t) * 1e3
+        del eng, arrays
+    return out
+
+
+def tier_ood_round(inst, lane: str, n_keys: int, rounds: int = 3) -> int:
+    """Requests at a limit of 2^40 on new keys (no device row) through
+    one lane: every answer exact from the cold tier, none table_full.
+    Returns the requests sent."""
+    from gubernator_tpu_torch.hashing import hash_request_keys
+    from gubernator_tpu_torch.types import RateLimitRequest
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    names = [f"{lane}{i}" for i in range(n_keys)]
+    used = np.zeros(n_keys, np.int64)
+    sent = 0
+    for rnd in range(rounds):
+        hits = [(i * 7 + rnd * 13) % 1000 + 1 for i in range(n_keys)]
+        reqs = [RateLimitRequest(name="big", unique_key=k, hits=h,
+                                 limit=OOD_LIMIT, duration=3_600_000)
+                for k, h in zip(names, hits)]
+        if lane == "wire":
+            out = decode_responses(inst.get_rate_limits_wire(
+                encode_get_rate_limits(reqs)))
+        else:
+            out = inst.get_rate_limits(reqs)
+        used += hits
+        for i, r in enumerate(out):
+            require(not r.error, f"2^40 row answered {r.error!r}")
+            require((r.status, r.limit, r.remaining) ==
+                    (0, OOD_LIMIT, OOD_LIMIT - int(used[i])),
+                    f"2^40 row {names[i]}: {r}")
+        sent += len(reqs)
+    kh = hash_request_keys(["big"] * n_keys, names)
+    found, _ = inst.engine.gather_rows(kh)
+    require(not found.any() and inst._tier.resident_mask(kh).all(),
+            "a 2^40 row left the cold tier")
+    return sent
+
+
+def tier_remove_check(inst, rows: dict, tally, limit: int,
+                      duration: int) -> dict:
+    """remove() of one device-resident and one cold TOKEN key that the
+    rounds never sent to: 5 hits each first, then the remove; both gone
+    from both tiers, and the next request starts a fresh bucket."""
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    keys = rows["key"]
+    token = np.asarray(rows["meta"]) == 0
+    token &= np.asarray(rows["limit"]) == limit
+    cold = inst._tier.resident_mask(keys)
+    picked = {}
+    for where, mask in (("device", ~cold), ("cold", cold)):
+        cand = np.nonzero(mask & token)[0]
+        r = next(int(i) for i in cand[::-1] if int(i) not in tally.count)
+        picked[where] = r
+    out = {}
+    for where, r in picked.items():
+        name = f"k{r:08d}"
+        req = RateLimitRequest(name="smoke", unique_key=name, hits=5,
+                               limit=limit, duration=duration)
+        first = inst.get_rate_limits([req])[0]
+        require(first.remaining == limit - 5 and not first.error,
+                f"remove {where}: {first}")
+        require(inst.remove("smoke", name), f"remove {where}: no row")
+        kh = keys[r:r + 1]
+        found, _ = inst.engine.gather_rows(kh)
+        require(not found[0] and inst._tier.peek_row(int(kh[0])) is None,
+                f"remove {where}: the row is still held")
+        nxt = inst.get_rate_limits([RateLimitRequest(
+            name="smoke", unique_key=name, hits=1, limit=limit,
+            duration=duration)])[0]
+        require(nxt.remaining == limit - 1 and not nxt.error,
+                f"remove {where}: next request {nxt}")
+        out[where] = {"rank": r, "after_remove": nxt.remaining}
+    return out
+
+
+def tier_store_round(torch, threads: int, batches: int, n_keys: int,
+                     seed: int) -> dict:
+    """A short object-lane round with a counting Store (MockStore) on a
+    small instance on the card with the cold tier, its 1024-row table
+    outgrown by the keys: ``on_change`` counts the answers without an
+    error and ``get`` the requests whose key neither tier held (every
+    first sight of a key; a cold key is no miss), and every key seen
+    ends in exactly one tier.  The same traffic as wire bytes through a
+    second such instance takes the object path (a Store is set) and
+    answers the same."""
+    from gubernator_tpu_torch.config import Config
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.store import MockStore
+    from gubernator_tpu_torch.types import RateLimitRequest
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    rng = np.random.default_rng(seed)
+    traffic = [[zipf_ranks(rng, 1.1, n_keys, 1000) for _ in range(batches)]
+               for _ in range(threads)]
+    stores = [MockStore(), MockStore()]
+    insts = [V1Instance(Config(cache_size=1 << 10, device=DEVICE,
+                               store=s, tier_cold=True)) for s in stores]
+    try:
+        answers, seen, misses, ok = [], set(), 0, 0
+        for thread in traffic:
+            for ranks in thread:
+                reqs = [RateLimitRequest(name="store", unique_key=f"s{r}",
+                                         hits=1, limit=50,
+                                         duration=3_600_000)
+                        for r in ranks.tolist()]
+                misses += sum(r not in seen for r in ranks.tolist())
+                seen.update(ranks.tolist())
+                a = [(int(x.status), x.limit, x.remaining, x.error)
+                     for x in insts[0].get_rate_limits(reqs)]
+                b = [(x.status, x.limit, x.remaining, x.error)
+                     for x in decode_responses(insts[1].get_rate_limits_wire(
+                         encode_get_rate_limits(reqs)))]
+                require(a == b, "the Store's wire lane answered otherwise")
+                ok += sum(not x[3] for x in a)
+                answers.append(len(a))
+        calls = [dict(s.called) for s in stores]
+        wire_pb2 = insts[1].metrics.registry.get_sample_value(
+            "gubernator_wire_lane_requests_total", {"lane": "pb2_fallback"})
+        tiers = []
+        for inst in insts:
+            dev = set(np.asarray(inst.engine.snapshot()["key"]).tolist())
+            cold = inst._tier.snapshot_arrays()
+            cold = set() if cold is None else set(
+                np.asarray(cold["key"]).tolist())
+            require(not dev & cold, f"{len(dev & cold)} keys in both tiers")
+            require(len(dev) + len(cold) == len(seen),
+                    f"{len(dev)} + {len(cold)} rows for {len(seen)} keys")
+            tiers.append({"device_rows": len(dev), "cold_rows": len(cold)})
+    finally:
+        for inst in insts:
+            inst.close()
+    res = {"requests": sum(answers), "store_calls": calls[0],
+           "wire_store_calls": calls[1], "misses": misses, "answered": ok,
+           "wire_pb2_rows": wire_pb2, "tiers": tiers}
+    print(f"tiers store: {json.dumps(res)}", flush=True)
+    require(calls[0]["on_change"] == ok == sum(answers),
+            f"on_change {calls[0]['on_change']} != answers {ok}")
+    require(calls[0]["get"] == misses, f"get {calls[0]['get']} != misses "
+            f"{misses}")
+    require(calls[1] == calls[0], "the wire lane's Store calls differ")
+    require(wire_pb2 == sum(answers), f"wire rows on the object path "
+            f"{wire_pb2}")
+    return res
+
+
+def phase_tiers(torch, args) -> dict:
+    """The tiers phase: a 2^tier_log2_cap-row bucket table behind which
+    the cold tier holds what the 10M keys overflow; see the docstring."""
+    import os
+    import shutil
+    import tempfile
+
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.hashing import hash_request_keys
+    from gubernator_tpu_torch.ops.decide import decide_cuda
+    from gubernator_tpu_torch.store import FileLoader
+
+    limit, duration = 100, 3_600_000
+    cap = args.tier_log2_cap
+    n = args.keys
+    res: dict = {"table_rows": 1 << cap,
+                 "table_gib": (1 << cap) * 128 / 2 ** 30, "keys": n}
+    print(f"tiers: a 2^{cap}-row bucket table ({res['table_gib']} GiB, a "
+          f"quarter of phase 5's rows) for {n} keys: the one cut; the "
+          f"cold tier holds what it cannot", flush=True)
+    tmp = tempfile.mkdtemp(prefix="guber-tiers-")
+    path = os.path.join(tmp, "snapshot.npz")
+    pauses: list = []
+    on_gc = time_gc(pauses)
+    gc.callbacks.append(on_gc)
+    d = d2 = None
+    try:
+        fill_t = int(time.time() * 1000) - 1_000
+        rows, ood = tier_population(n, limit, duration, fill_t)
+        t = time.perf_counter()
+        FileLoader(path).save_arrays(rows)
+        res["snapshot_in"] = {"write_ms": (time.perf_counter() - t) * 1e3,
+                              "file_bytes": os.path.getsize(path),
+                              "rows": n, "leaky_rows": int(
+                                  (rows["meta"] == 1).sum()),
+                              "ood_rows": int(ood.sum())}
+        t = time.perf_counter()
+        FileLoader(path).load_arrays()  # the file alone: decompress
+        res["snapshot_in"]["load_ms"] = (time.perf_counter() - t) * 1e3
+        res["item_vs_column"] = item_path_ms(
+            torch, rows, min(n, ITEM_PATH_ROWS), cap)
+        cfg = DaemonConfig(http_listen_address="127.0.0.1:0",
+                           grpc_listen_address="", cache_size=1 << cap,
+                           batch_rows=1024, device=DEVICE,
+                           snapshot_path=path)
+        with scoped_env("GUBER_TIER_COLD", "1"):
+            t = time.perf_counter()
+            d = spawn_daemon(cfg)
+            spawn_ms = (time.perf_counter() - t) * 1e3
+        inst = d.instance
+        tier = inst._tier
+        want_cold = predicted_cold(
+            rows["key"], ood, inst.engine.cap_local.bit_length() - 1)
+        res["snapshot_in"]["predicted_cold"] = int(want_cold.sum())
+        warm = hash_request_keys(["_warmup"], ["w"])
+        warm_cold = bool(tier.resident_mask(warm)[0])
+        cold_mask = tier.resident_mask(rows["key"])
+        dev_rows = inst.engine.occupancy() - (not warm_cold)
+        cold_rows = tier.cold_keys() - warm_cold
+        res["restore"] = {
+            "column_path_ms": inst.analytics.phases.snapshot()["restore"][
+                "total_ms"],
+            "spawn_ms": spawn_ms, "device_rows": dev_rows,
+            "cold_rows": cold_rows, "dropped_rows": inst.engine.dropped_rows,
+            "cold_share": cold_rows / n,
+            "native_store": tier.stats()["native"]}
+        print(f"tiers restore: {json.dumps(res['restore'])}; item path vs "
+              f"column path: {json.dumps(res['item_vs_column'])}",
+              flush=True)
+        require(dev_rows + cold_rows == n and inst.engine.dropped_rows == 0,
+                f"restore kept {dev_rows} + {cold_rows} of {n} rows")
+        require((cold_mask == want_cold).all(),
+                f"{int((cold_mask != want_cold).sum())} rows in another tier "
+                "than their buckets predict")
+        require(cold_mask[ood].all(), "a 2^40 row on the device")
+
+        # served: phase 5's wire traffic over the 10M keys
+        key_of = lambda r: f"k{r:08d}"  # noqa: E731
+        timer = WaveTimer(inst)
+        tally = Tally(limit)
+        rng = np.random.default_rng(args.seed + 10)
+        decide_cuda.launches = 0
+        rounds = []
+        admission = AdmissionLog(tier)
+        for rnd in range(args.rounds + 1):
+            profiled = rnd == args.rounds
+            per = [[zipf_ranks(rng, 1.1, n, 1000) for _ in range(
+                args.profile_batches if profiled else args.batches)]
+                for _ in range(args.threads)]
+            s0, r0 = tier.stats(), tier.resolve_s
+            rec = wire_rounds(torch, inst, [per], key_of, limit, duration,
+                              profile_last=profiled)[0]
+            s1 = tier.stats()
+            tally.add(rec["per"], rec["results"])
+            st = wire_round_stats(rec, timer, [], pauses)
+            st.update(tier_stats_delta(s0, s1))
+            st["cold_share"] = st["cold_served"] / rec["n_req"]
+            st["resolve_ms"] = (tier.resolve_s - r0) * 1e3
+            st["cold_keys"] = s1["cold_keys"]
+            rounds.append((rec, st))
+            print(f"tiers round {rnd}{' (profiled)' if profiled else ''}: "
+                  f"{json.dumps(st)}", flush=True)
+        launches = decide_cuda.launches
+        admission.close()
+        tally.check()
+        timed = [st for _, st in rounds[:-1]]
+        lat_ms = np.concatenate([np.asarray(rec["lat"])
+                                 for rec, _ in rounds[:-1]]) * 1e3
+        res["served"] = {
+            "decisions_per_s": float(np.mean([s["decisions_per_s"]
+                                              for s in timed])),
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "cold_share": float(np.mean([s["cold_share"] for s in timed])),
+            "promotions": sum(s["promotions"] for _, s in rounds),
+            "demotions": sum(s["demotions"] for _, s in rounds),
+            "migrations_aborted": sum(s["migrations_aborted"]
+                                      for _, s in rounds),
+            "resolve_ms": sum(s["resolve_ms"] for _, s in rounds),
+            "requests": tally.n_req, "keys": len(tally.count),
+            "launches": launches,
+            "device": rounds[-1][1]["device"], "rounds": [s for _, s in rounds]}
+        print(f"tiers served: {tally.n_req} decisions over "
+              f"{len(tally.count)} keys, each key exact; "
+              f"{res['served']['decisions_per_s']} decisions/s; p50 "
+              f"{res['served']['p50_ms']} ms p99 {res['served']['p99_ms']} ms; "
+              f"cold share {res['served']['cold_share']}; promotions "
+              f"{res['served']['promotions']}, demotions "
+              f"{res['served']['demotions']}; K1 launches {launches}",
+              flush=True)
+        require(launches > 0, "the tiers phase never launched K1")
+        res["served"]["admission"] = adm = admission.summary(
+            rows["key"], inst.analytics)
+        print(f"tiers admission: {json.dumps(adm)}", flush=True)
+        require(adm["offers"].get("promoted_free_slot", 0)
+                + adm["offers"].get("promoted_evicting", 0)
+                == res["served"]["promotions"],
+                "the admission log disagrees with the tier's promotions")
+        require(res["served"]["promotions"] > 0, "no cold row was promoted")
+
+        # out of domain, on both lanes
+        res["ood"] = {lane: tier_ood_round(inst, lane, 64)
+                      for lane in ("object", "wire")}
+        res["remove"] = tier_remove_check(inst, rows, tally, limit, duration)
+        print(f"tiers ood and remove: {json.dumps([res['ood'], res['remove']])}",
+              flush=True)
+        del rows, ood, want_cold, cold_mask
+
+        # snapshot out and back
+        before = tier_union(inst)
+        stats = tier.stats()
+        d.close()
+        d_inst, d = inst, None
+        res["snapshot_out"] = {
+            "ms": d_inst.analytics.phases.snapshot()["snapshot"]["total_ms"],
+            "file_bytes": os.path.getsize(path),
+            "rows": len(before["key"]), "cold_rows": stats["cold_keys"]}
+        del d_inst, inst, tier
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        with scoped_env("GUBER_TIER_COLD", "1"):
+            d2 = spawn_daemon(cfg)
+        d2.instance.loader = None  # its close saves nothing
+        after = tier_union(d2.instance)
+        d2.close()
+        d2 = None
+        keep_b = before["key"] != warm[0]
+        keep_a = after["key"] != warm[0]
+        for f in before:
+            require(np.array_equal(before[f][keep_b], after[f][keep_a]),
+                    f"snapshot round trip: column {f} differs")
+        res["snapshot_out"]["restored_rows"] = int(keep_a.sum())
+        print(f"tiers snapshot out and back: {json.dumps(res['snapshot_out'])}",
+              flush=True)
+        del before, after
+        res["store"] = tier_store_round(torch, args.threads, 2, 5_000,
+                                        args.seed + 11)
+    finally:
+        for dd in (d, d2):
+            if dd is not None:
+                dd.close()
+        gc.callbacks.remove(on_gc)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2-cap", type=int, default=25,
@@ -2981,6 +3763,8 @@ def main(argv=None) -> int:
                          "rehomed and recovered rounds")
     ap.add_argument("--handover-log2-cap", type=int, default=22,
                     help="the joining daemon's bucket-table rows (log2)")
+    ap.add_argument("--tier-log2-cap", type=int, default=23,
+                    help="the tiers phase's bucket-table rows (log2)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3019,9 +3803,14 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     with phase("classic main path"):
         c = phase_classic_main_path(torch, args)
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    with phase("tiers"):
+        tiers = phase_tiers(torch, args)
     print(json.dumps({"main_path": m, "cluster": cl, "kernel_detail": k,
                       "classic_main_path": c, "sweep_detail": k2,
-                      "probe_detail": k3}), flush=True)
+                      "probe_detail": k3, "tiers": tiers}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "decide", "route": "cuda",
@@ -3032,6 +3821,8 @@ def main(argv=None) -> int:
          "cluster_launches": cl["launches"],
          "cluster_steps_per_daemon": cl["steps_per_daemon"],
          "outage_launches": cl["outage"]["launches"],
+         "wire_analytics_off_launches": m["wire_analytics_off"]["launches"],
+         "tiers_launches": tiers["served"]["launches"],
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": "bytes", "library_ms": None,

@@ -1,6 +1,10 @@
 """Configuration: the subset of gubernator_tpu/config.py that the port
 reads (one daemon, its static peers, their batching / GLOBAL timing and
-failure handling), plus the ``device`` it serves on.
+failure handling, its persistence hooks and cold tier), plus the
+``device`` it serves on.  The analytics knobs (GUBER_ANALYTICS,
+GUBER_TOPK, GUBER_SKETCH_WIDTH) and GUBER_TIER_NATIVE are read from the
+environment where the JAX package reads them (instance.py,
+analytics.py, tiering.py), not here.
 
 Layering is the JAX package's: defaults < ``KEY=value`` config file <
 environment (``GUBER_*``).  Keys the port does not read yet (TLS, other
@@ -120,6 +124,18 @@ class Config:
     #: wire instead of starting afresh there (the reference's behavior,
     #: and this default, is to reset them)
     handover_on_reshard: bool = False
+    #: persistence hooks (store.py): a Loader restores the table when the
+    #: instance starts and saves it when it closes; a Store is called
+    #: around every local decision (read-through, write-through)
+    loader: Optional[object] = None
+    store: Optional[object] = None
+    #: the host cold tier behind the device table (tiering.py): a key
+    #: the table cannot hold is served exactly from host memory, not
+    #: answered table_full, and moves to the device once its sketch rank
+    #: reaches tier_promote_threshold.  GUBER_TIER_COLD overrides.
+    tier_cold: bool = False
+    #: sketch-rank admission threshold of a cold row (GUBER_TIER_PROMOTE)
+    tier_promote_threshold: int = 8
 
     def set_defaults(self) -> "Config":
         """Normalize invalid values (config.go › SetDefaults)."""
@@ -162,6 +178,9 @@ class DaemonConfig:
     drain_grace_ms: int = 0
     #: Config.handover_on_reshard (GUBER_HANDOVER_ON_RESHARD)
     handover_on_reshard: bool = False
+    #: the Loader snapshot file (GUBER_SNAPSHOT_PATH): restored at start,
+    #: saved at close (store.py › FileLoader); "" keeps no snapshot
+    snapshot_path: str = ""
 
     def instance_config(self) -> Config:
         return Config(cache_size=self.cache_size,
@@ -247,6 +266,7 @@ def setup_daemon_config(conf_file: str = "",
                                 d.handover_on_reshard, flag)
     d.drain_grace_ms = get("GUBER_DRAIN_GRACE", d.drain_grace_ms,
                            parse_duration_ms)
+    d.snapshot_path = conf.get("GUBER_SNAPSHOT_PATH", d.snapshot_path)
     d.peer_discovery_type = conf.get("GUBER_PEER_DISCOVERY_TYPE",
                                      d.peer_discovery_type)
     peers = conf.get("GUBER_PEERS", "")

@@ -23,7 +23,12 @@ of gubernator_tpu/daemon.py):
   /debug/faults (the armed faultpoints, their counters, the catalog)
   and POST /debug/faults (``{"spec": "peer_send@host:port:error",
   "seed": 7}`` arms, ``{"clear": true}`` disarms; a malformed spec
-  answers 400 and changes nothing).
+  answers 400 and changes nothing), GET /debug/topkeys (the
+  heavy-hitter sketch's top keys, ``?limit=``, each with its ring owner)
+  and GET /debug/phases (the per-phase latency ledger and the waves'
+  percentiles); both answer 404 with GUBER_ANALYTICS=0;
+- ``snapshot_path`` (GUBER_SNAPSHOT_PATH): a FileLoader, so the table
+  (both tiers) is restored at start and saved at close.
 
 ``close()`` drains first: /healthz answers 503 "draining" while requests
 still serve for ``drain_grace_ms``, then new requests shed and the
@@ -44,6 +49,7 @@ from .discovery import make_discovery
 from .dispatcher import ResourceExhausted, request_deadline
 from .instance import V1Instance
 from .netutil import resolve_host_ip, split_host_port
+from .store import FileLoader
 from .telemetry import exc_text
 from .types import Behavior, PeerInfo, RateLimitRequest
 
@@ -158,6 +164,8 @@ class Daemon:
                                  "set grpc_listen_address")
             icfg = cfg.instance_config()
             icfg.advertise_address = self.advertise_address
+            if cfg.snapshot_path:
+                icfg.loader = FileLoader(cfg.snapshot_path)
             self.instance = V1Instance(icfg)
             # warm-up: build the kernel and run one wave before serving
             self.instance.get_rate_limits(
@@ -241,6 +249,9 @@ class Daemon:
                 parts = urlsplit(self.path)
                 path, q = parts.path, parse_qs(parts.query)
                 if path == "/metrics":
+                    ana = daemon.instance.analytics
+                    if ana is not None:
+                        ana.republish()  # the top-K gauge, at scrape time
                     self._send(200, daemon.instance.metrics.render(),
                                "text/plain; version=0.0.4")
                 elif path in ("/healthz", "/v1/HealthCheck"):
@@ -259,6 +270,8 @@ class Daemon:
                 elif path == "/debug/faults":
                     self._send(200, json.dumps(
                         daemon.instance.faults.describe()).encode())
+                elif path in ("/debug/topkeys", "/debug/phases"):
+                    self._send(*daemon.analytics_doc(path, q))
                 else:
                     self._send(404, b'{"error":"not found"}')
 
@@ -333,13 +346,33 @@ class Daemon:
                              for p in inst.peers()}
         return (200 if h.status == "healthy" else 503), body
 
+    def analytics_doc(self, path: str, q: dict) -> tuple:
+        """(HTTP code, JSON body) of /debug/topkeys or /debug/phases."""
+        inst = self.instance
+        ana = inst.analytics
+        if ana is None:
+            return 404, json.dumps({"error": "analytics disabled "
+                                             "(GUBER_ANALYTICS=0)"}).encode()
+        if path == "/debug/topkeys":
+            ana.flush(timeout=2.0)  # fold the queued taps first
+            snap = ana.topkeys_snapshot(_int_arg(q, "limit"))
+            for e in snap["keys"]:
+                e["owner"] = inst.owner_addr_by_khash(int(e["khash"], 16))
+            return 200, json.dumps(snap).encode()
+        body = ana.phases_snapshot()
+        tel = inst.dispatcher.telemetry_snapshot()
+        body["waves"] = {k: tel.get(k) for k in (
+            "waves", "wave_duration_p50_ms", "wave_duration_p99_ms",
+            "queue_wait_p50_ms", "queue_wait_p99_ms")}
+        return 200, json.dumps(body).encode()
+
     def close(self) -> None:
         """Graceful shutdown: drain first.  /healthz answers 503
         "draining" and requests still serve for ``drain_grace_ms`` (load
         balancers stop routing before connections die); then the
         dispatcher sheds new ingress, discovery and the listeners stop,
-        and the instance flushes its GLOBAL manager and drains its peer
-        clients."""
+        and the instance flushes its GLOBAL manager, drains its peer
+        clients and saves its snapshot."""
         if self._closed:
             return
         self._closed = True

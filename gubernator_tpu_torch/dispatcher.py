@@ -37,9 +37,15 @@ are serialized by one lock, which the instance's row-level operations
 - **Faults.** With a ``FaultSet`` (faults.py) the dispatcher runs the
   ``dispatch_*`` and ``device_step`` faultpoints at the JAX package's
   sites; each costs one attribute read while disarmed.
+- **Analytics.** With a ``KeyAnalytics`` (analytics.py) every resolved
+  wave is tapped after its callers' results are set: an object-lane
+  wave with its requests and responses (``_tap_reqs``: the sketch learns
+  key names; the engine's device tap is muted for it), any other wave
+  with its columns (``_tap_packed``), which an engine that taps in its
+  step (``fused_tap``) skips.  Phase samples feed the analytics'
+  PhaseLedger beside the histogram.
 
-Not ported: wave spans and the analytics tap wait for the tracing and
-analytics slices.
+Not ported: wave spans wait for the tracing slice.
 """
 from __future__ import annotations
 
@@ -164,8 +170,11 @@ class Dispatcher:
                  max_delay_ms: float = 0.2,
                  lock: Optional[threading.Lock] = None,
                  metrics=None, recorder=None, clock=time.monotonic,
-                 faults=None):
+                 faults=None, analytics=None):
         self.engine = engine
+        #: the owning instance's KeyAnalytics (optional)
+        self.analytics = analytics
+        self._fused_tap = getattr(engine, "fused_tap", False)
         #: the owning instance's FaultSet (optional)
         self._faults = faults
         self.max_wave = max_wave
@@ -311,6 +320,7 @@ class Dispatcher:
             lambda: self.engine.check_packed(batch, khash, now_ms),
             kind="inline_packed", nreq=len(khash))
         if out is not self._BUSY:
+            self._tap_packed(khash, batch.hits, out[0])
             return ResultView(out, 0, len(khash))
         return self._wait(self._submit(_Job(now_ms, batch=batch,
                                             khash=khash)))
@@ -490,10 +500,8 @@ class Dispatcher:
             for w in waits:
                 m.wave_queue_wait.observe(w)
             m.waves_in_flight.inc()
-            if waits:
-                hist = self._phase("queue_wait")
-                for w in waits:
-                    hist.observe(w)
+        for w in waits:
+            self._obs_phase("queue_wait", w)
         if self.recorder is not None:
             ev = {"wave": wid, "wave_kind": kind, "size": nreq,
                   "jobs": len(jobs) if jobs else 1}
@@ -510,14 +518,38 @@ class Dispatcher:
             if info is not None:
                 info["marks"].append((name, t))
 
-    def _phase(self, phase: str):
-        """The phase histogram's cached child (labels() is idempotent, so
-        a racing first call is harmless)."""
-        child = self._phase_hist.get(phase)
-        if child is None:
-            child = self._phase_hist[phase] = \
-                self.metrics.phase_duration.labels(phase=phase)
-        return child
+    def _obs_phase(self, phase: str, seconds: float) -> None:
+        """One phase sample → the analytics' ledger and the histogram
+        (KeyAnalytics.observe_phase feeds both), or the histogram alone
+        without analytics."""
+        ana = self.analytics
+        if ana is not None:
+            ana.observe_phase(phase, seconds)
+        elif self.metrics is not None:
+            child = self._phase_hist.get(phase)
+            if child is None:  # benign race: labels() is idempotent
+                child = self._phase_hist[phase] = \
+                    self.metrics.phase_duration.labels(phase=phase)
+            child.observe(max(seconds, 0.0))
+
+    def _tap_packed(self, khash, hits, status) -> None:
+        """A resolved wave's columns to the analytics (never raises into
+        the serving path).  An engine that taps in its step already
+        delivered them: skipped."""
+        ana = self.analytics
+        if ana is not None and not self._fused_tap:
+            try:
+                ana.tap_packed(khash, hits, status)
+            except Exception:  # pragma: no cover - analytics only
+                log.exception("analytics tap")
+
+    def _tap_reqs(self, reqs, resps, khash) -> None:
+        ana = self.analytics
+        if ana is not None:
+            try:
+                ana.tap_reqs(reqs, resps, khash)
+            except Exception:  # pragma: no cover - analytics only
+                log.exception("analytics tap")
 
     def _wave_end(self, wid: int, error: Optional[BaseException] = None
                   ) -> None:
@@ -543,12 +575,12 @@ class Dispatcher:
                 phases[name] = max(tm - prev, 0.0)
                 prev = tm
             phases["resolve"] = max(t1 - prev, 0.0)
+        for name, secs in (phases or {}).items():
+            self._obs_phase(name, secs)
         m = self.metrics
         if m is not None:
             m.wave_duration.observe(dur)
             m.waves_in_flight.dec()
-            for name, secs in (phases or {}).items():
-                self._phase(name).observe(secs)
             if first:
                 m.first_wave_duration.set(dur)
             if was_stalled and not any_stalled:
@@ -640,8 +672,7 @@ class Dispatcher:
 
     def debug_stats(self) -> dict:
         """Cheap dispatcher state for /healthz?deep=1 and timeout
-        diagnoses: no device work.  ``analytics`` is None: that
-        subsystem is not ported."""
+        diagnoses: no device work."""
         now = self._clock()
         with self._tel_mu:
             inflight = [dict(i) for i in self._inflight.values()]
@@ -674,7 +705,8 @@ class Dispatcher:
                               self.projected_queue_wait_s(), 4)},
             "buffer_pool": (self.engine.wave_pool.stats()
                             if hasattr(self.engine, "wave_pool") else None),
-            "analytics": None,
+            "analytics": (self.analytics.stats()
+                          if self.analytics is not None else None),
         }
 
     def telemetry_snapshot(self) -> dict:
@@ -826,6 +858,9 @@ class Dispatcher:
             _fail(jobs, e)
             return
         self._resolve(wid, jobs, views)
+        if self.analytics is not None and not self._fused_tap:
+            batch, khash = _concat([(j.batch, j.khash) for j in jobs])
+            self._tap_packed(khash, batch.hits, cols[0])
 
     def _resolve(self, wid: int, jobs: List[_Job], results: list) -> None:
         """End the wave, then hand each caller its result: a caller that
@@ -858,9 +893,16 @@ class Dispatcher:
             # the scalar now only backstops rows without their own
             now = max(j.now_ms for j in wave)
             self._wave_mark(wid, "pack")
+            # an object-lane wave is tapped below with its key names:
+            # the engine's device tap stays quiet for it
+            mute = kind == "list" and self._fused_tap
             with self._engine_lock:
                 self._fault("device_step")
-                cols = self.engine.check_packed(batch, khash, now)
+                self.engine._tap_mute = mute
+                try:
+                    cols = self.engine.check_packed(batch, khash, now)
+                finally:
+                    self.engine._tap_mute = False
             self._wave_mark(wid, "device")
             self._fault("dispatch_splice")
             results, a = [], 0
@@ -876,6 +918,13 @@ class Dispatcher:
             _fail(wave, e)
             return
         self._resolve(wid, wave, results)
+        if kind == "list":
+            # the wave's key hashes go along: the worker need not hash
+            # the names again
+            self._tap_reqs([r for j in wave for r in j.reqs],
+                           [r for res in results for r in res], khash)
+        else:
+            self._tap_packed(khash, batch.hits, cols[0])
 
     def close(self) -> None:
         with self._submit_mu:

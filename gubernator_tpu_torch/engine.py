@@ -16,8 +16,16 @@ out of the step and answered as table_full, never truncated into wrong
 decisions and never failing the other rows of the wave, on every path
 (``check_packed``, ``launch_packed`` and the wire lane's
 ``check_prepacked``, which all call ``_mask_out_of_domain``); the
-classic engine (``GUBER_ENGINE=xla``) serves them.  A bucket-full row gets one
-retry after an expiry sweep; there is no grow.
+classic engine (``GUBER_ENGINE=xla``) serves them, and so does the cold
+tier (tiering.py) for keys with no device row.  A bucket-full row gets
+one retry after an expiry sweep, then goes to the cold tier when there
+is one; there is no grow.
+
+Cold-tier hooks: ``tier_row_admissible`` keeps a cold row out of K1's
+domain from being promoted (the upsert would drop it),
+``probe_occupant_keys`` reads the 8 keys of a key's bucket (the
+eviction candidates), and ``restore`` puts what the buckets or K1's
+domain refuse into the tier.
 """
 from __future__ import annotations
 
@@ -166,6 +174,9 @@ def _place_into_buckets(rows: torch.Tensor, keys: torch.Tensor,
 class BucketEngine(ShardedEngine):
     """Single-device serving engine over the bucketized table."""
 
+    #: the step emits the wave's heavy-hitter tap (fused_tap_columns)
+    fused_tap = True
+
     def __init__(self, device="cuda", capacity: int = 1 << 16,
                  batch_rows: int = 1024):
         super().__init__(device=device, capacity=capacity,
@@ -292,7 +303,50 @@ class BucketEngine(ShardedEngine):
 
     def restore(self, arrays: dict) -> int:
         """Insert snapshot rows (either package's ``snapshot()``); the
-        placement runs on the table's device.  Returns rows restored."""
-        if len(arrays["key"]) == 0:
+        placement runs on the table's device.  Rows outside K1's domain
+        and rows of a full bucket go to the cold tier when there is one,
+        else they are dropped (counted in ``dropped_rows``).  Returns
+        the rows restored in either tier."""
+        n = len(arrays["key"])
+        if n == 0:
             return 0
-        return self.upsert_rows(np.asarray(arrays["key"]), arrays)
+        keys = np.asarray(arrays["key"]).astype(np.uint64)
+        words, refused = _columns_to_words_batch(arrays, keys)
+        refused = ~refused
+        vidx = np.nonzero(~refused)[0]
+        placed_n = 0
+        if vidx.size:
+            keep, counts = _dedupe_last(keys[vidx])
+            sel = vidx[keep]
+            placed = _place_into_buckets(
+                self.rows, self._keys_tensor(keys[sel]),
+                torch.from_numpy(words[sel]).to(self.device)).cpu().numpy()
+            placed_n = int(counts[placed].sum())
+            if len(sel) == len(vidx):  # no key repeats: one row a key
+                refused[sel[~placed]] = True
+            elif not placed.all():
+                refused |= np.isin(keys, keys[sel][~placed])
+        if self.tier is not None and refused.any():
+            return placed_n + self.tier.adopt_rows(arrays,
+                                                   np.nonzero(refused)[0])
+        self.dropped_rows += int(refused.sum())
+        return placed_n
+
+    # ---- cold-tier hooks (tiering.py) ----------------------------------
+
+    def tier_row_admissible(self, row) -> bool:
+        """Whether a cold row (ROW_COLS order) lies in K1's domain: a row
+        outside it stays cold, since the upsert would drop it."""
+        cols = {f: np.array([v], np.int64) for f, v in zip(_ROW_COLS, row)}
+        cols["meta"] = cols["meta"].astype(np.int32)
+        _, valid = _columns_to_words_batch(cols, np.array([1], np.uint64))
+        return bool(valid[0])
+
+    def probe_occupant_keys(self, kh: int) -> np.ndarray:
+        """The 8 key hashes of ``kh``'s bucket (0 = a free slot): the
+        bucket is the key's probe window.  One small read."""
+        n_buckets = self.cap_local // SLOTS
+        b = int(np.uint64(kh) & np.uint64(n_buckets - 1))
+        kw = self.rows.view(n_buckets, SLOTS, WORDS)[
+            b, :, W_KLO:W_KHI + 1].cpu().numpy()
+        return _join_u64(kw[:, 1], kw[:, 0])

@@ -28,9 +28,8 @@ instance: arming one daemon of an in-process cluster leaves its
 siblings alone.
 
 :data:`FAULT_POINTS` holds only the points whose sites exist in the
-port; the JAX package's ``global_accum_swap``, ``global_psum``,
-``mr_sync``, ``snapshot``, ``restore``, ``tier_promote`` and
-``tier_demote`` arrive with their subsystems.  Arming a point outside
+port; the JAX package's ``global_accum_swap``, ``global_psum`` and
+``mr_sync`` arrive with their subsystems.  Arming a point outside
 the catalog raises: a chaos run must never test nothing without saying
 so.
 """
@@ -82,6 +81,16 @@ FAULT_POINTS = {
                         "owner broadcast tick",
     "global_hits": "GlobalManager._hits_tick — before the hit flush "
                    "tick (an aborted tick pops nothing)",
+    "snapshot": "instance._save_to_loader — before the Loader snapshot",
+    "restore": "instance._load_from_loader — before the Loader restore",
+    "tier_promote": "TierController.promote — after the admissibility "
+                    "gate, before the cold row is written to the "
+                    "device table (error aborts the migration: the row "
+                    "stays cold, tier_migrations_aborted increments)",
+    "tier_demote": "TierController.demote — before the victim row is "
+                   "gathered off the device (error aborts the "
+                   "eviction: the row stays hot and the triggering "
+                   "promotion is abandoned)",
 }
 
 

@@ -56,13 +56,32 @@ The failure path (the JAX package's defaults):
   shared with the dispatcher, the peer clients and the GLOBAL manager;
   ``wire_ingest`` fires before the C++ parse.
 
+State beyond the device table (the JAX package's defaults):
+
+- **Analytics** (GUBER_ANALYTICS, on by default): a ``KeyAnalytics``
+  (analytics.py) on the dispatcher, fed by every wave; on the bucket
+  engine the step's device tap goes straight to it (``tap_sink``).
+- **Cold tier** (GUBER_TIER_COLD / ``Config.tier_cold``): a
+  ``TierController`` (tiering.py) bound as ``engine.tier``, its rank the
+  sketch's (no analytics: no promotion).
+- **Loader** (``Config.loader``; the daemon's GUBER_SNAPSHOT_PATH): the
+  table, both tiers, restored at start and saved at close, each with
+  its faultpoint (``restore``, ``snapshot``) and phase sample.  A
+  FileLoader moves columns (``load_arrays`` / ``save_arrays``), any
+  other Loader items.
+- **Store** (``Config.store``): read-through of device misses before the
+  object lane's step and write-through of its answers after it (the
+  peer object lane too); with a Store set the wire lanes take the
+  protobuf path, so every answer passes the Store.
+- **remove**: the device row, the cold row and the Store's item.
+
 Each instance owns a ``Metrics`` registry and a ``FlightRecorder``
 (served by the daemon at /metrics and /debug/events), shared with its
 dispatcher, wave pool, peer clients and GLOBAL manager.  Every client
 entry asks the dispatcher's admission control first, before any engine
 work (``ResourceExhausted`` when it sheds), then counts its requests.
-MULTI_REGION replication, the GLOBAL hot set, analytics and tracing
-wait for their slices.
+MULTI_REGION replication, the GLOBAL hot set, tenant analytics and
+tracing wait for their slices.
 """
 from __future__ import annotations
 
@@ -83,13 +102,15 @@ from .engine import BucketEngine
 from .faults import FaultSet
 from .global_manager import GlobalManager
 from .gregorian import gregorian_rate_duration_ms
-from .hashing import hash_keys, hash_request_keys, mix64_np, mixed_fnv1a64
+from .hashing import (hash_key, hash_keys, hash_request_keys, mix64_np,
+                      mixed_fnv1a64)
 from .interval import IntervalLoop
 from .metrics import Metrics
 from .ops import native as wire_native
 from .peer_client import ErrCircuitOpen, ErrClosing, PeerClient
 from .peers import ReplicatedConsistentHash
 from .sharded import ShardedEngine, autogrow_limit_per_shard
+from .store import CacheItem, arrays_from_items, items_from_arrays
 from .telemetry import FlightRecorder, exc_text
 from .types import (MAX_BATCH_SIZE, Algorithm, Behavior,
                     HealthCheckResponse, PeerInfo, RateLimitRequest,
@@ -172,7 +193,54 @@ class V1Instance:
             resolve_engine_kind(config.engine), cap, config)
         self.engine.wave_pool.metrics = self.metrics
         self._engine_mu = threading.Lock()
+        # key analytics: the heavy-hitter sketch and the phase ledger,
+        # fed off the serving path (GUBER_ANALYTICS=0 turns it off)
+        self._analytics = None
+        if os.environ.get("GUBER_ANALYTICS", "1") != "0":
+            from .analytics import KeyAnalytics
+
+            self._analytics = KeyAnalytics(metrics=self.metrics)
         self.dispatcher = self._make_dispatcher()
+        analytics = self._analytics
+        if self.engine.fused_tap and analytics is not None:
+            # the bucket engine taps in its step: its device tap goes
+            # straight to the analytics, set once before serving
+            self.engine.tap_sink = analytics.tap_device
+        # the cold tier: engine.tier, ranked by the sketch; the victim
+        # filter is the JAX hook for replica-pinned keys
+        self._tier = None
+        tier_cold = os.environ.get("GUBER_TIER_COLD")
+        if (tier_cold == "1" if tier_cold is not None
+                else config.tier_cold):
+            from .tiering import TierController
+
+            thr = int(os.environ.get("GUBER_TIER_PROMOTE")
+                      or config.tier_promote_threshold)
+            self._tier = TierController(
+                self.engine,
+                rank_fn=(analytics.sketch_count
+                         if analytics is not None else None),
+                promote_threshold=thr, metrics=self.metrics,
+                recorder=self.recorder, fault=self._fault_point,
+                skip_victim=self._tier_victim_pinned,
+                # an engine tapping in its step leaves out the cold rows,
+                # which ride its waves invalid: the tier feeds them
+                tap=(analytics.tap_packed
+                     if self.engine.fused_tap and analytics is not None
+                     else None),
+                rank_batch=(analytics.sketch_counts
+                            if analytics is not None else None))
+        self.store = config.store
+        self.loader = config.loader
+        if self.loader is not None:
+            try:
+                self._load_from_loader()
+            except BaseException:
+                # a failed restore (the restore faultpoint) leaks no thread
+                self.dispatcher.close()
+                if analytics is not None:
+                    analytics.close()
+                raise
         self._last_sweep = clock_ms()
         self._closed = False
         self._picker = ReplicatedConsistentHash()  # guarded-by: self._peer_mu
@@ -203,7 +271,138 @@ class V1Instance:
         return Dispatcher(self.engine,
                           max_wave=self.engine.wave_buckets[-1],
                           lock=self._engine_mu, metrics=self.metrics,
-                          recorder=self.recorder, faults=self.faults)
+                          recorder=self.recorder, faults=self.faults,
+                          analytics=self._analytics)
+
+    @property
+    def analytics(self):
+        """The KeyAnalytics (None when off); it lives on the dispatcher,
+        so detaching that one reference darkens every host tap."""
+        return self.dispatcher.analytics
+
+    # ---- persistence (store.go › Loader, Store) -------------------------
+
+    def _load_from_loader(self) -> None:
+        """Restore the Loader's snapshot: rows the device table cannot
+        hold go to the cold tier when there is one."""
+        self._fault_point("restore")
+        t0 = time.perf_counter()
+        load_arrays = getattr(self.loader, "load_arrays", None)
+        if load_arrays is not None:
+            arrays = load_arrays()
+            n = 0 if arrays is None else len(arrays["key"])
+        else:
+            items = list(self.loader.load())
+            n = len(items)
+            arrays = arrays_from_items(items) if items else None
+        if n:
+            placed = self.engine.restore(arrays)
+            log.info("loader: restored %d/%d rows", placed, n)
+        self.dispatcher._obs_phase("restore", time.perf_counter() - t0)
+
+    def _save_to_loader(self) -> None:
+        """Save both tiers through the Loader."""
+        if self.loader is None:
+            return
+        self._fault_point("snapshot")
+        t0 = time.perf_counter()
+        arrays = self.engine.snapshot()
+        if self._tier is not None:
+            # cold rows are state too: restore puts back in the cold
+            # tier whatever the device table cannot hold
+            cold = self._tier.snapshot_arrays()
+            if cold is not None:
+                arrays = {f: np.concatenate([arrays[f], cold[f]])
+                          for f in arrays}
+        save_arrays = getattr(self.loader, "save_arrays", None)
+        if save_arrays is not None:
+            save_arrays(arrays)
+        else:
+            self.loader.save(iter(items_from_arrays(arrays)))
+        self.dispatcher._obs_phase("snapshot", time.perf_counter() - t0)
+
+    def _read_through(self, reqs) -> None:
+        """Seed device-table misses from the Store before the step
+        (store.go › Store.Get on a miss).  The gather, the gets and the
+        upsert hold the engine lock: a request inserting the same key
+        in between would have its hits overwritten by the Store's
+        copy.
+
+        With the cold tier a cold-resident key is no miss, and an item
+        the device table refuses lands cold (``restore``): every key
+        stays in exactly one tier.  JAX's read-through consults the
+        device table alone (ROADMAP §C.3)."""
+        if self.store is None or not reqs:
+            return
+        khash = hash_request_keys([r.name for r in reqs],
+                                  [r.unique_key for r in reqs])
+        with self._engine_mu:
+            found, _ = self.engine.gather_rows(khash)
+            if self._tier is not None:
+                found = found | self._tier.resident_mask(khash)
+            items = []
+            for j, req in enumerate(reqs):
+                if found[j]:
+                    continue
+                item = self.store.get(req)
+                if item is not None:
+                    if not item.key and not item.key_hash:
+                        item.key = req.key
+                    items.append(item)
+            if items:
+                arrays = arrays_from_items(items)
+                if self._tier is not None:
+                    self.engine.restore(arrays)
+                else:
+                    self.engine.upsert_rows(arrays.pop("key"), arrays)
+
+    def _after_local(self, reqs, resps) -> None:
+        """Store write-through of each non-error answer (the JAX item:
+        ``remaining`` and ``expire_at`` from the response)."""
+        if self.store is None:
+            return
+        for req, resp in zip(reqs, resps):
+            if resp.error:
+                continue
+            self.store.on_change(req, CacheItem(
+                key=req.key, algorithm=int(req.algorithm),
+                limit=resp.limit, duration=int(req.duration),
+                remaining=resp.remaining, expire_at=resp.reset_time,
+                status=int(resp.status)))
+
+    def remove(self, name: str, unique_key: str) -> bool:
+        """Delete one rate limit's state: its device row, its cold row
+        and its Store item.  True when a row existed."""
+        kh = hash_key(name, unique_key)
+        with self._engine_mu:
+            n = self.engine.remove_rows(np.array([kh], np.uint64))
+            if self._tier is not None \
+                    and self._tier.pop_row(kh) is not None:
+                n += 1  # the row lived in the cold tier
+        if self.store is not None:
+            self.store.remove(f"{name}_{unique_key}")
+        return n > 0
+
+    def _tier_victim_pinned(self, kh: int) -> bool:
+        """The tier's eviction filter: a replica-pinned key's device row
+        must not be demoted.  The port has no hot set or mesh tier, so no
+        key is pinned."""
+        return False
+
+    def owner_addr_by_khash(self, khash: int) -> Optional[str]:
+        """The owner's address of a mixed table key hash (the sketch's
+        key space): /debug/topkeys' owner column.  None alone, on a
+        picker with another hash, or on an emptied ring."""
+        with self._peer_mu:
+            picker = self._picker
+        if not picker.peers() or not self._uses_default_hash(picker):
+            return None
+        try:
+            peers = picker.owner_peers()
+            return peers[int(picker.owner_indices(
+                np.array([khash], np.uint64))[0])].info.grpc_address
+        except RuntimeError:  # the ring emptied meanwhile
+            return None
 
     def _fault_point(self, point: str, tag: Optional[str] = None) -> None:
         """An instance-level faultpoint (one attribute read while
@@ -601,11 +800,13 @@ class V1Instance:
                     peer.info.grpc_address, req) for i, peer, req in fwd]
         over = 0
         if local_idx:
-            local = self.dispatcher.check_batch(
-                [reqs[i] for i in local_idx], now)
+            local_reqs = [reqs[i] for i in local_idx]
+            self._read_through(local_reqs)
+            local = self.dispatcher.check_batch(local_reqs, now)
             for i, resp in zip(local_idx, local):
                 responses[i] = resp
                 over += resp.status == Status.OVER_LIMIT
+            self._after_local(local_reqs, local)
         if deg_local:
             # rows rehomed here by an ejection: flagged, and their hits
             # reconciled to the membership owner once it is back
@@ -752,6 +953,9 @@ class V1Instance:
         the batch."""
         self._fault_point("wire_ingest")
         data = bytes(data) if not isinstance(data, bytes) else data
+        if self.store is not None:
+            # every answer passes the Store: the object path
+            return self._wire_pb2(data, now_ms)
         picker = self._clustered_picker()
         if picker is None:
             out = self._wire_client_fused(data, now_ms)
@@ -824,10 +1028,18 @@ class V1Instance:
         lease (the queued job outlives it) and coalesce with the other
         callers' waves."""
         disp, n = self.dispatcher, pre.n
+        # the tap's hits live in the lease, which the wave releases: an
+        # engine tapped on the host needs them copied first
+        hits_tap = (np.array(pre.lease.a64[1][:n])
+                    if disp.analytics is not None and not disp._fused_tap
+                    else None)
         out = disp.run_inline_wave(
             lambda: self.engine.check_prepacked(pre, now), nreq=n)
         if out is not disp._BUSY:
-            return self._columns_to_bytes(out, 0, n)
+            resp = self._columns_to_bytes(out, 0, n)
+            if hits_tap is not None:
+                disp._tap_packed(pre.khash[:n], hits_tap, out[0])
+            return resp
         try:
             # an index array copies: the rows outlive the lease
             batch = lease_batch(pre.lease, np.arange(n))
@@ -1238,6 +1450,7 @@ class V1Instance:
         reqs = list(reqs)
         self.metrics.getratelimit_counter.labels(calltype="peer").inc(
             len(reqs))
+        self._read_through(reqs)
         resps = self.dispatcher.check_batch(reqs, now)
         for req in reqs:
             if int(req.behavior) & int(Behavior.GLOBAL):
@@ -1246,6 +1459,7 @@ class V1Instance:
         # were rehomed here: flagged, their hits reconciled
         if self._gate_bad and self.config.behaviors.peer_degraded_fallback:
             self._peer_degraded_objects(reqs, resps, now)
+        self._after_local(reqs, resps)
         return resps
 
     def get_peer_rate_limits_wire(self, data: bytes,
@@ -1259,6 +1473,8 @@ class V1Instance:
         degraded (the parse lane; the fused lane is skipped then)."""
         self._fault_point("wire_ingest")
         data = bytes(data) if not isinstance(data, bytes) else data
+        if self.store is not None:
+            return self._wire_peer_pb2(data, now_ms)
         # one attribute read in the steady state
         gate_rehome = (bool(self._gate_bad)
                        and self.config.behaviors.peer_degraded_fallback)
@@ -1438,8 +1654,9 @@ class V1Instance:
 
     def close(self) -> None:
         """Stop the health prober, flush the GLOBAL manager, drain the
-        peer clients, then stop the dispatcher (the engine's one
-        user)."""
+        peer clients, stop the dispatcher (the engine's one user), then
+        the analytics, then save the snapshot (the JAX order: the
+        dispatcher, the analytics, the snapshot)."""
         if self._closed:
             return
         with self._gm_mu:
@@ -1452,3 +1669,6 @@ class V1Instance:
         for p in self.peers():
             p.shutdown()
         self.dispatcher.close()
+        if self.dispatcher.analytics is not None:
+            self.dispatcher.analytics.close()
+        self._save_to_loader()

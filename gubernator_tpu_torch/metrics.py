@@ -9,11 +9,11 @@ Registered: the families of the subsystems the port has (serving
 counters, table gauges, the wire lane, the dispatcher's waves, stall
 watchdog and pipeline, the wave pool, admission and drain, the peer
 lanes and circuit, forwards, GLOBAL queue and broadcasts, degraded
-serves, the health-gated ring, fault injection).  The JAX families of
-subsystems not ported yet (hot set, fused Pallas counters, compile
-ledger, scenarios, analytics, mesh-GLOBAL, tiering, tenants, SLO,
-fleet, memory ledger) are not registered; ROADMAP lists them beside
-their subsystems.
+serves, the health-gated ring, fault injection, the heavy-hitter
+analytics, the cold tier).  The JAX families of subsystems not ported
+yet (hot set, fused Pallas counters, compile ledger, scenarios,
+mesh-GLOBAL, tenants, SLO, fleet, memory ledger) are not registered;
+ROADMAP lists them beside their subsystems.
 """
 from __future__ import annotations
 
@@ -217,6 +217,47 @@ class Metrics:
             "times an armed faultpoint fired (faults.py; 0 in healthy "
             "operation — nonzero means a chaos run is active)",
             ["point"], registry=r)
+        # ---- key analytics: the top-K gauge's labels are the current
+        # top-K only (analytics.py › KeyAnalytics._publish removes
+        # departed keys first), so its cardinality stays at GUBER_TOPK
+        self.topkey_overlimit = Gauge(
+            "gubernator_topkey_overlimit_total",
+            "OVER_LIMIT decisions observed for each CURRENT top-K key "
+            "while tracked (bounded labels: departed keys are removed)",
+            ["key"], registry=r)
+        self.analytics_waves = Counter(
+            "gubernator_analytics_waves_tapped",
+            "resolved waves folded into the heavy-hitter sketch",
+            registry=r)
+        self.analytics_dropped = Counter(
+            "gubernator_analytics_tap_dropped",
+            "wave taps dropped because the analytics queue was full "
+            "(analytics never applies backpressure to serving)",
+            registry=r)
+        # ---- the host cold tier (tiering.py) ----
+        self.tier_cold_keys = Gauge(
+            "gubernator_tier_cold_keys",
+            "keys resident in the host cold tier (device-table misses "
+            "served exactly from host memory)", registry=r)
+        self.tier_cold_serves = Counter(
+            "gubernator_tier_cold_serves",
+            "requests served from the host cold tier (device miss or "
+            "table overflow; byte-exact with the device step)",
+            registry=r)
+        self.tier_promotions = Counter(
+            "gubernator_tier_promotions",
+            "cold rows migrated into the device table after their "
+            "sketch rank cleared GUBER_TIER_PROMOTE", registry=r)
+        self.tier_demotions = Counter(
+            "gubernator_tier_demotions",
+            "device rows evicted to the host cold tier (promotion "
+            "victims and table-full writebacks; created_at-preserving, "
+            "conservation-exact)", registry=r)
+        self.tier_migrations_aborted = Counter(
+            "gubernator_tier_migrations_aborted",
+            "tier migrations abandoned at the tier_promote/tier_demote "
+            "faultpoints (the row stays in its source tier — no state "
+            "is lost)", registry=r)
 
     @contextmanager
     def time_func(self, name: str):

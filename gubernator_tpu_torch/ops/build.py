@@ -7,9 +7,10 @@ Two libraries, each with a plain C interface, loaded with ctypes:
   started together), then one link makes
   ``build/gubernator_tpu_torch/libgubertorch.so`` in the checkout (no
   PyTorch headers, so a build takes seconds);
-- the host wire library (csrc/wire.cpp, ops/native.py), built with the
-  host C++ compiler into ``libguberwire.so``.  It needs no CUDA, so the
-  CPU-only tests build and use it too.
+- the host library (csrc/wire.cpp, ops/native.py; csrc/cold.cpp, the
+  tier's cold store), built with the host C++ compiler into
+  ``libguberwire.so``.  It needs no CUDA, so the CPU-only tests build
+  and use it too.
 
 A file lock serializes concurrent builds, and a hash of each library's
 sources and flags decides when to rebuild it.  A failed build raises.
@@ -35,6 +36,7 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 WIRE_LIB_NAME = "libguberwire.so"
 WIRE_SOURCE = CSRC / "wire.cpp"
+COLD_SOURCE = CSRC / "cold.cpp"
 CXX_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared"]
 
 _mu = threading.Lock()
@@ -153,13 +155,19 @@ def load_library() -> ctypes.CDLL:
         return _lib
 
 
+def _host_sources() -> list[Path]:
+    return [WIRE_SOURCE, COLD_SOURCE]
+
+
 def _compile_wire(cxx: str, lib: Path) -> str:
     tmp = lib.with_suffix(".so.tmp")
-    r = subprocess.run([cxx, *CXX_FLAGS, str(WIRE_SOURCE), "-o", str(tmp)],
-                       capture_output=True, text=True)
+    sources = _host_sources()
+    r = subprocess.run([cxx, *CXX_FLAGS, *map(str, sources), "-o",
+                        str(tmp)], capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"{cxx} failed on {WIRE_SOURCE.name}:\n"
-                           f"{r.stdout}{r.stderr}")
+        raise RuntimeError(
+            f"{cxx} failed on {', '.join(s.name for s in sources)}:\n"
+            f"{r.stdout}{r.stderr}")
     os.replace(tmp, lib)
     return r.stdout + r.stderr
 
@@ -187,13 +195,36 @@ def _bind_wire(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gw_stamp_req_tlvs.restype = i64
     lib.gw_split_resp_items.argtypes = [buf, i64, i64, p, p, p]
     lib.gw_split_resp_items.restype = i64
+    lib.gc_new.argtypes = [i64]
+    lib.gc_new.restype = p
+    lib.gc_free.argtypes = [p]
+    lib.gc_free.restype = None
+    lib.gc_put.argtypes = [p, u64, p]
+    lib.gc_put.restype = ctypes.c_int
+    lib.gc_put_many.argtypes = [p, p, p, i64]
+    lib.gc_put_many.restype = i64
+    lib.gc_get.argtypes = [p, u64, p]
+    lib.gc_get.restype = ctypes.c_int
+    lib.gc_get_many.argtypes = [p, p, i64, p, p]
+    lib.gc_get_many.restype = None
+    lib.gc_pop.argtypes = [p, u64, p]
+    lib.gc_pop.restype = ctypes.c_int
+    lib.gc_len.argtypes = [p]
+    lib.gc_len.restype = i64
+    lib.gc_contains.argtypes = [p, p, i64, p]
+    lib.gc_contains.restype = None
+    lib.gc_snapshot.argtypes = [p, p, p, i64]
+    lib.gc_snapshot.restype = i64
+    lib.gc_clear.argtypes = [p]
+    lib.gc_clear.restype = ctypes.c_int
     return lib
 
 
 def load_wire_library() -> ctypes.CDLL:
-    """The host wire library, built from csrc/wire.cpp with the host
-    C++ compiler if it is missing or stale.  Raises when it cannot be
-    built: the wire lane has no substitute."""
+    """The host library, built from csrc/wire.cpp and csrc/cold.cpp with
+    the host C++ compiler if it is missing or stale.  Raises when it
+    cannot be built: neither the wire lane nor the native cold store has
+    a substitute."""
     global _wire_lib
     if _wire_lib is not None:
         return _wire_lib
@@ -203,7 +234,7 @@ def load_wire_library() -> ctypes.CDLL:
         cxx = cxx_path()
         lib_path = BUILD_DIR / WIRE_LIB_NAME
         _build_once(lib_path, BUILD_DIR / "wire.sha256",
-                    _digest([WIRE_SOURCE], [cxx] + CXX_FLAGS),
+                    _digest(_host_sources(), [cxx] + CXX_FLAGS),
                     lambda: _compile_wire(cxx, lib_path))
         _wire_lib = _bind_wire(ctypes.CDLL(str(lib_path)))
         return _wire_lib

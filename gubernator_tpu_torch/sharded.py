@@ -21,9 +21,19 @@ restore, so the wave routing and the retry loop exist once.
 The wire lane: ``prepack_wire`` fills a pooled packed pair
 (core/batch.py › WaveBufferPool) straight from GetRateLimitsReq bytes in
 one C++ pass (ops/native.py), and ``check_prepacked`` runs it as one
-wave, rows outside the engine's value domain gated out first.  Not
-ported here: the tier hooks (``cold_i``), ``probe_occupant_keys`` and
-``each`` wait for the tiering and store slices.  ``XLA_EXEC_MU``,
+wave, rows outside the engine's value domain gated out first.
+
+The cold tier (tiering.py): with ``tier`` set, ``check_packed`` leaves
+cold-resident rows out of the device wave and serves them, and the rows
+still table-full after the retries, through ``tier.resolve``;
+``launch_packed`` carries the cold rows' indices in its token and
+``sync_packed`` re-runs them through ``check_packed`` under the engine
+lock, as ``check_prepacked`` does with its ``cold_i`` rows.  On the
+bucket engine the rows outside K1's domain take the same way (served
+cold when the key has no device row), on every path.  ``restore`` puts
+the rows the table cannot place into the tier, and
+``probe_occupant_keys`` names a promotion's eviction candidates.
+``XLA_EXEC_MU``,
 ``_restore_host_pin`` and the GUBER_PALLAS_SWEEP / GUBER_STEP_DONATE
 knobs work around XLA or TPU behaviour and have no counterpart: on CUDA
 the sweep is always K2, on the CPU always its plain version, and K2
@@ -49,6 +59,7 @@ from .ops import native as wire_native
 from .ops.decide import batch_from_packed, fused_tap_columns
 from .ops.sweep import sweep as sweep_table
 from .state import soa_to_numpy
+from .store import items_from_arrays
 from .types import RateLimitRequest, RateLimitResponse
 
 log = logging.getLogger("gubernator_tpu_torch.sharded")
@@ -100,8 +111,18 @@ def autogrow_limit_per_shard(total_rows: int, n_shards: int,
     return 1 << (agl.bit_length() - 1)
 
 
+def _take(batch: RequestBatch, idx) -> RequestBatch:
+    """Rows ``idx`` of a host batch (copies)."""
+    return RequestBatch(*[None if c is None else np.asarray(c)[idx]
+                          for c in batch])
+
+
 class ShardedEngine:
     """Single-device serving engine over the SoA table."""
+
+    #: the dispatcher taps this engine's waves on the host (the bucket
+    #: engine taps in its step instead)
+    fused_tap = False
 
     def __init__(self, device="cuda", capacity: int = 1 << 16,
                  batch_rows: int = 1024, auto_grow_limit: int = 0):
@@ -118,8 +139,14 @@ class ShardedEngine:
         self.sweep_count = 0
         self.live_rows = -1  # set by sweep
         self.dropped_rows = 0  # rows lost to grow / row placement
-        #: optional callable taking each wave's [4, B] device tap
+        #: optional callable taking each wave's [4, B] device tap, called
+        #: right after the step is queued, only where ``fused_tap`` is set
         self.tap_sink = None
+        #: set by the dispatcher around an object-lane wave, which it
+        #: taps with the key names itself
+        self._tap_mute = False  # lock-free: engine calls hold the engine lock
+        #: the cold tier's controller (tiering.py), or None
+        self.tier = None
         #: packed upload pairs of the wire lane (prepack_wire)
         self.wave_pool = WaveBufferPool()
         self._init_table()
@@ -188,7 +215,8 @@ class ShardedEngine:
         batch = batch_from_packed(torch.from_numpy(a64).to(self.device),
                                   torch.from_numpy(a32).to(self.device))
         out = self._decide(batch, now_ms)
-        if self.tap_sink is not None:
+        if self.fused_tap and self.tap_sink is not None \
+                and not self._tap_mute:
             self.tap_sink(fused_tap_columns(batch, out))
         return torch.cat([
             torch.stack([out.status.to(torch.int64), out.remaining,
@@ -244,16 +272,54 @@ class ShardedEngine:
             cols[4][ood] = True
         return tuple(cols)
 
+    def _premask_cold(self, batch: RequestBatch, khash: np.ndarray):
+        """(batch with its cold-resident rows invalid, their mask, the
+        rows' valid-and-keyed mask), or (batch, None, None) without a
+        tier."""
+        tier = self.tier
+        if tier is None:
+            return batch, None, None
+        kh = np.asarray(khash)
+        orig_valid = np.asarray(batch.valid, bool) & (kh != 0)
+        cold = tier.resident_mask(kh) & orig_valid
+        if cold.any():
+            batch = batch._replace(valid=np.asarray(batch.valid, bool)
+                                   & ~cold)
+        return batch, cold, orig_valid
+
+    def _resolve_ood(self, batch, khash, now_ms: int, cols: tuple,
+                     ood) -> tuple:
+        """Out-of-domain rows whose key has no device row, served by the
+        cold tier (a key with a device row keeps table_full: serving it
+        cold would fork its state)."""
+        kh = np.asarray(khash)
+        found, _ = self.gather_rows(kh[ood])
+        elig = ood[~found]
+        if not len(elig):
+            return cols
+        need = np.zeros(len(kh), bool)
+        need[elig] = True
+        return self.tier.resolve(self, batch, khash, now_ms, cols, None,
+                                 need)
+
     def check_packed(self, batch: RequestBatch, khash: np.ndarray,
                      now_ms: int) -> tuple:
         """Numpy request columns in, response columns out: (status i32,
         limit i64, remaining i64, reset_time i64, table_full bool).
         Invalid rows come back zeroed (the caller owns their errors).
         Rows whose probe window is full get one retry after an expiry
-        sweep, then one after each auto-grow while under the limit."""
+        sweep, then one after each auto-grow while under the limit.
+        With a cold tier, cold-resident rows stay out of the waves and
+        they, the rows still full and (bucket engine) the out-of-domain
+        rows without a device row are served by ``tier.resolve``."""
         batch, ood = self._mask_out_of_domain(batch)
+        batch, cold, orig_valid = self._premask_cold(batch, khash)
         cols = self._new_columns(len(khash))
-        pending = self._arrival_order(batch)
+        # no valid row (a re-run of cold rows alone): no wave to launch,
+        # the rows answer from the tier below
+        pending = (self._arrival_order(batch)
+                   if np.asarray(batch.valid, bool).any()
+                   else np.empty(0, np.int64))
         retried = False
         while len(pending):
             err = self._collect(self._launch_waves(batch, pending, now_ms),
@@ -269,30 +335,62 @@ class ShardedEngine:
             else:
                 cols[4][err] = True
                 pending = err[:0]
-        return self._merge_ood(cols, ood)
+        tier = self.tier
+        if tier is not None:
+            cols = tier.resolve(self, batch, khash, now_ms, tuple(cols),
+                                cold, orig_valid)
+        cols = self._merge_ood(list(cols), ood)
+        if tier is not None and ood is not None:
+            cols = self._resolve_ood(batch, khash, now_ms, cols, ood)
+        return cols
 
     def launch_packed(self, batch: RequestBatch, khash: np.ndarray,
                       now_ms: int):
         """check_packed split in two: launch the waves without waiting
-        and return a token for ``sync_packed``."""
+        and return a token for ``sync_packed``.  Cold-resident rows (and,
+        with a tier, out-of-domain rows) ride the waves invalid and
+        their indices ride the token: the sync re-runs them through
+        check_packed under the engine lock, which serves each from the
+        tier its key is in then (a promotion may land in between)."""
         batch, ood = self._mask_out_of_domain(batch)
-        return (batch, khash, now_ms, ood, self._launch_waves(
+        cold_idx = None
+        if self.tier is not None:
+            kh = np.asarray(khash)
+            cm = self.tier.resident_mask(kh) & np.asarray(batch.valid, bool) \
+                & (kh != 0)
+            if ood is not None:
+                cm[ood] = True
+                ood = None
+            if cm.any():
+                cold_idx = np.nonzero(cm)[0]
+                batch = batch._replace(
+                    valid=np.asarray(batch.valid, bool) & ~cm)
+        return (batch, khash, now_ms, ood, cold_idx, self._launch_waves(
             batch, self._arrival_order(batch), now_ms))
 
     def sync_packed(self, token, engine_lock=None) -> tuple:
         """Wait for launched waves and assemble check_packed's columns.
-        Table-full rows re-run through check_packed (under
-        ``engine_lock`` when given: it mutates the table)."""
-        batch, khash, now_ms, ood, launched = token
+        Table-full rows and the token's cold rows re-run through
+        check_packed (under ``engine_lock`` when given: it mutates the
+        table)."""
+        batch, khash, now_ms, ood, cold_idx, launched = token
         cols = self._new_columns(len(khash))
         err = self._collect(launched, cols)
+        lock = (engine_lock if engine_lock is not None
+                else contextlib.nullcontext())
         if len(err):
-            sub = RequestBatch(*[np.asarray(c)[err] for c in batch])
-            with (engine_lock if engine_lock is not None
-                  else contextlib.nullcontext()):
-                r_cols = self.check_packed(sub, khash[err], now_ms)
+            with lock:
+                r_cols = self.check_packed(_take(batch, err), khash[err],
+                                           now_ms)
             for c, rc in zip(cols, r_cols):
                 c[err] = rc
+        if cold_idx is not None:
+            sub = _take(batch, cold_idx)
+            sub = sub._replace(valid=np.ones(len(cold_idx), bool))
+            with lock:
+                r_cols = self.check_packed(sub, khash[cold_idx], now_ms)
+            for c, rc in zip(cols, r_cols):
+                c[cold_idx] = rc
         return self._merge_ood(cols, ood)
 
     # ---- the fused wire lane (ops/native.py › pack_wire_wave) ----------
@@ -330,9 +428,12 @@ class ShardedEngine:
         columns over rows [0, pre.n) (wave order is request order).
         Rows outside the engine's value domain are gated out of the
         launch (their valid flag zeroed in the lease) and answered
-        table_full, as check_packed answers them.  Table-full rows copy
-        out of the lease and retry through check_packed after a sweep
-        (they changed no state).  Releases the lease on every path."""
+        table_full, as check_packed answers them.  With a cold tier the
+        cold-resident rows (``cold_i``) and the out-of-domain rows are
+        gated out too and re-run through check_packed, which serves them
+        from the tier.  Table-full rows copy out of the lease and retry
+        through check_packed after a sweep (they changed no state).
+        Releases the lease on every path."""
         n, lease = pre.n, pre.lease
         try:
             # views of the leased rows: the gate reads them in place
@@ -340,18 +441,34 @@ class ShardedEngine:
                                                           slice(0, n)))
             if ood is not None:
                 lease.a32[2][ood] = 0
+            cold_i = None
+            if self.tier is not None:
+                kh_n = np.asarray(pre.khash[:n], np.uint64)
+                cm = (self.tier.resident_mask(kh_n) & (kh_n != 0)
+                      & (lease.a32[2][:n] != 0))
+                if ood is not None:
+                    cm[ood] = True
+                    ood = None
+                if cm.any():
+                    cold_i = np.nonzero(cm)[0]
+                    lease.a32[2][cold_i] = 0
             o_st, o_rem, o_rst, o_lim, o_err = self._finish_wave(
                 self._launch_arrays(lease.a64, lease.a32, now_ms))
             cols = [o_st[:n].astype(np.int32), o_lim[:n], o_rem[:n],
                     o_rst[:n], o_err[:n]]
             err = np.nonzero(cols[4])[0]
-            if len(err):
-                sub = lease_batch(lease, err)
+            if len(err) or cold_i is not None:
+                ei = err
+                if cold_i is not None:
+                    lease.a32[2][cold_i] = 1  # valid again for the re-run
+                    ei = np.union1d(err, cold_i)
+                sub = lease_batch(lease, ei)
                 lease.release()
-                self.sweep(now_ms)
+                if len(err):  # a cold-only re-run needs no sweep
+                    self.sweep(now_ms)
                 for c, rc in zip(cols, self.check_packed(
-                        sub, pre.khash[err], now_ms)):
-                    c[err] = rc
+                        sub, pre.khash[ei], now_ms)):
+                    c[ei] = rc
             return self._merge_ood(cols, ood)
         finally:
             lease.release()
@@ -504,6 +621,19 @@ class ShardedEngine:
             removed += int(found.sum())
         return removed
 
+    def probe_occupant_keys(self, kh: int) -> np.ndarray:
+        """The key hashes in ``kh``'s probe window (0 = a free slot): the
+        tier's eviction candidates, any of which frees a slot ``kh`` can
+        take once demoted."""
+        keys = self._keys_tensor(np.array([kh], np.uint64))
+        slots = _probe_slots(keys, self.cap_local)[0]
+        return self.state.key[slots].cpu().numpy().view(np.uint64)
+
+    def each(self):
+        """The live rows as store.CacheItems (cache.go › Each), from one
+        snapshot: admin and debug tooling."""
+        yield from items_from_arrays(self.snapshot())
+
     # ---- checkpoint / resume (store.py column dict) --------------------
 
     def snapshot(self) -> dict:
@@ -516,8 +646,9 @@ class ShardedEngine:
         """Insert snapshot rows (either package's ``snapshot()``) into
         the table.  Each row takes its first probe slot that is empty or
         holds its key, in row order, exactly as the JAX restore's host
-        loop places them; returns the rows placed (the rest had a full
-        probe window and are dropped, as in the JAX restore).
+        loop places them.  The rows whose probe window is full go to the
+        cold tier when there is one, else they are dropped (as in the JAX
+        restore); returns the rows placed in either tier.
 
         The placement runs on the table's device in rounds: a row is
         placed once no earlier unplaced row could still take its slot
@@ -535,6 +666,7 @@ class ShardedEngine:
         slots = _probe_slots(keys, cap)
         pending = torch.arange(n, device=dev)
         placed = 0
+        unplaced = []
         while pending.numel():
             ks, sl = keys[pending], slots[pending]
             at = st.key[sl]
@@ -551,5 +683,9 @@ class ShardedEngine:
             for f in VALUE_COLS:
                 getattr(st, f)[c] = vals[f][rows]
             placed += rows.numel()
+            unplaced.append(pending[~has])
             pending = pending[has & ~safe]
+        if self.tier is not None and unplaced:
+            idx = torch.cat(unplaced).cpu().numpy()
+            placed += self.tier.adopt_rows(arrays, np.sort(idx))
         return placed

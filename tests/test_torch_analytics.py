@@ -1,0 +1,318 @@
+"""The port's heavy-hitter analytics (analytics.py) on the CPU against
+the JAX package's: the Space-Saving sketch bit for bit on seeded Zipf
+streams wider than its width (counts, error bounds, over-limit tallies,
+top-K, merges), KeyAnalytics' /debug/topkeys and /debug/phases
+documents after ``flush()``, dropped taps with a tiny queue, the device
+tap on the CPU, and the daemon's endpoints.  The tolerance is zero."""
+import json
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from gubernator_tpu_torch import analytics
+from gubernator_tpu_torch.config import DaemonConfig
+from gubernator_tpu_torch.daemon import spawn_daemon
+from gubernator_tpu_torch.types import RateLimitRequest, RateLimitResponse
+
+NOW = 1_765_000_000_000
+
+
+def zipf_waves(seed: int, n_keys: int, waves: int, size: int,
+               weighted: bool):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(1, 2 ** 64 - 1, n_keys, dtype=np.uint64)
+    out = []
+    for w in range(waves):
+        ranks = np.minimum(rng.zipf(1.1, size), n_keys) - 1
+        hits = (rng.integers(0, 6, size) if weighted
+                else np.ones(size, np.int64))
+        over = rng.random(size) < 0.1
+        out.append((keys[ranks], hits, over, NOW + w))
+    return out
+
+
+def both_sketches(k, width):
+    from gubernator_tpu import analytics as jax_analytics
+
+    return (analytics.HeavyHitterSketch(k=k, width=width),
+            jax_analytics.HeavyHitterSketch(k=k, width=width))
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sketch_equals_jax_bit_for_bit(seed, weighted):
+    """Streams over 20x the sketch's width: exact sequential Space-Saving
+    admission on both sides, the same state after every wave."""
+    ps, js = both_sketches(k=32, width=128)
+    for kh, hits, over, t in zipf_waves(seed, 2560, 12, 1000, weighted):
+        ps.update(kh, hits, over, t)
+        js.update(kh, hits, over, t)
+        assert ps.canonical_bytes() == js.canonical_bytes()
+    assert ps.topk() == js.topk()
+    assert ps.error_bound() == js.error_bound() > 0
+    for kh in zipf_waves(seed, 2560, 1, 50, False)[0][0].tolist():
+        assert ps.count_of(kh) == js.count_of(kh)
+
+
+def test_sketch_names_and_merge_equal_jax():
+    ps, js = both_sketches(k=8, width=32)
+    for kh, hits, over, t in zipf_waves(5, 300, 4, 200, True):
+        names = [f"n_{int(k) % 97}" for k in kh]
+        ps.update(kh, hits, over, t, names=names)
+        js.update(kh, hits, over, t, names=names)
+    assert ps.topk() == js.topk()
+    remote = zipf_waves(6, 300, 1, 300, True)[0]
+    other, _ = both_sketches(k=8, width=32)
+    other.update(*remote)
+    entries = other.topk(32)
+    ps.merge_entries(entries, other.total_weight)
+    js.merge_entries(entries, other.total_weight)
+    assert ps.canonical_bytes() == js.canonical_bytes()
+
+
+def both_analytics(**kw):
+    from gubernator_tpu import analytics as jax_analytics
+
+    clock = lambda: NOW / 1000  # noqa: E731 - a fixed wall clock
+    return (analytics.KeyAnalytics(clock=clock, **kw),
+            jax_analytics.KeyAnalytics(clock=clock, **kw))
+
+
+def test_topkeys_and_phases_snapshots_equal_jax():
+    """The same taps (columnar and object-lane) into both: equal
+    /debug/topkeys and /debug/phases documents after flush()."""
+    from gubernator_tpu.types import RateLimitRequest as JaxReq
+    from gubernator_tpu.types import RateLimitResponse as JaxResp
+
+    pa, ja = both_analytics(k=16, width=64)
+    try:
+        for i, (kh, hits, over, _) in enumerate(
+                zipf_waves(9, 500, 6, 400, False)):
+            status = over.astype(np.int32)
+            pa.tap_packed(kh, hits, status)
+            ja.tap_packed(kh, hits, status)
+            if i % 2:
+                reqs = [dict(name="o", unique_key=f"u{j % 30}", hits=j % 4)
+                        for j in range(50)]
+                resps = [j % 5 == 0 for j in range(50)]
+                pa.tap_reqs([RateLimitRequest(**r) for r in reqs],
+                            [RateLimitResponse(status=int(o))
+                             for o in resps])
+                ja.tap_reqs([JaxReq(**r) for r in reqs],
+                            [JaxResp(status=int(o)) for o in resps])
+            for phase, secs in (("pack", 0.001 * i), ("device", 0.002),
+                                ("restore", 0.5)):
+                pa.observe_phase(phase, secs)
+                ja.observe_phase(phase, secs)
+        assert pa.flush() and ja.flush()
+        got, want = pa.topkeys_snapshot(), ja.topkeys_snapshot()
+        assert got == want and got["keys"]
+        assert any(e["key"] for e in got["keys"])  # names learned
+        assert pa.topkeys_snapshot(5) == ja.topkeys_snapshot(5)
+        assert pa.phases_snapshot() == ja.phases_snapshot()
+        assert pa.rank_distribution(20) == ja.rank_distribution(20)
+        assert pa.stats() == ja.stats()
+    finally:
+        pa.close()
+        ja.close()
+
+
+def test_full_queue_drops_taps_as_jax(monkeypatch):
+    """A tap on a full queue is dropped and counted, never waited for:
+    the same counts in both packages."""
+    from gubernator_tpu import analytics as jax_analytics
+    from gubernator_tpu_torch.metrics import Metrics
+
+    for mod in (analytics, jax_analytics):
+        monkeypatch.setattr(mod.KeyAnalytics, "BATCH_INTERVAL_S", 1.0)
+    m = Metrics()
+    pa = analytics.KeyAnalytics(metrics=m, queue_cap=2)
+    ja = jax_analytics.KeyAnalytics(queue_cap=2)
+    try:
+        kh = np.arange(1, 11, dtype=np.uint64)
+        out = []
+        for a in (pa, ja):
+            a.flush()  # the worker rests now: the taps below queue up
+            out.append([a.tap_packed(kh, np.ones(10), np.zeros(10))
+                        for _ in range(5)])
+        assert out[0] == out[1] == [True, True, False, False, False]
+        assert pa.stats()["taps_dropped"] == ja.stats()["taps_dropped"] == 3
+        assert m.registry.get_sample_value(
+            "gubernator_analytics_tap_dropped_total") == 3
+        pa.flush()
+        ja.flush()
+        assert pa.stats() == ja.stats()
+    finally:
+        pa.close()
+        ja.close()
+
+
+def test_device_tap_on_the_cpu_gates_unserved_rows():
+    """tap_device takes the [4, B] tap tensor (khash, hits, over,
+    served) as the step emits it: only served rows fold."""
+    pa = analytics.KeyAnalytics(k=4, width=16)
+    try:
+        key = torch.tensor([5, 6, 7, 0], dtype=torch.int64)
+        tap = torch.stack([key, torch.tensor([2, 1, 1, 1]),
+                           torch.tensor([0, 1, 0, 0]),
+                           torch.tensor([1, 1, 0, 0])])
+        assert pa.tap_device(tap)
+        assert pa.flush()
+        top = {int(e["khash"], 16): (e["hits"], e["over_limit"])
+               for e in pa.topkeys_snapshot()["keys"]}
+        assert top == {5: (2, 0), 6: (1, 1)}
+        assert pa.stats()["waves_tapped"] == 1
+    finally:
+        pa.close()
+
+
+def test_topk_gauge_is_bounded_by_k():
+    from gubernator_tpu_torch.metrics import Metrics
+
+    m = Metrics()
+    pa = analytics.KeyAnalytics(metrics=m, k=3, width=8)
+    try:
+        for kh, hits, over, _ in zipf_waves(2, 100, 3, 300, False):
+            pa.tap_packed(kh, hits, over.astype(np.int32))
+            pa.flush()
+        labels = [s.labels["key"] for fam in m.registry.collect()
+                  if fam.name.startswith("gubernator_topkey_overlimit")
+                  for s in fam.samples]
+        assert len(labels) == 3
+    finally:
+        pa.close()
+
+
+# ---- the daemon ----------------------------------------------------------
+
+def get_json(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.status, json.loads(r.read())
+
+
+def _post(port, reqs):
+    body = json.dumps({"requests": reqs}).encode()
+    r = urllib.request.Request(f"http://127.0.0.1:{port}/v1/GetRateLimits",
+                               body, {"Content-Type": "application/json"})
+    with urllib.request.urlopen(r, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def test_debug_topkeys_and_phases_have_jax_shape(monkeypatch):
+    """/debug/topkeys and /debug/phases answer the JAX daemon's document
+    shape (keys, fields, owner column), and 404 with analytics off."""
+    from gubernator_tpu import analytics as jax_analytics
+
+    monkeypatch.delenv("GUBER_ANALYTICS", raising=False)
+    d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0",
+                                  grpc_listen_address="", device="cpu",
+                                  cache_size=1 << 12))
+    try:
+        for _ in range(3):
+            _post(d.http_port, [{"name": "a", "unique_key": f"k{i % 7}",
+                                 "hits": 1, "limit": 3, "duration": 5000}
+                                for i in range(40)])
+        code, top = get_json(d.http_port, "/debug/topkeys?limit=4")
+        assert code == 200
+        ja = jax_analytics.KeyAnalytics()
+        try:
+            want = ja.topkeys_snapshot()
+        finally:
+            ja.close()
+        assert set(top) == set(want)
+        assert len(top["keys"]) == 4
+        assert set(top["keys"][0]) == {"khash", "key", "hits", "err",
+                                       "over_limit", "last_seen_ms",
+                                       "owner"}
+        assert top["keys"][0]["key"].startswith("a_k")
+        assert top["keys"][0]["owner"] is None  # alone: no ring
+        # the 120 hits sent and the warm-up query (weight 1)
+        assert top["total_hits_observed"] == 121
+        code, ph = get_json(d.http_port, "/debug/phases")
+        assert code == 200 and set(ph) == {"phases", "waves"}
+        assert {"queue_wait", "pack", "device", "resolve"} <= set(
+            ph["phases"])
+        assert set(ph["phases"]["device"]) == {"count", "total_ms", "p50_ms",
+                                               "p99_ms", "max_ms"}
+        _, h = get_json(d.http_port, "/healthz?deep=1")
+        assert h["dispatcher"]["analytics"]["waves_tapped"] > 0
+    finally:
+        d.close()
+    monkeypatch.setenv("GUBER_ANALYTICS", "0")
+    d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0",
+                                  grpc_listen_address="", device="cpu",
+                                  cache_size=1 << 12))
+    try:
+        for path in ("/debug/topkeys", "/debug/phases"):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                get_json(d.http_port, path)
+            assert e.value.code == 404
+        assert d.instance.analytics is None
+    finally:
+        d.close()
+
+
+def test_analytics_on_by_default_and_config_defaults_equal_jax(monkeypatch):
+    from gubernator_tpu.config import Config as JaxConfig
+    from gubernator_tpu_torch.config import Config, setup_daemon_config
+    from gubernator_tpu_torch.instance import V1Instance
+
+    for var in ("GUBER_ANALYTICS", "GUBER_TOPK", "GUBER_SKETCH_WIDTH"):
+        monkeypatch.delenv(var, raising=False)
+    c, jc = Config(), JaxConfig()
+    for f in ("loader", "store", "tier_cold", "tier_promote_threshold"):
+        assert getattr(c, f) == getattr(jc, f)
+    assert setup_daemon_config(env={}).snapshot_path == ""
+    inst = V1Instance(Config(cache_size=1024, device="cpu"))
+    try:
+        st = inst.analytics.stats()
+        assert (st["k"], st["width"]) == (256, 1024)
+        assert inst.engine.tap_sink == inst.analytics.tap_device
+        assert inst._tier is None
+    finally:
+        inst.close()
+    monkeypatch.setenv("GUBER_TOPK", "10")
+    monkeypatch.setenv("GUBER_SKETCH_WIDTH", "77")
+    monkeypatch.setenv("GUBER_TIER_COLD", "1")
+    monkeypatch.setenv("GUBER_TIER_PROMOTE", "5")
+    inst = V1Instance(Config(cache_size=1024, device="cpu", engine="xla"))
+    try:
+        st = inst.analytics.stats()
+        assert (st["k"], st["width"]) == (10, 77)
+        assert inst._tier.promote_threshold == 5
+        assert inst.engine.tap_sink is None  # the host taps the classic
+    finally:
+        inst.close()
+
+
+def test_wave_taps_reach_the_sketch_on_both_engines(monkeypatch):
+    """Object-lane waves tap with names (the device tap muted), wire
+    waves with columns (bucket: the device tap; classic: the host)."""
+    from gubernator_tpu_torch.config import Config
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    monkeypatch.delenv("GUBER_ANALYTICS", raising=False)
+    monkeypatch.setenv("GUBER_PIPELINE", "0")
+    for engine in ("", "xla"):
+        inst = V1Instance(Config(cache_size=1024, device="cpu",
+                                 engine=engine, sweep_interval_ms=0))
+        try:
+            reqs = [RateLimitRequest(name="w", unique_key=f"k{i % 5}",
+                                     hits=1, limit=100, duration=60_000)
+                    for i in range(50)]
+            inst.get_rate_limits(reqs, now_ms=NOW)
+            inst.get_rate_limits_wire(encode_get_rate_limits(reqs),
+                                      now_ms=NOW)
+            inst.analytics.flush()
+            top = inst.analytics.topkeys_snapshot()
+            assert top["total_hits_observed"] == 100
+            assert {e["key"] for e in top["keys"]} == {
+                f"w_k{i}" for i in range(5)}
+            assert all(e["hits"] == 20 for e in top["keys"])
+        finally:
+            inst.close()

@@ -1,4 +1,4 @@
-"""chip_smoke.py's phases 4, 5, 6, 7 and its cluster phase, and
+"""chip_smoke.py's phases 4, 5, 6, 7, its cluster and tiers phases, and
 chip_ab.py's threshold sweep and K2 section, rehearsed on the CPU at a
 small size: the plain versions stand
 in for K1 and K2 and the host clock for CUDA events, so the phases'
@@ -253,6 +253,23 @@ def test_main_and_wire_paths_rehearse_on_the_cpu(path_rehearsal):
     assert "draining" in dr["shed_after"]
     assert dr["served_ms"] < dr["grace_ms"] <= dr["closed_ms"]
     assert dr["events"] == ["drain_started", "drain_completed"]
+    top = res["topkeys"]
+    assert top["taps_dropped"] == 0 and len(top["hottest"]) == 16
+    assert all(r["count"] >= r["sent"] > 0 for r in top["hottest"])
+    noana = res["wire_analytics_off"]
+    assert noana["launches"] > 0 and len(noana["rounds"]) == 1
+    assert set(res["analytics"]["decisions_per_s"]) == {"on", "off"}
+    assert res["object_analytics_off"]["batches"] == \
+        args.threads * args.batches
+    assert set(res["object_analytics"]["p99_ms"]) == {"on", "off"}
+    prof = res["object_host_profile"]
+    assert prof["order"] == ["on", "off"]
+    for state in prof["order"]:
+        r, p = prof[state]["round"], prof[state]["profile"]
+        assert r["batches"] == args.threads * args.profile_batches
+        assert set(p["threads"]) == {"device-dispatcher", "key-analytics"}
+        assert p["samples"] > 0 and p["process_cpu_s"] > 0
+        assert "device-dispatcher" in p["top"]
 
 
 def test_classic_path_and_wire_round_rehearse_on_the_cpu(path_rehearsal):
@@ -479,3 +496,45 @@ def test_wave_timer_times_pipelined_and_coalesced_waves(cpu_daemon):
     assert len(inline) == 1 and len(timer.slots) == 1
     for start, end, jobs, rows, engine_s, wait_s in timer.rec:
         assert end >= start and jobs == 1 and 0 <= engine_s <= end - start
+
+
+def test_tiers_phase_rehearses_on_the_cpu(path_rehearsal):
+    """The tiers phase at a small size: 2000 keys behind a 1024-row table
+    (the instance's least), so half the rows restore cold; every check
+    of the phase holds."""
+    args = path_rehearsal
+    args.tier_log2_cap = 10
+    res = chip_smoke.phase_tiers(torch, args)
+    r = res["restore"]
+    assert r["device_rows"] + r["cold_rows"] == args.keys
+    assert r["cold_rows"] == res["snapshot_in"]["predicted_cold"] > 500
+    assert r["dropped_rows"] == 0 and r["native_store"]
+    s = res["served"]
+    assert s["promotions"] > 0 and s["launches"] > 0
+    assert s["requests"] == args.threads * 1000 * (
+        args.rounds * args.batches + args.profile_batches)
+    assert 0 < s["cold_share"] < 1 and len(s["rounds"]) == 3
+    adm = s["admission"]
+    assert adm["offers"].get("promoted_evicting", 0) + adm["offers"].get(
+        "promoted_free_slot", 0) == s["promotions"] == len(adm["promoted"])
+    assert sum(sum(b.values()) for b in
+               adm["keys_by_population_rank"].values()) == \
+        sum(adm["keys"].values()) > 0
+    assert res["ood"] == {"object": 192, "wire": 192}
+    assert set(res["remove"]) == {"device", "cold"}
+    out = res["snapshot_out"]
+    assert out["restored_rows"] == out["rows"] - 1 and out["file_bytes"] > 0
+    assert res["item_vs_column"]["rows"] == args.keys
+    st = res["store"]
+    assert st["store_calls"]["on_change"] == st["requests"] == \
+        args.threads * 2 * 1000
+    assert st["store_calls"]["get"] == st["misses"] > 0
+    assert all(t["cold_rows"] > 0 for t in st["tiers"])
+
+
+def test_tier_population_and_prediction():
+    rows, ood = chip_smoke.tier_population(1000, 100, 60_000, 1)
+    assert ood.sum() == 10 and (rows["meta"] == 1).sum() == 100
+    assert (rows["limit"][ood] == chip_smoke.OOD_LIMIT).all()
+    cold = chip_smoke.predicted_cold(rows["key"], ood, 6)  # 8 buckets
+    assert cold[ood].all() and (~cold).sum() == 64

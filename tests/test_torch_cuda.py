@@ -513,3 +513,93 @@ def test_classic_engine_on_cuda_equals_cpu(cuda):
     assert fresh[0].restore(snap) == fresh[1].restore(snap) > 0
     for a, c in zip(fresh[0].state, fresh[1].state):
         assert torch.equal(a, c.cpu())
+
+
+def _tier_union(inst) -> dict:
+    from gubernator_tpu_torch.tiering import ROW_COLS
+
+    out = {}
+    for arrays in (inst.engine.snapshot(), inst._tier.snapshot_arrays()):
+        if arrays is None:
+            continue
+        for i, k in enumerate(np.asarray(arrays["key"]).tolist()):
+            assert k not in out, "a key in both tiers"
+            out[k] = tuple(int(arrays[f][i]) for f in ROW_COLS)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["", "xla"])
+def test_tier_row_moves_on_cuda_equal_cpu(cuda, monkeypatch, engine):
+    """A capped instance with the cold tier on the card and on the CPU:
+    cold serves (object and wire lanes, out-of-domain rows on the bucket
+    engine), then promotions and demotions through the engines' row API
+    on the card; equal answers and an equal union of the tiers, with
+    every row move's placement the same."""
+    from gubernator_tpu_torch.config import Config
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.types import RateLimitRequest
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    monkeypatch.setenv("GUBER_ANALYTICS", "0")
+    monkeypatch.setenv("GUBER_PIPELINE", "0")
+    insts = [V1Instance(Config(cache_size=1024, batch_rows=64, device=d,
+                               engine=engine, sweep_interval_ms=0,
+                               tier_cold=True)) for d in ("cpu", "cuda")]
+    try:
+        for w in range(3):
+            # the 2^40 rows on keys of their own: a key with a device
+            # row answers table_full at 2^40 on the bucket engine
+            reqs = [RateLimitRequest(
+                name="big" if i % 50 == 0 else "t",
+                unique_key=f"k{(i * 7 + w) % 2500}",
+                hits=i % 3, limit=2 ** 40 if i % 50 == 0 else 9,
+                duration=60_000, algorithm=i % 2) for i in range(900)]
+            now = NOW + 1_000 * w
+            a, b = [[(int(r.status), r.limit, r.remaining, r.reset_time,
+                      r.error) for r in inst.get_rate_limits(reqs, now)]
+                    for inst in insts]
+            assert a == b and not any(x[4] for x in a)
+            wa, wb = [inst.get_rate_limits_wire(
+                encode_get_rate_limits(reqs[:500]), now + 1)
+                for inst in insts]
+            assert wa == wb
+            assert _tier_union(insts[0]) == _tier_union(insts[1])
+        cold = sorted(insts[0]._tier.snapshot_arrays()["key"].tolist())
+        for inst in insts:
+            tier = inst._tier
+            tier.rank_fn = lambda kh: 1
+            tier.rank_batch = lambda khs: [0] * len(khs)
+            for kh in cold[:64]:
+                tier.promote(inst.engine, kh, 10)
+        assert insts[0]._tier.stats() == insts[1]._tier.stats()
+        assert insts[1]._tier.stats()["promotions"] > 0
+        assert _tier_union(insts[0]) == _tier_union(insts[1])
+        if engine == "":
+            assert torch.equal(insts[0].engine.rows, insts[1].engine.rows.cpu())
+    finally:
+        for inst in insts:
+            inst.close()
+
+
+@pytest.mark.gpu
+def test_device_tap_folds_from_the_card(cuda):
+    """The analytics worker copies a CUDA tap after the step's event, on
+    its side stream: the sketch equals the CPU tap's."""
+    from gubernator_tpu_torch.analytics import KeyAnalytics
+
+    rng = np.random.default_rng(1)
+    tap = torch.from_numpy(np.stack([
+        rng.integers(1, 50, 8192), rng.integers(0, 4, 8192),
+        rng.integers(0, 2, 8192), rng.integers(0, 2, 8192)]))
+    docs = []
+    for dev in ("cpu", "cuda"):
+        ka = KeyAnalytics(k=16, width=64, clock=lambda: 1.0)
+        try:
+            for _ in range(3):
+                assert ka.tap_device(tap.to(dev))
+            assert ka.flush()
+            docs.append(ka.topkeys_snapshot())
+        finally:
+            ka.close()
+    assert docs[0] == docs[1] and docs[0]["waves_tapped"] == 3

@@ -30,8 +30,10 @@ from gubernator_tpu_torch.wire import encode_get_rate_limits
 NOW = 1_765_000_000_000
 
 #: points of subsystems the port has not ported
-NOT_PORTED = ("global_accum_swap", "global_psum", "mr_sync", "snapshot",
-              "restore", "tier_promote", "tier_demote")
+NOT_PORTED = ("global_accum_swap", "global_psum", "mr_sync")
+
+#: points of the Loader and the cold tier, ported with them
+STATE_POINTS = ("snapshot", "restore", "tier_promote", "tier_demote")
 
 VALID = [
     "peer_send:error:0.3",
@@ -92,6 +94,23 @@ def test_points_outside_the_port_catalog_raise(point):
     jax_faults.FaultSet().arm(f"{point}:error")
     with pytest.raises(ValueError, match="unknown faultpoint"):
         FaultSet().arm(f"{point}:error")
+
+
+@pytest.mark.parametrize("point", STATE_POINTS)
+def test_state_points_arm_and_describe_as_jax(point):
+    """The Loader's and the cold tier's points are in the catalog with
+    the JAX package's description, and arm in both packages."""
+    assert faults.FAULT_POINTS[point] == jax_faults.FAULT_POINTS[point]
+    got = []
+    for cls in (FaultSet, jax_faults.FaultSet):
+        fs = cls()
+        fs.arm(f"{point}:error")
+        assert fs.armed
+        with pytest.raises(Exception) as e:
+            fs.fire(point)
+        assert type(e.value).__name__ == "FaultInjected"
+        got.append(fs.describe()["spec"])
+    assert got[0] == got[1] == f"{point}:error"
 
 
 def test_catalog_is_the_jax_catalog_less_the_unported_points():
@@ -308,7 +327,7 @@ def test_daemon_arms_and_clears_over_http(monkeypatch):
         assert desc["spec"] == "device_step:error:0.5"
         assert desc["catalog"] == sorted(faults.FAULT_POINTS)
         with pytest.raises(urllib.error.HTTPError) as e:
-            post({"spec": "snapshot:error"})
+            post({"spec": "mr_sync:error"})
         assert e.value.code == 400
         assert d.instance.faults.describe()["spec"] == "device_step:error:0.5"
         code, got = post({"clear": True})

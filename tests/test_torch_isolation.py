@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (its
-wire lane, its cluster path, one daemon's lifecycle and the cluster's
-failure path included), and its entry points default to the GPU,
-raising where there is none."""
+wire lane, its cluster path, one daemon's lifecycle, the cluster's
+failure path and the state beyond the device table included), and its
+entry points default to the GPU, raising where there is none."""
 import ast
 import pkgutil
 import subprocess
@@ -27,7 +27,8 @@ def test_importing_every_module_loads_no_jax():
     assert "gubernator_tpu_torch.ops.decide" in mods
     for m in ("peers", "peer_client", "global_manager", "discovery",
               "cluster", "interval", "netutil", "telemetry", "metrics",
-              "cmd.healthcheck", "faults"):
+              "cmd.healthcheck", "faults", "store", "tiering",
+              "analytics"):
         assert f"gubernator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -144,6 +145,46 @@ def test_lifecycle_path_loads_nothing_of_the_jax_package():
         "'--deep']) == 0\n"
         "assert 'packed_pipelined' in [e['wave_kind'] for e in "
         "inst.recorder.events(kind='wave_launched')]\n"
+        "d.close()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'gubernator_tpu' "
+        "or m.startswith('gubernator_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_state_path_loads_nothing_of_the_jax_package(tmp_path):
+    """The state beyond the device table in a fresh process: a daemon
+    with the cold tier, the analytics and a snapshot path, cold serves,
+    /debug/topkeys, remove, the snapshot written at close and restored
+    by a second daemon; no JAX-package module is loaded, and the native
+    cold store is the host library's."""
+    snap = str(tmp_path / "s.npz")
+    code = (
+        "import os, sys, json, urllib.request\n"
+        "os.environ['GUBER_TIER_COLD'] = '1'\n"
+        "from gubernator_tpu_torch.config import DaemonConfig\n"
+        "from gubernator_tpu_torch.daemon import spawn_daemon\n"
+        "from gubernator_tpu_torch.types import RateLimitRequest as R\n"
+        "cfg = DaemonConfig(http_listen_address='127.0.0.1:0', "
+        f"grpc_listen_address='', cache_size=1024, device='cpu', "
+        f"snapshot_path={snap!r})\n"
+        "d = spawn_daemon(cfg)\n"
+        "inst = d.instance\n"
+        "reqs = [R(name='n', unique_key=f'k{i}', limit=5, "
+        "duration=60000) for i in range(1000)]\n"
+        "assert not any(r.error for r in inst.get_rate_limits(reqs))\n"
+        "assert inst._tier.stats()['native'] and inst._tier.cold_keys()\n"
+        "top = json.loads(urllib.request.urlopen("
+        "f'http://127.0.0.1:{d.http_port}/debug/topkeys').read())\n"
+        "assert top['keys']\n"
+        "assert inst.remove('n', 'k1')\n"
+        "d.close()\n"
+        "d = spawn_daemon(cfg)\n"
+        "assert d.instance._tier.cold_keys() > 0\n"
         "d.close()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gubernator_tpu' "

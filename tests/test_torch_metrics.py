@@ -38,17 +38,11 @@ NOT_PORTED = {
                                       "gubernator_pallas_mesh_fused_hits"},
     "compile ledger": {"gubernator_jit_compiles"},
     "scenario lab": {"gubernator_scenario_runs"},
-    "analytics": {"gubernator_topkey_overlimit_total",
-                  "gubernator_analytics_waves_tapped",
-                  "gubernator_analytics_tap_dropped"},
     "mesh-GLOBAL": {"gubernator_mesh_global_folds",
                     "gubernator_mesh_global_fold_errors",
                     "gubernator_mesh_global_staleness_seconds",
                     "gubernator_mesh_global_degraded",
                     "gubernator_mesh_global_keys"},
-    "tiering": {"gubernator_tier_cold_keys", "gubernator_tier_cold_serves",
-                "gubernator_tier_promotions", "gubernator_tier_demotions",
-                "gubernator_tier_migrations_aborted"},
     "tenants": {"gubernator_tenant_requests", "gubernator_tenant_hits",
                 "gubernator_tenant_over_limit", "gubernator_tenant_errors",
                 "gubernator_tenant_degraded", "gubernator_tenant_shed"},
@@ -72,7 +66,7 @@ def families(m):
 
 def test_every_port_family_has_its_jax_namesake():
     port, ref = families(Metrics()), families(JaxMetrics())
-    assert len(port) == 42
+    assert len(port) == 50
     for attr, fam in port.items():
         assert ref.get(attr) == fam, attr
 
