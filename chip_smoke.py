@@ -2,9 +2,11 @@
 """On-GPU smoke of the PyTorch port (gubernator_tpu_torch): builds its
 CUDA kernels, holds each against its plain PyTorch version at full size,
 and drives the port's serving paths through them: the daemon on the
-bucket engine (K1), a cluster of bucket-engine daemons, the daemon on
-the classic SoA engine (K2), and a daemon whose 10M keys outgrow its
-table, served by the cold tier behind it.
+bucket engine (K1), a cluster of bucket-engine daemons, a group of
+daemon processes sharing the card behind one client port, two regions
+replicating MULTI_REGION hits, the daemon on the classic SoA engine
+(K2), and a daemon whose 10M keys outgrow its table, served by the cold
+tier behind it.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -19,12 +21,13 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
 3. probe: K3 (the toolchain probe, an int32 add) against x + y on the
    (8, 128) input of tools/pallas_probe.py and on 2^24 elements;
 4. kernel vs plain: a 2^25-row (4 GiB) bucket table holding 10M keys,
-   then >= 8 mixed waves of 8192 rows and one of 1024 (the bucket path's
-   two wave widths; Zipf(1.1) keys, TOKEN and LEAKY, RESET / DRAIN /
-   Gregorian, queries, duplicates, per-row now, one crafted bucket-full
-   wave), then >= 4 waves of 8192 rows of the main path's own traffic
-   (Zipf(1.1) over the same keys, hits 1, one TOKEN config, per-row now
-   spread like coalesced callers), through decide_cuda and decide_plain
+   then --waves (4) mixed waves of 8192 rows and one of 1024 (the
+   bucket path's two wave widths; Zipf(1.1) keys, TOKEN and LEAKY, RESET
+   / DRAIN / Gregorian, queries, duplicates, per-row now, one crafted
+   bucket-full wave), then --main-waves (2) waves of 8192 rows of the
+   main path's own traffic (Zipf(1.1) over the same keys, hits 1, one
+   TOKEN config, per-row now spread like coalesced callers), through
+   decide_cuda and decide_plain
    on two copies of the table: outputs, counters and the whole table
    must be equal.  Each wave prints K1's hot segments, its longest slot
    chain, and the requests it took in closed form and one by one; K1's
@@ -64,14 +67,24 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
    the TOPKEYS_CHECKED hottest ranks present, each count at most the
    hits sent plus its err and, with no tap dropped, at least the hits
    sent; the taps dropped are printed;
-   analytics off: one wire round and one object round with the
-   analytics detached (the instance's taps and device tap unhooked, as
-   JAX's bench detaches them; the worker stays, idle), after the
-   default rounds, each printed beside them (``... analytics on vs
-   off:`` lines); then one object round of 8 x profile-batches with the
-   analytics on and one detached, each under a host profile (the CPU
-   seconds of the dispatcher's and the analytics' workers, a stack
-   sample every 5 ms);
+   analytics on / off, by the reference's method (bench.py ›
+   _analytics_ab): on the wire lane and on the object lane, one untimed
+   warm-up pair, then AB_PAIRS pairs of 8 x AB_BATCHES batches with the
+   analytics on and detached (the instance's taps and device tap
+   unhooked, as JAX's bench detaches them), the worker flushed before
+   each detached arm; printed: the median of the per-pair off / on
+   ratios (the overhead), both rates and the taps dropped; once with
+   the sketch's fold in Python (the plain version, before its move to
+   C++) and once native; then the fold's move alone: the same pairs
+   with the analytics on in both arms, the Python fold against the
+   native, the worker flushed before each arm (the median of the
+   per-pair native / python ratios); then key hashing native / plain:
+   the same
+   pairs on the object lane, the dispatcher's hash swapped for its
+   Python loop in the plain arm; then one object round of 8 x
+   profile-batches with the analytics on and one detached, each under a
+   host profile (the CPU seconds of the dispatcher's and the analytics'
+   workers, a stack sample every 5 ms);
    admission: one round of wire traffic with the admission bound at
    ADMISSION_ROWS rows: some batches must shed (ResourceExhausted,
    queue_full), the admitted ones are checked per key, and the shed
@@ -125,6 +138,39 @@ cluster: 3 daemons in this process (cluster.start_with), each with a
    state before the join, the rows its full buckets refused are exactly
    its dropped_rows count and the count its buckets predict, and no old
    owner still holds a moved row; prints the step's ms and rows moved;
+   group: GROUP_NODES daemon processes (cluster.start_subprocess_group:
+   each its own interpreter and a 2^24-row bucket engine on the card,
+   the kernels built first by this process), one SO_REUSEPORT client
+   port, the cluster phase's 10M keys restored on their ring owners
+   from a snapshot per worker and its traffic from 8 callers, each on a
+   connection of its own (kept so that every worker holds at least
+   one); prints decisions/s and p50 / p99 beside the in-process
+   cluster's and the solo wire path's rates, each worker's client
+   requests and forwarded rows from its /metrics (every worker must
+   answer some) and its K1 launches from /debug/kernels; the 10^9 keys
+   must read exactly the limit less the hits sent on every worker.
+   Then the last worker is SIGKILLed while the callers send (a caller
+   whose connection dies retries its batch on a new one): prints the
+   ms until each survivor ejects it, the rows flagged degraded (equal
+   to gubernator_degraded_served), the calls that failed at the
+   transport and were retried; no error row but `rate limit table full`
+   on a key of the dead worker, and the survivors' own keys exact (but
+   those of a retried batch, whose first try may have applied);
+   regions: 2 regions x 2 daemons in this process (dc-east, dc-west),
+   2^24 rows each, phase 5's keys restored on their owner in each
+   region, 8 callers over gRPC split across both regions, the 16
+   hottest ranks MULTI_REGION at limit 100 (over-admission printed)
+   and the next 16 at 10^9: after the sync wait and the send deadline
+   (REGION_BEHAVIOR_OVERRIDES) each 10^9 key reads on its owner in each
+   region exactly the limit less the hits sent to both; a further
+   quiet wait changes nothing (no ping-pong); an armed mr_sync tick on
+   every daemon holds every hit sent meanwhile and loses none; every
+   other key exact in its region; prints decisions/s, p99 and the ms
+   from the end of the traffic until every key read exact.  Then one
+   more round at the default send deadline (900 ms), measured, not
+   held exact: once the queues are empty and the counters still, the
+   failed sends and the hits each region's 10^9 keys lost (none may
+   read below the hits sent: a hit counted twice stops the run);
 6. sweep vs plain: a 2^24-row SoA table holding 10M keys (placed with
    upsert_rows; ~30% expired, some removed) swept by K2 and by its
    plain version on two copies: key and expire_at equal, the other
@@ -252,6 +298,29 @@ OUTAGE_MAX_BATCHES = 200
 #: how long a gate flip or a handover may take before the run stops
 FLIP_S = 60.0
 HANDOVER_S = 900.0
+#: the subprocess group's worker processes, the seconds its callers send
+#: before one is SIGKILLed and after both survivors ejected it, and the
+#: most batches a caller has ready for that window
+GROUP_NODES = 3
+GROUP_KILL_WARM_S = 1.0
+GROUP_KILL_AFTER_S = 2.0
+GROUP_KILL_MAX_BATCHES = 400
+#: the regions phase: its regions, daemons a region, and the hottest
+#: ranks sent MULTI_REGION at limit 100, then at EXACT_GLOBAL_LIMIT
+REGIONS = ("dc-east", "dc-west")
+REGION_NODES = 2
+MR_RANKS = 16
+EXACT_MR_RANKS = 16
+#: the regions' send deadline while every hit is checked: the JAX
+#: package's MULTI_REGION tests' 5 s (a send that outlives it loses its
+#: hits, in both packages, and the default 900 ms is within reach of a
+#: queue of 8 callers' batches); a last round at the default measures
+#: the hits its failed sends lose
+REGION_BEHAVIOR_OVERRIDES = dict(multi_region_timeout_ms=5000)
+#: interleaved A/B pairs after the warm-up pair, and batches per caller
+#: in each arm (bench.py › _analytics_ab's discipline)
+AB_PAIRS = 5
+AB_BATCHES = 10
 #: /debug/topkeys after phase 5: the hottest ranks checked, out of the
 #: keys the document is asked for
 TOPKEYS_CHECKED = 16
@@ -774,26 +843,47 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
             rebuild_dispatcher(inst, timer)  # the default dispatcher again
         with phase("topkeys"):
             topkeys = check_topkeys(d, tally, pop_keys)
-        with phase("analytics off"):
-            # one wire round and one object round with the analytics
-            # detached, after the topkeys check (the sketch misses them)
-            decide_cuda.launches = 0
-            with analytics_detached(inst):
-                noana = wire_rounds(torch, inst, wire_per(1, False), key_of,
-                                    limit, duration, profile_last=False)
-                noana_launches = decide_cuda.launches
-                per = [[zipf_ranks(rng, 1.1, len(pop_idx), 1000)
-                        for _ in range(args.batches)]
-                       for _ in range(args.threads)]
-                jobs = [[[RateLimitRequest(name="smoke",
-                                           unique_key=key_of(r), hits=1,
-                                           limit=limit, duration=duration)
-                          for r in ranks] for ranks in thread]
-                        for thread in per]
-                obj_off = drive(inst.get_rate_limits, jobs)
-            for rec in noana:
-                tally.add(rec["per"], rec["results"])
-            tally.add(per, obj_off[3])
+        with phase("analytics on / off pairs"):
+            # the reference's method, after the topkeys check (the
+            # sketch misses the detached arms): interleaved pairs, the
+            # worker flushed before each detached arm; with the sketch's
+            # fold in Python (before the move to C++), then native
+            ab_arms = ABArms(inst, rng, len(pop_idx), key_of, limit,
+                             duration, args, tally)
+            flush = lambda: inst.analytics.flush(timeout=30.0)  # noqa: E731
+            ana_ab = {"wire": {}, "object": {}}
+            for fold, fold_ctx in (("python", python_fold),
+                                   ("native", nullcontext)):
+                for lane in ("wire", "object"):
+                    dropped0 = inst.analytics.stats()["taps_dropped"]
+                    with fold_ctx(inst):
+                        ab = interleaved_pairs(
+                            f"{lane} lane analytics, {fold} fold",
+                            ab_arms.runner(lane),
+                            (("on", nullcontext),
+                             ("off", lambda: analytics_detached(inst))),
+                            before_second=flush)
+                    ab["taps_dropped"] = \
+                        inst.analytics.stats()["taps_dropped"] - dropped0
+                    ab["overhead_pct"] = (ab["median_ratio"] - 1.0) * 100
+                    ana_ab[lane][fold] = ab
+            noana_launches = ab_arms.launches["wire"]["off"]
+            # the fold's move itself: analytics on in both arms, the
+            # Python fold against the native one, the worker flushed
+            # before each arm
+            fold_ab = {}
+            for lane in ("wire", "object"):
+                dropped0 = inst.analytics.stats()["taps_dropped"]
+                fold_ab[lane] = interleaved_pairs(
+                    f"{lane} lane sketch fold", ab_arms.runner(lane),
+                    (("python", lambda: flushed(inst, python_fold(inst))),
+                     ("native", lambda: flushed(inst, nullcontext()))))
+                fold_ab[lane]["taps_dropped"] = \
+                    inst.analytics.stats()["taps_dropped"] - dropped0
+        with phase("hashing native / plain pairs"):
+            hash_ab = interleaved_pairs(
+                "object lane key hashing", ab_arms.runner("object"),
+                (("native", nullcontext), ("plain", plain_hashing)))
         with phase("object lane host profile"):
             host_profile = profiled_object_rounds(
                 inst, rng, len(pop_idx), key_of, limit, duration, args,
@@ -851,24 +941,22 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
     res["pipeline"] = pipeline_compare("wire path", res["wire"],
                                        res["wire_pipeline_off"])
     res["topkeys"] = topkeys
-    res["wire_analytics_off"] = wire_summary(
-        [wire_round_stats(rec, timer, inline, pauses) for rec in noana],
-        noana, noana_launches, "wire path, analytics off",
-        profiled_last=False)
-    res["analytics"] = analytics_compare("wire path", res["wire"],
-                                         res["wire_analytics_off"])
-    t0, wall, lat, results = obj_off
-    off = round_stats(wall, lat, [w for w in timer.rec
-                                  if t0 <= w[0] <= t0 + wall],
-                      sum(len(b) for r in results.values() for b in r),
-                      [p for p in pauses if t0 <= p[0] <= t0 + wall])
-    res["object_analytics_off"] = off
-    print(f"object lane, analytics off round: {json.dumps(off)}", flush=True)
-    res["object_analytics"] = {
-        k: {"on": res[k], "off": off[k]}
-        for k in ("decisions_per_s", "p50_ms", "p99_ms")}
-    print(f"object lane analytics on vs off: "
-          f"{json.dumps(res['object_analytics'])}", flush=True)
+    res["analytics_ab"] = ana_ab
+    res["wire_analytics_off_launches"] = noana_launches
+    res["fold_ab"] = fold_ab
+    res["hash_ab"] = hash_ab
+    print(f"analytics on / off, the reference's method: " + json.dumps(
+        {lane: {fold: {x: ab[x] for x in (
+            "overhead_pct", "median_ratio", "on_median", "off_median",
+            "taps_dropped")} for fold, ab in folds.items()}
+         for lane, folds in ana_ab.items()}), flush=True)
+    print(f"sketch fold native / python, analytics on: " + json.dumps(
+        {lane: {x: ab[x] for x in ("median_ratio", "python_median",
+                                   "native_median", "taps_dropped")}
+         for lane, ab in fold_ab.items()}), flush=True)
+    print(f"object lane key hashing native / plain: "
+          f"{json.dumps({x: hash_ab[x] for x in ('median_ratio', 'native_median', 'plain_median')})}",
+          flush=True)
     res["object_host_profile"] = host_profile
     print(f"pipeline: depth {health['pipeline_depth']}, "
           f"{res['wire']['pipelined_waves']} packed_pipelined waves, "
@@ -1594,6 +1682,843 @@ def phase_outage(torch, args, c, ctx) -> dict:
             f"ring generations {gen0} -> {gen1}: not two bumps each")
     require(leaks == 0, f"{leaks} leases leaked")
     require(launches > 0, "K1 never launched in the outage phase")
+    return res
+
+
+def group_worker_env(args, snap_dir: str, state: dict):
+    """``worker_env`` of the group: once the workers' peer addresses are
+    drawn, the 10M keys are placed by their ring (fit to each worker's
+    table beside its warm-up key) and written as one snapshot per worker,
+    which each worker restores at start (its Loader path); the 16
+    hottest ranks at limit 100 and the next 16 at EXACT_GLOBAL_LIMIT."""
+    import os
+
+    from gubernator_tpu_torch.peers import ReplicatedConsistentHash
+    from gubernator_tpu_torch.store import save_arrays
+    from gubernator_tpu_torch.types import PeerInfo
+
+    def env(i: int, addrs: list) -> dict:
+        if state.get("addrs") != addrs:
+            t0 = time.perf_counter()
+            ring = ReplicatedConsistentHash()
+            for a in addrs:
+                ring.add(_RingPeer(PeerInfo(grpc_address=a)))
+            pop_idx, pop_keys, owner_pi = fit_cluster_population(
+                args.keys, args.cluster_log2_cap, ring)
+            by_addr = {a: j for j, a in enumerate(addrs)}
+            owner = np.array([by_addr[p.info.grpc_address]
+                              for p in ring.owner_peers()])[owner_pi]
+            lim = np.full(len(pop_keys), 100, np.int64)
+            lim[GLOBAL_RANKS:GLOBAL_RANKS + EXACT_GLOBAL_RANKS] = \
+                EXACT_GLOBAL_LIMIT
+            fill_t = int(time.time() * 1000) - 1_000
+            paths = [os.path.join(snap_dir, f"worker{j}.npz")
+                     for j in range(len(addrs))]
+            writers = [threading.Thread(target=save_arrays, args=(
+                paths[j], token_rows(pop_keys[owner == j], lim[owner == j],
+                                     3_600_000, fill_t)))
+                for j in range(len(addrs))]
+            for w in writers:
+                w.start()
+            for w in writers:
+                w.join()
+            state.update(addrs=list(addrs), pop_idx=pop_idx,
+                         pop_keys=pop_keys, owner=owner, paths=paths,
+                         write_s=time.perf_counter() - t0)
+        return {"GUBER_SNAPSHOT_PATH": state["paths"][i]}
+
+    return env
+
+
+def group_metric(addr: str, name: str, labels=()) -> float:
+    """One sample of a group worker's /metrics (0 when absent)."""
+    return scrape_metrics(int(addr.rsplit(":", 1)[1])).get(
+        (name, tuple(sorted(labels))), 0.0)
+
+
+def group_api(g) -> list:
+    """Each worker's GetRateLimits requests of call type api (client
+    requests it answered) and peer (forwarded rows it applied)."""
+    out = []
+    for a in g.http_addresses:
+        m = scrape_metrics(int(a.rsplit(":", 1)[1]))
+        out.append((m.get(("gubernator_getratelimit_total",
+                           (("calltype", "api"),)), 0.0),
+                    m.get(("gubernator_getratelimit_total",
+                           (("calltype", "peer"),)), 0.0)))
+    return out
+
+
+def group_launches(g) -> list:
+    """Each worker's K1 launches since it started (GET /debug/kernels:
+    the wrapper's own count in that process)."""
+    out = []
+    for i, a in enumerate(g.http_addresses):
+        code, body = get_json(int(a.rsplit(":", 1)[1]), "/debug/kernels")
+        require(code == 200, f"group worker {i}: /debug/kernels {code}")
+        out.append(body["decide"])
+    return out
+
+
+def group_channels(g, n: int, raw_unary, encode, probe_req) -> tuple:
+    """``n`` channels to the shared client port, each its own TCP
+    connection, kept so that every worker holds at least one: a new
+    channel's first (hits=0) call is traced to the worker whose api
+    counter moved.  Returns (channels, the worker of each)."""
+    import grpc
+
+    need = len(g.procs)
+    kept, where = [], []
+    data = encode([probe_req])
+    for _ in range(64 * n):
+        if len(kept) == n:
+            break
+        ch = grpc.insecure_channel(
+            g.client_address,
+            options=[("grpc.use_local_subchannel_pool", 1)])
+        before = [a for a, _ in group_api(g)]
+        raw_unary(ch, "GetRateLimits")(data, timeout=60)
+        moved = [i for i, (a, _) in enumerate(group_api(g))
+                 if a > before[i]]
+        require(len(moved) == 1, f"a probe moved {moved} workers' counters")
+        w = moved[0]
+        uncovered = set(range(need)) - set(where) - {w}
+        if w in where and len(kept) + len(uncovered) >= n:
+            ch.close()
+            continue
+        kept.append(ch)
+        where.append(w)
+    require(len(kept) == n and set(where) == set(range(need)),
+            f"could not reach every worker over {n} connections: {where}")
+    return kept, where
+
+
+def phase_group(torch, args, cluster_rate=None, solo_rate=None) -> dict:
+    """The subprocess group: GROUP_NODES worker processes (each its own
+    interpreter and a 2^cluster_log2_cap-row bucket engine on DEVICE,
+    the card shared), one SO_REUSEPORT client port, the cluster phase's
+    10M keys restored on their ring owners from per-worker snapshots and
+    its traffic from 8 callers on their own connections; then one worker
+    is SIGKILLed while the callers send."""
+    import shutil
+    import tempfile
+
+    import grpc
+
+    from gubernator_tpu_torch import cluster
+    from gubernator_tpu_torch.grpc_api import raw_unary
+    from gubernator_tpu_torch.types import RateLimitRequest
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    limit, duration, n_glob = 100, 3_600_000, GLOBAL_RANKS
+    n_all = GLOBAL_RANKS + EXACT_GLOBAL_RANKS
+
+    def limit_of(r):
+        return EXACT_GLOBAL_LIMIT if n_glob <= r < n_all else limit
+
+    # the cluster phase's behaviors, as the workers' environment
+    names = {"peer_eject_after_ms": "GUBER_PEER_EJECT_AFTER",
+             "peer_readmit_after_ms": "GUBER_PEER_READMIT_AFTER"}
+    env_extra = {names[k]: f"{v}ms" for k, v in
+                 CLUSTER_BEHAVIOR_OVERRIDES.items() if k in names}
+    snap_dir = tempfile.mkdtemp(prefix="guber-group-")
+    state: dict = {}
+    t0 = time.perf_counter()
+    try:
+        g = cluster.start_subprocess_group(
+            GROUP_NODES, device=DEVICE,
+            cache_size=1 << args.cluster_log2_cap, batch_rows=1024,
+            ready_timeout=600.0, env_extra=env_extra,
+            worker_env=group_worker_env(args, snap_dir, state),
+            log_dir=snap_dir)
+    except BaseException:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+        raise
+    res: dict = {"workers": GROUP_NODES, "start_s": time.perf_counter() - t0,
+                 "snapshot_write_s": state["write_s"],
+                 "per_worker_keys": np.bincount(
+                     state["owner"], minlength=GROUP_NODES).tolist()}
+    print(f"group: {GROUP_NODES} worker processes on {DEVICE} up in "
+          f"{res['start_s']:.2f} s (snapshots of {res['per_worker_keys']} "
+          f"keys written in {res['snapshot_write_s']:.2f} s), client port "
+          f"{g.client_address}", flush=True)
+    chans = []
+    try:
+        pop_idx, owner = state["pop_idx"], state["owner"]
+        key_of = lambda r: f"k{pop_idx[r]:08d}"  # noqa: E731
+        warm = RateLimitRequest(name="smoke", unique_key=key_of(n_all),
+                                hits=0, limit=limit, duration=duration)
+        chans, where = group_channels(g, args.threads, raw_unary,
+                                      encode_get_rate_limits, warm)
+        res["connections_per_worker"] = np.bincount(
+            where, minlength=GROUP_NODES).tolist()
+        calls = [raw_unary(ch, "GetRateLimits") for ch in chans]
+        rpc = [lambda b, call=call: call(b, timeout=120) for call in calls]
+        rng = np.random.default_rng(args.seed + 5)
+        tally = Tally(limit)
+        glob_under = np.zeros(n_glob, np.int64)
+        exact_sent = np.zeros(n_all, np.int64)
+        api0, launch0 = group_api(g), group_launches(g)
+
+        def check_round(per, raw, allow_degraded=None, excluded=None):
+            """Decode, check and tally one round's answers; rows of keys
+            in ``allow_degraded`` (a mask over ranks) may come back
+            degraded, or `rate limit table full` (a survivor's bucket
+            with no room for a key that never lived there); batches in
+            ``excluded`` count apart.  Returns (rows, rows degraded,
+            the ranks of the table-full rows)."""
+            n_req = n_deg = 0
+            full = []
+            plain_per, plain_res = [], {}
+            for t, thread in enumerate(per):
+                plain_per.append([])
+                plain_res[t] = []
+                for b, (ranks, data) in enumerate(zip(thread, raw[t])):
+                    resps = decode_responses(data)
+                    require(len(resps) == len(ranks), "short response")
+                    n_req += len(ranks)
+                    for r, resp in zip(ranks.tolist(), resps):
+                        if (resp.error == TABLE_FULL
+                                and allow_degraded is not None
+                                and allow_degraded[r]):
+                            full.append(r)
+                            continue
+                        require(not resp.error, resp.error)
+                        if resp.degraded:
+                            require(allow_degraded is not None
+                                    and allow_degraded[r],
+                                    f"key {r} of a live worker came back "
+                                    "degraded")
+                            n_deg += 1
+                    if excluded is not None and (t, b) in excluded:
+                        continue
+                    g_ = ranks < n_all
+                    if allow_degraded is None:
+                        for r, resp in zip(
+                                ranks[g_].tolist(),
+                                [resps[j] for j in np.nonzero(g_)[0]]):
+                            if r < n_glob:
+                                glob_under[r] += resp.status == 0
+                            else:
+                                require(resp.status == 0, "a GLOBAL key "
+                                        "under a limit of 10^9 went OVER")
+                        exact_sent[:] += np.bincount(ranks[g_],
+                                                     minlength=n_all)
+                    keep = ~g_
+                    if allow_degraded is not None:
+                        keep &= ~allow_degraded[ranks]
+                    plain_per[t].append(ranks[keep])
+                    plain_res[t].append([resps[j]
+                                         for j in np.nonzero(keep)[0]])
+            tally.add(plain_per, plain_res)
+            return n_req, n_deg, full
+
+        rounds = []
+        for rnd in range(args.cluster_rounds):
+            per = [[zipf_ranks(rng, 1.1, len(pop_idx), 1000)
+                    for _ in range(args.batches)]
+                   for _ in range(args.threads)]
+            jobs = wire_jobs(per, key_of, limit, duration,
+                             lambda r: 2 if r < n_all else 0, limit_of)
+            t_start, wall, lat, raw = drive(rpc, jobs)
+            n_req, _, _ = check_round(per, raw)
+            lat_ms = np.asarray(lat) * 1e3
+            rec = {"wall_s": wall, "decisions_per_s": n_req / wall,
+                   "batches": len(lat),
+                   "p50_ms": float(np.percentile(lat_ms, 50)),
+                   "p99_ms": float(np.percentile(lat_ms, 99)),
+                   "max_ms": float(lat_ms.max()), "lat": lat}
+            rounds.append(rec)
+            print(f"group round {rnd}: "
+                  f"{json.dumps({k: v for k, v in rec.items() if k != 'lat'})}",
+                  flush=True)
+        launches = [b - a for a, b in zip(launch0, group_launches(g))]
+        api1 = group_api(g)
+        res["answered_per_worker"] = [a1 - a0 for (a0, _), (a1, _)
+                                      in zip(api0, api1)]
+        res["peer_rows_per_worker"] = [p1 - p0 for (_, p0), (_, p1)
+                                       in zip(api0, api1)]
+        # the 10^9 keys: exactly the limit less the hits sent, on every
+        # worker (each probed on its own peer port, hits=0), and the
+        # limit-100 keys alike on every worker
+        probe = encode_get_rate_limits([RateLimitRequest(
+            name="smoke", unique_key=key_of(r), hits=0, limit=limit_of(r),
+            duration=duration, behavior=2) for r in range(n_all)])
+        want = (EXACT_GLOBAL_LIMIT - exact_sent[n_glob:]).tolist()
+        peer_chans = [grpc.insecure_channel(a) for a in g.grpc_addresses]
+        t_conv = time.monotonic()
+        deadline = t_conv + CONVERGE_S
+        attempts = 0
+        try:
+            while True:
+                attempts += 1
+                rem = [[x.remaining for x in decode_responses(
+                    raw_unary(ch, "GetRateLimits")(probe, timeout=60))]
+                    for ch in peer_chans]
+                converged = (all(row == rem[0] for row in rem)
+                             and rem[0][n_glob:] == want)
+                if converged or time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            for ch in peer_chans:
+                ch.close()
+        conv_ms = (time.monotonic() - t_conv) * 1e3
+        print(f"group GLOBAL convergence after {attempts} attempts "
+              f"({conv_ms:.1f} ms): {converged}; 10^9-limit keys read "
+              f"{rem[0][n_glob:]}, want {want}", flush=True)
+        require(converged, f"the group's GLOBAL keys did not converge: "
+                f"{rem}; want {want}")
+        timed_lat = np.concatenate([np.asarray(r["lat"])
+                                    for r in rounds]) * 1e3
+        rates = [r["decisions_per_s"] for r in rounds]
+        rate = float(np.mean(rates))
+        over = np.maximum(glob_under - limit, 0)
+        res.update({
+            "decisions_per_s": rate, "decisions_per_s_rounds": rates,
+            "p50_ms": float(np.percentile(timed_lat, 50)),
+            "p99_ms": float(np.percentile(timed_lat, 99)),
+            "share_of_cluster": rate / cluster_rate if cluster_rate
+            else None,
+            "share_of_solo_wire": rate / solo_rate if solo_rate else None,
+            "launches_per_worker": launches, "launches": sum(launches),
+            "global_over_admission_max": int(over.max()),
+            "exact_global_hits": int(exact_sent[n_glob:].sum()),
+            "convergence_attempts": attempts, "convergence_ms": conv_ms,
+            "device_busy_share": "not measured (the workers are other "
+                                 "processes)"})
+        print(f"group: {rate} decisions/s ({rates}), p50 {res['p50_ms']} "
+              f"ms p99 {res['p99_ms']} ms; {res['share_of_cluster']} of "
+              f"the in-process cluster's rate, {res['share_of_solo_wire']} "
+              f"of the solo wire path's; connections per worker "
+              f"{res['connections_per_worker']}; client requests answered "
+              f"per worker {res['answered_per_worker']}, forwarded rows "
+              f"applied {res['peer_rows_per_worker']}; K1 launches per "
+              f"worker {launches}; GLOBAL over-admission max "
+              f"{res['global_over_admission_max']}", flush=True)
+        require(all(a > 0 for a in res["answered_per_worker"]),
+                f"a worker answered no client request: "
+                f"{res['answered_per_worker']}")
+        require(DEVICE != "cuda" or all(n > 0 for n in launches),
+                f"a worker never launched K1: {launches}")
+        res["kill"] = group_kill(g, args, chans, rpc, rng, state, key_of,
+                                 limit, duration, n_all, limit_of,
+                                 check_round, raw_unary)
+        tally.check(exclude=res["kill"].pop("excluded_keys"))
+        res["checked_requests"] = tally.n_req
+    except BaseException:
+        for i in range(len(g.procs)):
+            print(f"group worker {i} log tail: {g.log_tail(i)}", flush=True)
+        raise
+    finally:
+        for ch in chans:
+            ch.close()
+        g.stop()
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    return res
+
+
+def group_kill(g, args, chans, rpc, rng, state, key_of, limit, duration,
+               n_all, limit_of, check_round, raw_unary) -> dict:
+    """SIGKILL the last worker while the 8 callers send: a caller whose
+    connection dies retries its batch on a new connection (the kernel
+    then picks a live worker); the survivors' forwards to the dead
+    worker fail and serve its keys degraded until their health gates
+    eject it, then they serve its keys rehomed (degraded too).  Runs
+    until both survivors ejected it and GROUP_KILL_AFTER_S more.  No
+    error row; only the dead worker's keys may come back degraded; the
+    survivors' own keys stay exact, but for the keys of a batch whose
+    call failed at the transport (its first try may have applied)."""
+    import grpc
+
+    pop_idx, owner = state["pop_idx"], state["owner"]
+    dead = len(g.procs) - 1
+    dead_addr = g.grpc_addresses[dead]
+    survivors = [i for i in range(len(g.procs)) if i != dead]
+    dead_key = owner == dead
+    may_full = rehomed_may_fill(args, state["pop_keys"], owner, dead,
+                                survivors)
+    per = [[zipf_ranks(rng, 1.1, len(pop_idx), 1000)
+            for _ in range(GROUP_KILL_MAX_BATCHES)]
+           for _ in range(args.threads)]
+    jobs = wire_jobs(per, key_of, limit, duration,
+                     lambda r: 2 if r < n_all else 0, limit_of)
+    index = {id(b): (t, j) for t, thread in enumerate(jobs)
+             for j, b in enumerate(thread)}
+    mu = threading.Lock()
+    retried: set = set()
+    failures = []
+
+    def resilient(t):
+        def call(batch):
+            for attempt in range(10):
+                try:
+                    return rpc[t](batch)
+                except grpc.RpcError as e:
+                    with mu:
+                        failures.append((t, str(e.code())))
+                        retried.add(index[id(batch)])
+                    ch = grpc.insecure_channel(
+                        g.client_address,
+                        options=[("grpc.use_local_subchannel_pool", 1)])
+                    chans[t] = ch
+                    call_ = raw_unary(ch, "GetRateLimits")
+                    rpc[t] = lambda b, c=call_: c(b, timeout=120)
+                    time.sleep(0.05 * (attempt + 1))
+            raise RuntimeError(f"caller {t}: 10 transport failures")
+        return call
+
+    seq0 = {}
+    for i in survivors:
+        _, body = get_json(int(g.http_addresses[i].rsplit(":", 1)[1]),
+                           "/debug/events?kind=ring_ejected")
+        seq0[i] = max([e["seq"] for e in body["events"]], default=0)
+    deg0 = sum(group_metric(g.http_addresses[i],
+                            "gubernator_degraded_served_total",
+                            (("peer_addr", dead_addr),))
+               for i in survivors)
+    stop_at = [None]
+    out: dict = {}
+    runner = threading.Thread(target=lambda: out.update(res=drive(
+        [resilient(t) for t in range(args.threads)], jobs,
+        stop=lambda: stop_at[0] is not None
+        and time.monotonic() > stop_at[0])))
+    runner.start()
+    time.sleep(GROUP_KILL_WARM_S)
+    t_kill = time.time()
+    g.kill(dead)
+    ejected = {}
+    deadline = time.monotonic() + FLIP_S
+    while len(ejected) < len(survivors) and time.monotonic() < deadline:
+        for i in survivors:
+            if i in ejected:
+                continue
+            _, body = get_json(int(g.http_addresses[i].rsplit(":", 1)[1]),
+                               "/debug/events?kind=ring_ejected")
+            evs = [e for e in body["events"]
+                   if e["seq"] > seq0[i] and e["peer"] == dead_addr]
+            if evs:
+                ejected[i] = evs[0]["t_ms"] - t_kill * 1000
+        time.sleep(0.05)
+    stop_at[0] = time.monotonic() + GROUP_KILL_AFTER_S
+    runner.join()
+    require(len(ejected) == len(survivors),
+            f"the survivors did not eject the killed worker: {ejected}")
+    t_start, wall, lat, raw = out["res"]
+    sent_per = [thread[:len(raw[t])] for t, thread in enumerate(per)]
+    excluded = set(retried)
+    n_req, n_deg, full = check_round(sent_per, raw,
+                                     allow_degraded=dead_key,
+                                     excluded=excluded)
+    full_keys = np.unique(np.asarray(full, np.int64))
+    require(may_full[full_keys].all(), f"`table full` on keys "
+            f"{full_keys[~may_full[full_keys]].tolist()} of the dead "
+            "worker whose bucket on every survivor has room for them")
+    deg = sum(group_metric(g.http_addresses[i],
+                           "gubernator_degraded_served_total",
+                           (("peer_addr", dead_addr),))
+              for i in survivors) - deg0
+    excluded_keys = set(np.nonzero(dead_key)[0].tolist())
+    for t, j in excluded:
+        excluded_keys.update(per[t][j].tolist())
+    lat_ms = np.asarray(lat) * 1e3
+    res = {"killed": dead, "eject_ms_after_kill": [ejected[i]
+                                                   for i in survivors],
+           "requests": n_req, "decisions_per_s": n_req / wall,
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "rows_degraded": n_deg, "degraded_served_counter": deg,
+           "table_full_rows_of_the_dead_workers_keys": len(full),
+           "table_full_keys": len(full_keys),
+           "keys_that_may_find_no_room": int(may_full.sum()),
+           "transport_failures": len(failures),
+           "batches_retried": len(retried),
+           "failure_codes": sorted({c for _, c in failures}),
+           "keys_excluded_for_retries": len(excluded_keys) - int(
+               dead_key.sum()),
+           "excluded_keys": excluded_keys}
+    print(f"group kill: {json.dumps({k: v for k, v in res.items() if k != 'excluded_keys'})}",
+          flush=True)
+    require(n_deg > 0, "no row was served degraded after the kill")
+    require(deg == n_deg, f"gubernator_degraded_served counts {deg}, "
+            f"{n_deg} rows came back flagged")
+    return res
+
+
+def rehomed_may_fill(args, pop_keys, owner, dead: int,
+                     survivors) -> np.ndarray:
+    """Mask of the dead worker's keys that may find their 8-slot bucket
+    full on a survivor: a survivor serves any of them (degraded before
+    its gate ejects the dead worker, rehomed after) into the bucket
+    that already holds its own restored keys and its warm-up key, so a
+    key may find no room where those and the dead worker's keys of the
+    same bucket together exceed the 8 slots."""
+    from gubernator_tpu_torch.hashing import hash_request_keys
+
+    nb = 1 << (args.cluster_log2_cap - 3)
+    bucket = (pop_keys & np.uint64(nb - 1)).astype(np.int64)
+    warm = int(hash_request_keys(["_warmup"], ["w"])[0] & np.uint64(nb - 1))
+    dead_key = owner == dead
+    dead_in = np.bincount(bucket[dead_key], minlength=nb)
+    out = np.zeros(len(pop_keys), bool)
+    for s in survivors:
+        held = np.bincount(bucket[owner == s], minlength=nb)
+        held[warm] += 1
+        out |= dead_key & (held[bucket] + dead_in[bucket] > 8)
+    return out
+
+
+def fit_region_population(n_keys: int, log2_cap: int, rings):
+    """n_keys key indices and hashes that fit their 8-slot bucket in
+    their owner's 2^log2_cap-row table in EVERY region (one ring each,
+    beside each daemon's warm-up key), with their owner in each region
+    (indices into that ring's ``owner_peers()``)."""
+    from gubernator_tpu_torch.hashing import hash_request_keys
+
+    warm = hash_request_keys(["_warmup"], ["w"])
+    idx = np.arange(int(n_keys * 1.01) + 1000, dtype=np.int64)
+    keys = smoke_hashes(idx)
+    nb = 1 << (log2_cap - 3)
+    ok = np.ones(len(keys), bool)
+    owners = []
+    for ring in rings:
+        n_own = len(ring.owner_peers())
+        own = ring.owner_indices(keys)
+        bucket = (np.concatenate([np.arange(n_own), own]).astype(np.int64)
+                  * nb + (np.concatenate([np.repeat(warm, n_own), keys])
+                          & np.uint64(nb - 1)).astype(np.int64))
+        ok &= bucket_fit(bucket)[n_own:]
+        owners.append(own)
+    sel = np.nonzero(ok)[0][:n_keys]
+    return idx[sel], keys[sel], [o[sel] for o in owners]
+
+
+def probe_regions(c, probe) -> list:
+    """Each daemon's remaining of each probed key (its hits=0 wire
+    call: a non-owner forwards it to the key's owner in its region)."""
+    return [[x.remaining for x in decode_responses(
+        d.instance.get_rate_limits_wire(probe))] for d in c.daemons]
+
+
+def mr_queued(c) -> int:
+    """MULTI_REGION hits waiting in every daemon's queue."""
+    return sum(d.instance.mr_manager.queued()["hits"] for d in c.daemons
+               if d.instance.mr_manager is not None)
+
+
+def default_deadline_round(c, region_round, probe, n_mr, exact_sent,
+                           members) -> dict:
+    """One more round of the regions' traffic at the default send
+    deadline (BehaviorConfig's multi_region_timeout_ms), measured, not
+    held exact: a send that outlives the deadline loses its hits.  Once
+    the queues are empty and the counters still, each region's 10^9
+    keys read short of the hits sent to both regions by the hits its
+    failed sends dropped; a key may never read below that (a hit counted
+    twice).  Returns the failed sends (counted from the manager's
+    warnings), the hits lost per region and the round's rate."""
+    import logging
+
+    from gubernator_tpu_torch.config import BehaviorConfig
+
+    class Count(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.n = 0
+
+        def emit(self, record):
+            self.n += record.getMessage().startswith("multi-region sync ")
+
+    deadline_ms = BehaviorConfig().multi_region_timeout_ms
+    for d in c.daemons:
+        d.instance._ensure_mr_manager().behaviors.multi_region_timeout_ms \
+            = deadline_ms
+    b = c.daemons[0].instance.mr_manager.behaviors
+    failed = Count()
+    logger = logging.getLogger("gubernator_tpu_torch.multiregion")
+    logger.addHandler(failed)
+    try:
+        sent0 = int(exact_sent[n_mr:].sum())
+        rec = region_round(f"the default {deadline_ms} ms send deadline")
+        t_end = time.monotonic()
+        stop = t_end + CONVERGE_S
+        while mr_queued(c) and time.monotonic() < stop:
+            time.sleep(0.02)
+        # the last tick's sends have had their deadline; then nothing
+        # may move over three more ticks
+        time.sleep((b.multi_region_sync_wait_ms + deadline_ms) / 1000.0)
+        while True:
+            rem = probe_regions(c, probe)
+            time.sleep(3 * b.multi_region_sync_wait_ms / 1000.0)
+            if probe_regions(c, probe) == rem or time.monotonic() > stop:
+                break
+        require(probe_regions(c, probe) == rem and not mr_queued(c),
+                "the regions never settled at the default send deadline")
+        settle_ms = (time.monotonic() - t_end) * 1e3
+    finally:
+        logger.removeHandler(failed)
+    want = EXACT_GLOBAL_LIMIT - exact_sent[n_mr:]
+    short = {dc: np.asarray(rem[members[dc][0]][n_mr:]) - want
+             for dc in members}
+    require(all((v >= 0).all() for v in short.values()),
+            f"a 10^9 key read below the hits sent: {short}")
+    out = {**rec, "send_deadline_ms": deadline_ms, "failed_sends": failed.n,
+           "hits_lost": {dc: int(v.sum()) for dc, v in short.items()},
+           "keys_short": {dc: int((v > 0).sum()) for dc, v in short.items()},
+           "hits_sent": int(exact_sent[n_mr:].sum()) - sent0,
+           "settle_ms": settle_ms}
+    print(f"regions at the default send deadline: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def phase_regions(torch, args, solo_rate=None) -> dict:
+    """2 regions x REGION_NODES daemons in this process (dc-east,
+    dc-west: the JAX package's test layout), each a
+    2^cluster_log2_cap-row bucket engine on DEVICE; phase 5's 10M keys
+    restored on their owner in each region; 8 callers over gRPC, half
+    to each region; the MR_RANKS hottest ranks MULTI_REGION at limit 100
+    and the next EXACT_MR_RANKS at EXACT_GLOBAL_LIMIT.  Checked: after
+    the sync wait and timeout each 10^9 key reads, on its owner in each
+    region, the limit less the hits sent to both regions; a further
+    quiet wait changes nothing; an armed mr_sync tick loses no hit;
+    every other key exact in its region."""
+    import grpc
+
+    from gubernator_tpu_torch import cluster
+    from gubernator_tpu_torch.config import BehaviorConfig, DaemonConfig
+    from gubernator_tpu_torch.grpc_api import raw_unary
+    from gubernator_tpu_torch.ops.decide import decide_cuda
+    from gubernator_tpu_torch.peers import ReplicatedConsistentHash
+    from gubernator_tpu_torch.types import RateLimitRequest
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    limit, duration, n_mr = 100, 3_600_000, MR_RANKS
+    n_all = MR_RANKS + EXACT_MR_RANKS
+    mr = 16  # Behavior.MULTI_REGION
+
+    def limit_of(r):
+        return EXACT_GLOBAL_LIMIT if n_mr <= r < n_all else limit
+
+    behaviors = BehaviorConfig(**CLUSTER_BEHAVIOR_OVERRIDES,
+                               **REGION_BEHAVIOR_OVERRIDES)
+    c = cluster.start_with([DaemonConfig(
+        grpc_listen_address="127.0.0.1:0", http_listen_address="127.0.0.1:0",
+        cache_size=1 << args.cluster_log2_cap, batch_rows=1024,
+        device=DEVICE, data_center=dc, behaviors=behaviors)
+        for dc in REGIONS for _ in range(REGION_NODES)])
+    chans = []
+    n_daemons = len(REGIONS) * REGION_NODES
+    try:
+        region_of = [d.cfg.data_center for d in c.daemons]
+        members = {dc: [i for i, x in enumerate(region_of) if x == dc]
+                   for dc in REGIONS}
+        rings = []
+        for dc in REGIONS:
+            ring = ReplicatedConsistentHash()
+            for i in members[dc]:
+                ring.add(_RingPeer(c.daemons[i].peer_info()))
+            rings.append(ring)
+        t0 = time.perf_counter()
+        pop_idx, pop_keys, owners_pi = fit_region_population(
+            args.keys, args.cluster_log2_cap, rings)
+        by_addr = {d.advertise_address: i for i, d in enumerate(c.daemons)}
+        owner = [np.array([by_addr[p.info.grpc_address]
+                           for p in ring.owner_peers()])[opi]
+                 for ring, opi in zip(rings, owners_pi)]
+        for ring, dc, own in zip(rings, REGIONS, owner):
+            sample = np.arange(0, len(pop_idx), max(len(pop_idx) // 300, 1))
+            inst = c.daemons[members[dc][0]].instance
+            require(all(by_addr[inst.owner_of(
+                f"smoke_k{pop_idx[j]:08d}").info.grpc_address] == own[j]
+                for j in sample), f"the smoke's {dc} ring differs")
+        fill_t = int(time.time() * 1000) - 1_000
+        pop_limit = np.full(len(pop_keys), limit, np.int64)
+        pop_limit[n_mr:n_all] = EXACT_GLOBAL_LIMIT
+        placed = {}
+
+        def fill(i, mine):
+            with c.daemons[i].instance._engine_mu:
+                placed[i] = (c.daemons[i].instance.engine.restore(token_rows(
+                    pop_keys[mine], pop_limit[mine], duration, fill_t)),
+                    int(mine.sum()))
+
+        # the four daemons' restores side by side
+        fills = [threading.Thread(target=fill, args=(i, own == i))
+                 for own in owner for i in np.unique(own).tolist()]
+        for th in fills:
+            th.start()
+        for th in fills:
+            th.join()
+        require(len(placed) == n_daemons and all(
+            a == b for a, b in placed.values()), f"placed {placed}")
+        print(f"regions fill: {len(pop_keys)} TOKEN keys on their owner in "
+              f"each of {list(REGIONS)} in {time.perf_counter() - t0:.2f} "
+              f"s", flush=True)
+        n = len(c.daemons)
+        chans = [grpc.insecure_channel(f"127.0.0.1:{d.grpc_port}")
+                 for d in c.daemons]
+        target = [t % n for t in range(args.threads)]
+        calls = [raw_unary(chans[target[t]], "GetRateLimits")
+                 for t in range(args.threads)]
+        rpc = [lambda b, call=call: call(b, timeout=120) for call in calls]
+        key_of = lambda r: f"k{pop_idx[r]:08d}"  # noqa: E731
+        rng = np.random.default_rng(args.seed + 6)
+        tallies = {dc: Tally(limit) for dc in REGIONS}
+        mr_under = {dc: np.zeros(n_mr, np.int64) for dc in REGIONS}
+        exact_sent = np.zeros(n_all, np.int64)
+        decide_cuda.launches = 0
+
+        def region_round(label: str) -> dict:
+            """One round of the callers' traffic: no error row, no row
+            degraded, the 10^9 keys never OVER; the other keys tallied
+            per region, the MULTI_REGION keys' hits counted."""
+            per = [[zipf_ranks(rng, 1.1, len(pop_idx), 1000)
+                    for _ in range(args.batches)]
+                   for _ in range(args.threads)]
+            jobs = wire_jobs(per, key_of, limit, duration,
+                             lambda r: mr if r < n_all else 0, limit_of)
+            _, wall, lat, raw = drive(rpc, jobs)
+            n_req = 0
+            plain = {dc: ([], {}) for dc in REGIONS}
+            for t, thread in enumerate(per):
+                dc = region_of[target[t]]
+                pp, pr = plain[dc]
+                k = len(pp)
+                pp.append([])
+                pr[k] = []
+                for ranks, data in zip(thread, raw[t]):
+                    resps = decode_responses(data)
+                    require(len(resps) == len(ranks), "short response")
+                    n_req += len(ranks)
+                    m = ranks < n_all
+                    for r, resp in zip(ranks[m].tolist(),
+                                       [resps[j] for j in np.nonzero(m)[0]]):
+                        require(not resp.error, resp.error)
+                        require(not resp.degraded, "a row was served "
+                                "degraded in the healthy regions")
+                        if r < n_mr:
+                            mr_under[dc][r] += resp.status == 0
+                        else:
+                            require(resp.status == 0, "a MULTI_REGION key "
+                                    "under a limit of 10^9 went OVER")
+                    exact_sent[:] += np.bincount(ranks[m], minlength=n_all)
+                    pp[k].append(ranks[~m])
+                    pr[k].append([resps[j] for j in np.nonzero(~m)[0]])
+            for dc in REGIONS:
+                tallies[dc].add(*plain[dc])
+            lat_ms = np.asarray(lat) * 1e3
+            rec = {"wall_s": wall, "decisions_per_s": n_req / wall,
+                   "batches": len(lat),
+                   "p50_ms": float(np.percentile(lat_ms, 50)),
+                   "p99_ms": float(np.percentile(lat_ms, 99))}
+            print(f"regions round, {label}: {json.dumps(rec)}", flush=True)
+            return rec
+
+        rec = region_round(f"{behaviors.multi_region_timeout_ms} ms send "
+                           "deadline")
+        t_end = time.monotonic()
+        launches = decide_cuda.launches
+        probe = encode_get_rate_limits([RateLimitRequest(
+            name="smoke", unique_key=key_of(r), hits=0, limit=limit_of(r),
+            duration=duration, behavior=mr) for r in range(n_all)])
+        b = behaviors
+
+        def await_exact(sent, what: str) -> float:
+            """Poll until every daemon reads each 10^9 key at exactly the
+            limit less ``sent`` and no hit is queued (else stop); returns
+            the last reads."""
+            want = (EXACT_GLOBAL_LIMIT - sent[n_mr:]).tolist()
+            deadline = time.monotonic() + CONVERGE_S
+            while True:
+                rem = probe_regions(c, probe)
+                ok = (all(row[n_mr:] == want for row in rem)
+                      and mr_queued(c) == 0)
+                if ok or time.monotonic() > deadline:
+                    break
+                time.sleep(0.02)
+            require(ok, f"{what}: the 10^9 keys read {rem}, want {want}; "
+                    f"{mr_queued(c)} hits queued")
+            return rem
+
+        # polled from the end of the traffic; then read once more when
+        # the sync wait and the send deadline have passed
+        await_exact(exact_sent, "after the traffic")
+        conv_ms = (time.monotonic() - t_end) * 1e3
+        time.sleep(max(0.0, (b.multi_region_sync_wait_ms
+                             + b.multi_region_timeout_ms) / 1000.0
+                       - (time.monotonic() - t_end)))
+        want = (EXACT_GLOBAL_LIMIT - exact_sent[n_mr:]).tolist()
+        rem = probe_regions(c, probe)
+        require(all(row[n_mr:] == want for row in rem),
+                f"after the sync wait and the send deadline the 10^9 keys "
+                f"read {rem}, want {want}")
+        # a quiet wait of three more sync ticks: nothing moves (no
+        # ping-pong)
+        time.sleep(3 * b.multi_region_sync_wait_ms / 1000.0)
+        quiet = probe_regions(c, probe)
+        require(quiet == rem, f"a quiet wait moved the counters: {rem} -> "
+                f"{quiet}")
+        send_errors = [d.instance.mr_manager.last_error for d in c.daemons
+                       if d.instance.mr_manager is not None]
+        require(not any(send_errors), f"a MULTI_REGION send failed: "
+                f"{send_errors}")
+        # one armed mr_sync tick per daemon loses no hit
+        for d in c.daemons:
+            d.instance.faults.arm("mr_sync:error")
+        fired0 = [sum(p["fired"] for p in d.instance.faults.describe()
+                      ["points"]) for d in c.daemons]
+        batch = encode_get_rate_limits([RateLimitRequest(
+            name="smoke", unique_key=key_of(r), hits=1, limit=limit_of(r),
+            duration=duration, behavior=mr) for r in range(n_mr, n_all)])
+        for dc in REGIONS:
+            decode_responses(c.daemons[members[dc][0]].instance
+                             .get_rate_limits_wire(batch))
+            exact_sent[n_mr:] += 1
+        queued_armed = mr_queued(c)
+        deadline = time.monotonic() + CONVERGE_S
+        while True:
+            for d in c.daemons:
+                d.instance._ensure_mr_manager().poke()
+            fired = [sum(p["fired"] for p in d.instance.faults.describe()
+                         ["points"]) for d in c.daemons]
+            if all(f > f0 for f, f0 in zip(fired, fired0)) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.02)
+        require(all(f > f0 for f, f0 in zip(fired, fired0)),
+                "an armed mr_sync never fired")
+        held = mr_queued(c)
+        require(held == queued_armed == 2 * EXACT_MR_RANKS,
+                f"an aborted mr_sync tick lost hits: {held} held, "
+                f"{queued_armed} queued, {2 * EXACT_MR_RANKS} sent")
+        for d in c.daemons:
+            d.instance.faults.clear()
+        await_exact(exact_sent, "after the mr_sync fault cleared")
+        over = {dc: np.maximum(u - limit, 0) for dc, u in mr_under.items()}
+        over["both"] = np.maximum(sum(mr_under.values()) - limit, 0)
+        default = default_deadline_round(c, region_round, probe, n_mr,
+                                         exact_sent, members)
+        for dc in REGIONS:
+            tallies[dc].check()
+        res = {"daemons": n, "regions": list(REGIONS), **rec,
+               "share_of_solo_wire": (rec["decisions_per_s"] / solo_rate
+                                      if solo_rate else None),
+               "convergence_ms": conv_ms,
+               "mr_over_admission_max": {dc: int(o.max())
+                                         for dc, o in over.items()},
+               "mr_over_admission_sum": {dc: int(o.sum())
+                                         for dc, o in over.items()},
+               "exact_mr_hits": int(exact_sent[n_mr:].sum()),
+               "mr_sync_held_hits": held,
+               "checked_requests": {dc: t.n_req
+                                    for dc, t in tallies.items()},
+               "launches": launches, "default_deadline": default}
+        print(f"regions: {json.dumps(res)}", flush=True)
+        require(launches > 0, "the regions never launched K1")
+    finally:
+        for ch in chans:
+            ch.close()
+        c.stop()
     return res
 
 
@@ -3191,14 +4116,120 @@ def profiled_object_rounds(inst, rng, n_keys, key_of, limit, duration,
     return out
 
 
-def analytics_compare(label: str, on: dict, off: dict) -> dict:
-    """The wire path with the analytics on (the default) and detached,
-    side by side from one run."""
-    keys = ("decisions_per_s", "p50_ms", "p99_ms", "worker_busy_share",
-            "launches")
-    out = {k: {"on": on[k], "off": off[k]} for k in keys}
-    print(f"{label} analytics on vs off: {json.dumps(out)}", flush=True)
+class ABArms:
+    """One arm of an interleaved A/B: 8 callers x AB_BATCHES batches of
+    phase 5's traffic through one lane of the instance, every answer
+    added to the tally; returns the arm's decisions/s and counts the K1
+    launches of each lane and state."""
+
+    def __init__(self, inst, rng, n_keys, key_of, limit, duration, args,
+                 tally):
+        self.inst, self.rng, self.n_keys = inst, rng, n_keys
+        self.key_of, self.limit, self.duration = key_of, limit, duration
+        self.threads, self.tally = args.threads, tally
+        self.launches = {"wire": {}, "object": {}}
+
+    def runner(self, lane: str):
+        def run(state: str) -> float:
+            from gubernator_tpu_torch.ops.decide import decide_cuda
+            from gubernator_tpu_torch.types import RateLimitRequest
+
+            per = [[zipf_ranks(self.rng, 1.1, self.n_keys, 1000)
+                    for _ in range(AB_BATCHES)]
+                   for _ in range(self.threads)]
+            l0 = decide_cuda.launches
+            if lane == "wire":
+                jobs = wire_jobs(per, self.key_of, self.limit, self.duration)
+                _, wall, _, raw = drive(self.inst.get_rate_limits_wire, jobs)
+                results = {t: [decode_responses(b) for b in batches]
+                           for t, batches in raw.items()}
+            else:
+                jobs = [[[RateLimitRequest(
+                    name="smoke", unique_key=self.key_of(r), hits=1,
+                    limit=self.limit, duration=self.duration)
+                    for r in ranks] for ranks in thread] for thread in per]
+                _, wall, _, results = drive(self.inst.get_rate_limits, jobs)
+            got = self.launches[lane]
+            got[state] = got.get(state, 0) + decide_cuda.launches - l0
+            self.tally.add(per, results)
+            return self.threads * AB_BATCHES * 1000 / wall
+
+        return run
+
+
+def interleaved_pairs(label: str, run_arm, arms, before_second=None,
+                      pairs: int = None) -> dict:
+    """The reference's A/B discipline (bench.py › _analytics_ab): one
+    untimed warm-up pair, then ``pairs`` pairs of the same call in the
+    two states of ``arms`` ((name, context factory) twice), in turn;
+    ``before_second()`` runs before each second arm (the analytics
+    flush, so deferred folds do not leak into the baseline).  Returns
+    each state's rates and median and the median of the per-pair ratios
+    second / first, which cancels the host's drift."""
+    pairs = AB_PAIRS if pairs is None else pairs
+    (a, ctx_a), (b, ctx_b) = arms
+    rates = {a: [], b: []}
+    ratios = []
+    for p in range(pairs + 1):
+        with ctx_a():
+            ra = run_arm(a)
+        if before_second is not None:
+            before_second()
+        with ctx_b():
+            rb = run_arm(b)
+        if p == 0:
+            continue  # the warm-up pair is not timed
+        rates[a].append(ra)
+        rates[b].append(rb)
+        ratios.append(rb / ra)
+    out = {"pairs": pairs, "order": [a, b], "median_ratio": float(
+        np.median(ratios)), "ratios": ratios,
+           f"{a}_median": float(np.median(rates[a])),
+           f"{b}_median": float(np.median(rates[b])),
+           f"{a}_decisions_per_s": rates[a],
+           f"{b}_decisions_per_s": rates[b]}
+    print(f"{label} pairs ({a}, {b}): {json.dumps(out)}", flush=True)
     return out
+
+
+@contextmanager
+def python_fold(inst):
+    """The analytics sketch's fold in Python inside (the plain version,
+    byte-equal to the native fold): the before arm of the fold's move
+    to C++."""
+    from gubernator_tpu_torch.analytics import HeavyHitterSketch
+
+    sketch = inst.analytics.sketch
+    sketch.update = HeavyHitterSketch.update.__get__(sketch)
+    try:
+        yield
+    finally:
+        del sketch.update
+
+
+@contextmanager
+def flushed(inst, ctx):
+    """``ctx`` entered after the analytics worker folded every tap it
+    holds, so that an arm does not pay for the folds of the one
+    before."""
+    inst.analytics.flush(timeout=30.0)
+    with ctx:
+        yield
+
+
+@contextmanager
+def plain_hashing():
+    """The object lane's key hashing swapped for its plain version (a
+    Python FNV loop and numpy's finalizer) inside: the dispatcher is the
+    object lane's one hashing site."""
+    from gubernator_tpu_torch import dispatcher, hashing
+
+    native = dispatcher.hash_request_keys
+    dispatcher.hash_request_keys = hashing.hash_request_keys_plain
+    try:
+        yield
+    finally:
+        dispatcher.hash_request_keys = native
 
 
 @contextmanager
@@ -3737,9 +4768,9 @@ def main(argv=None) -> int:
     ap.add_argument("--soa-log2-cap", type=int, default=24,
                     help="SoA-table rows (log2)")
     ap.add_argument("--keys", type=int, default=10_000_000)
-    ap.add_argument("--waves", type=int, default=8,
+    ap.add_argument("--waves", type=int, default=4,
                     help="timed mixed waves in phase 4")
-    ap.add_argument("--main-waves", type=int, default=4,
+    ap.add_argument("--main-waves", type=int, default=2,
                     help="waves of the main path's traffic in phase 4")
     ap.add_argument("--wave-rows", type=int, default=8192)
     ap.add_argument("--small-rows", type=int, default=1024)
@@ -3750,7 +4781,7 @@ def main(argv=None) -> int:
     ap.add_argument("--classic-sweep-ms", type=int, default=1_000,
                     help="the classic daemon's sweep interval")
     ap.add_argument("--sweep-reps", type=int, default=5)
-    ap.add_argument("--batches", type=int, default=100,
+    ap.add_argument("--batches", type=int, default=50,
                     help="batches per thread per timed round")
     ap.add_argument("--profile-batches", type=int, default=20,
                     help="batches per thread in the profiled round")
@@ -3797,6 +4828,14 @@ def main(argv=None) -> int:
     gc.collect()
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+    with phase("group"):
+        grp = phase_group(torch, args, cl["decisions_per_s"],
+                          m["wire"]["decisions_per_s"])
+    with phase("regions"):
+        reg = phase_regions(torch, args, m["wire"]["decisions_per_s"])
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     with phase("sweep vs plain"):
         k2 = phase_sweep_vs_plain(torch, args)
     if DEVICE == "cuda":
@@ -3808,7 +4847,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     with phase("tiers"):
         tiers = phase_tiers(torch, args)
-    print(json.dumps({"main_path": m, "cluster": cl, "kernel_detail": k,
+    print(json.dumps({"main_path": m, "cluster": cl, "group": grp,
+                      "regions": reg, "kernel_detail": k,
                       "classic_main_path": c, "sweep_detail": k2,
                       "probe_detail": k3, "tiers": tiers}), flush=True)
     print(smi, flush=True)
@@ -3821,7 +4861,10 @@ def main(argv=None) -> int:
          "cluster_launches": cl["launches"],
          "cluster_steps_per_daemon": cl["steps_per_daemon"],
          "outage_launches": cl["outage"]["launches"],
-         "wire_analytics_off_launches": m["wire_analytics_off"]["launches"],
+         "group_launches": grp["launches"],
+         "group_launches_per_worker": grp["launches_per_worker"],
+         "regions_launches": reg["launches"],
+         "wire_analytics_off_launches": m["wire_analytics_off_launches"],
          "tiers_launches": tiers["served"]["launches"],
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -458,6 +458,80 @@ class HeavyHitterSketch:
                           separators=(",", ":")).encode()
 
 
+class NativeHeavyHitterSketch(HeavyHitterSketch):
+    """The same sketch whose fold runs in the host library
+    (csrc/sketch.cpp › gs_update, gs_admit_merge, gs_admit_level) on
+    these very columns, with the GIL released: the serving threads run
+    while the analytics worker folds.  Which of several equal counts an
+    admission evicts follows numpy's argsort of the counts, taken here
+    as the Python fold takes it, so after every fold the columns equal
+    ``HeavyHitterSketch``'s (the plain version, which the tests hold it
+    to) and the JAX package's.  Names are noted in Python, as there.  A
+    host library that cannot be built raises."""
+
+    def __init__(self, k: int = 256, width: Optional[int] = None):
+        super().__init__(k, width)
+        from .ops.build import load_wire_library
+
+        self._lib = load_wire_library()
+
+    def update(self, khash: np.ndarray, hits: np.ndarray,
+               over: np.ndarray, t_ms: int,
+               names: Optional[List[Optional[str]]] = None) -> None:
+        n = len(khash)
+        if n == 0:
+            return
+        kh = np.ascontiguousarray(khash, np.uint64)
+        w = np.ascontiguousarray(hits, np.int64)
+        ob = np.ascontiguousarray(over, bool).view(np.uint8)
+        uniq = np.empty(n, np.uint64)
+        rep = np.empty(n, np.int64)
+        new_kh = np.empty(n, np.uint64)
+        new_w = np.empty(n, np.int64)
+        new_o = np.empty(n, np.int64)
+        st = np.array([self._used, 0, 0], np.int64)  # used, weight, m
+        used0 = self._used
+        cols = (self._cnt, self._err, self._over, self._last, self._kh)
+        lib = self._lib
+        k = lib.gs_update(
+            self.width, st.ctypes.data, st.ctypes.data + 8,
+            *(c.ctypes.data for c in cols), kh.ctypes.data, w.ctypes.data,
+            ob.ctypes.data, n, int(t_ms), uniq.ctypes.data,
+            rep.ctypes.data, st.ctypes.data + 16, new_kh.ctypes.data,
+            new_w.ctypes.data, new_o.ctypes.data)
+        self._used = int(st[0])
+        self.total_weight += int(st[1])
+        if names is not None:
+            for j in range(int(st[2])):
+                name = names[int(rep[j])]
+                if name is not None:
+                    self._note_name(int(uniq[j]), name)
+        if k:
+            new_kh, new_w, new_o = new_kh[:k], new_w[:k], new_o[:k]
+            heavy = new_w > 1
+            if heavy.any():
+                sort_idx = np.ascontiguousarray(
+                    np.argsort(self._cnt[: self._used]), np.int64)
+                hk, hw, ho = (np.ascontiguousarray(a[heavy])
+                              for a in (new_kh, new_w, new_o))
+                lib.gs_admit_merge(
+                    self._used, *(c.ctypes.data for c in cols),
+                    sort_idx.ctypes.data, hk.ctypes.data, hw.ctypes.data,
+                    ho.ctypes.data, len(hk), int(t_ms))
+            light = ~heavy
+            if light.any():
+                order = np.ascontiguousarray(
+                    np.argsort(self._cnt[: self._used]), np.int64)
+                lk, lo = (np.ascontiguousarray(a[light])
+                          for a in (new_kh, new_o))
+                lib.gs_admit_level(
+                    self._used, *(c.ctypes.data for c in cols),
+                    order.ctypes.data, lk.ctypes.data, lo.ctypes.data,
+                    len(lk), int(t_ms))
+        if k or self._used != used0:
+            self._dirty = True  # membership changed: count_of re-sorts
+
+
 class PhaseLedger:
     """Thread-safe per-phase durations: a cumulative count and sum plus a
     bounded window of recent samples for percentiles (a histogram cannot
@@ -546,7 +620,7 @@ class KeyAnalytics:
         width = (width if width is not None
                  else _env_int("GUBER_SKETCH_WIDTH", 4 * k))
         self._mu = threading.Lock()  # guards the sketch and the counters
-        self.sketch = HeavyHitterSketch(k=k, width=width)  # guarded-by: self._mu
+        self.sketch = NativeHeavyHitterSketch(k=k, width=width)  # guarded-by: self._mu
         self.phases = PhaseLedger()  # internally locked
         #: per-tenant ledger: not ported, attribution off
         self._tenants = None

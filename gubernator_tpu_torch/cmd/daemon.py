@@ -4,8 +4,10 @@ Usage: python -m gubernator_tpu_torch.cmd.daemon [--config FILE]
 (GUBER_GRPC_ADDRESS, GUBER_HTTP_ADDRESS, GUBER_CACHE_SIZE,
 GUBER_BATCH_ROWS, GUBER_ENGINE, GUBER_CACHE_AUTOGROW_MAX, GUBER_DEVICE,
 GUBER_LOG_LEVEL, and for a cluster GUBER_PEER_DISCOVERY_TYPE,
-GUBER_PEERS, GUBER_ADVERTISE_ADDRESS, GUBER_BATCH_* and GUBER_GLOBAL_*
-apply; see config.py; an empty GUBER_GRPC_ADDRESS serves no gRPC and no
+GUBER_PEERS, GUBER_ADVERTISE_ADDRESS, GUBER_CLIENT_ADDRESS (a shared
+SO_REUSEPORT client port), GUBER_DATA_CENTER, GUBER_INSTANCE_ID,
+GUBER_BATCH_*, GUBER_GLOBAL_* and GUBER_MULTI_REGION_* apply; see
+config.py; an empty GUBER_GRPC_ADDRESS serves no gRPC and no
 peers).  Serves on the GPU unless GUBER_DEVICE=cpu, through the bucket
 engine unless GUBER_ENGINE=xla selects the classic SoA engine.
 """
@@ -45,8 +47,10 @@ def main(argv=None) -> int:
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
-    print(f"gubernator-tpu-torch listening "
+    print(f"gubernator-tpu-torch {cfg.instance_id or ''} listening "
           f"grpc={cfg.grpc_listen_address or 'off'} (port {d.grpc_port}) "
+          f"client={cfg.client_listen_address or 'off'} "
+          f"dc={cfg.data_center or '-'} "
           f"advertise={d.advertise_address or '-'} "
           f"peers={len(d.instance.peers())} "
           f"http={cfg.http_listen_address} "

@@ -1,7 +1,8 @@
 """Configuration: the subset of gubernator_tpu/config.py that the port
-reads (one daemon, its static peers, their batching / GLOBAL timing and
-failure handling, its persistence hooks and cold tier), plus the
-``device`` it serves on.  The analytics knobs (GUBER_ANALYTICS,
+reads (one daemon, its static peers, their batching / GLOBAL /
+MULTI_REGION timing and failure handling, its region, its shared client
+port, its persistence hooks and cold tier), plus the ``device`` it
+serves on.  The analytics knobs (GUBER_ANALYTICS,
 GUBER_TOPK, GUBER_SKETCH_WIDTH) and GUBER_TIER_NATIVE are read from the
 environment where the JAX package reads them (instance.py,
 analytics.py, tiering.py), not here.
@@ -91,6 +92,12 @@ class BehaviorConfig:
     peer_health_gate: bool = True
     peer_eject_after_ms: int = 3000
     peer_readmit_after_ms: int = 3000
+    #: MULTI_REGION: how long a region owner's hits accumulate before
+    #: they are sent to the key's owner in every other region, that
+    #: send's RPC deadline, and the most requests in one send
+    multi_region_sync_wait_ms: int = 300
+    multi_region_timeout_ms: int = 900
+    multi_region_batch_limit: int = 1000
 
 
 @dataclass
@@ -136,6 +143,10 @@ class Config:
     tier_cold: bool = False
     #: sketch-rank admission threshold of a cold row (GUBER_TIER_PROMOTE)
     tier_promote_threshold: int = 8
+    #: this daemon's region (datacenter): with one set, peers are picked
+    #: per region (peers.py › RegionPeerPicker) and MULTI_REGION hits
+    #: replicate to the other regions (multiregion.py)
+    data_center: str = ""
 
     def set_defaults(self) -> "Config":
         """Normalize invalid values (config.go › SetDefaults)."""
@@ -156,6 +167,12 @@ class DaemonConfig:
     #: grpc.health.v1); "" serves none.  Needs grpcio: with an address
     #: set and no grpcio the daemon raises.
     grpc_listen_address: str = "localhost:1051"
+    #: a SHARED client-facing gRPC address (GUBER_CLIENT_ADDRESS), bound
+    #: with SO_REUSEPORT: several daemon processes on one host bind it and
+    #: the kernel spreads client connections over them, while each keeps
+    #: its own grpc_listen_address for peer traffic (cluster.py ›
+    #: start_subprocess_group); "" binds none
+    client_listen_address: str = ""
     cache_size: int = 1 << 16
     batch_rows: int = 1024
     cache_autogrow_max: int = 0
@@ -181,6 +198,10 @@ class DaemonConfig:
     #: the Loader snapshot file (GUBER_SNAPSHOT_PATH): restored at start,
     #: saved at close (store.py › FileLoader); "" keeps no snapshot
     snapshot_path: str = ""
+    #: this daemon's region (GUBER_DATA_CENTER; Config.data_center)
+    data_center: str = ""
+    #: a name for logs (GUBER_INSTANCE_ID)
+    instance_id: str = ""
 
     def instance_config(self) -> Config:
         return Config(cache_size=self.cache_size,
@@ -190,8 +211,8 @@ class DaemonConfig:
                       sweep_interval_ms=self.sweep_interval_ms,
                       device=self.device, behaviors=self.behaviors,
                       advertise_address=self.advertise_address,
-                      handover_on_reshard=self.handover_on_reshard
-                      ).set_defaults()
+                      handover_on_reshard=self.handover_on_reshard,
+                      data_center=self.data_center).set_defaults()
 
 
 def load_conf_file(path: str) -> Dict[str, str]:
@@ -223,6 +244,8 @@ def setup_daemon_config(conf_file: str = "",
                                      d.http_listen_address)
     d.grpc_listen_address = conf.get("GUBER_GRPC_ADDRESS",
                                      d.grpc_listen_address)
+    d.client_listen_address = conf.get("GUBER_CLIENT_ADDRESS",
+                                       d.client_listen_address)
     d.cache_size = int(conf.get("GUBER_CACHE_SIZE", d.cache_size))
     d.batch_rows = int(conf.get("GUBER_BATCH_ROWS", d.batch_rows))
     d.cache_autogrow_max = int(conf.get("GUBER_CACHE_AUTOGROW_MAX",
@@ -232,6 +255,8 @@ def setup_daemon_config(conf_file: str = "",
     d.log_level = conf.get("GUBER_LOG_LEVEL", d.log_level)
     d.advertise_address = conf.get("GUBER_ADVERTISE_ADDRESS",
                                    d.advertise_address)
+    d.data_center = conf.get("GUBER_DATA_CENTER", d.data_center)
+    d.instance_id = conf.get("GUBER_INSTANCE_ID", d.instance_id)
 
     def get(name, default, cast):
         return cast(conf[name]) if name in conf else default
@@ -254,6 +279,14 @@ def setup_daemon_config(conf_file: str = "",
     b.global_broadcast_interval_ms = get(
         "GUBER_GLOBAL_BROADCAST_INTERVAL", b.global_broadcast_interval_ms,
         parse_duration_ms)
+    b.multi_region_sync_wait_ms = get(
+        "GUBER_MULTI_REGION_SYNC_WAIT", b.multi_region_sync_wait_ms,
+        parse_duration_ms)
+    b.multi_region_timeout_ms = get(
+        "GUBER_MULTI_REGION_TIMEOUT", b.multi_region_timeout_ms,
+        parse_duration_ms)
+    b.multi_region_batch_limit = get(
+        "GUBER_MULTI_REGION_BATCH_LIMIT", b.multi_region_batch_limit, int)
     b.peer_degraded_fallback = get("GUBER_PEER_DEGRADED_FALLBACK",
                                    b.peer_degraded_fallback, flag)
     b.peer_health_gate = get("GUBER_PEER_HEALTH_GATE", b.peer_health_gate,

@@ -20,6 +20,16 @@
 // gw_build_responses writes into a caller buffer of at least
 // gw_resp_bound(rows, error bytes) bytes and returns the bytes written.
 // The clamp bounds are arguments, so types.py stays their one home.
+//
+// Two entry points read Python objects (the key hashing of the object
+// lane, the port's copy of fnv1a64_batch / fnv1a64_pair_batch): they
+// take lists of str and read each string's UTF-8 bytes in place, so the
+// Python side builds no joined or encoded strings.  They run with the
+// GIL held (ops/native.py binds them through ctypes.PyDLL) and report a
+// failure as a Python exception.
+
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
 
 #include <cstdint>
 #include <cstring>
@@ -496,6 +506,99 @@ int64_t gw_split_resp_items(const uint8_t* data, int64_t len, int64_t cap,
     n++;
   }
   return n;
+}
+
+
+// ---------------------------------------------------------------------------
+// Key hashing over Python strings (held GIL; a failure sets a Python
+// exception and returns -1).  Each item is a str (hashed as its UTF-8
+// bytes) or bytes.  `mixed` = 0 writes RAW FNV-1a 64 (the JAX extension's
+// fnv1a64_batch / fnv1a64_pair_batch), 1 the table key hash: mix64, then
+// 0 remapped to 1 (hashing.hash_keys / hash_request_keys).
+
+static bool utf8_view(PyObject* obj, const uint8_t** p, Py_ssize_t* n) {
+  if (PyUnicode_Check(obj)) {
+    const char* s = PyUnicode_AsUTF8AndSize(obj, n);
+    if (s == nullptr) return false;
+    *p = (const uint8_t*)s;
+    return true;
+  }
+  if (PyBytes_Check(obj)) {
+    *p = (const uint8_t*)PyBytes_AS_STRING(obj);
+    *n = PyBytes_GET_SIZE(obj);
+    return true;
+  }
+  PyErr_SetString(PyExc_TypeError, "expected str or bytes");
+  return false;
+}
+
+static inline uint64_t finish(uint64_t h, int mixed) {
+  if (!mixed) return h;
+  h = mix64(h);
+  return h == 0 ? 1 : h;
+}
+
+// hash(key) for each item of `keys`; `out` holds at least `cap` words.
+int64_t gw_hash_keys(PyObject* keys, uint64_t* out, int64_t cap,
+                     int mixed) {
+  PyObject* seq = PySequence_Fast(keys, "expected a sequence");
+  if (seq == nullptr) return -1;
+  Py_ssize_t n = PySequence_Fast_GET_SIZE(seq);
+  if (n > cap) {
+    Py_DECREF(seq);
+    PyErr_SetString(PyExc_ValueError, "output buffer too small");
+    return -1;
+  }
+  PyObject** items = PySequence_Fast_ITEMS(seq);
+  for (Py_ssize_t i = 0; i < n; i++) {
+    const uint8_t* p;
+    Py_ssize_t len;
+    if (!utf8_view(items[i], &p, &len)) {
+      Py_DECREF(seq);
+      return -1;
+    }
+    out[i] = finish(fnv1a64(p, (uint64_t)len, FNV_OFFSET), mixed);
+  }
+  Py_DECREF(seq);
+  return (int64_t)n;
+}
+
+// hash(name + "_" + unique_key) for each pair, without the joined string.
+int64_t gw_hash_pairs(PyObject* names, PyObject* keys, uint64_t* out,
+                      int64_t cap, int mixed) {
+  PyObject* ns = PySequence_Fast(names, "expected a sequence");
+  if (ns == nullptr) return -1;
+  PyObject* ks = PySequence_Fast(keys, "expected a sequence");
+  if (ks == nullptr) {
+    Py_DECREF(ns);
+    return -1;
+  }
+  Py_ssize_t n = PySequence_Fast_GET_SIZE(ns);
+  int64_t ret = -1;
+  if (PySequence_Fast_GET_SIZE(ks) != n) {
+    PyErr_SetString(PyExc_ValueError, "length mismatch");
+  } else if (n > cap) {
+    PyErr_SetString(PyExc_ValueError, "output buffer too small");
+  } else {
+    PyObject** ni = PySequence_Fast_ITEMS(ns);
+    PyObject** ki = PySequence_Fast_ITEMS(ks);
+    const uint8_t us = '_';
+    ret = (int64_t)n;
+    for (Py_ssize_t i = 0; i < n; i++) {
+      const uint8_t *pn, *pk;
+      Py_ssize_t ln, lk;
+      if (!utf8_view(ni[i], &pn, &ln) || !utf8_view(ki[i], &pk, &lk)) {
+        ret = -1;
+        break;
+      }
+      uint64_t h = fnv1a64(pn, (uint64_t)ln, FNV_OFFSET);
+      h = fnv1a64(&us, 1, h);
+      out[i] = finish(fnv1a64(pk, (uint64_t)lk, h), mixed);
+    }
+  }
+  Py_DECREF(ns);
+  Py_DECREF(ks);
+  return ret;
 }
 
 }  // extern "C"

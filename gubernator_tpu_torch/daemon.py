@@ -11,6 +11,13 @@ of gubernator_tpu/daemon.py):
   imported only when an address is set; set and missing, the daemon
   raises.  The listener binds first, so a ``:0`` address advertises its
   bound port;
+- with ``client_listen_address`` (GUBER_CLIENT_ADDRESS) set, a second
+  gRPC server on that address bound with SO_REUSEPORT, serving V1 and
+  grpc.health.v1 only: sibling daemon processes on the host bind the
+  same address and the kernel spreads client connections over them
+  (cluster.py › start_subprocess_group), while peer traffic stays on
+  each daemon's own ``grpc_listen_address``.  It starts before the peer
+  listener, so SERVING on the peer port means the shared port accepts;
 - peers from ``peer_discovery_type`` (discovery.py: ``static`` reads
   ``static_peers``, GUBER_PEERS) into ``V1Instance.set_peers``;
 - an HTTP/JSON gateway on ``http_listen_address``: POST
@@ -26,7 +33,8 @@ of gubernator_tpu/daemon.py):
   answers 400 and changes nothing), GET /debug/topkeys (the
   heavy-hitter sketch's top keys, ``?limit=``, each with its ring owner)
   and GET /debug/phases (the per-phase latency ledger and the waves'
-  percentiles); both answer 404 with GUBER_ANALYTICS=0;
+  percentiles); both answer 404 with GUBER_ANALYTICS=0; GET
+  /debug/kernels (this process's CUDA kernel launches);
 - ``snapshot_path`` (GUBER_SNAPSHOT_PATH): a FileLoader, so the table
   (both tiers) is restored at start and saved at close.
 
@@ -153,6 +161,9 @@ class Daemon:
         self._http_thread: Optional[threading.Thread] = None
         self.grpc_server = None
         self.grpc_port = 0
+        #: the shared SO_REUSEPORT front door (client_listen_address)
+        self.client_server = None
+        self.client_port = 0
         self.instance: Optional[V1Instance] = None
         self.discovery = None
         self.advertise_address = cfg.advertise_address
@@ -172,6 +183,8 @@ class Daemon:
                 [RateLimitRequest(name="_warmup", unique_key="w", hits=0,
                                   limit=1, duration=1000)])
             self.instance.engine.warmup()
+            if cfg.client_listen_address:
+                self._serve_client(cfg.client_listen_address)
             if self.grpc_server is not None:
                 self._serve_grpc()
             self._start_http(cfg.http_listen_address)
@@ -220,12 +233,33 @@ class Daemon:
         add_health_servicer(self.grpc_server, self.instance)
         self.grpc_server.start()
 
+    def _serve_client(self, addr: str) -> None:
+        """V1 and grpc.health.v1 on the shared client address, bound
+        with SO_REUSEPORT (the peer service stays on the daemon's own
+        port: the ring needs one identity a process)."""
+        import grpc
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .grpc_api import add_health_servicer, add_v1_servicer_raw
+
+        server = grpc.server(ThreadPoolExecutor(max_workers=32),
+                             options=[("grpc.so_reuseport", 1)])
+        add_v1_servicer_raw(server, _V1Servicer(self.instance))
+        add_health_servicer(server, self.instance)
+        port = server.add_insecure_port(addr)
+        if port == 0:
+            raise OSError(f"failed to bind client address {addr} "
+                          "(SO_REUSEPORT)")
+        self.client_server, self.client_port = server, port
+        server.start()
+
     def set_peers(self, infos: List[PeerInfo]) -> None:
         self.instance.set_peers(infos)
 
     def peer_info(self) -> PeerInfo:
         return PeerInfo(grpc_address=self.advertise_address,
-                        http_address=self.cfg.http_listen_address)
+                        http_address=self.cfg.http_listen_address,
+                        datacenter=self.cfg.data_center)
 
     def _start_http(self, addr: str) -> None:
         host, port = _split_host_port(addr)
@@ -272,6 +306,8 @@ class Daemon:
                         daemon.instance.faults.describe()).encode())
                 elif path in ("/debug/topkeys", "/debug/phases"):
                     self._send(*daemon.analytics_doc(path, q))
+                elif path == "/debug/kernels":
+                    self._send(200, json.dumps(kernel_launches()).encode())
                 else:
                     self._send(404, b'{"error":"not found"}')
 
@@ -392,6 +428,8 @@ class Daemon:
     def _teardown(self) -> None:
         if self.discovery is not None:
             self.discovery.close()
+        if self.client_server is not None:
+            self.client_server.stop(grace=None).wait()
         if self.grpc_server is not None:
             self.grpc_server.stop(grace=None).wait()
         if self.http_server is not None:
@@ -399,6 +437,20 @@ class Daemon:
             self.http_server.server_close()
         if self.instance is not None:
             self.instance.close()
+
+
+def kernel_launches() -> dict:
+    """This process's CUDA kernel launches since it started, each the
+    wrapper's own count (K1 ``decide_cuda``, K2 ``sweep_cuda``, K3
+    ``probe_add_cuda``): GET /debug/kernels, how a caller outside the
+    process (a subprocess group's parent) reads them.  The JAX daemon
+    has no counterpart: its kernels are XLA's."""
+    from .ops.decide import decide_cuda
+    from .ops.probe import probe_add_cuda
+    from .ops.sweep import sweep_cuda
+
+    return {"decide": decide_cuda.launches, "sweep": sweep_cuda.launches,
+            "probe_add": probe_add_cuda.launches}
 
 
 def _int_arg(q: dict, name: str) -> Optional[int]:

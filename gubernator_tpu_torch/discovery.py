@@ -51,12 +51,13 @@ class StaticDiscovery(Discovery):
 def make_discovery(cfg: DaemonConfig, self_info: PeerInfo,
                    on_change: OnChange) -> Optional[Discovery]:
     """The configured source (daemon.go › SpawnDaemon); a static list
-    that leaves this daemon out gets it added."""
+    that leaves this daemon out gets it added, and an entry without
+    ``@dc`` is in this daemon's region."""
     t = cfg.peer_discovery_type
     if t in ("none", ""):
         return None
     if t == "static":
-        peers = parse_peer_list(cfg.static_peers)
+        peers = parse_peer_list(cfg.static_peers, cfg.data_center)
         if self_info.grpc_address not in [p.grpc_address for p in peers]:
             peers.append(self_info)
         return StaticDiscovery(on_change, peers)

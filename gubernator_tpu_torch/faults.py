@@ -28,8 +28,8 @@ instance: arming one daemon of an in-process cluster leaves its
 siblings alone.
 
 :data:`FAULT_POINTS` holds only the points whose sites exist in the
-port; the JAX package's ``global_accum_swap``, ``global_psum`` and
-``mr_sync`` arrive with their subsystems.  Arming a point outside
+port; the JAX package's ``global_accum_swap`` and ``global_psum``
+arrive with their subsystem.  Arming a point outside
 the catalog raises: a chaos run must never test nothing without saying
 so.
 """
@@ -81,6 +81,9 @@ FAULT_POINTS = {
                         "owner broadcast tick",
     "global_hits": "GlobalManager._hits_tick — before the hit flush "
                    "tick (an aborted tick pops nothing)",
+    "mr_sync": "MultiRegionManager._run_async_reqs — before the "
+               "cross-region flush tick (queues not yet popped, so an "
+               "aborted tick loses nothing)",
     "snapshot": "instance._save_to_loader — before the Loader snapshot",
     "restore": "instance._load_from_loader — before the Loader restore",
     "tier_promote": "TierController.promote — after the admissibility "

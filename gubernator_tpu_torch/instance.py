@@ -8,11 +8,16 @@ daemons by a hash ring (peers.py): owned keys are decided locally,
 other keys are forwarded to their owner over the peer wire
 (peer_client.py), and ``Behavior.GLOBAL`` keys are answered from the
 local replica, their hits queued to the owner, which broadcasts its
-state back (global_manager.py).  The owner side is
-``get_peer_rate_limits`` / ``get_peer_rate_limits_wire`` and
-``update_peer_globals``.  ``Config.engine`` picks the bucket engine (K1)
-or the classic SoA engine (``xla``).  Building or launching a kernel
-raises, and so does building an engine: there is no fallback engine.
+state back (global_manager.py).  With ``Config.data_center`` set the
+ring is per region (peers.py › RegionPeerPicker): keys resolve in the
+local region, and the local owner of a ``Behavior.MULTI_REGION`` key
+queues its hits for the key's owner in every other region
+(multiregion.py), on both lanes and on the owner side of a forward.
+The owner side is ``get_peer_rate_limits`` /
+``get_peer_rate_limits_wire`` and ``update_peer_globals``.
+``Config.engine`` picks the bucket engine (K1) or the classic SoA engine
+(``xla``).  Building or launching a kernel raises, and so does building
+an engine: there is no fallback engine.
 
 Two client entries: ``get_rate_limits`` takes request objects (the HTTP
 gateway), ``get_rate_limits_wire`` takes and returns GetRateLimits wire
@@ -80,8 +85,8 @@ Each instance owns a ``Metrics`` registry and a ``FlightRecorder``
 dispatcher, wave pool, peer clients and GLOBAL manager.  Every client
 entry asks the dispatcher's admission control first, before any engine
 work (``ResourceExhausted`` when it sheds), then counts its requests.
-MULTI_REGION replication, the GLOBAL hot set, tenant analytics and
-tracing wait for their slices.
+The GLOBAL hot set, tenant analytics and tracing wait for their
+slices.
 """
 from __future__ import annotations
 
@@ -106,9 +111,10 @@ from .hashing import (hash_key, hash_keys, hash_request_keys, mix64_np,
                       mixed_fnv1a64)
 from .interval import IntervalLoop
 from .metrics import Metrics
+from .multiregion import MultiRegionManager
 from .ops import native as wire_native
 from .peer_client import ErrCircuitOpen, ErrClosing, PeerClient
-from .peers import ReplicatedConsistentHash
+from .peers import RegionPeerPicker, ReplicatedConsistentHash
 from .sharded import ShardedEngine, autogrow_limit_per_shard
 from .store import CacheItem, arrays_from_items, items_from_arrays
 from .telemetry import FlightRecorder, exc_text
@@ -243,10 +249,14 @@ class V1Instance:
                 raise
         self._last_sweep = clock_ms()
         self._closed = False
-        self._picker = ReplicatedConsistentHash()  # guarded-by: self._peer_mu
+        # with a region set, one ring per region (region_picker.go)
+        self._picker = (RegionPeerPicker(config.data_center)
+                        if config.data_center
+                        else ReplicatedConsistentHash())  # guarded-by: self._peer_mu
         self._peer_mu = threading.Lock()
         self._self_addr = config.advertise_address
         self.global_manager: Optional[GlobalManager] = None
+        self.mr_manager: Optional[MultiRegionManager] = None
         self._gm_mu = threading.Lock()
         #: rows sent to their owners, and those whose forward failed
         self._fwd_mu = threading.Lock()
@@ -598,8 +608,12 @@ class V1Instance:
     @staticmethod
     def _uses_default_hash(picker) -> bool:
         """Routing by table key hash is valid only on the default hash
-        pipeline (the table's keys ARE mixed FNV-1a of the identity)."""
-        return getattr(picker, "_hash", None) is mixed_fnv1a64
+        pipeline (the table's keys ARE mixed FNV-1a of the identity);
+        a region picker needs it in every region."""
+        pickers = (list(picker.regions.values())
+                   if isinstance(picker, RegionPeerPicker) else [picker])
+        return all(getattr(pk, "_hash", None) is mixed_fnv1a64
+                   for pk in pickers)
 
     def _start_handover(self, old_picker, name: str) -> None:
         with self._handover_gen_mu:
@@ -716,6 +730,21 @@ class V1Instance:
                     self, self.config.behaviors, self.metrics)
             return self.global_manager
 
+    def _ensure_mr_manager(self) -> MultiRegionManager:
+        with self._gm_mu:
+            if self.mr_manager is None:
+                self.mr_manager = MultiRegionManager(
+                    self, self.config.behaviors)
+            return self.mr_manager
+
+    def region_pickers(self) -> dict:
+        """The ring of each region (region_picker.go); without a region
+        the one ring, under this daemon's (empty) region name."""
+        with self._peer_mu:
+            if isinstance(self._picker, RegionPeerPicker):
+                return dict(self._picker.regions)
+            return {self.config.data_center: self._picker}
+
     def _count_forward(self, rows: int, failed: int = 0) -> None:
         with self._fwd_mu:
             self.forwarded_rows += rows
@@ -770,6 +799,7 @@ class V1Instance:
                  else None)
         gate_active = rpick is not None and rpick is not membership
         GLOBAL = int(Behavior.GLOBAL)  # hot loop: plain-int flag tests
+        MULTI_REGION = int(Behavior.MULTI_REGION)
         EXCL = int(self._DEGRADED_EXCLUDED)
         for i, req in enumerate(reqs):
             if not req.unique_key:
@@ -778,13 +808,19 @@ class V1Instance:
             elif not req.name:
                 responses[i] = RateLimitResponse(
                     error="field 'name' cannot be empty")
-            elif membership is None:
-                local_idx.append(i)
             elif int(req.behavior) & GLOBAL:
                 # answered from the local replica; reconciled later with
-                # the membership owner
+                # the membership owner (GLOBAL takes precedence over
+                # MULTI_REGION)
                 local_idx.append(i)
-                glob_q.append((req, self.is_self(membership.get(req.key))))
+                if membership is not None:
+                    glob_q.append(
+                        (req, self.is_self(membership.get(req.key))))
+            elif membership is None:
+                local_idx.append(i)
+                if int(req.behavior) & MULTI_REGION:
+                    self._ensure_mr_manager().queue_hits(
+                        _req_stamped(req, now))
             else:
                 owner = rpick.get(req.key)
                 if not self.is_self(owner):
@@ -795,6 +831,10 @@ class V1Instance:
                     mowner = membership.get(req.key)
                     if not self.is_self(mowner):
                         deg_local.append((i, mowner.info.grpc_address))
+                # the local region's owner replicates to the others
+                if int(req.behavior) & MULTI_REGION:
+                    self._ensure_mr_manager().queue_hits(
+                        _req_stamped(req, now))
         # forwards first, so their RPCs overlap the device step
         futures = [(i, self._forward_one(peer, req, now),
                     peer.info.grpc_address, req) for i, peer, req in fwd]
@@ -920,10 +960,11 @@ class V1Instance:
     def health_check(self) -> HealthCheckResponse:
         """reference: gubernator.go › HealthCheck: healthy and the peer
         count, or unhealthy with the GLOBAL manager's last error (a
-        failed hits flush or broadcast, for ERROR_TTL_S).  Refreshes the
-        table gauges (live rows, capacity, dropped rows and, on the
-        bucket engine, the share of full buckets) from one device
-        reduction under the engine lock."""
+        failed hits flush or broadcast, for ERROR_TTL_S), else the
+        MULTI_REGION manager's (a failed send or an aborted tick).
+        Refreshes the table gauges (live rows, capacity, dropped rows
+        and, on the bucket engine, the share of full buckets) from one
+        device reduction under the engine lock."""
         m = self.metrics
         with self._engine_mu:
             if hasattr(self.engine, "occupancy_and_saturation"):
@@ -934,8 +975,10 @@ class V1Instance:
             m.cache_size.set(int(occ))
             m.dropped_rows.set(self.engine.dropped_rows)
             m.cache_capacity.set(self.engine.cap_local)
-        gm = self.global_manager
+        gm, mr = self.global_manager, self.mr_manager
         err = gm.last_error if gm is not None else ""
+        if not err and mr is not None:
+            err = mr.last_error
         return HealthCheckResponse(status="unhealthy" if err else "healthy",
                                    message=err,
                                    peer_count=len(self.peers()))
@@ -976,11 +1019,20 @@ class V1Instance:
                     parsed, data, now, picker)
             else:
                 # alone, GLOBAL with no hot set is the local path;
-                # MULTI_REGION rows are decided locally (their
-                # replication is not ported)
+                # MULTI_REGION rows (not GLOBAL: it takes precedence)
+                # queue their replication after the step
                 lane = "wire_local"
-                run = lambda: self._wire_check_columns(  # noqa: E731
-                    parsed, now)
+
+                def run():
+                    out = self._wire_check_columns(parsed, now)
+                    if parsed["behavior_or"] & int(Behavior.MULTI_REGION):
+                        beh = parsed["behavior"]
+                        mr = (((beh & int(Behavior.MULTI_REGION)) != 0)
+                              & ((beh & int(Behavior.GLOBAL)) == 0))
+                        if mr.any():
+                            self._queue_mr_raw(parsed, data, mr,
+                                               stamp_ms=now)
+                    return out
 
             def run_and_sweep():
                 out = run()
@@ -1184,6 +1236,14 @@ class V1Instance:
                     gm.queue_update_raw(k, tlv)
                 else:
                     gm.queue_hits_raw(k, tlv, a)
+        if parsed["behavior_or"] & int(Behavior.MULTI_REGION):
+            # rows this daemon owns replicate to the other regions (a
+            # forwarded row is queued by its owner; GLOBAL rows never)
+            mr = (np.isin(owners, self_pi)
+                  & ((parsed["behavior"] & int(Behavior.MULTI_REGION)) != 0)
+                  & ((parsed["behavior"] & int(Behavior.GLOBAL)) == 0))
+            if mr.any():
+                self._queue_mr_raw(parsed, data, mr, stamp_ms=now)
         b = self.config.behaviors
         # the lane's futures always resolve (RPC deadline, bounded
         # retries); this bound is that worst case plus slack
@@ -1403,6 +1463,15 @@ class V1Instance:
         for j, i in enumerate(idxs):
             item_tlvs[int(i)] = rbytes[int(off[j]):int(off[j] + ln[j])]
 
+    def _queue_mr_raw(self, parsed: dict, data: bytes, mask: np.ndarray,
+                      stamp_ms: Optional[int] = None) -> None:
+        """Queue the masked rows' hits for the other regions, per unique
+        key with its last TLV (the wire lanes' ``queue_hits``)."""
+        mr = self._ensure_mr_manager()
+        for k, tlv, a, _i in self._raw_queue_groups(parsed, data, mask,
+                                                    stamp_ms=stamp_ms):
+            mr.queue_hits_raw(k, tlv, a)
+
     @staticmethod
     def _raw_queue_groups(parsed: dict, data: bytes, mask: np.ndarray,
                           stamp_ms: Optional[int] = None):
@@ -1439,7 +1508,7 @@ class V1Instance:
                              ) -> List[RateLimitResponse]:
         """Apply a forwarded batch locally (gubernator.go ›
         GetPeerRateLimits); GLOBAL keys are marked for the next
-        broadcast."""
+        broadcast, and MULTI_REGION hits queue for the other regions."""
         if len(reqs) > self.config.behaviors.batch_limit:
             raise ValueError(
                 "'PeerRequest.rate_limits' list too large; max size is "
@@ -1455,6 +1524,9 @@ class V1Instance:
         for req in reqs:
             if int(req.behavior) & int(Behavior.GLOBAL):
                 self._ensure_global_manager().queue_update(req)
+            if int(req.behavior) & int(Behavior.MULTI_REGION):
+                # this daemon is the region's owner of the forwarded key
+                self._ensure_mr_manager().queue_hits(_req_stamped(req, now))
         # rows whose membership owner this daemon's gate has ejected
         # were rehomed here: flagged, their hits reconciled
         if self._gate_bad and self.config.behaviors.peer_degraded_fallback:
@@ -1467,8 +1539,9 @@ class V1Instance:
         """GetPeerRateLimits wire bytes in and out: the owner side of the
         forward hop (its items are field 1, as in GetRateLimitsReq, so
         the C++ lanes apply as they are).  Forwarded rows always apply
-        locally; GLOBAL rows mark their keys for the next broadcast,
-        after the step.  While the health gate has ejected peers, rows
+        locally; GLOBAL rows mark their keys for the next broadcast and
+        MULTI_REGION rows queue their hits for the other regions, after
+        the step.  While the health gate has ejected peers, rows
         whose membership owner is ejected were rehomed here and serve
         degraded (the parse lane; the fused lane is skipped then)."""
         self._fault_point("wire_ingest")
@@ -1498,6 +1571,11 @@ class V1Instance:
             for k, tlv, _a, _i in self._raw_queue_groups(parsed, data,
                                                          glob):
                 gm.queue_update_raw(k, tlv)
+        if parsed["behavior_or"] & int(Behavior.MULTI_REGION):
+            # no GLOBAL precedence here: the object lane's owner side
+            # queues both for a GLOBAL | MULTI_REGION row
+            mr = (parsed["behavior"] & int(Behavior.MULTI_REGION)) != 0
+            self._queue_mr_raw(parsed, data, mr, stamp_ms=now)
         if gate_rehome:
             out = self._peer_degraded_rewrite(parsed, data, out,
                                               stamp_ms=now)
@@ -1653,8 +1731,8 @@ class V1Instance:
         return out.SerializeToString()
 
     def close(self) -> None:
-        """Stop the health prober, flush the GLOBAL manager, drain the
-        peer clients, stop the dispatcher (the engine's one user), then
+        """Stop the health prober, flush the GLOBAL and MULTI_REGION
+        managers, drain the peer clients, stop the dispatcher (the engine's one user), then
         the analytics, then save the snapshot (the JAX order: the
         dispatcher, the analytics, the snapshot)."""
         if self._closed:
@@ -1666,6 +1744,8 @@ class V1Instance:
             probe.close()
         if self.global_manager is not None:
             self.global_manager.close()
+        if self.mr_manager is not None:
+            self.mr_manager.close()
         for p in self.peers():
             p.shutdown()
         self.dispatcher.close()

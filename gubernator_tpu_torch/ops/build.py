@@ -8,9 +8,12 @@ Two libraries, each with a plain C interface, loaded with ctypes:
   ``build/gubernator_tpu_torch/libgubertorch.so`` in the checkout (no
   PyTorch headers, so a build takes seconds);
 - the host library (csrc/wire.cpp, ops/native.py; csrc/cold.cpp, the
-  tier's cold store), built with the host C++ compiler into
-  ``libguberwire.so``.  It needs no CUDA, so the CPU-only tests build
-  and use it too.
+  tier's cold store; csrc/sketch.cpp, the heavy-hitter sketch's fold),
+  built with the host C++ compiler and the running
+  interpreter's Python headers into ``libguberwire.so``.  It needs no
+  CUDA, so the CPU-only tests build and use it too.  Its key-hashing
+  entry points take Python objects and are bound a second time through
+  ``ctypes.PyDLL`` (``load_wire_pylib``), which keeps the GIL.
 
 A file lock serializes concurrent builds, and a hash of each library's
 sources and flags decides when to rebuild it.  A failed build raises.
@@ -24,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 from pathlib import Path
@@ -37,11 +41,21 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 WIRE_LIB_NAME = "libguberwire.so"
 WIRE_SOURCE = CSRC / "wire.cpp"
 COLD_SOURCE = CSRC / "cold.cpp"
+SKETCH_SOURCE = CSRC / "sketch.cpp"
 CXX_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared"]
+
+
+def _py_include() -> list[str]:
+    """The running interpreter's headers (wire.cpp's hashing reads
+    Python strings); the library resolves their symbols from the
+    process, so nothing links against libpython."""
+    return ["-I" + sysconfig.get_paths()["include"]]
+
 
 _mu = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _wire_lib: ctypes.CDLL | None = None
+_wire_pylib: ctypes.PyDLL | None = None
 #: what the last build did: seconds, whether it compiled, nvcc's output
 #: (ptxas registers / spills per kernel)
 build_info: dict = {}
@@ -156,14 +170,14 @@ def load_library() -> ctypes.CDLL:
 
 
 def _host_sources() -> list[Path]:
-    return [WIRE_SOURCE, COLD_SOURCE]
+    return [WIRE_SOURCE, COLD_SOURCE, SKETCH_SOURCE]
 
 
 def _compile_wire(cxx: str, lib: Path) -> str:
     tmp = lib.with_suffix(".so.tmp")
     sources = _host_sources()
-    r = subprocess.run([cxx, *CXX_FLAGS, *map(str, sources), "-o",
-                        str(tmp)], capture_output=True, text=True)
+    r = subprocess.run([cxx, *CXX_FLAGS, *_py_include(), *map(str, sources),
+                        "-o", str(tmp)], capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(
             f"{cxx} failed on {', '.join(s.name for s in sources)}:\n"
@@ -217,14 +231,21 @@ def _bind_wire(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gc_snapshot.restype = i64
     lib.gc_clear.argtypes = [p]
     lib.gc_clear.restype = ctypes.c_int
+    lib.gs_update.argtypes = [i64] + [p] * 10 + [i64, i64] + [p] * 6
+    lib.gs_update.restype = i64
+    lib.gs_admit_merge.argtypes = [i64] + [p] * 6 + [p, p, p, i64, i64]
+    lib.gs_admit_merge.restype = None
+    lib.gs_admit_level.argtypes = [i64] + [p] * 6 + [p, p, i64, i64]
+    lib.gs_admit_level.restype = None
     return lib
 
 
 def load_wire_library() -> ctypes.CDLL:
-    """The host library, built from csrc/wire.cpp and csrc/cold.cpp with
-    the host C++ compiler if it is missing or stale.  Raises when it
-    cannot be built: neither the wire lane nor the native cold store has
-    a substitute."""
+    """The host library, built from csrc/wire.cpp, csrc/cold.cpp and
+    csrc/sketch.cpp with the host C++ compiler if it is missing or stale.
+    Raises when it cannot be built: neither the wire lane, the key
+    hashing, the native cold store nor the sketch's fold has a
+    substitute."""
     global _wire_lib
     if _wire_lib is not None:
         return _wire_lib
@@ -234,7 +255,29 @@ def load_wire_library() -> ctypes.CDLL:
         cxx = cxx_path()
         lib_path = BUILD_DIR / WIRE_LIB_NAME
         _build_once(lib_path, BUILD_DIR / "wire.sha256",
-                    _digest(_host_sources(), [cxx] + CXX_FLAGS),
+                    _digest(_host_sources(),
+                            [cxx] + CXX_FLAGS + _py_include()),
                     lambda: _compile_wire(cxx, lib_path))
         _wire_lib = _bind_wire(ctypes.CDLL(str(lib_path)))
         return _wire_lib
+
+
+def load_wire_pylib() -> ctypes.PyDLL:
+    """The host library's entry points that take Python objects
+    (``gw_hash_keys``, ``gw_hash_pairs``), bound through ``ctypes.PyDLL``:
+    the GIL stays held and a Python exception they set is raised."""
+    global _wire_pylib
+    if _wire_pylib is not None:
+        return _wire_pylib
+    load_wire_library()  # builds it if needed
+    with _mu:
+        if _wire_pylib is None:
+            lib = ctypes.PyDLL(str(BUILD_DIR / WIRE_LIB_NAME))
+            obj, p = ctypes.py_object, ctypes.c_void_p
+            i64, c_int = ctypes.c_int64, ctypes.c_int
+            lib.gw_hash_keys.argtypes = [obj, p, i64, c_int]
+            lib.gw_hash_keys.restype = i64
+            lib.gw_hash_pairs.argtypes = [obj, obj, p, i64, c_int]
+            lib.gw_hash_pairs.restype = i64
+            _wire_pylib = lib
+        return _wire_pylib

@@ -1,18 +1,20 @@
 """Python face of the host wire library (csrc/wire.cpp, ctypes).
 
-The functions of gubernator_tpu/ops/native.py that the wire lane and
-its forward hop need, with the same names and return shapes.  The library is built at
+The functions of gubernator_tpu/ops/native.py that the wire lane, its
+forward hop and the object lane's key hashing need, with the same names
+and return shapes.  The library is built at
 first use (ops/build.py › load_wire_library); a failed build raises, and
 there is no numpy or protobuf substitute for these functions.  Each call
 releases the GIL for its native part (ctypes does), so concurrent
-callers parse and serialize in parallel.
+callers parse and serialize in parallel; the key hashing reads Python
+strings and keeps it.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..types import DURATION_MAX, EFF_MAX, TD_BOUND, VALUE_MAX
-from .build import load_wire_library
+from .build import load_wire_library, load_wire_pylib
 
 #: the answer to a row whose probe window stayed full (or, on the
 #: bucket engine, whose values lie outside K1's domain)
@@ -25,6 +27,33 @@ def _ptr(a: np.ndarray) -> int:
 
 def _as_bytes(data) -> bytes:
     return data if isinstance(data, bytes) else bytes(data)
+
+
+def hash_keys(keys, mixed: bool = False) -> np.ndarray:
+    """FNV-1a 64 of each key (str as UTF-8, or bytes) → uint64[n]: RAW
+    (the JAX extension's ``hash_keys``) or, with ``mixed``, the table
+    key hash (mix64, 0 → 1).  A sequence that is not a list or tuple is
+    listed first."""
+    if not isinstance(keys, (list, tuple)):
+        keys = list(keys)
+    out = np.empty(len(keys), "<u8")
+    load_wire_pylib().gw_hash_keys(keys, _ptr(out), len(out), int(mixed))
+    return out
+
+
+def hash_pairs(names, unique_keys, mixed: bool = False) -> np.ndarray:
+    """FNV-1a 64 of ``name + "_" + unique_key`` per pair, without
+    joining the strings: RAW (the JAX extension's ``hash_pairs``) or,
+    with ``mixed``, the table key hash (mix64, 0 → 1).  Raises
+    ValueError when the lengths differ."""
+    if not isinstance(names, (list, tuple)):
+        names = list(names)
+    if not isinstance(unique_keys, (list, tuple)):
+        unique_keys = list(unique_keys)
+    out = np.empty(len(names), "<u8")
+    load_wire_pylib().gw_hash_pairs(names, unique_keys, _ptr(out),
+                                    len(out), int(mixed))
+    return out
 
 
 def count_req_items(data: bytes):

@@ -1,5 +1,5 @@
 """Peer picking: which daemon owns a key (the port's copy of
-gubernator_tpu/peers.py without its MULTI_REGION picker).
+gubernator_tpu/peers.py).
 
 Keys map to daemons by a hash ring over the peers' gRPC addresses; a
 daemon that does not own a key forwards it to the owner.  Pickers map a
@@ -7,7 +7,9 @@ key string, or an already-hashed key, to a peer object (anything with an
 ``.info: PeerInfo``).  A picker is immutable once built: set_peers builds
 a new one and swaps it in.  The ring must put every key on the same
 owner as the JAX package's for the same peer list; the tests hold it
-there.
+there.  ``RegionPeerPicker`` keeps one ring per region (datacenter):
+keys resolve in the local region, and the MULTI_REGION manager reaches
+every other region's owner through ``regions``.
 """
 from __future__ import annotations
 
@@ -146,3 +148,54 @@ class ReplicatedConsistentHash(Generic[P]):
     def owner_peers(self) -> List[P]:
         """The peer list ``owner_indices`` results index into."""
         return list(self._peers)
+
+
+class RegionPeerPicker(Generic[P]):
+    """One inner picker per region (region_picker.go ›
+    RegionPeerPicker): ``get`` and the vectorized lookups resolve in the
+    local region (``local_dc``); a peer without a datacenter is local.
+    ``regions`` maps each region to its picker, for the MULTI_REGION
+    manager's sends to the other regions."""
+
+    def __init__(self, local_dc: str):
+        self.local_dc = local_dc
+        self.regions: Dict[str, ReplicatedConsistentHash] = {}
+
+    def new(self) -> "RegionPeerPicker[P]":
+        return RegionPeerPicker(self.local_dc)
+
+    def add(self, peer: P) -> None:
+        dc = peer.info.datacenter or self.local_dc  # type: ignore
+        picker = self.regions.get(dc)
+        if picker is None:
+            picker = self.regions[dc] = ReplicatedConsistentHash()
+        picker.add(peer)  # type: ignore
+
+    def peers(self) -> List[P]:
+        out: List[P] = []
+        for picker in self.regions.values():
+            out.extend(picker.peers())  # type: ignore
+        return out
+
+    def _local_picker(self):
+        """The local region's picker, or any region's when the local one
+        has no peers (the JAX package's fallback)."""
+        picker = self.regions.get(self.local_dc)
+        if picker is None:
+            for picker in self.regions.values():
+                break
+            else:
+                raise RuntimeError("picker has no peers")
+        return picker
+
+    def get(self, key: str) -> P:
+        return self._local_picker().get(key)  # type: ignore
+
+    def owner_indices(self, hashes: np.ndarray) -> np.ndarray:
+        """Vectorized ``get`` over the local region's ring; the indices
+        refer to ``owner_peers()`` (the local region's peers, not
+        ``peers()``, which spans every region)."""
+        return self._local_picker().owner_indices(hashes)  # type: ignore
+
+    def owner_peers(self) -> List[P]:
+        return self._local_picker().peers()  # type: ignore

@@ -1,7 +1,7 @@
 """The port's heavy-hitter analytics (analytics.py) on the CPU against
 the JAX package's: the Space-Saving sketch bit for bit on seeded Zipf
 streams wider than its width (counts, error bounds, over-limit tallies,
-top-K, merges), KeyAnalytics' /debug/topkeys and /debug/phases
+top-K, merges), in Python and with its fold in C++, KeyAnalytics' /debug/topkeys and /debug/phases
 documents after ``flush()``, dropped taps with a tiny queue, the device
 tap on the CPU, and the daemon's endpoints.  The tolerance is zero."""
 import json
@@ -71,6 +71,78 @@ def test_sketch_names_and_merge_equal_jax():
     ps.merge_entries(entries, other.total_weight)
     js.merge_entries(entries, other.total_weight)
     assert ps.canonical_bytes() == js.canonical_bytes()
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("width", [128, 1024])
+def test_native_sketch_equals_jax_after_every_fold(seed, weighted, width):
+    """The C++ fold (csrc/sketch.cpp) on streams over 20x the width:
+    after every wave its state is byte-equal to the JAX sketch's and to
+    the port's Python fold (its plain version), last-seen times and
+    names included; count_of reads alike."""
+    from gubernator_tpu import analytics as jax_analytics
+
+    native = analytics.NativeHeavyHitterSketch(k=32, width=width)
+    plain = analytics.HeavyHitterSketch(k=32, width=width)
+    ref = jax_analytics.HeavyHitterSketch(k=32, width=width)
+    waves = zipf_waves(seed, 20 * width, 12, 1000, weighted)
+    for i, (kh, hits, over, t) in enumerate(waves):
+        names = ([f"n_{int(k) % 997}" for k in kh] if i % 3 == 0
+                 else None)
+        for sk in (native, plain, ref):
+            sk.update(kh, hits, over, t, names=names)
+        assert native.canonical_bytes() == ref.canonical_bytes() == \
+            plain.canonical_bytes()
+        u = native._used
+        for col in ("_kh", "_cnt", "_err", "_over", "_last"):
+            assert np.array_equal(getattr(native, col)[:u],
+                                  getattr(plain, col)[:u]), col
+        assert native._names == plain._names == ref._names
+    assert native.topk() == ref.topk()
+    assert native.error_bound() == ref.error_bound() > 0
+    for kh in waves[-1][0][:100].tolist():
+        assert native.count_of(kh) == ref.count_of(kh)
+
+
+def test_native_sketch_is_the_default_and_merges_as_jax():
+    """KeyAnalytics folds with the native sketch; a merge (Python, on the
+    same columns) after native folds still equals JAX's."""
+    from gubernator_tpu import analytics as jax_analytics
+
+    ka = analytics.KeyAnalytics()
+    try:
+        assert type(ka.sketch) is analytics.NativeHeavyHitterSketch
+    finally:
+        ka.close()
+    ps = analytics.NativeHeavyHitterSketch(k=8, width=32)
+    js = jax_analytics.HeavyHitterSketch(k=8, width=32)
+    for kh, hits, over, t in zipf_waves(5, 300, 4, 200, True):
+        ps.update(kh, hits, over, t)
+        js.update(kh, hits, over, t)
+    other = analytics.HeavyHitterSketch(k=8, width=32)
+    other.update(*zipf_waves(6, 300, 1, 300, True)[0])
+    entries = other.topk(32)
+    ps.merge_entries(entries, other.total_weight)
+    js.merge_entries(entries, other.total_weight)
+    for kh, hits, over, t in zipf_waves(7, 300, 2, 200, False):
+        ps.update(kh, hits, over, t)
+        js.update(kh, hits, over, t)
+    assert ps.canonical_bytes() == js.canonical_bytes()
+
+
+def test_native_sketch_without_the_host_library_raises(monkeypatch,
+                                                        tmp_path):
+    """No compiler, no library: the native sketch raises; it does not
+    fold in Python instead."""
+    from gubernator_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "_wire_lib", None)
+    monkeypatch.setenv("CXX", "no-such-compiler")
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no host C\\+\\+ compiler"):
+        analytics.NativeHeavyHitterSketch(k=8, width=32)
 
 
 def both_analytics(**kw):

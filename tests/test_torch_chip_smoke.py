@@ -218,8 +218,11 @@ def path_rehearsal(monkeypatch):
         classic_sweep_ms=50)
 
 
-def test_main_and_wire_paths_rehearse_on_the_cpu(path_rehearsal):
+def test_main_and_wire_paths_rehearse_on_the_cpu(path_rehearsal,
+                                                 monkeypatch):
     args = path_rehearsal
+    monkeypatch.setattr(chip_smoke, "AB_PAIRS", 2)
+    monkeypatch.setattr(chip_smoke, "AB_BATCHES", 1)
     pop_idx, pop_keys = chip_smoke.fit_population(args.keys, args.log2_cap)
     res = chip_smoke.phase_main_path(torch, args, pop_idx, pop_keys)
     wire = res["wire"]
@@ -256,12 +259,25 @@ def test_main_and_wire_paths_rehearse_on_the_cpu(path_rehearsal):
     top = res["topkeys"]
     assert top["taps_dropped"] == 0 and len(top["hottest"]) == 16
     assert all(r["count"] >= r["sent"] > 0 for r in top["hottest"])
-    noana = res["wire_analytics_off"]
-    assert noana["launches"] > 0 and len(noana["rounds"]) == 1
-    assert set(res["analytics"]["decisions_per_s"]) == {"on", "off"}
-    assert res["object_analytics_off"]["batches"] == \
-        args.threads * args.batches
-    assert set(res["object_analytics"]["p99_ms"]) == {"on", "off"}
+    # the reference's A/B: a warm-up pair, then AB_PAIRS timed pairs
+    # with the sketch's fold in Python, then native
+    for lane in ("wire", "object"):
+        for fold in ("python", "native"):
+            a = res["analytics_ab"][lane][fold]
+            assert a["order"] == ["on", "off"] and len(a["ratios"]) == 2
+            assert len(a["on_decisions_per_s"]) == 2 and a["off_median"] > 0
+            assert a["taps_dropped"] == 0
+            assert a["overhead_pct"] == (a["median_ratio"] - 1.0) * 100
+    assert res["wire_analytics_off_launches"] > 0
+    # the fold's move alone: analytics on in both arms
+    for lane in ("wire", "object"):
+        f = res["fold_ab"][lane]
+        assert f["order"] == ["python", "native"] and len(f["ratios"]) == 2
+        assert f["python_median"] > 0 and f["native_median"] > 0
+        assert f["taps_dropped"] == 0
+    h = res["hash_ab"]
+    assert h["order"] == ["native", "plain"] and len(h["ratios"]) == 2
+    assert h["native_median"] > 0 and h["plain_median"] > 0
     prof = res["object_host_profile"]
     assert prof["order"] == ["on", "off"]
     for state in prof["order"]:
@@ -341,6 +357,153 @@ def test_cluster_phase_rehearses_on_the_cpu(path_rehearsal, monkeypatch):
     assert ho["rows_moved"] == ho["rows_sent"] > 0
     assert ho["rows_placed"] + ho["rows_dropped"] == ho["rows_moved"]
     assert ho["still_on_old_owner"] == 0
+
+
+def test_interleaved_pairs_follow_the_reference_discipline():
+    """One untimed warm-up pair, then the pairs in turn, the second
+    state entered after ``before_second``; the median of the per-pair
+    ratios second / first."""
+    from contextlib import contextmanager
+
+    log = []
+
+    def ctx(name):
+        @contextmanager
+        def c():
+            log.append(f"enter {name}")
+            yield
+            log.append(f"exit {name}")
+        return c
+
+    rates = iter([1.0, 1.0, 10.0, 9.0, 10.0, 8.0, 10.0, 11.0])
+
+    def arm(state):
+        log.append(f"run {state}")
+        return next(rates)
+
+    out = chip_smoke.interleaved_pairs(
+        "t", arm, (("on", ctx("on")), ("off", ctx("off"))),
+        before_second=lambda: log.append("flush"), pairs=3)
+    assert log[:6] == ["enter on", "run on", "exit on", "flush",
+                       "enter off", "run off"]
+    assert log.count("flush") == 4 and log.count("run on") == 4
+    assert out["ratios"] == [0.9, 0.8, 1.1]
+    assert out["median_ratio"] == 0.9
+    assert out["on_decisions_per_s"] == [10.0, 10.0, 10.0]
+    assert out["off_median"] == 9.0
+
+
+def test_plain_hashing_swaps_the_object_lane_hash_and_answers_alike():
+    """Inside the hashing A/B's plain arm the dispatcher hashes with the
+    Python loop; an instance driven there answers a stream exactly as
+    one driven with the native hash, and the native hash is back
+    after it."""
+    from gubernator_tpu_torch import dispatcher, hashing
+    from gubernator_tpu_torch.config import Config
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    reqs = [RateLimitRequest(name="n", unique_key=f"k{i % 7}é", hits=1,
+                             limit=3, duration=60_000) for i in range(30)]
+    got = []
+    for ctx in (chip_smoke.plain_hashing, chip_smoke.nullcontext):
+        inst = V1Instance(Config(device="cpu", cache_size=4096))
+        try:
+            with ctx():
+                plain = dispatcher.hash_request_keys is \
+                    hashing.hash_request_keys_plain
+                assert plain == (ctx is chip_smoke.plain_hashing)
+                got.append([(int(r.status), r.remaining, r.reset_time)
+                            for b in range(3) for r in inst.get_rate_limits(
+                                reqs, now_ms=1_765_000_000_000 + b)])
+        finally:
+            inst.close()
+    assert dispatcher.hash_request_keys is hashing.hash_request_keys
+    assert got[0] == got[1] and any(s == 1 for s, _, _ in got[0])
+
+
+def test_group_phase_rehearses_on_the_cpu(path_rehearsal, monkeypatch):
+    """The subprocess group at a small size (3 CPU workers): every worker
+    reached and serving, the 10^9 GLOBAL keys exact on every worker,
+    then a worker killed: ejected by both survivors, its keys degraded
+    and counted, the others exact."""
+    args = cluster_args(path_rehearsal, monkeypatch)
+    monkeypatch.setattr(chip_smoke, "GROUP_KILL_MAX_BATCHES", 60)
+    res = chip_smoke.phase_group(torch, args, cluster_rate=1e5,
+                                 solo_rate=1e6)
+    assert res["workers"] == 3 and sorted(res["connections_per_worker"]) \
+        != [0, 0, 3]
+    assert all(a > 0 for a in res["answered_per_worker"])
+    assert sum(res["answered_per_worker"]) >= args.threads * 1000
+    assert res["exact_global_hits"] > 0 and res["checked_requests"] > 0
+    assert 0 < res["share_of_cluster"] and 0 < res["share_of_solo_wire"]
+    k = res["kill"]
+    assert k["killed"] == 2 and len(k["eject_ms_after_kill"]) == 2
+    assert all(ms > 0 for ms in k["eject_ms_after_kill"])
+    assert k["rows_degraded"] == k["degraded_served_counter"] > 0
+    assert k["requests"] > 0
+    assert k["table_full_keys"] <= k["keys_that_may_find_no_room"]
+    assert k["table_full_keys"] <= \
+        k["table_full_rows_of_the_dead_workers_keys"]
+
+
+def test_regions_phase_rehearses_on_the_cpu(path_rehearsal, monkeypatch):
+    """2 regions x 2 daemons at a small size: MULTI_REGION keys exact in
+    both regions, an armed mr_sync holding every hit, the other keys
+    exact per region."""
+    args = cluster_args(path_rehearsal, monkeypatch)
+    res = chip_smoke.phase_regions(torch, args, solo_rate=1e6)
+    assert res["daemons"] == 4 and res["launches"] > 0
+    assert res["exact_mr_hits"] > 0
+    assert res["mr_sync_held_hits"] == 2 * chip_smoke.EXACT_MR_RANKS
+    assert all(n > 0 for n in res["checked_requests"].values())
+    assert res["convergence_ms"] > 0
+    assert res["mr_over_admission_max"]["both"] >= 0
+    # the round at the default send deadline is measured, not held
+    # exact: its losses are counted, never a hit counted twice
+    dd = res["default_deadline"]
+    assert dd["send_deadline_ms"] == 900 and dd["hits_sent"] > 0
+    assert dd["failed_sends"] >= 0 and set(dd["hits_lost"]) == \
+        set(chip_smoke.REGIONS)
+    assert all(0 <= n <= dd["hits_sent"] for n in dd["hits_lost"].values())
+
+
+def test_rehomed_may_fill_marks_the_dead_workers_crowded_keys():
+    """A dead worker's key may find no room on a survivor only where the
+    survivor's own keys, its warm-up key and the dead worker's keys of
+    that bucket exceed 8 slots; no key of a live worker is marked."""
+    from gubernator_tpu_torch.hashing import hash_request_keys
+
+    args = types.SimpleNamespace(cluster_log2_cap=6)  # 8 buckets
+    nb = 8
+    warm = int(hash_request_keys(["_warmup"], ["w"])[0] % nb)
+    other = (warm + 1) % nb
+    # bucket `other`: 5 keys of survivor 0, 4 of the dead worker 2 (9 in
+    # all: crowded); bucket `warm`: 3 keys of survivor 1, the warm-up
+    # key, 3 of the dead worker (7: room); one more dead key alone
+    keys = np.array([other] * 5 + [other] * 4 + [warm] * 3 + [warm] * 3
+                    + [(warm + 2) % nb], np.uint64) + np.uint64(nb) * \
+        np.arange(16, dtype=np.uint64)
+    owner = np.array([0] * 5 + [2] * 4 + [1] * 3 + [2] * 3 + [2])
+    got = chip_smoke.rehomed_may_fill(args, keys, owner, 2, [0, 1])
+    assert got.tolist() == [False] * 5 + [True] * 4 + [False] * 7
+
+
+def test_regions_phase_stops_on_a_lost_send(path_rehearsal, monkeypatch):
+    """A region owner whose sends never arrive leaves the other region
+    short of the hits sent: the run stops."""
+    from gubernator_tpu_torch.multiregion import MultiRegionManager
+
+    args = cluster_args(path_rehearsal, monkeypatch)
+    monkeypatch.setattr(chip_smoke, "CONVERGE_S", 1.0)
+
+    def lose(self):
+        with self._mu:
+            self._hits, self._hits_raw = {}, {}
+
+    monkeypatch.setattr(MultiRegionManager, "_run_async_reqs", lose)
+    with pytest.raises(RuntimeError, match="10\\^9 keys read"):
+        chip_smoke.phase_regions(torch, args)
 
 
 @pytest.mark.parametrize("fault",

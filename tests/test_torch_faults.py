@@ -30,10 +30,11 @@ from gubernator_tpu_torch.wire import encode_get_rate_limits
 NOW = 1_765_000_000_000
 
 #: points of subsystems the port has not ported
-NOT_PORTED = ("global_accum_swap", "global_psum", "mr_sync")
+NOT_PORTED = ("global_accum_swap", "global_psum")
 
-#: points of the Loader and the cold tier, ported with them
-STATE_POINTS = ("snapshot", "restore", "tier_promote", "tier_demote")
+#: points of the Loader, the cold tier and MULTI_REGION, ported with them
+STATE_POINTS = ("snapshot", "restore", "tier_promote", "tier_demote",
+                "mr_sync")
 
 VALID = [
     "peer_send:error:0.3",
@@ -98,8 +99,9 @@ def test_points_outside_the_port_catalog_raise(point):
 
 @pytest.mark.parametrize("point", STATE_POINTS)
 def test_state_points_arm_and_describe_as_jax(point):
-    """The Loader's and the cold tier's points are in the catalog with
-    the JAX package's description, and arm in both packages."""
+    """The Loader's, the cold tier's and MULTI_REGION's points are in
+    the catalog with the JAX package's description, and arm in both
+    packages."""
     assert faults.FAULT_POINTS[point] == jax_faults.FAULT_POINTS[point]
     got = []
     for cls in (FaultSet, jax_faults.FaultSet):
@@ -167,7 +169,7 @@ def test_from_env_reads_the_spec_and_seed():
     assert FaultSet.from_env({"GUBER_FAULT_SEED": "x"}).seed == 0
     assert not FaultSet.from_env({}).armed
     with pytest.raises(ValueError):
-        FaultSet.from_env({"GUBER_FAULT": "mr_sync:error"})
+        FaultSet.from_env({"GUBER_FAULT": "global_psum:error"})
 
 
 def test_fires_are_counted_and_arming_is_recorded():
@@ -327,7 +329,7 @@ def test_daemon_arms_and_clears_over_http(monkeypatch):
         assert desc["spec"] == "device_step:error:0.5"
         assert desc["catalog"] == sorted(faults.FAULT_POINTS)
         with pytest.raises(urllib.error.HTTPError) as e:
-            post({"spec": "mr_sync:error"})
+            post({"spec": "global_psum:error"})
         assert e.value.code == 400
         assert d.instance.faults.describe()["spec"] == "device_step:error:0.5"
         code, got = post({"clear": True})

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package (its
 wire lane, its cluster path, one daemon's lifecycle, the cluster's
-failure path and the state beyond the device table included), and its
-entry points default to the GPU, raising where there is none."""
+failure path, the state beyond the device table, the subprocess group
+and MULTI_REGION included), and its entry points default to the GPU,
+raising where there is none."""
 import ast
 import pkgutil
 import subprocess
@@ -28,7 +29,7 @@ def test_importing_every_module_loads_no_jax():
     for m in ("peers", "peer_client", "global_manager", "discovery",
               "cluster", "interval", "netutil", "telemetry", "metrics",
               "cmd.healthcheck", "faults", "store", "tiering",
-              "analytics"):
+              "analytics", "multiregion", "cmd.cluster"):
         assert f"gubernator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -248,6 +249,66 @@ def test_failure_path_loads_nothing_of_the_jax_package():
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+
+
+def test_group_and_region_paths_load_nothing_of_the_jax_package():
+    """The subprocess group and MULTI_REGION in a fresh process: a
+    2-worker CPU group answering on its shared port, then 2 regions x 1
+    daemon replicating a MULTI_REGION hit; no JAX-package module is
+    loaded, in this process or in the group's workers (each worker logs
+    every import it makes: PYTHONPROFILEIMPORTTIME)."""
+    code = (
+        "import sys, time, grpc\n"
+        "from gubernator_tpu_torch import cluster\n"
+        "from gubernator_tpu_torch.config import DaemonConfig\n"
+        "from gubernator_tpu_torch.types import RateLimitRequest as R\n"
+        "from gubernator_tpu_torch.wire import encode_get_rate_limits\n"
+        "g = cluster.start_subprocess_group(2, device='cpu', "
+        "cache_size=4096, batch_rows=64, "
+        "env_extra={'PYTHONPROFILEIMPORTTIME': '1'})\n"
+        "try:\n"
+        "    ch = grpc.insecure_channel(g.client_address)\n"
+        "    out = ch.unary_unary('/pb.gubernator.V1/GetRateLimits')("
+        "encode_get_rate_limits([R(name='n', unique_key='k', limit=5, "
+        "duration=60000)]), timeout=30)\n"
+        "    assert out\n"
+        "    ch.close()\n"
+        "finally:\n"
+        "    g.stop(remove_logs=False)\n"
+        "for lp in g.log_paths:\n"
+        "    names = [ln.rsplit('|', 1)[1].strip() for ln in open(lp) "
+        "if ln.startswith('import time:') and '|' in ln]\n"
+        "    assert 'gubernator_tpu_torch.daemon' in names, names[-5:]\n"
+        "    assert not [m for m in names if m == 'jax' or "
+        "m.startswith('jax.') or m == 'gubernator_tpu' or "
+        "m.startswith('gubernator_tpu.')], lp\n"
+        "c = cluster.start_with([DaemonConfig(grpc_listen_address="
+        "'127.0.0.1:0', http_listen_address='127.0.0.1:0', device='cpu', "
+        "cache_size=4096, batch_rows=64, data_center=dc) "
+        "for dc in ('east', 'west')])\n"
+        "try:\n"
+        "    r = R(name='n', unique_key='m', hits=3, limit=50, "
+        "duration=60000, behavior=16)\n"
+        "    c.instance_at(0).get_rate_limits([r])\n"
+        "    q = R(name='n', unique_key='m', hits=0, limit=50, "
+        "duration=60000, behavior=16)\n"
+        "    for _ in range(200):\n"
+        "        if c.instance_at(1).get_rate_limits([q])[0].remaining "
+        "== 47:\n"
+        "            break\n"
+        "        time.sleep(0.05)\n"
+        "    assert c.instance_at(1).get_rate_limits([q])[0].remaining "
+        "== 47\n"
+        "finally:\n"
+        "    c.stop()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'gubernator_tpu' "
+        "or m.startswith('gubernator_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=180)
     assert r.returncode == 0, r.stdout + r.stderr[-3000:]
 
 

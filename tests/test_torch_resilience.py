@@ -174,6 +174,16 @@ def test_degraded_serves_answer_as_jax(clusters, lane):
                     out = inst0.get_rate_limits([conv(r) for r in reqs],
                                                 now_ms=now)
                 rows_out.append(answers(c, out))
+            # every flush that failed while armed has requeued its hits
+            # before the fault clears: a flush still retrying then would
+            # deliver part of a key's hits apart from the rest, and a
+            # summed aggregate over the remaining goes OVER whole
+            want = sum(h for rows in batches for r, _, h, beh in rows
+                       if r == 2 and beh == 0)
+            deadline = time.monotonic() + 30.0
+            while (queued_hits(inst0.global_manager) != want
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
         finally:
             inst0.faults.clear()
         drain(c)

@@ -241,3 +241,104 @@ def test_encoder_matches_protobuf(seed):
                              error="rate limit table full")
     assert resp_from_pb(port_pb.RateLimitResp.FromString(
         resp_to_pb(resp).SerializeToString())) == resp
+
+
+def hash_names_and_keys(seed: int, n: int):
+    """Seeded (name, unique_key) lists mixing ASCII, non-ASCII (2, 3 and
+    4-byte UTF-8), empty and long strings."""
+    rng = np.random.default_rng(seed)
+    alphabet = ["a", "Z", "_", "0", "é", "€", "😀", "ß", " "]
+
+    def word(i):
+        kind = i % 5
+        if kind == 0:
+            return ""
+        if kind == 1:
+            return "".join(alphabet[int(j)] for j in
+                           rng.integers(0, len(alphabet), 4096))
+        return "".join(alphabet[int(j)] for j in
+                       rng.integers(0, len(alphabet),
+                                    int(rng.integers(1, 24))))
+
+    names = [word(int(rng.integers(0, 5))) for _ in range(n)]
+    keys = [word(int(rng.integers(0, 5))) for _ in range(n)]
+    return names, keys
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_native_hashes_equal_the_jax_extension(seed):
+    """Raw FNV-1a 64 of keys and of (name, key) pairs byte-equal to the
+    JAX extension's, and the table key hashes equal to JAX's
+    hashing module and to the port's plain Python loop (exact)."""
+    from gubernator_tpu import hashing as jax_hashing
+    from gubernator_tpu_torch import hashing
+
+    names, keys = hash_names_and_keys(seed, 300)
+    joined = [n + "_" + k for n, k in zip(names, keys)]
+    got = native.hash_pairs(names, keys)
+    assert got.tobytes() == jax_native.hash_pairs(names, keys).tobytes()
+    assert native.hash_keys(joined).tobytes() == \
+        jax_native.hash_keys(joined).tobytes()
+    assert got.tobytes() == native.hash_keys(joined).tobytes()
+    mixed = hashing.hash_request_keys(names, keys)
+    assert mixed.tobytes() == jax_hashing.hash_request_keys(
+        names, keys).tobytes()
+    assert mixed.tobytes() == hashing.hash_request_keys_plain(
+        names, keys).tobytes()
+    assert hashing.hash_keys(joined).tobytes() == mixed.tobytes()
+    assert hashing.hash_keys(joined).tobytes() == \
+        hashing.hash_keys_plain(joined).tobytes()
+    for n, k in list(zip(names, keys))[:20]:
+        assert hashing.hash_key(n, k) == jax_hashing.hash_key(n, k)
+    # bytes items hash as their bytes, as in the JAX extension
+    bk = [k.encode() for k in joined[:10]]
+    assert native.hash_keys(bk).tobytes() == \
+        jax_native.hash_keys(bk).tobytes()
+
+
+def test_native_hash_of_nothing_and_a_zero_remap():
+    from gubernator_tpu_torch import hashing
+
+    assert native.hash_pairs([], []).size == 0
+    assert hashing.hash_keys([]).size == 0
+    assert hashing.hash_keys(()).dtype == np.uint64
+    # the mixed hash is never 0 (0 marks an empty table slot)
+    assert (hashing.hash_keys([str(i) for i in range(2000)]) != 0).all()
+
+
+@pytest.mark.parametrize("bad", ["int", "length", "surrogate"])
+def test_native_hash_errors_equal_the_jax_extension(bad):
+    """A non-string item, unequal lengths and a lone surrogate raise the
+    JAX extension's exception types."""
+    names, keys = ["a", "b"], ["x", "y"]
+    if bad == "int":
+        keys = ["x", 5]
+        exc = TypeError
+    elif bad == "length":
+        keys = ["x"]
+        exc = ValueError
+    else:
+        keys = ["x", "\ud800"]
+        exc = UnicodeEncodeError
+    with pytest.raises(exc):
+        jax_native.hash_pairs(names, keys)
+    with pytest.raises(exc):
+        native.hash_pairs(names, keys)
+
+
+def test_missing_host_library_raises_instead_of_hashing_in_python(
+        monkeypatch, tmp_path):
+    """With no compiler the library cannot be built, and the object
+    lane's hashing raises: it does not fall back to the Python loop."""
+    from gubernator_tpu_torch import hashing
+    from gubernator_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "_wire_lib", None)
+    monkeypatch.setattr(build, "_wire_pylib", None)
+    monkeypatch.setenv("CXX", "no-such-compiler")
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no host C\\+\\+ compiler"):
+        hashing.hash_request_keys(["a"], ["b"])
+    with pytest.raises(RuntimeError, match="no host C\\+\\+ compiler"):
+        hashing.hash_keys(["a_b"])
