@@ -4,13 +4,16 @@ CUDA kernels, holds each against its plain PyTorch version at full size,
 and drives the port's serving paths through them: the daemon on the
 bucket engine (K1), a cluster of bucket-engine daemons, a group of
 daemon processes sharing the card behind one client port, two regions
-replicating MULTI_REGION hits, the daemon on the classic SoA engine
-(K2), and a daemon whose 10M keys outgrow its table, served by the cold
-tier behind it.
+replicating MULTI_REGION hits, a daemon alone serving its hottest
+GLOBAL keys from the hot set, daemons whose peers come from a peers
+file and from gossip, a pair forwarding over TLS, the daemon on the
+classic SoA engine (K2), and a daemon whose 10M keys outgrow its table,
+served by the cold tier behind it.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py            # full size: 10M keys on each path
+    python3 chip_smoke.py --only hot,membership,gossip   # those phases
 
 Phases (each prints a line with its seconds; any failure exits non-zero):
 
@@ -69,19 +72,20 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
    sent; the taps dropped are printed;
    analytics on / off, by the reference's method (bench.py ›
    _analytics_ab): on the wire lane and on the object lane, one untimed
-   warm-up pair, then AB_PAIRS pairs of 8 x AB_BATCHES batches with the
-   analytics on and detached (the instance's taps and device tap
-   unhooked, as JAX's bench detaches them), the worker flushed before
-   each detached arm; printed: the median of the per-pair off / on
-   ratios (the overhead), both rates and the taps dropped; once with
-   the sketch's fold in Python (the plain version, before its move to
-   C++) and once native; then the fold's move alone: the same pairs
-   with the analytics on in both arms, the Python fold against the
-   native, the worker flushed before each arm (the median of the
-   per-pair native / python ratios); then key hashing native / plain:
-   the same
-   pairs on the object lane, the dispatcher's hash swapped for its
-   Python loop in the plain arm; then one object round of 8 x
+   warm-up pair, then ANALYTICS_AB_PAIRS pairs of 8 x AB_BATCHES batches
+   with the analytics on and detached (the instance's taps and device
+   tap unhooked, as JAX's bench detaches them), the worker flushed
+   before each detached arm; printed: each pair's off / on ratio, their
+   median (the overhead), both rates and the taps dropped; then the
+   fold's move alone (AB_PAIRS pairs): the analytics on in both arms,
+   the Python fold against the native, the worker flushed before each
+   arm (the median of the per-pair native / python ratios); then the
+   analytics tap's own cost (gubernator_tpu_torch/cmd/tapcost.py on
+   TAP_COST_WAVES object-lane waves: the list tap against the columnar
+   tap, the serving thread's µs and the worker's CPU µs a wave); then
+   key hashing native / plain: the same pairs on the object lane, the
+   dispatcher's hash swapped for its Python loop in the plain arm; then
+   one object round of 8 x
    profile-batches with the analytics on and one detached, each under a
    host profile (the CPU seconds of the dispatcher's and the analytics'
    workers, a stack sample every 5 ms);
@@ -171,6 +175,41 @@ cluster: 3 daemons in this process (cluster.start_with), each with a
    held exact: once the queues are empty and the counters still, the
    failed sends and the hits each region's 10^9 keys lost (none may
    read below the hits sent: a hit counted twice stops the run);
+   hot: one daemon alone (2^cluster-log2-cap rows, the hot set's JAX
+   defaults: capacity 1024, threshold 64) and an identical one at
+   hot_set_capacity 0 (JAX's off), the cluster phase's traffic (the 16
+   hottest ranks GLOBAL at limit 100, the next 16 at 10^9) on the object
+   lane (in-process) and over gRPC on the wire lane, HOT_AB_PAIRS
+   interleaved pairs a lane of 8 x HOT_BATCHES batches after a warm-up
+   pair; prints decisions/s, p50 / p99, the median per-pair on / off
+   ratio and its spread, promotions, the hot waves and their ms (host
+   clock, CUDA events), K1 launches.  Checked: every GLOBAL rank hit 64
+   times pinned; the limit-100 keys admitted exactly 100 on both (one
+   replica: no over-admission); after a sync the 10^9 keys at exactly
+   the limit less the hits sent; every other key exact.  Then the
+   demotions: a RESET_REMAINING request (flagged), a new limit whose
+   consumed hits carry into the table (config_change), remove() (JAX
+   counts none), and a snapshot (membership_change = the keys pinned;
+   every pinned row in the file and restored equal);
+   membership: a TLS pair and a plaintext pair (2^member-log2-cap rows),
+   each on file discovery over its own peers file, the certificates
+   (a CA, a server certificate for 127.0.0.1 / localhost) written with
+   cryptography or else openssl (neither stops the run); daemon A of
+   the TLS pair alone takes GLOBAL traffic over TLS until every GLOBAL
+   rank is pinned, then each file is rewritten with both daemons:
+   prints the ms from the write to each daemon's new ring; every pinned
+   key demoted with its row equal in A's table.  Then TLS_PAIRS
+   interleaved pairs of the cluster traffic (8 x MEMBER_BATCHES
+   batches, callers over gRPC to both daemons of a pair), TLS against
+   plaintext: decisions/s of both, forwarded rows, no failed forward,
+   every non-GLOBAL key exact; a plaintext client is refused by the TLS
+   daemon (UNAVAILABLE);
+   gossip: GOSSIP_NODES daemons on member-list discovery over localhost
+   UDP (the gRPC port + 1): the ms until every ring holds all of them,
+   then the ms until the others drop a closed one (the default dead_ms,
+   15 s) and their rings hold the rest.  DNS, etcd and k8s discovery
+   run in the CPU tests only: this machine has no resolver records, etcd
+   or API server to point them at;
 6. sweep vs plain: a 2^24-row SoA table holding 10M keys (placed with
    upsert_rows; ~30% expired, some removed) swept by K2 and by its
    plain version on two copies: key and expire_at equal, the other
@@ -321,6 +360,23 @@ REGION_BEHAVIOR_OVERRIDES = dict(multi_region_timeout_ms=5000)
 #: in each arm (bench.py › _analytics_ab's discipline)
 AB_PAIRS = 5
 AB_BATCHES = 10
+#: the analytics on / off pairs (the tap's overhead: its spread between
+#: runs needs more pairs than the other A/Bs)
+ANALYTICS_AB_PAIRS = 9
+#: the hot phase: the interleaved pairs of a lane (default hot set
+#: against hot_set_capacity 0) and each arm's batches a caller
+HOT_AB_PAIRS = 5
+HOT_BATCHES = 20
+#: object-lane waves of 1000 rows the tap's own cost is measured on
+TAP_COST_WAVES = 200
+#: gubernator_hotset_demotions' reasons
+HOT_REASONS = ("flagged", "config_change", "membership_change")
+#: the membership phase: TLS / plaintext pairs and each arm's batches a
+#: caller
+TLS_PAIRS = 3
+MEMBER_BATCHES = 20
+#: the gossip phase's daemons
+GOSSIP_NODES = 3
 #: /debug/topkeys after phase 5: the hottest ranks checked, out of the
 #: keys the document is asked for
 TOPKEYS_CHECKED = 16
@@ -852,21 +908,18 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
                              duration, args, tally)
             flush = lambda: inst.analytics.flush(timeout=30.0)  # noqa: E731
             ana_ab = {"wire": {}, "object": {}}
-            for fold, fold_ctx in (("python", python_fold),
-                                   ("native", nullcontext)):
-                for lane in ("wire", "object"):
-                    dropped0 = inst.analytics.stats()["taps_dropped"]
-                    with fold_ctx(inst):
-                        ab = interleaved_pairs(
-                            f"{lane} lane analytics, {fold} fold",
-                            ab_arms.runner(lane),
-                            (("on", nullcontext),
-                             ("off", lambda: analytics_detached(inst))),
-                            before_second=flush)
-                    ab["taps_dropped"] = \
-                        inst.analytics.stats()["taps_dropped"] - dropped0
-                    ab["overhead_pct"] = (ab["median_ratio"] - 1.0) * 100
-                    ana_ab[lane][fold] = ab
+            for lane in ("wire", "object"):
+                dropped0 = inst.analytics.stats()["taps_dropped"]
+                ab = interleaved_pairs(
+                    f"{lane} lane analytics, native fold",
+                    ab_arms.runner(lane),
+                    (("on", nullcontext),
+                     ("off", lambda: analytics_detached(inst))),
+                    before_second=flush, pairs=ANALYTICS_AB_PAIRS)
+                ab["taps_dropped"] = \
+                    inst.analytics.stats()["taps_dropped"] - dropped0
+                ab["overhead_pct"] = (ab["median_ratio"] - 1.0) * 100
+                ana_ab[lane]["native"] = ab
             noana_launches = ab_arms.launches["wire"]["off"]
             # the fold's move itself: analytics on in both arms, the
             # Python fold against the native one, the worker flushed
@@ -880,6 +933,12 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
                      ("native", lambda: flushed(inst, nullcontext()))))
                 fold_ab[lane]["taps_dropped"] = \
                     inst.analytics.stats()["taps_dropped"] - dropped0
+        with phase("analytics tap cost"):
+            from gubernator_tpu_torch.cmd.tapcost import measure
+
+            tap_cost = measure(TAP_COST_WAVES)
+            print(f"analytics tap's own cost, list / columnar: "
+                  f"{json.dumps(tap_cost)}", flush=True)
         with phase("hashing native / plain pairs"):
             hash_ab = interleaved_pairs(
                 "object lane key hashing", ab_arms.runner("object"),
@@ -944,11 +1003,12 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
     res["analytics_ab"] = ana_ab
     res["wire_analytics_off_launches"] = noana_launches
     res["fold_ab"] = fold_ab
+    res["tap_cost"] = tap_cost
     res["hash_ab"] = hash_ab
     print(f"analytics on / off, the reference's method: " + json.dumps(
         {lane: {fold: {x: ab[x] for x in (
-            "overhead_pct", "median_ratio", "on_median", "off_median",
-            "taps_dropped")} for fold, ab in folds.items()}
+            "overhead_pct", "median_ratio", "ratios", "on_median",
+            "off_median", "taps_dropped")} for fold, ab in folds.items()}
          for lane, folds in ana_ab.items()}), flush=True)
     print(f"sketch fold native / python, analytics on: " + json.dumps(
         {lane: {x: ab[x] for x in ("median_ratio", "python_median",
@@ -4761,6 +4821,702 @@ def phase_tiers(torch, args) -> dict:
     return res
 
 
+# ---- the hot set, membership and TLS, gossip ------------------------------
+
+def key_hashes_of(ranks, key_of) -> np.ndarray:
+    from gubernator_tpu_torch.hashing import hash_request_keys
+
+    ranks = list(ranks)
+    return hash_request_keys(["smoke"] * len(ranks),
+                             [key_of(r) for r in ranks])
+
+
+def demotions_of(inst) -> dict:
+    """gubernator_hotset_demotions by reason (0 where never counted)."""
+    reg = inst.metrics.registry
+    return {r: int(reg.get_sample_value(
+        "gubernator_hotset_demotions_total", {"reason": r}) or 0)
+        for r in HOT_REASONS}
+
+
+class HotTraffic:
+    """The cluster phase's traffic (Zipf(1.1) over the keys, the
+    GLOBAL_RANKS hottest ranks GLOBAL at limit 100, the next
+    EXACT_GLOBAL_RANKS GLOBAL at 10^9) into one daemon per state, over
+    gRPC (the wire lane) or in-process (the object lane); every answer
+    accounted: non-GLOBAL keys in the state's tally, the limit-100 keys'
+    admissions and the 10^9 keys' hits sent."""
+
+    def __init__(self, args, daemons: dict, chans: dict, rng, n_keys,
+                 batches: int):
+        self.args, self.daemons, self.chans = args, daemons, chans
+        self.rng, self.n_keys, self.batches = rng, n_keys, batches
+        self.limit, self.duration = 100, 3_600_000
+        self.n_glob = GLOBAL_RANKS
+        self.n_all = GLOBAL_RANKS + EXACT_GLOBAL_RANKS
+        self.tally = {s: Tally(self.limit) for s in daemons}
+        self.admitted = {s: np.zeros(self.n_glob, np.int64) for s in daemons}
+        self.sent = {s: np.zeros(self.n_all, np.int64) for s in daemons}
+        self.lat = {}  # (lane, state) → batch latencies s
+        self.on_wall = {}  # state → wall seconds of its arms
+
+    def key_of(self, r):
+        return f"k{r:08d}"
+
+    def limit_of(self, r):
+        return (EXACT_GLOBAL_LIMIT if self.n_glob <= r < self.n_all
+                else self.limit)
+
+    def behavior_of(self, r):
+        return 2 if r < self.n_all else 0
+
+    def runner(self, lane: str, ranks_of=None):
+        """run(state) → decisions/s of one arm of 8 x batches."""
+        def run(state: str) -> float:
+            from gubernator_tpu_torch.grpc_api import raw_unary
+            from gubernator_tpu_torch.types import RateLimitRequest
+
+            draw = ranks_of or (lambda: zipf_ranks(
+                self.rng, 1.1, self.n_keys, 1000))
+            per = [[draw() for _ in range(self.batches)]
+                   for _ in range(self.args.threads)]
+            if lane == "wire":
+                jobs = wire_jobs(per, self.key_of, self.limit,
+                                 self.duration, self.behavior_of,
+                                 self.limit_of)
+                calls = [lambda b, c=raw_unary(ch, "GetRateLimits"):
+                         c(b, timeout=120) for ch in self.chans[state]]
+                _, wall, lat, raw = drive(calls, jobs)
+                results = {t: [decode_responses(b) for b in batches]
+                           for t, batches in raw.items()}
+            else:
+                jobs = [[[RateLimitRequest(
+                    name="smoke", unique_key=self.key_of(r), hits=1,
+                    limit=self.limit_of(r), duration=self.duration,
+                    behavior=self.behavior_of(r)) for r in ranks.tolist()]
+                    for ranks in thread] for thread in per]
+                _, wall, lat, results = drive(
+                    self.daemons[state].instance.get_rate_limits, jobs)
+            self.account(state, per, results)
+            self.lat.setdefault((lane, state), []).extend(lat)
+            self.on_wall[state] = self.on_wall.get(state, 0.0) + wall
+            return sum(len(r) for t in per for r in t) / wall
+
+        return run
+
+    def account(self, state, per, results) -> None:
+        plain_per, plain_res = [], {}
+        for t, thread in enumerate(per):
+            plain_per.append([])
+            plain_res[t] = []
+            for ranks, resps in zip(thread, results[t]):
+                require(len(resps) == len(ranks), "short response")
+                g = ranks < self.n_all
+                for r, resp in zip(ranks[g].tolist(),
+                                   [resps[j] for j in np.nonzero(g)[0]]):
+                    require(not resp.error, f"GLOBAL rank {r}: {resp.error}")
+                    if r < self.n_glob:
+                        self.admitted[state][r] += int(resp.status) == 0
+                    else:
+                        require(int(resp.status) == 0, "a GLOBAL key "
+                                "under a limit of 10^9 went OVER")
+                self.sent[state] += np.bincount(ranks[g],
+                                                minlength=self.n_all)
+                plain_per[t].append(ranks[~g])
+                plain_res[t].append([resps[j] for j in np.nonzero(~g)[0]])
+        self.tally[state].add(plain_per, plain_res)
+
+    def latency(self, lane: str, state: str) -> dict:
+        ms = np.asarray(self.lat.get((lane, state), [0.0])) * 1e3
+        return {"p50_ms": float(np.percentile(ms, 50)),
+                "p99_ms": float(np.percentile(ms, 99))}
+
+    def check_global(self, state: str, inst) -> dict:
+        """The limit-100 keys admitted exactly min(sent, 100) (one
+        replica: no over-admission), the 10^9 keys at exactly the limit
+        less the hits sent; read with hits=0 probes."""
+        from gubernator_tpu_torch.types import RateLimitRequest
+
+        sent, adm = self.sent[state], self.admitted[state]
+        want_adm = np.minimum(sent[:self.n_glob], self.limit)
+        require((adm == want_adm).all(), f"{state}: limit-100 keys "
+                f"admitted {adm.tolist()}, want {want_adm.tolist()}")
+        probe = [RateLimitRequest(
+            name="smoke", unique_key=self.key_of(r), hits=0,
+            limit=self.limit_of(r), duration=self.duration, behavior=2)
+            for r in range(self.n_glob, self.n_all)]
+        rem = [x.remaining for x in inst.get_rate_limits(probe)]
+        want = (EXACT_GLOBAL_LIMIT - sent[self.n_glob:]).tolist()
+        require(rem == want, f"{state}: 10^9 keys read {rem}, want {want}")
+        return {"admitted_limit_100": adm.tolist(),
+                "exact_hits_sent": int(sent[self.n_glob:].sum())}
+
+
+def time_hot_waves(torch, hs, waves: list, steps: list) -> None:
+    """Record each hot wave's host ms (its call, the wait for the hot
+    set's lock included) in ``waves``, and each replica step's (host ms,
+    device ms) inside the lock in ``steps``: the host's clock around the
+    step, CUDA events on the stream around it (they bracket the host's
+    launches and syncs too)."""
+    from gubernator_tpu_torch import hotset
+
+    run, step = hs._run_hot_wave, hotset.decide_batch
+
+    def timed_wave(glob, now_ms):
+        t = time.perf_counter()
+        out = run(glob, now_ms)
+        waves.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_step(state, batch, now):
+        ev = None
+        if DEVICE == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        t = time.perf_counter()
+        out = step(state, batch, now)
+        host = (time.perf_counter() - t) * 1e3
+        dev = None
+        if ev is not None:
+            ev[1].record()
+            ev[1].synchronize()
+            dev = ev[0].elapsed_time(ev[1])
+        steps.append((host, dev))
+        return out
+
+    hs._run_hot_wave = timed_wave
+    hotset.decide_batch = timed_step
+
+
+def restore_hot_step() -> None:
+    """Undo time_hot_waves' module-level wrap of the step."""
+    from gubernator_tpu_torch import hotset
+    from gubernator_tpu_torch.core.step import decide_batch
+
+    hotset.decide_batch = decide_batch
+
+
+def phase_hot(torch, args) -> dict:
+    """One daemon alone on the bucket engine (the cluster phase's
+    2^cluster-log2-cap rows), the JAX defaults of the hot set (capacity
+    1024, threshold 64), and an identical daemon with hot_set_capacity 0
+    (JAX's off): the cluster phase's traffic on the object lane and over
+    gRPC on the wire lane, HOT_AB_PAIRS interleaved pairs a lane (after
+    a warm-up pair).  Checks: every GLOBAL rank hit 64 times pinned, the
+    limit-100 keys admitted exactly 100, the 10^9 keys at exactly the
+    limit less the hits sent after a sync, every other key exact; then
+    the demotions, each counted under its reason (a RESET_REMAINING
+    request, a new limit whose consumed hits carry over, remove() (JAX
+    counts none), a snapshot holding every pinned row and restoring
+    them equal)."""
+    import os
+    import tempfile
+
+    import grpc
+
+    from gubernator_tpu_torch.config import Config, DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.ops.decide import decide_cuda
+    from gubernator_tpu_torch.store import FileLoader
+    from gubernator_tpu_torch.types import Behavior, RateLimitRequest
+
+    tmp = tempfile.mkdtemp(prefix="smoke-hot-")
+    snap = os.path.join(tmp, "hot.npz")
+
+    def cfg(**kw):
+        return DaemonConfig(grpc_listen_address="127.0.0.1:0",
+                            http_listen_address="127.0.0.1:0",
+                            cache_size=1 << args.cluster_log2_cap,
+                            batch_rows=1024, device=DEVICE, **kw)
+
+    on = spawn_daemon(cfg(snapshot_path=snap))
+    off = spawn_daemon(cfg())
+    chans = {}
+    try:
+        off.instance.config.hot_set_capacity = 0  # JAX's documented off
+        inst = on.instance
+        require((inst.config.hot_set_capacity,
+                 inst.config.hot_promote_threshold) == (1024, 64),
+                "the hot set's defaults differ from JAX's")
+        hs = inst._ensure_hotset()  # what the first promotion builds
+        require(hs.device.type == DEVICE and hs.n == 1,
+                f"the hot set is on {hs.device}, {hs.n} replicas")
+        pins, waves, steps = [], [], []
+        pin = hs.pin
+
+        def counted_pin(req, kh, now_ms, seed=None):
+            ok = pin(req, kh, now_ms, seed=seed)
+            pins.append((kh, ok, seed is not None))
+            return ok
+
+        hs.pin = counted_pin
+        time_hot_waves(torch, hs, waves, steps)
+        opts = [("grpc.use_local_subchannel_pool", 1)]
+        chans = {s: [grpc.insecure_channel(f"127.0.0.1:{d.grpc_port}",
+                                           options=opts)
+                     for _ in range(args.threads)]
+                 for s, d in (("on", on), ("off", off))}
+        traffic = HotTraffic(args, {"on": on, "off": off}, chans,
+                             np.random.default_rng(args.seed + 12),
+                             args.keys, HOT_BATCHES)
+        decide_cuda.launches = 0
+        ab = {}
+        for lane in ("object", "wire"):
+            w0 = len(waves)
+            ab[lane] = interleaved_pairs(
+                f"hot set {lane} lane", traffic.runner(lane),
+                (("off", nullcontext), ("on", nullcontext)),
+                pairs=HOT_AB_PAIRS)
+            ab[lane]["hot_waves"] = len(waves) - w0
+            for s in ("on", "off"):
+                ab[lane][f"{s}_latency"] = traffic.latency(lane, s)
+        launches = decide_cuda.launches
+        hs.sync()
+        kh_all = key_hashes_of(range(traffic.n_all), traffic.key_of)
+        sent = traffic.sent["on"]
+        unpinned = [r for r in range(traffic.n_all)
+                    if sent[r] >= 64 and not hs.is_pinned(int(kh_all[r]))]
+        require(not unpinned, f"GLOBAL ranks hit 64 times, not pinned: "
+                f"{unpinned}")
+        glob = {s: traffic.check_global(s, d.instance)
+                for s, d in (("on", on), ("off", off))}
+        for s in ("on", "off"):
+            traffic.tally[s].check()
+        wave = np.array(waves)
+        host = np.array([h for h, _ in steps])
+        dev = np.array([d for _, d in steps if d is not None])
+        ratios = {lane: ab[lane]["ratios"] for lane in ab}
+        promoted = {k for k, ok, _ in pins if ok}
+        res = {"ab": ab, "launches": launches,
+               "promotions": len(promoted), "pin_calls": len(pins),
+               "seeded_promotions": len({k for k, ok, sd in pins
+                                         if ok and sd}),
+               "pinned": len(hs.slots), "syncs": hs.sync_count,
+               "hot_waves": len(wave),
+               "hot_wave_ms_with_lock_wait_mean": float(wave.mean()),
+               "hot_wave_ms_with_lock_wait_p99": float(
+                   np.percentile(wave, 99)),
+               "hot_step_host_ms_mean": float(host.mean()),
+               "hot_step_host_ms_p50": float(np.percentile(host, 50)),
+               "hot_step_host_ms_p99": float(np.percentile(host, 99)),
+               "hot_step_device_ms_mean": (float(dev.mean()) if len(dev)
+                                           else None),
+               "hot_step_device_ms_p50": (float(np.percentile(dev, 50))
+                                          if len(dev) else None),
+               # the steps run one at a time under the hot set's lock:
+               # their share of the "on" arms' wall
+               "hot_step_share_of_on_wall": float(
+                   host.sum() / 1e3 / traffic.on_wall["on"]),
+               "global": glob,
+               "checked_requests": {s: traffic.tally[s].n_req
+                                    for s in traffic.tally}}
+        for lane in ab:
+            r = np.asarray(ratios[lane])
+            res[f"{lane}_on_off_ratio_median"] = float(np.median(r))
+            res[f"{lane}_on_off_ratio_spread"] = [float(r.min()),
+                                                  float(r.max())]
+            res[f"{lane}_decisions_per_s"] = {
+                s: ab[lane][f"{s}_median"] for s in ("on", "off")}
+            res[f"{lane}_latency"] = {s: ab[lane][f"{s}_latency"]
+                                      for s in ("on", "off")}
+        print(f"hot set: {json.dumps({k: v for k, v in res.items() if k != 'ab'})}",
+              flush=True)
+
+        # ---- the demotions, each under its reason ---------------------
+        d0 = demotions_of(inst)
+        kh = lambda r: int(kh_all[r])  # noqa: E731
+
+        def one(r, **kw):
+            q = dict(name="smoke", unique_key=traffic.key_of(r), hits=1,
+                     limit=traffic.limit_of(r), duration=traffic.duration,
+                     behavior=int(Behavior.GLOBAL))
+            q.update(kw)
+            return inst.get_rate_limits([RateLimitRequest(**q)])[0]
+
+        r_flag, r_cfg, r_rm = 0, traffic.n_glob + 1, 1
+        require(all(hs.is_pinned(kh(r)) for r in (r_flag, r_cfg, r_rm)),
+                "a rank chosen for a demotion is not pinned")
+        resp = one(r_flag, hits=0, behavior=int(
+            Behavior.GLOBAL | Behavior.RESET_REMAINING))
+        require(not resp.error and not hs.is_pinned(kh(r_flag)),
+                "RESET_REMAINING did not demote")
+        new_limit = EXACT_GLOBAL_LIMIT - 1000
+        resp = one(r_cfg, limit=new_limit)
+        want = EXACT_GLOBAL_LIMIT - int(sent[r_cfg]) - 1000 - 1
+        require(not hs.is_pinned(kh(r_cfg)) and resp.remaining == want,
+                f"a new limit: remaining {resp.remaining}, want {want} "
+                "(the consumed hits carried into the table)")
+        require(inst.remove("smoke", traffic.key_of(r_rm)),
+                "remove() found no row")
+        found, _ = inst.engine.gather_rows(np.array([kh(r_rm)], np.uint64))
+        require(not hs.is_pinned(kh(r_rm)) and not found[0],
+                "remove() left the key pinned or its row")
+        d1 = demotions_of(inst)
+        hs.sync()
+        before = {k: hs.row_state(k) for k in list(hs.slots)}
+        t = time.perf_counter()
+        inst._save_to_loader()  # folds the pinned rows back first
+        snap_ms = (time.perf_counter() - t) * 1e3
+        d2 = demotions_of(inst)
+        require(not hs.slots, "the snapshot left keys pinned")
+        arrays = FileLoader(snap).load_arrays()
+        at = {int(k): i for i, k in enumerate(arrays["key"].tolist())}
+        fields = ("remaining", "t_ms", "expire_at", "limit", "meta")
+        for k, row in before.items():
+            require(k in at, "a pinned row is missing from the snapshot")
+            require(all(int(arrays[f][at[k]]) == int(row[f])
+                        for f in fields), "a pinned row differs in the "
+                    "snapshot")
+        back = V1Instance(Config(cache_size=1 << args.cluster_log2_cap,
+                                 device=DEVICE,
+                                 hot_set_capacity=0,
+                                 loader=FileLoader(snap)))
+        try:
+            karr = np.array(sorted(before), np.uint64)
+            found, cols = back.engine.gather_rows(karr)
+            require(found.all() and all(
+                int(cols[f][j]) == int(before[int(k)][f])
+                for j, k in enumerate(karr.tolist()) for f in fields),
+                "the restored pinned rows differ")
+        finally:
+            back.close()
+        dem = {"flagged": d1["flagged"] - d0["flagged"],
+               "config_change": d1["config_change"] - d0["config_change"],
+               "remove_counted": sum(d1.values()) - sum(d0.values())
+               - 2, "snapshot_membership_change":
+               d2["membership_change"] - d1["membership_change"],
+               "snapshot_rows": len(before), "snapshot_ms": snap_ms,
+               "snapshot_file_rows": len(arrays["key"])}
+        require(dem["flagged"] == 1 and dem["config_change"] == 1
+                and dem["remove_counted"] == 0
+                and dem["snapshot_membership_change"] == len(before),
+                f"demotions miscounted: {dem}")
+        res["demotions"] = dem
+        print(f"hot set demotions: {json.dumps(dem)}", flush=True)
+    finally:
+        restore_hot_step()
+        for cs in chans.values():
+            for ch in cs:
+                ch.close()
+        on.close()
+        off.close()
+    return res
+
+
+def write_certs(d: str) -> tuple:
+    """One CA and a server certificate it signs for 127.0.0.1 / localhost
+    as PEM files in ``d``, with ``cryptography`` where it imports, else
+    with the openssl command: (ca, cert, key, how).  Neither: the run
+    stops."""
+    import os
+
+    paths = tuple(os.path.join(d, n) for n in ("ca.pem", "cert.pem",
+                                               "key.pem"))
+    try:
+        import datetime
+        import ipaddress
+
+        from cryptography import x509
+        from cryptography.hazmat.primitives import hashes, serialization
+        from cryptography.hazmat.primitives.asymmetric import ec
+        from cryptography.x509.oid import NameOID
+    except ImportError:
+        x509 = None
+    if x509 is not None:
+        now = datetime.datetime.now(datetime.timezone.utc)
+
+        def build(subject, issuer, pub, signer, ext):
+            b = (x509.CertificateBuilder().subject_name(subject)
+                 .issuer_name(issuer).public_key(pub)
+                 .serial_number(x509.random_serial_number())
+                 .not_valid_before(now - datetime.timedelta(minutes=5))
+                 .not_valid_after(now + datetime.timedelta(days=1)))
+            for e, crit in ext:
+                b = b.add_extension(e, critical=crit)
+            return b.sign(signer, hashes.SHA256())
+
+        ca_key = ec.generate_private_key(ec.SECP256R1())
+        ca_name = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME,
+                                                "smoke-ca")])
+        ca = build(ca_name, ca_name, ca_key.public_key(), ca_key,
+                   [(x509.BasicConstraints(ca=True, path_length=0), True)])
+        key = ec.generate_private_key(ec.SECP256R1())
+        cert = build(
+            x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, "smoke")]),
+            ca_name, key.public_key(), ca_key,
+            [(x509.SubjectAlternativeName([
+                x509.DNSName("localhost"),
+                x509.IPAddress(ipaddress.ip_address("127.0.0.1"))]),
+              False)])
+        pem = serialization.Encoding.PEM
+        for p, data in zip(paths, (
+                ca.public_bytes(pem), cert.public_bytes(pem),
+                key.private_bytes(pem, serialization.PrivateFormat.PKCS8,
+                                  serialization.NoEncryption()))):
+            with open(p, "wb") as f:
+                f.write(data)
+        return paths + ("cryptography",)
+    ext = os.path.join(d, "san.cnf")
+    with open(ext, "w") as f:
+        f.write("subjectAltName=IP:127.0.0.1,DNS:localhost\n")
+    ca_key = os.path.join(d, "ca.key")
+    csr = os.path.join(d, "req.csr")
+    ec = ["-newkey", "ec", "-pkeyopt", "ec_paramgen_curve:prime256v1",
+          "-nodes"]
+    try:
+        for cmd in (
+                ["openssl", "req", "-x509", *ec, "-keyout", ca_key, "-out",
+                 paths[0], "-days", "1", "-subj", "/CN=smoke-ca"],
+                ["openssl", "req", *ec, "-keyout", paths[2], "-out", csr,
+                 "-subj", "/CN=smoke"],
+                ["openssl", "x509", "-req", "-in", csr, "-CA", paths[0],
+                 "-CAkey", ca_key, "-CAcreateserial", "-out", paths[1],
+                 "-days", "1", "-extfile", ext]):
+            subprocess.run(cmd, check=True, capture_output=True, timeout=60)
+    except (OSError, subprocess.CalledProcessError) as e:
+        require(False, "no cryptography and no working openssl: the TLS "
+                f"round cannot run ({e})")
+    return paths + ("openssl",)
+
+
+def wait_for(pred, bound_s: float, step_s: float = 0.001) -> float:
+    """Seconds until ``pred()`` held, polled every ``step_s``; the run
+    stops past ``bound_s``."""
+    t0 = time.monotonic()
+    while not pred():
+        require(time.monotonic() - t0 < bound_s, "timed out waiting")
+        time.sleep(step_s)
+    return time.monotonic() - t0
+
+
+def write_peers(path: str, addrs) -> None:
+    """The peers file, replaced whole (a reader sees the old list or the
+    new one, never half)."""
+    import os
+
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write("".join(f"{a}\n" for a in addrs))
+    os.replace(tmp, path)
+
+
+def phase_membership(torch, args) -> dict:
+    """Where peers come from, and TLS.  A TLS pair and a plaintext pair of
+    daemons on the bucket engine (2^member-log2-cap rows), each pair on
+    file discovery over its own peers file.  Daemon A of the TLS pair,
+    alone, takes GLOBAL traffic over TLS until every GLOBAL rank is
+    pinned; then the file is rewritten with both: the ms from the write
+    to each daemon's new ring, every pinned key demoted
+    (membership_change = the number pinned), each demoted row in A's
+    table equal to its hot row before.  Then the cluster traffic over
+    gRPC, TLS_PAIRS interleaved pairs of the TLS pair against the
+    plaintext pair (a warm-up pair first), forwards between peers over
+    TLS: decisions/s of both, failed forwards (none), every non-GLOBAL
+    key exact; a plaintext client is refused by the TLS daemon."""
+    import os
+    import tempfile
+
+    import grpc
+
+    from gubernator_tpu_torch import cluster
+    from gubernator_tpu_torch.config import DaemonConfig, TLSSettings
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.ops.decide import decide_cuda
+
+    tmp = tempfile.mkdtemp(prefix="smoke-members-")
+    ca, cert, key, how = write_certs(tmp)
+    tls = TLSSettings(ca_file=ca, cert_file=cert, key_file=key)
+    files = {s: os.path.join(tmp, f"{s}-peers") for s in ("tls", "plain")}
+    ports = {s: [cluster.free_port() for _ in range(2)]
+             for s in ("tls", "plain")}
+    addrs = {s: [f"127.0.0.1:{p}" for p in ports[s]] for s in ports}
+
+    def cfg(s, i):
+        return DaemonConfig(
+            grpc_listen_address=addrs[s][i],
+            http_listen_address="127.0.0.1:0",
+            cache_size=1 << args.member_log2_cap, batch_rows=1024,
+            device=DEVICE, peer_discovery_type="file",
+            peers_file=files[s], tls=tls if s == "tls" else None)
+
+    daemons = {"tls": [], "plain": []}
+    chans = {}
+    try:
+        decide_cuda.launches = 0
+        for s in files:
+            write_peers(files[s], addrs[s][:1])
+            daemons[s].append(spawn_daemon(cfg(s, 0)))
+        a = daemons["tls"][0]
+        creds = a.tls.grpc_client_credentials()
+        opts = [("grpc.use_local_subchannel_pool", 1)]
+
+        def channels(s):
+            mk = ((lambda ad: grpc.secure_channel(ad, creds, options=opts))
+                  if s == "tls" else
+                  (lambda ad: grpc.insecure_channel(ad, options=opts)))
+            return [mk(addrs[s][t % 2]) for t in range(args.threads)]
+
+        # A alone: GLOBAL ranks only, over TLS, until all are pinned
+        chans["solo"] = [grpc.secure_channel(addrs["tls"][0], creds,
+                                             options=opts)]
+        solo = HotTraffic(args, {"tls": a},
+                          {"tls": chans["solo"] * args.threads},
+                          np.random.default_rng(args.seed + 13),
+                          args.keys, 10)
+        solo.runner("wire", lambda: zipf_ranks(
+            solo.rng, 1.1, solo.n_all, 1000))("tls")
+        hs = a.instance._hotset
+        require(hs is not None and len(hs.slots) == solo.n_all,
+                f"{0 if hs is None else len(hs.slots)} of {solo.n_all} "
+                "GLOBAL ranks pinned on the daemon alone")
+        for s in files:
+            daemons[s].append(spawn_daemon(cfg(s, 1)))
+        hs.sync()
+        before = {k: hs.row_state(k) for k in hs.slots}
+        d0 = demotions_of(a.instance)
+        gen0 = {s: [d.instance._ring_gen for d in daemons[s]]
+                for s in files}
+        join_ms = {}
+        for s in ("tls", "plain"):
+            t0 = time.monotonic()
+            write_peers(files[s], addrs[s])
+            ms = []
+            for d, g0 in zip(daemons[s], gen0[s]):
+                wait_for(lambda d=d, g0=g0: d.instance._ring_gen > g0
+                         and len(d.instance.peers()) == 2, 30.0)
+                ms.append((time.monotonic() - t0) * 1e3)
+            join_ms[s] = ms
+        d1 = demotions_of(a.instance)
+        demoted = d1["membership_change"] - d0["membership_change"]
+        require(demoted == len(before) and not hs.slots,
+                f"{demoted} demoted of {len(before)} pinned")
+        karr = np.array(sorted(before), np.uint64)
+        found, cols = a.instance.engine.gather_rows(karr)
+        fields = ("remaining", "t_ms", "expire_at", "limit")
+        require(found.all() and all(
+            int(cols[f][j]) == int(before[int(k)][f])
+            for j, k in enumerate(karr.tolist()) for f in fields),
+            "a demoted row differs from its hot row")
+        print(f"membership: file write to new ring {json.dumps(join_ms)} "
+              f"ms; {demoted} pinned keys demoted, rows equal", flush=True)
+
+        # the pair over TLS against the pair in plaintext
+        chans.update({s: channels(s) for s in files})
+        traffic = HotTraffic(args, {s: daemons[s][0] for s in files},
+                             chans, np.random.default_rng(args.seed + 14),
+                             args.keys, MEMBER_BATCHES)
+        ab = interleaved_pairs("membership TLS / plaintext",
+                               traffic.runner("wire"),
+                               (("plain", nullcontext),
+                                ("tls", nullcontext)), pairs=TLS_PAIRS)
+        fails = {s: sum(d.instance.forward_failures for d in daemons[s])
+                 for s in files}
+        fwd = {s: sum(d.instance.forwarded_rows for d in daemons[s])
+               for s in files}
+        require(not any(fails.values()), f"failed forwards: {fails}")
+        require(fwd["tls"] > 0, "no row was forwarded over TLS")
+        for s in files:
+            traffic.tally[s].check()
+        with grpc.insecure_channel(addrs["tls"][0]) as ch:
+            try:
+                ch.unary_unary("/pb.gubernator.V1/GetRateLimits")(
+                    b"", timeout=10)
+                refused = None
+            except grpc.RpcError as e:
+                refused = e.code().name
+        require(refused == "UNAVAILABLE",
+                f"a plaintext client was not refused: {refused}")
+        launches = decide_cuda.launches
+        require(launches > 0, "the membership phase never launched K1")
+        res = {"certs_by": how, "join_ms": join_ms,
+               "pinned_before_join": len(before), "demoted": demoted,
+               "ab": ab, "tls_over_plain_median": ab["median_ratio"],
+               "forwarded_rows": fwd, "failed_forwards": fails,
+               "plaintext_client": refused, "launches": launches,
+               "checked_requests": {s: traffic.tally[s].n_req
+                                    for s in files}}
+        print(f"membership and TLS: {json.dumps({k: v for k, v in res.items() if k != 'ab'})}",
+              flush=True)
+    finally:
+        for cs in chans.values():
+            for ch in cs:
+                ch.close()
+        for s in daemons:
+            for d in daemons[s]:
+                d.close()
+    return res
+
+
+def free_port_pair() -> int:
+    """A port p with TCP p and UDP p + 1 free now (a gossip daemon binds
+    its gRPC port and gossips on the next)."""
+    import socket
+
+    from gubernator_tpu_torch import cluster
+
+    for _ in range(100):
+        p = cluster.free_port()
+        try:
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as u:
+                u.bind(("127.0.0.1", p + 1))
+            return p
+        except OSError:
+            continue
+    require(False, "no free port pair")
+
+
+def phase_gossip(torch, args) -> dict:
+    """GOSSIP_NODES daemons (small tables on the card) on member-list
+    discovery over localhost UDP (each gossips on its gRPC port + 1,
+    seeded with the first): the ms until every ring holds all of them;
+    then the last is closed, and the ms until the others drop it (after
+    the gossip's dead_ms) with rings of the rest."""
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.ops.decide import decide_cuda
+
+    ports = [free_port_pair() for _ in range(GOSSIP_NODES)]
+    ds = []
+    decide_cuda.launches = 0
+    try:
+        for i, p in enumerate(ports):
+            ds.append(spawn_daemon(DaemonConfig(
+                grpc_listen_address=f"127.0.0.1:{p}",
+                http_listen_address="127.0.0.1:0", cache_size=1 << 16,
+                batch_rows=1024, device=DEVICE,
+                peer_discovery_type="member-list",
+                memberlist_known_hosts=(
+                    [f"127.0.0.1:{ports[0] + 1}"] if i else []))))
+        n = len(ds)
+        converge_s = wait_for(lambda: all(len(d.instance.peers()) == n
+                                          for d in ds), 60.0, 0.005)
+        dead_ms = ds[0].discovery.dead_s * 1e3
+        gone = ds.pop()
+        gone.close()
+        t0 = time.monotonic()
+        drop_ms = []
+        for d in ds:
+            wait_for(lambda d=d: len(d.instance.peers()) == n - 1,
+                     dead_ms / 1e3 + 60.0, 0.005)
+            drop_ms.append((time.monotonic() - t0) * 1e3)
+        rings = [sorted(p.info.grpc_address for p in d.instance.peers())
+                 for d in ds]
+        require(all(r == sorted(f"127.0.0.1:{p}" for p in ports[:-1])
+                    for r in rings), f"rings after the drop: {rings}")
+        launches = decide_cuda.launches
+        require(launches > 0, "the gossip daemons never launched K1")
+        res = {"nodes": n, "converge_ms": converge_s * 1e3,
+               "dead_ms": dead_ms, "drop_ms": drop_ms, "rings": rings,
+               "launches": launches}
+        print(f"gossip: {json.dumps(res)}", flush=True)
+    finally:
+        for d in ds:
+            d.close()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2-cap", type=int, default=25,
@@ -4796,6 +5552,12 @@ def main(argv=None) -> int:
                     help="the joining daemon's bucket-table rows (log2)")
     ap.add_argument("--tier-log2-cap", type=int, default=23,
                     help="the tiers phase's bucket-table rows (log2)")
+    ap.add_argument("--member-log2-cap", type=int, default=22,
+                    help="the membership phase's bucket-table rows (log2)")
+    ap.add_argument("--only", default="",
+                    help="run only these phases after the build (comma-"
+                         "separated: hot, membership, gossip); prints "
+                         "their results and no kernels or ok line")
     args = ap.parse_args(argv)
 
     import torch
@@ -4804,6 +5566,16 @@ def main(argv=None) -> int:
         name, smi = phase_device(torch)
     with phase("build"):
         phase_build()
+    only = [p for p in args.only.split(",") if p]
+    if only:
+        runs = {"hot": phase_hot, "membership": phase_membership,
+                "gossip": phase_gossip}
+        out = {}
+        for p in only:
+            with phase(p):
+                out[p] = runs[p](torch, args)
+        print(json.dumps(out), flush=True)
+        return 0
     with phase("probe"):
         k3 = phase_probe(torch, args)
     with phase("population"):
@@ -4836,6 +5608,18 @@ def main(argv=None) -> int:
     gc.collect()
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+    with phase("hot"):
+        hot = phase_hot(torch, args)
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    with phase("membership"):
+        mem = phase_membership(torch, args)
+    with phase("gossip"):
+        gos = phase_gossip(torch, args)
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     with phase("sweep vs plain"):
         k2 = phase_sweep_vs_plain(torch, args)
     if DEVICE == "cuda":
@@ -4848,7 +5632,8 @@ def main(argv=None) -> int:
     with phase("tiers"):
         tiers = phase_tiers(torch, args)
     print(json.dumps({"main_path": m, "cluster": cl, "group": grp,
-                      "regions": reg, "kernel_detail": k,
+                      "regions": reg, "hot": hot, "membership": mem,
+                      "gossip": gos, "kernel_detail": k,
                       "classic_main_path": c, "sweep_detail": k2,
                       "probe_detail": k3, "tiers": tiers}), flush=True)
     print(smi, flush=True)
@@ -4864,6 +5649,9 @@ def main(argv=None) -> int:
          "group_launches": grp["launches"],
          "group_launches_per_worker": grp["launches_per_worker"],
          "regions_launches": reg["launches"],
+         "hot_launches": hot["launches"],
+         "membership_launches": mem["launches"],
+         "gossip_launches": gos["launches"],
          "wire_analytics_off_launches": m["wire_analytics_off_launches"],
          "tiers_launches": tiers["served"]["launches"],
          "max_abs_err": k["max_abs_err"],

@@ -40,6 +40,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .types import TD_BOUND, VALUE_MAX
+
 log = logging.getLogger("gubernator_tpu_torch.analytics")
 
 def _env_int(name: str, default: int, lo: int = 1) -> int:
@@ -595,10 +597,10 @@ class KeyAnalytics:
     """The analytics subsystem: tap queue, worker, sketch and phases.
 
     ``tap_packed`` copies a wave's (khash, hits, status) columns and
-    enqueues them; ``tap_reqs`` enqueues an object-lane wave's request
-    and response lists (the worker hashes the names there, so the sketch
-    learns key names); ``tap_device`` enqueues a device tap.  A full
-    queue DROPS the wave and counts it."""
+    enqueues them; ``tap_named`` enqueues an object-lane wave's columns
+    with its request lists, from which the worker names the keys the
+    sketch has not named yet; ``tap_device`` enqueues a device tap.  A
+    full queue DROPS the wave and counts it."""
 
     #: worker pacing: after folding a drained batch, rest this long; all
     #: that queued meanwhile folds in ONE update, which bounds the
@@ -650,15 +652,18 @@ class KeyAnalytics:
                 int(self._clock() * 1000))
         return self._put(item)
 
-    def tap_reqs(self, reqs, resps, khash=None) -> bool:
-        """Object-lane tap: the worker extracts names, hits and status
-        off the serving path, and hashes the keys unless the caller
-        passes the hashes it already has (``khash``, aligned with
-        ``reqs``)."""
-        if not reqs:
+    def tap_named(self, khash, batch, cols, req_lists) -> bool:
+        """Object-lane tap: the wave's key hashes, its packed RequestBatch
+        and result columns (status, limit, remaining, reset, table_full)
+        and its callers' request lists, all by reference: a list wave's
+        columns are its own and only read once it resolved.  The worker
+        folds the columns and names only the keys the sketch has not
+        named, from the requests; the sketch equals the one the JAX list
+        tap builds, after every wave."""
+        if not len(khash):
             return True
-        return self._put(("reqs", list(reqs), list(resps),
-                          int(self._clock() * 1000), khash))
+        return self._put(("named", khash, batch, cols,
+                          int(self._clock() * 1000), req_lists))
 
     def tap_device(self, tap) -> bool:
         """Device tap of an engine that taps in its step, called right
@@ -753,7 +758,7 @@ class KeyAnalytics:
                         cols.append(c)
                 else:
                     # an object-lane (named) tap: fold the queued
-                    # columns first, so wave order is kept
+                    # columns first, so the waves fold in order
                     self._fold_cols(cols)
                     cols = []
                     self._safe_apply(item)
@@ -794,19 +799,40 @@ class KeyAnalytics:
             log.exception("analytics tap apply")
 
     def _apply(self, item) -> None:
-        _, reqs, resps, t_ms, khash = item
-        if khash is None:
-            from .hashing import hash_request_keys
-
-            khash = hash_request_keys([r.name for r in reqs],
-                                      [r.unique_key for r in reqs])
-        hits = np.fromiter((int(r.hits) for r in reqs), np.int64,
-                           len(reqs))
-        over = np.fromiter((int(r.status) == 1 for r in resps),
-                           bool, len(resps))
-        names = [f"{r.name}_{r.unique_key}" for r in reqs]
+        """Fold a named tap: the columns in one update, then a name for
+        each of the wave's keys the sketch has none for, in hash order
+        (the order JAX's list tap notes them in).  The weight is the
+        request's hits: the packed column holds it except on invalid
+        rows (zeroed) and at the packer's clamp, which read the
+        request."""
+        _, khash, batch, cols, t_ms, req_lists = item
+        over = (cols[0] == 1) & ~cols[4] & batch.valid
+        hits = batch.hits
+        cap = np.where(batch.algorithm == 1,
+                       np.minimum(TD_BOUND // np.maximum(batch.eff_ms, 1),
+                                  VALUE_MAX), VALUE_MAX)
+        exact = np.nonzero(~batch.valid | (hits >= cap))[0]
+        flat = None  # the wave's requests in row order, when needed
+        if len(exact):
+            flat = [r for rl in req_lists for r in rl]
+            hits = np.array(hits, np.int64)
+            for i in exact.tolist():
+                hits[i] = int(flat[i].hits)
+        uniq, first = np.unique(np.asarray(khash, np.uint64),
+                                return_index=True)
         with self._mu:
-            self.sketch.update(khash, hits, over, t_ms, names=names)
+            self.sketch.update(khash, hits, over, t_ms)
+            # checked key by key: a name the bounded table evicts while
+            # this wave's names go in is noted again, as the list tap did
+            named = self.sketch._names
+            note = self.sketch._note_name
+            for k, i in zip(uniq.tolist(), first.tolist()):
+                if k in named:
+                    continue
+                if flat is None:
+                    flat = [r for rl in req_lists for r in rl]
+                r = flat[i]
+                note(k, f"{r.name}_{r.unique_key}")
             self._waves += 1
         if self.metrics is not None:
             self.metrics.analytics_waves.inc()

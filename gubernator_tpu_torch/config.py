@@ -1,16 +1,20 @@
 """Configuration: the subset of gubernator_tpu/config.py that the port
-reads (one daemon, its static peers, their batching / GLOBAL /
-MULTI_REGION timing and failure handling, its region, its shared client
-port, its persistence hooks and cold tier), plus the ``device`` it
-serves on.  The analytics knobs (GUBER_ANALYTICS,
-GUBER_TOPK, GUBER_SKETCH_WIDTH) and GUBER_TIER_NATIVE are read from the
-environment where the JAX package reads them (instance.py,
-analytics.py, tiering.py), not here.
+reads (one daemon, its peers and where they come from, TLS, their
+batching / GLOBAL / MULTI_REGION timing and failure handling, its
+region, its shared client port, its persistence hooks, cold tier and hot
+set), plus the ``device`` it serves on.  The analytics knobs
+(GUBER_ANALYTICS, GUBER_TOPK, GUBER_SKETCH_WIDTH) and GUBER_TIER_NATIVE
+are read from the environment where the JAX package reads them
+(instance.py, analytics.py, tiering.py), not here.
 
 Layering is the JAX package's: defaults < ``KEY=value`` config file <
-environment (``GUBER_*``).  Keys the port does not read yet (TLS, other
-discovery backends, ...) are ignored, so the repository's example.conf
-loads as is.
+environment (``GUBER_*``).  A GUBER_TLS_* key set while TLS is off
+(none of GUBER_TLS_AUTO, GUBER_TLS_CERT, GUBER_TLS_CA) raises, and so
+does a TLS setting the port cannot honor when the daemon starts
+(tlsutil.py); an unknown discovery type raises there too.  Keys of
+subsystems the port does not have yet are ignored, so the repository's
+example.conf loads as is.  ``HELP`` holds the operator description of
+the discovery and TLS keys (JAX's ENV_REGISTRY entries).
 """
 from __future__ import annotations
 
@@ -20,6 +24,30 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from .types import PeerInfo
+
+#: the operator description of the discovery and TLS keys (the JAX
+#: package's ENV_REGISTRY entries, word for word)
+HELP: Dict[str, str] = {
+    "GUBER_DNS_FQDN": "DNS discovery: FQDN to resolve for peers",
+    "GUBER_DNS_RESOLVE_INTERVAL": "DNS discovery: re-resolve interval (duration)",
+    "GUBER_ETCD_ENDPOINTS": "etcd discovery: comma-separated endpoints",
+    "GUBER_ETCD_PREFIX": "etcd discovery: key prefix for peer registration",
+    "GUBER_K8S_INSECURE": "k8s discovery: skip API-server cert verification",
+    "GUBER_K8S_NAMESPACE": "k8s discovery: namespace to watch",
+    "GUBER_K8S_POD_SELECTOR": "k8s discovery: pod label selector",
+    "GUBER_K8S_SERVICE": "k8s discovery: service name whose endpoints are peers",
+    "GUBER_MEMBERLIST_KNOWN_HOSTS": "memberlist discovery: seed hosts",
+    "GUBER_PEERS": "static peer list (host:port,... ) for static discovery",
+    "GUBER_PEERS_FILE": "file-based discovery: path to the peer list",
+    "GUBER_PEER_DISCOVERY_TYPE": "peer discovery backend (static/file/dns/etcd/k8s/memberlist)",
+    "GUBER_TLS_AUTO": "generate a self-signed TLS setup at startup",
+    "GUBER_TLS_CA": "TLS CA bundle path",
+    "GUBER_TLS_CERT": "TLS server certificate path",
+    "GUBER_TLS_CLIENT_AUTH": "TLS client-auth mode",
+    "GUBER_TLS_CLIENT_AUTH_CA_CERT": "TLS client-auth CA path",
+    "GUBER_TLS_INSECURE_SKIP_VERIFY": "peer clients skip TLS verification",
+    "GUBER_TLS_KEY": "TLS server key path",
+}
 
 _DUR_RE = re.compile(r"(\d+(?:\.\d+)?)(ns|us|µs|ms|s|m|h)")
 _DUR_UNIT_MS = {"ns": 1e-6, "us": 1e-3, "µs": 1e-3, "ms": 1.0,
@@ -147,6 +175,12 @@ class Config:
     #: per region (peers.py › RegionPeerPicker) and MULTI_REGION hits
     #: replicate to the other regions (multiregion.py)
     data_center: str = ""
+    #: the replicated hot set (hotset.py): a daemon alone pins up to this
+    #: many GLOBAL keys (rounded up to a power of two) once each has
+    #: taken hot_promote_threshold hits (or its sketch count says so);
+    #: 0 turns it off
+    hot_set_capacity: int = 1024
+    hot_promote_threshold: int = 64
 
     def set_defaults(self) -> "Config":
         """Normalize invalid values (config.go › SetDefaults)."""
@@ -156,6 +190,23 @@ class Config:
         if self.batch_rows <= 0:
             self.batch_rows = 1024
         return self
+
+
+@dataclass
+class TLSSettings:
+    """reference: tls.go › TLSConfig (its declarative part)."""
+
+    ca_file: str = ""
+    cert_file: str = ""
+    key_file: str = ""
+    #: generate a self-signed CA and server certificate in memory
+    auto_tls: bool = False
+    #: "none" | "require-any" | "verify" (client certificates); "request"
+    #: cannot be honored on gRPC and raises at startup
+    client_auth: str = "none"
+    client_auth_ca_file: str = ""
+    #: cannot be honored (raises at startup when true)
+    insecure_skip_verify: bool = False
 
 
 @dataclass
@@ -184,10 +235,29 @@ class DaemonConfig:
     #: host and bound port
     advertise_address: str = ""
     behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
-    #: "none" or "static" (GUBER_PEERS); other backends are not ported
+    #: "none" | "static" | "file" | "dns" | "etcd" | "k8s" |
+    #: "member-list" (also "memberlist", "gossip"); anything else raises
     peer_discovery_type: str = "none"
     #: static discovery: "host:grpc_port[;host:http_port][@dc]" entries
     static_peers: List[str] = field(default_factory=list)
+    #: file discovery: a JSON or lines peers file, re-read on change
+    peers_file: str = ""
+    #: dns discovery: the name to resolve, and how often
+    dns_fqdn: str = ""
+    dns_resolve_interval_ms: int = 30_000
+    #: etcd discovery (its v3 JSON gateway)
+    etcd_endpoints: List[str] = field(default_factory=list)
+    etcd_prefix: str = "/gubernator/peers/"
+    #: k8s discovery: pods by label selector, or a service's endpoints
+    k8s_namespace: str = ""
+    k8s_pod_selector: str = ""
+    k8s_service: str = ""
+    #: explicit opt-out of the API server's certificate check
+    k8s_insecure_skip_verify: bool = False
+    #: member-list (gossip) discovery: seed gossip addresses
+    memberlist_known_hosts: List[str] = field(default_factory=list)
+    #: TLS for the gRPC listeners, the peer clients and HTTP; None = off
+    tls: Optional[TLSSettings] = None
     #: graceful-shutdown drain window (ms, GUBER_DRAIN_GRACE): close()
     #: answers /healthz with 503 "draining" for this long, still serving,
     #: before it sheds new requests and stops the listeners; 0 skips the
@@ -307,6 +377,47 @@ def setup_daemon_config(conf_file: str = "",
         d.static_peers = [p.strip() for p in peers.split(",") if p.strip()]
         if d.peer_discovery_type == "none":
             d.peer_discovery_type = "static"
+
+    def listed(name):
+        return [p.strip() for p in conf.get(name, "").split(",")
+                if p.strip()]
+
+    d.peers_file = conf.get("GUBER_PEERS_FILE", d.peers_file)
+    d.dns_fqdn = conf.get("GUBER_DNS_FQDN", d.dns_fqdn)
+    d.dns_resolve_interval_ms = get("GUBER_DNS_RESOLVE_INTERVAL",
+                                    d.dns_resolve_interval_ms,
+                                    parse_duration_ms)
+    d.etcd_endpoints = listed("GUBER_ETCD_ENDPOINTS") or d.etcd_endpoints
+    d.etcd_prefix = conf.get("GUBER_ETCD_PREFIX", d.etcd_prefix)
+    d.k8s_namespace = conf.get("GUBER_K8S_NAMESPACE", d.k8s_namespace)
+    d.k8s_pod_selector = conf.get("GUBER_K8S_POD_SELECTOR",
+                                  d.k8s_pod_selector)
+    d.k8s_service = conf.get("GUBER_K8S_SERVICE", d.k8s_service)
+    d.k8s_insecure_skip_verify = get("GUBER_K8S_INSECURE",
+                                     d.k8s_insecure_skip_verify, flag)
+    d.memberlist_known_hosts = (listed("GUBER_MEMBERLIST_KNOWN_HOSTS")
+                                or d.memberlist_known_hosts)
+    # TLS is asked for by any non-empty GUBER_TLS_* key but a false AUTO
+    tls_keys = sorted(k for k, v in conf.items()
+                      if k.startswith("GUBER_TLS_") and str(v).strip()
+                      and k != "GUBER_TLS_AUTO")
+    if (get("GUBER_TLS_AUTO", False, flag) or conf.get("GUBER_TLS_CERT")
+            or conf.get("GUBER_TLS_CA")):
+        d.tls = TLSSettings(
+            ca_file=conf.get("GUBER_TLS_CA", ""),
+            cert_file=conf.get("GUBER_TLS_CERT", ""),
+            key_file=conf.get("GUBER_TLS_KEY", ""),
+            auto_tls=get("GUBER_TLS_AUTO", False, flag),
+            client_auth=conf.get("GUBER_TLS_CLIENT_AUTH", "none"),
+            client_auth_ca_file=conf.get("GUBER_TLS_CLIENT_AUTH_CA_CERT",
+                                         ""),
+            insecure_skip_verify=get("GUBER_TLS_INSECURE_SKIP_VERIFY",
+                                     False, flag))
+    elif tls_keys:
+        # JAX drops these silently, serving in plaintext
+        raise ValueError(
+            f"{', '.join(tls_keys)} set while TLS is off: set "
+            "GUBER_TLS_CERT and GUBER_TLS_KEY, or GUBER_TLS_AUTO=true")
     return d
 
 

@@ -18,8 +18,11 @@ of gubernator_tpu/daemon.py):
   (cluster.py › start_subprocess_group), while peer traffic stays on
   each daemon's own ``grpc_listen_address``.  It starts before the peer
   listener, so SERVING on the peer port means the shared port accepts;
-- peers from ``peer_discovery_type`` (discovery.py: ``static`` reads
-  ``static_peers``, GUBER_PEERS) into ``V1Instance.set_peers``;
+- peers from ``peer_discovery_type`` (discovery.py: static, file, dns,
+  member-list, etcd or k8s) into ``V1Instance.set_peers``;
+- with ``tls`` set (GUBER_TLS_*, tlsutil.py), TLS on both gRPC
+  listeners, on the peer clients' channels and on the HTTP listener; a
+  setting the port cannot honor raises here;
 - an HTTP/JSON gateway on ``http_listen_address``: POST
   /v1/GetRateLimits (numeric enums in and out, snake_case and camelCase
   field names) through the object lane (a shed batch answers 429), GET
@@ -59,6 +62,7 @@ from .instance import V1Instance
 from .netutil import resolve_host_ip, split_host_port
 from .store import FileLoader
 from .telemetry import exc_text
+from .tlsutil import setup_tls
 from .types import Behavior, PeerInfo, RateLimitRequest
 
 log = logging.getLogger("gubernator_tpu_torch.daemon")
@@ -167,7 +171,10 @@ class Daemon:
         self.instance: Optional[V1Instance] = None
         self.discovery = None
         self.advertise_address = cfg.advertise_address
+        #: the TLS context (tlsutil.py), None in plaintext
+        self.tls = None
         try:
+            self.tls = setup_tls(cfg.tls)
             if cfg.grpc_listen_address:
                 self._bind_grpc(cfg.grpc_listen_address)
             elif cfg.peer_discovery_type not in ("", "none"):
@@ -177,7 +184,9 @@ class Daemon:
             icfg.advertise_address = self.advertise_address
             if cfg.snapshot_path:
                 icfg.loader = FileLoader(cfg.snapshot_path)
-            self.instance = V1Instance(icfg)
+            self.instance = V1Instance(
+                icfg, peer_tls_creds=(self.tls.grpc_client_credentials()
+                                      if self.tls is not None else None))
             # warm-up: build the kernel and run one wave before serving
             self.instance.get_rate_limits(
                 [RateLimitRequest(name="_warmup", unique_key="w", hits=0,
@@ -211,7 +220,7 @@ class Daemon:
 
         server = grpc.server(ThreadPoolExecutor(max_workers=32),
                              options=[("grpc.so_reuseport", 0)])
-        port = server.add_insecure_port(addr)
+        port = self._add_port(server, addr)
         if port == 0:
             raise OSError(f"failed to bind {addr}")
         self.grpc_server, self.grpc_port = server, port
@@ -246,12 +255,19 @@ class Daemon:
                              options=[("grpc.so_reuseport", 1)])
         add_v1_servicer_raw(server, _V1Servicer(self.instance))
         add_health_servicer(server, self.instance)
-        port = server.add_insecure_port(addr)
+        port = self._add_port(server, addr)
         if port == 0:
             raise OSError(f"failed to bind client address {addr} "
                           "(SO_REUSEPORT)")
         self.client_server, self.client_port = server, port
         server.start()
+
+    def _add_port(self, server, addr: str) -> int:
+        """Bind ``addr`` on a gRPC server, over TLS when it is on."""
+        if self.tls is not None:
+            return server.add_secure_port(
+                addr, self.tls.grpc_server_credentials())
+        return server.add_insecure_port(addr)
 
     def set_peers(self, infos: List[PeerInfo]) -> None:
         self.instance.set_peers(infos)
@@ -356,6 +372,9 @@ class Daemon:
                     "responses": [_resp_to_json(r) for r in resps]}).encode())
 
         self.http_server = ThreadingHTTPServer((host, port), Handler)
+        if self.tls is not None:
+            self.http_server.socket = self.tls.http_ssl_context().wrap_socket(
+                self.http_server.socket, server_side=True)
         self.http_port = self.http_server.server_address[1]
         self._http_thread = threading.Thread(
             target=self.http_server.serve_forever, daemon=True,

@@ -39,10 +39,10 @@ are serialized by one lock, which the instance's row-level operations
   sites; each costs one attribute read while disarmed.
 - **Analytics.** With a ``KeyAnalytics`` (analytics.py) every resolved
   wave is tapped after its callers' results are set: an object-lane
-  wave with its requests and responses (``_tap_reqs``: the sketch learns
-  key names; the engine's device tap is muted for it), any other wave
-  with its columns (``_tap_packed``), which an engine that taps in its
-  step (``fused_tap``) skips.  Phase samples feed the analytics'
+  wave with its columns and its callers' request lists (``_tap_named``:
+  the sketch learns the names of new keys; the engine's device tap is
+  muted for it), any other wave with its columns (``_tap_packed``),
+  which an engine that taps in its step (``fused_tap``) skips.  Phase samples feed the analytics'
   PhaseLedger beside the histogram.
 
 Not ported: wave spans wait for the tracing slice.
@@ -543,11 +543,13 @@ class Dispatcher:
             except Exception:  # pragma: no cover - analytics only
                 log.exception("analytics tap")
 
-    def _tap_reqs(self, reqs, resps, khash) -> None:
+    def _tap_named(self, khash, batch, cols, req_lists) -> None:
+        """An object-lane wave to the analytics: references only (the
+        worker reads the columns)."""
         ana = self.analytics
         if ana is not None:
             try:
-                ana.tap_reqs(reqs, resps, khash)
+                ana.tap_named(khash, batch, cols, req_lists)
             except Exception:  # pragma: no cover - analytics only
                 log.exception("analytics tap")
 
@@ -919,10 +921,7 @@ class Dispatcher:
             return
         self._resolve(wid, wave, results)
         if kind == "list":
-            # the wave's key hashes go along: the worker need not hash
-            # the names again
-            self._tap_reqs([r for j in wave for r in j.reqs],
-                           [r for res in results for r in res], khash)
+            self._tap_named(khash, batch, cols, [j.reqs for j in wave])
         else:
             self._tap_packed(khash, batch.hits, cols[0])
 

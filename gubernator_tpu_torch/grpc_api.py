@@ -158,8 +158,11 @@ def raw_unary(channel: grpc.Channel, method: str,
     return channel.unary_unary(f"/{service}/{method}")
 
 
-def dial_peer(address: str) -> grpc.Channel:
-    """A channel to a peer (peer_client.go › dialPeer); TLS is not
-    ported."""
-    return grpc.insecure_channel(address,
-                                 options=[("grpc.enable_retries", 1)])
+def dial_peer(address: str, tls_creds=None) -> grpc.Channel:
+    """A channel to a peer (peer_client.go › dialPeer): over TLS with
+    ``tls_creds`` (tlsutil.py › TLSContext.grpc_client_credentials),
+    else in plaintext."""
+    opts = [("grpc.enable_retries", 1)]
+    if tls_creds is not None:
+        return grpc.secure_channel(address, tls_creds, options=opts)
+    return grpc.insecure_channel(address, options=opts)

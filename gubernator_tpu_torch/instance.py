@@ -85,8 +85,19 @@ Each instance owns a ``Metrics`` registry and a ``FlightRecorder``
 dispatcher, wave pool, peer clients and GLOBAL manager.  Every client
 entry asks the dispatcher's admission control first, before any engine
 work (``ResourceExhausted`` when it sheds), then counts its requests.
-The GLOBAL hot set, tenant analytics and tracing wait for their
-slices.
+The replicated hot set (hotset.py, JAX's default ``hot_set_capacity``
+of 1024): a daemon alone answers its hottest GLOBAL keys from the hot
+set's replicas on the engine's device instead of the table.  A GLOBAL
+key without RESET_REMAINING, DRAIN_OVER_LIMIT, MULTI_REGION or a
+Gregorian duration is promoted once its hits (or its sketch count) reach
+``hot_promote_threshold``, seeded from its table row after the batch's
+step; the sync loop folds the replicas every ``global_sync_wait_ms``.
+A pinned key is demoted, its merged row written back to the table (or
+the cold tier), by a flagged request or a new config on it, by a peer
+joining, by a snapshot and by ``remove``, each counted in
+``gubernator_hotset_demotions{reason}``.  The wire lane serves a lone
+daemon's GLOBAL batches through the same routing in columns (lane
+``wire_hotset``).  Tenant analytics and tracing wait for their slices.
 """
 from __future__ import annotations
 
@@ -95,6 +106,7 @@ import os
 import threading
 import time
 from concurrent.futures import Future
+from contextlib import contextmanager, nullcontext
 from dataclasses import replace
 from typing import List, Optional, Sequence
 
@@ -106,6 +118,7 @@ from .dispatcher import Dispatcher
 from .engine import BucketEngine
 from .faults import FaultSet
 from .global_manager import GlobalManager
+from .hotset import HotSetEngine
 from .gregorian import gregorian_rate_duration_ms
 from .hashing import (hash_key, hash_keys, hash_request_keys, mix64_np,
                       mixed_fnv1a64)
@@ -177,12 +190,55 @@ def resolve_engine_kind(selector: str) -> str:
                      "pallas, xla or sharded)")
 
 
+class _Gate:
+    """A shared / exclusive gate that prefers its exclusive holder: once
+    one waits, new shared holders wait behind it, so a stream of shared
+    holders cannot starve it.  Neither side is reentrant."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._shared = 0  # guarded-by: self._cv
+        self._exclusive = False  # guarded-by: self._cv
+        self._waiting = 0  # guarded-by: self._cv
+
+    @contextmanager
+    def shared(self):
+        with self._cv:
+            while self._exclusive or self._waiting:
+                self._cv.wait()
+            self._shared += 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._shared -= 1
+                if not self._shared:
+                    self._cv.notify_all()
+
+    @contextmanager
+    def exclusive(self):
+        with self._cv:
+            self._waiting += 1
+            while self._exclusive or self._shared:
+                self._cv.wait()
+            self._waiting -= 1
+            self._exclusive = True
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._exclusive = False
+                self._cv.notify_all()
+
+
 class V1Instance:
     """One daemon: its device engine, dispatcher, peers and GLOBAL
     manager."""
 
-    def __init__(self, config: Config):
+    def __init__(self, config: Config, peer_tls_creds=None):
         self.config = config
+        #: the peer clients' gRPC credentials in a TLS cluster
+        self._peer_tls = peer_tls_creds
         self.metrics = Metrics()
         #: bounded structured-event ring: wave launches / stalls /
         #: timeouts, sheds, the drain, GLOBAL broadcasts and errors, ring
@@ -273,6 +329,17 @@ class V1Instance:
         self._handover_mu = threading.Lock()
         self._handover_gen_mu = threading.Lock()
         self._handover_gen = 0  # guarded-by: self._handover_gen_mu
+        # the replicated hot set: built at the first promotion
+        self._hotset: Optional[HotSetEngine] = None  # guarded-by: self._gm_mu
+        self._hot_mu = threading.Lock()
+        #: promotion counts by key hash, halved on the sweep tick
+        self._hot_counts: dict = {}  # guarded-by: self._hot_mu
+        self._hot_sync_loop: Optional[IntervalLoop] = None  # guarded-by: self._gm_mu
+        #: (request, key hash) to pin after the batch's step
+        self._promote_pending: List[tuple] = []  # guarded-by: self._hot_mu
+        #: held shared by a batch from its GLOBAL routing through its
+        #: steps, exclusive by the pins (_drain_promotions)
+        self._promote_gate = _Gate()
 
     def _make_dispatcher(self) -> Dispatcher:
         """A dispatcher over this instance's engine, lock, registry,
@@ -316,6 +383,8 @@ class V1Instance:
             return
         self._fault_point("snapshot")
         t0 = time.perf_counter()
+        # hot rows live outside the table: fold them back in first
+        self._demote_all()
         arrays = self.engine.snapshot()
         if self._tier is not None:
             # cold rows are state too: restore puts back in the cold
@@ -384,6 +453,9 @@ class V1Instance:
         """Delete one rate limit's state: its device row, its cold row
         and its Store item.  True when a row existed."""
         kh = hash_key(name, unique_key)
+        if self._hotset is not None and self._hotset.is_pinned(kh):
+            # uncounted, as in JAX: the row is deleted next
+            self._demote(kh)
         with self._engine_mu:
             n = self.engine.remove_rows(np.array([kh], np.uint64))
             if self._tier is not None \
@@ -394,10 +466,11 @@ class V1Instance:
         return n > 0
 
     def _tier_victim_pinned(self, kh: int) -> bool:
-        """The tier's eviction filter: a replica-pinned key's device row
-        must not be demoted.  The port has no hot set or mesh tier, so no
-        key is pinned."""
-        return False
+        """The tier's eviction filter: a hot-set pinned key's table row is
+        the home of its state, which moving it cold while the pin serves
+        would fork."""
+        hs = self._hotset
+        return hs is not None and hs.is_pinned(kh)
 
     def owner_addr_by_khash(self, khash: int) -> Optional[str]:
         """The owner's address of a mixed table key hash (the sketch's
@@ -455,7 +528,8 @@ class V1Instance:
                 picker.add(existing if existing is not None else
                            PeerClient(info, self.config.behaviors,
                                       metrics=self.metrics,
-                                      faults=self.faults))
+                                      faults=self.faults,
+                                      tls_creds=self._peer_tls))
             self._picker = picker
             # a membership change invalidates the gated view: the next
             # routing lookup derives it again from live health
@@ -470,6 +544,10 @@ class V1Instance:
                              name="peer-shutdown").start()
         have_others = any(info.grpc_address != self._self_addr
                           for info in infos)
+        if have_others:
+            # the hot set serves a daemon alone: its keys go back to the
+            # table with their consumption
+            self._demote_all()
         if self.config.handover_on_reshard and have_others:
             self._start_handover(old_picker, "handover")
 
@@ -789,6 +867,7 @@ class V1Instance:
     def _get_rate_limits(self, reqs, now) -> List[RateLimitResponse]:
         responses: List[Optional[RateLimitResponse]] = [None] * len(reqs)
         local_idx: List[int] = []
+        hot: List[tuple] = []  # (request index, key hash): the hot set
         glob_q: List[tuple] = []  # (request, we own it), after the step
         fwd: List[tuple] = []  # (request index, owner, request)
         deg_local: List[tuple] = []  # (request index, membership owner)
@@ -801,52 +880,72 @@ class V1Instance:
         GLOBAL = int(Behavior.GLOBAL)  # hot loop: plain-int flag tests
         MULTI_REGION = int(Behavior.MULTI_REGION)
         EXCL = int(self._DEGRADED_EXCLUDED)
-        for i, req in enumerate(reqs):
-            if not req.unique_key:
-                responses[i] = RateLimitResponse(
-                    error="field 'unique_key' cannot be empty")
-            elif not req.name:
-                responses[i] = RateLimitResponse(
-                    error="field 'name' cannot be empty")
-            elif int(req.behavior) & GLOBAL:
-                # answered from the local replica; reconciled later with
-                # the membership owner (GLOBAL takes precedence over
-                # MULTI_REGION)
-                local_idx.append(i)
-                if membership is not None:
-                    glob_q.append(
-                        (req, self.is_self(membership.get(req.key))))
-            elif membership is None:
-                local_idx.append(i)
-                if int(req.behavior) & MULTI_REGION:
-                    self._ensure_mr_manager().queue_hits(
-                        _req_stamped(req, now))
-            else:
-                owner = rpick.get(req.key)
-                if not self.is_self(owner):
-                    fwd.append((i, owner, req))
-                    continue
-                local_idx.append(i)
-                if gate_active and not int(req.behavior) & EXCL:
-                    mowner = membership.get(req.key)
-                    if not self.is_self(mowner):
-                        deg_local.append((i, mowner.info.grpc_address))
-                # the local region's owner replicates to the others
-                if int(req.behavior) & MULTI_REGION:
-                    self._ensure_mr_manager().queue_hits(
-                        _req_stamped(req, now))
-        # forwards first, so their RPCs overlap the device step
-        futures = [(i, self._forward_one(peer, req, now),
-                    peer.info.grpc_address, req) for i, peer, req in fwd]
-        over = 0
-        if local_idx:
-            local_reqs = [reqs[i] for i in local_idx]
-            self._read_through(local_reqs)
-            local = self.dispatcher.check_batch(local_reqs, now)
-            for i, resp in zip(local_idx, local):
-                responses[i] = resp
-                over += resp.status == Status.OVER_LIMIT
-            self._after_local(local_reqs, local)
+        # alone, GLOBAL keys may ride the hot set
+        hot_on = membership is None and self.config.hot_set_capacity > 0
+        # a batch that may send a GLOBAL key to the table holds the
+        # promotion gate from routing through its step: a pin then
+        # waits for it, so its seed row holds every hit routed
+        # before (JAX's promotion may read the row before them)
+        with (self._promote_gate.shared() if hot_on else nullcontext()):
+            for i, req in enumerate(reqs):
+                if not req.unique_key:
+                    responses[i] = RateLimitResponse(
+                        error="field 'unique_key' cannot be empty")
+                elif not req.name:
+                    responses[i] = RateLimitResponse(
+                        error="field 'name' cannot be empty")
+                elif int(req.behavior) & GLOBAL:
+                    if hot_on and self._hot_route(req, hot, i):
+                        continue
+                    # answered from the local replica; reconciled later
+                    # with the membership owner (GLOBAL takes precedence
+                    # over MULTI_REGION)
+                    local_idx.append(i)
+                    if membership is not None:
+                        glob_q.append(
+                            (req, self.is_self(membership.get(req.key))))
+                elif membership is None:
+                    local_idx.append(i)
+                    if int(req.behavior) & MULTI_REGION:
+                        self._ensure_mr_manager().queue_hits(
+                            _req_stamped(req, now))
+                else:
+                    owner = rpick.get(req.key)
+                    if not self.is_self(owner):
+                        fwd.append((i, owner, req))
+                        continue
+                    local_idx.append(i)
+                    if gate_active and not int(req.behavior) & EXCL:
+                        mowner = membership.get(req.key)
+                        if not self.is_self(mowner):
+                            deg_local.append(
+                                (i, mowner.info.grpc_address))
+                    # the local region's owner replicates to the others
+                    if int(req.behavior) & MULTI_REGION:
+                        self._ensure_mr_manager().queue_hits(
+                            _req_stamped(req, now))
+            # forwards first, so their RPCs overlap the device step
+            futures = [(i, self._forward_one(peer, req, now),
+                        peer.info.grpc_address, req) for i, peer, req in fwd]
+            over = 0
+            if hot:
+                hot_reqs = [reqs[i] for i, _ in hot]
+                hot_resps = self._hotset.check_batch(
+                    hot_reqs, [h for _, h in hot], now)
+                for (i, _), resp in zip(hot, hot_resps):
+                    responses[i] = resp
+                    over += resp.status == Status.OVER_LIMIT
+                # the Store's write-through covers hot keys too (replica
+                # values; the next fold supersedes them)
+                self._after_local(hot_reqs, hot_resps)
+            if local_idx:
+                local_reqs = [reqs[i] for i in local_idx]
+                self._read_through(local_reqs)
+                local = self.dispatcher.check_batch(local_reqs, now)
+                for i, resp in zip(local_idx, local):
+                    responses[i] = resp
+                    over += resp.status == Status.OVER_LIMIT
+                self._after_local(local_reqs, local)
         if deg_local:
             # rows rehomed here by an ejection: flagged, and their hits
             # reconciled to the membership owner once it is back
@@ -867,6 +966,8 @@ class V1Instance:
                     gm.queue_update(req)
                 else:
                     gm.queue_hits(_req_stamped(req, now))
+        if self._promote_pending:
+            self._drain_promotions(now)
         b = self.config.behaviors
         timeout = (b.batch_timeout_ms + b.batch_wait_ms) / 1000.0 + 30.0
         failed = 0
@@ -956,6 +1057,163 @@ class V1Instance:
             self._last_sweep = now
             with self._engine_mu:
                 self.engine.sweep(now)
+            self._hot_decay()
+
+    # ---- the replicated hot set (hotset.py) -----------------------------
+
+    _HOT_EXCLUDED = (Behavior.RESET_REMAINING | Behavior.DRAIN_OVER_LIMIT
+                     | Behavior.DURATION_IS_GREGORIAN | Behavior.MULTI_REGION)
+
+    def _hot_route(self, req: RateLimitRequest, hot, i) -> bool:
+        """Route a GLOBAL request of a daemon alone to the hot set if its
+        key is pinned, else count it toward promotion.  True when
+        routed.  A flagged request or a new config on a pinned key
+        demotes it first (counted), so the table serves the live row."""
+        qualifies = not int(req.behavior) & int(self._HOT_EXCLUDED)
+        kh = hash_key(req.name, req.unique_key)
+        hs = self._hotset
+        if hs is not None and hs.is_pinned(kh):
+            if not qualifies or not hs.matches_pinned(kh, req):
+                self.metrics.hot_demotion_counter.labels(
+                    reason="flagged" if not qualifies
+                    else "config_change").inc()
+                self._demote(kh)
+                return False
+            hot.append((i, kh))
+            return True
+        if qualifies:
+            self._count_toward_promotion(kh, max(int(req.hits), 1), req)
+        return False
+
+    def _count_toward_promotion(self, kh: int, weight: int,
+                                req: RateLimitRequest) -> None:
+        """Promotion bookkeeping by key hash: the decayed counter, raised
+        to the sketch's count when analytics is on (the sketch sees every
+        lane's waves; the counter keeps a shed tap from starving
+        promotion).  ``req`` carries the config the pin adopts."""
+        ana = self.analytics
+        with self._hot_mu:
+            c = self._hot_counts.get(kh, 0) + weight
+            self._hot_counts[kh] = c
+            if ana is not None:
+                c = max(c, ana.sketch_count(kh))
+            if c >= self.config.hot_promote_threshold:
+                # pinned after this batch's step, so the seed row holds
+                # this request's own hits
+                self._promote_pending.append((req, kh))
+                self._hot_counts.pop(kh, None)
+            elif len(self._hot_counts) > 100_000:
+                self._decay_counts_locked()
+
+    def _drain_promotions(self, now: int) -> None:
+        """Pin the keys promoted by this batch, each seeded from its
+        table (or cold) row; ``now`` is the batch's clock.  The caller
+        holds no gate."""
+        with self._hot_mu:
+            pending, self._promote_pending = self._promote_pending, []
+        if not pending:
+            return
+        # no batch is between its routing and its step meanwhile: every
+        # hit routed to the table before the pin is in its seed row
+        with self._promote_gate.exclusive():
+            for req, kh in pending:
+                hs = self._ensure_hotset()
+                if hs.pin(req, kh, now, seed=self._seed_row(kh)):
+                    self._seed_commit(kh)
+
+    def _seed_row(self, kh: int) -> Optional[dict]:
+        """The key's row (``remaining``, ``t_ms``, ``expire_at``,
+        ``meta``) in the table or else the cold tier, None when it has
+        none.  A successful pin is followed by ``_seed_commit``."""
+        fields = ("remaining", "t_ms", "expire_at", "meta")
+        with self._engine_mu:
+            found, cols = self.engine.gather_rows(np.array([kh], np.uint64))
+            if not found[0] and self._tier is not None:
+                cold = self._tier.peek_row(kh)
+                if cold is not None:
+                    return {f: cold[f] for f in fields}
+        if not found[0]:
+            return None
+        return {f: int(cols[f][0]) for f in fields}
+
+    def _seed_commit(self, kh: int) -> None:
+        """The hot set took the key's state: drop a cold copy, which
+        would shadow the row written back at demotion."""
+        if self._tier is not None:
+            self._tier.pop_row(kh)
+
+    def _demote(self, key_hash: int) -> None:
+        """Fold the replicas, write the key's merged row back to the
+        table (the cold tier when its bucket is full) and release its
+        slot: consumption survives both ways."""
+        hs = self._hotset
+        if hs is None:
+            return
+        hs.sync()
+        row = hs.row_state(key_hash)
+        if row is not None:
+            cols = {f: np.array([row[f]]) for f in row}
+            with self._engine_mu:
+                placed = self.engine.upsert_rows(
+                    np.array([key_hash], np.uint64), cols)
+                if not placed and self._tier is not None:
+                    self._tier.put_row(key_hash,
+                                       {f: int(row[f]) for f in row})
+        hs.unpin(key_hash)
+
+    def _demote_all(self) -> None:
+        """Demote every pinned key: one fold, one batched write-back
+        (counted as ``membership_change``, as JAX counts it)."""
+        hs = self._hotset
+        if hs is None:
+            return
+        khs = list(hs.slots.keys())
+        if not khs:
+            return
+        self.metrics.hot_demotion_counter.labels(
+            reason="membership_change").inc(len(khs))
+        hs.sync()
+        rows = [(kh, hs.row_state(kh)) for kh in khs]
+        rows = [(kh, r) for kh, r in rows if r is not None]
+        if rows:
+            karr = np.array([kh for kh, _ in rows], np.uint64)
+            cols = {f: np.array([r[f] for _, r in rows])
+                    for f in rows[0][1]}
+            with self._engine_mu:
+                placed = self.engine.upsert_rows(karr, cols)
+                if placed < len(rows) and self._tier is not None:
+                    found, _ = self.engine.gather_rows(karr)
+                    for j, (kh, r) in enumerate(rows):
+                        if not found[j]:
+                            self._tier.put_row(
+                                kh, {f: int(r[f]) for f in r})
+        for kh in khs:
+            hs.unpin(kh)
+
+    # lock-free: the caller holds self._hot_mu
+    def _decay_counts_locked(self) -> None:
+        """Halve the promotion counters and drop the zeros."""
+        self._hot_counts = {k: v // 2 for k, v in self._hot_counts.items()
+                            if v // 2 > 0}
+
+    def _hot_decay(self) -> None:
+        """Counter decay on the sweep tick: bounds the counters and ages
+        out cold keys."""
+        with self._hot_mu:
+            self._decay_counts_locked()
+
+    def _ensure_hotset(self) -> HotSetEngine:
+        """The hot set on the engine's device, one replica (the engine's
+        device count), and its sync loop, built at the first promotion."""
+        with self._gm_mu:
+            if self._hotset is None:
+                cap = 1 << (self.config.hot_set_capacity - 1).bit_length()
+                self._hotset = HotSetEngine(1, capacity=cap,
+                                            device=self.engine.device)
+                self._hot_sync_loop = IntervalLoop(
+                    self.config.behaviors.global_sync_wait_ms,
+                    self._hotset.sync, name="hotset-sync")
+            return self._hotset
 
     def health_check(self) -> HealthCheckResponse:
         """reference: gubernator.go › HealthCheck: healthy and the peer
@@ -1012,35 +1270,61 @@ class V1Instance:
                     f"Requests.RateLimits list too large; max size is "
                     f"{MAX_BATCH_SIZE}")
             now = clock_ms() if now_ms is None else now_ms
-            self.dispatcher.admit(n)
-            if picker is not None:
-                lane = "wire_clustered"
-                run = lambda: self._wire_check_clustered(  # noqa: E731
-                    parsed, data, now, picker)
-            else:
-                # alone, GLOBAL with no hot set is the local path;
-                # MULTI_REGION rows (not GLOBAL: it takes precedence)
-                # queue their replication after the step
-                lane = "wire_local"
-
-                def run():
-                    out = self._wire_check_columns(parsed, now)
-                    if parsed["behavior_or"] & int(Behavior.MULTI_REGION):
-                        beh = parsed["behavior"]
-                        mr = (((beh & int(Behavior.MULTI_REGION)) != 0)
-                              & ((beh & int(Behavior.GLOBAL)) == 0))
-                        if mr.any():
-                            self._queue_mr_raw(parsed, data, mr,
-                                               stamp_ms=now)
-                    return out
-
-            def run_and_sweep():
-                out = run()
-                self._maybe_sweep(now)
-                return out
-
-            return self._counted("api", n, lane, run_and_sweep)
+            glob = bool(parsed["behavior_or"] & int(Behavior.GLOBAL))
+            # alone, GLOBAL batches take the hot set's routing under the
+            # promotion gate (see _get_rate_limits); a pinned key that
+            # needs demoting sends the batch to the protobuf lane, before
+            # any state changes
+            gated = (picker is None and glob
+                     and self.config.hot_set_capacity > 0)
+            with (self._promote_gate.shared() if gated else nullcontext()):
+                out = self._wire_parsed(parsed, data, now, picker, glob)
+            if out is None:
+                return self._wire_pb2(data, now_ms)
+            if gated and self._promote_pending:
+                self._drain_promotions(now)
+            return out
         return self._wire_pb2(data, now_ms)
+
+    def _wire_parsed(self, parsed: dict, data: bytes, now: int, picker,
+                     glob: bool) -> Optional[bytes]:
+        """A parsed batch through its lane: clustered, the hot set's
+        (alone, GLOBAL rows) or local; None when the hot set's routing
+        hands it to the protobuf lane.  MULTI_REGION rows (not GLOBAL: it
+        takes precedence) queue their replication after the step."""
+        n = parsed["n"]
+        if picker is not None:
+            lane = "wire_clustered"
+            run = lambda: self._wire_check_clustered(  # noqa: E731
+                parsed, data, now, picker)
+        else:
+            if glob:
+                lane = "wire_hotset"
+                inner = self._wire_global_runner(parsed, now)
+                if inner is None:
+                    return None
+            else:
+                lane = "wire_local"
+                inner = lambda: self._wire_check_columns(  # noqa: E731
+                    parsed, now)
+
+            def run():
+                out = inner()
+                if parsed["behavior_or"] & int(Behavior.MULTI_REGION):
+                    beh = parsed["behavior"]
+                    mr = (((beh & int(Behavior.MULTI_REGION)) != 0)
+                          & ((beh & int(Behavior.GLOBAL)) == 0))
+                    if mr.any():
+                        self._queue_mr_raw(parsed, data, mr, stamp_ms=now)
+                return out
+        self.dispatcher.admit(n)
+
+        def run_and_sweep():
+            out = run()
+            self._maybe_sweep(now)
+            return out
+
+        return self._counted("api", n, lane, run_and_sweep)
 
     #: behaviors the fused lane hands to the parse lane (JAX: their
     #: hot-set routing and replication queues need the parsed columns)
@@ -1124,6 +1408,101 @@ class V1Instance:
         kh = mix64_np(parsed["khash_raw"])
         kh = np.where(kh == 0, np.uint64(1), kh)
         return self._packed_check_to_bytes(kh, parsed, None, now)
+
+    def _wire_global_runner(self, parsed: dict, now: int):
+        """The columnar GLOBAL flow of a daemon alone (the wire lane's
+        ``_hot_route``): pinned keys take the hot set's step, the rest
+        the engine's, with promotion counted per unique key.  Returns a
+        zero-argument runner, or None when a pinned key needs demoting
+        (a flagged request or a new config: the protobuf lane does it).
+        Nothing changes state before the runner runs."""
+        if self.config.hot_set_capacity <= 0:
+            return lambda: self._wire_check_columns(parsed, now)
+        n = parsed["n"]
+        kh = mix64_np(parsed["khash_raw"])
+        kh = np.where(kh == 0, np.uint64(1), kh)
+        batch, errs = pack_columns(
+            kh, parsed["hits"], parsed["limit"], parsed["duration"],
+            parsed["algorithm"], parsed["behavior"], parsed["burst"], now,
+            created_at=parsed["created_at"])
+        beh = np.asarray(batch.behavior)
+        glob_mask = (beh & int(Behavior.GLOBAL)) != 0
+        excluded = (beh & int(self._HOT_EXCLUDED)) != 0
+        hs = self._hotset
+        hot_mask = np.zeros(n, bool)
+        if hs is not None and hs.slots:
+            with hs._mu:
+                pinned_keys = np.fromiter(hs.slots.keys(), np.uint64,
+                                          len(hs.slots))
+            pinned_mask = glob_mask & np.isin(kh, pinned_keys)
+            if pinned_mask.any():
+                if (pinned_mask & excluded).any():
+                    return None  # a flagged request on a pinned key
+                # the config, compared over the few unique hot keys
+                # (duration unfloored, as clamp_config stores it)
+                alg, lim = batch.algorithm, batch.limit
+                dur, bur = batch.duration, batch.burst
+                for k in np.unique(kh[pinned_mask]):
+                    cfg = hs.pinned_cfg.get(int(k))
+                    m = pinned_mask & (kh == k)
+                    if cfg is None or not (
+                            (alg[m] == cfg[0]).all()
+                            and (lim[m] == cfg[1]).all()
+                            and (dur[m] == cfg[2]).all()
+                            and (bur[m] == cfg[3]).all()):
+                        return None  # a new config: demote first
+                hot_mask = pinned_mask
+        promo_mask = glob_mask & ~hot_mask & ~excluded & batch.valid
+
+        def run() -> bytes:
+            status = np.zeros(n, np.int32)
+            lim_o = np.zeros(n, np.int64)
+            rem = np.zeros(n, np.int64)
+            rst = np.zeros(n, np.int64)
+            full = np.zeros(n, bool)
+            errors = dict(errs) if errs else {}
+            if promo_mask.any():
+                pidx = np.nonzero(promo_mask)[0]
+                w = np.maximum(batch.hits[pidx], 1)
+                uniq, first, inv = np.unique(
+                    kh[pidx], return_index=True, return_inverse=True)
+                weights = np.bincount(inv, weights=w).astype(np.int64)
+                for k, f, wt in zip(uniq, first, weights):
+                    i = int(pidx[f])  # the key's first row in the batch
+                    self._count_toward_promotion(
+                        int(k), int(wt), RateLimitRequest(
+                            name="", unique_key="",
+                            hits=int(batch.hits[i]),
+                            limit=int(batch.limit[i]),
+                            duration=int(batch.duration[i]),
+                            algorithm=int(batch.algorithm[i]),
+                            behavior=int(beh[i]),
+                            burst=int(batch.burst[i])))
+            if (~hot_mask).any():
+                idx = np.nonzero(~hot_mask)[0]
+                sub = type(batch)(*[np.asarray(c)[idx] for c in batch])
+                s_st, s_lim, s_rem, s_rst, s_full = \
+                    self.dispatcher.check_packed(sub, kh[idx], now)
+                status[idx] = s_st
+                lim_o[idx] = s_lim
+                rem[idx] = s_rem
+                rst[idx] = s_rst
+                full[idx] = s_full
+            if hot_mask.any():
+                idx = np.nonzero(hot_mask)[0]
+                sub = type(batch)(*[np.asarray(c)[idx] for c in batch])
+                h_st, h_rem, h_rst, h_lim, h_lost = hs.check_columns(
+                    sub, kh[idx], now)
+                status[idx] = h_st
+                rem[idx] = h_rem
+                rst[idx] = h_rst
+                lim_o[idx] = h_lim
+                for j in np.nonzero(h_lost)[0].tolist():
+                    errors.setdefault(int(idx[j]), "hot-set row lost")
+            return self._columns_to_bytes(
+                (status, lim_o, rem, rst, full), 0, n, errors)
+
+        return run
 
     def _packed_check_to_bytes(self, kh: np.ndarray, parsed: dict, idx,
                                now: int) -> bytes:
@@ -1746,6 +2125,8 @@ class V1Instance:
             self.global_manager.close()
         if self.mr_manager is not None:
             self.mr_manager.close()
+        if self._hot_sync_loop is not None:
+            self._hot_sync_loop.close()
         for p in self.peers():
             p.shutdown()
         self.dispatcher.close()

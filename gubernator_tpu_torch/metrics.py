@@ -6,12 +6,12 @@ cover the JAX daemon.  Each instance gets its own CollectorRegistry (a
 cluster runs several daemons in one process).
 
 Registered: the families of the subsystems the port has (serving
-counters, table gauges, the wire lane, the dispatcher's waves, stall
-watchdog and pipeline, the wave pool, admission and drain, the peer
-lanes and circuit, forwards, GLOBAL queue and broadcasts, degraded
-serves, the health-gated ring, fault injection, the heavy-hitter
-analytics, the cold tier).  The JAX families of subsystems not ported
-yet (hot set, fused Pallas counters, compile ledger, scenarios,
+counters, table gauges, the wire lane, the hot set, the dispatcher's
+waves, stall watchdog and pipeline, the wave pool, admission and drain,
+the peer lanes and circuit, forwards, GLOBAL queue and broadcasts,
+degraded serves, the health-gated ring, fault injection, the
+heavy-hitter analytics, the cold tier).  The JAX families of subsystems
+not ported yet (fused Pallas counters, compile ledger, scenarios,
 mesh-GLOBAL, tenants, SLO, fleet, memory ledger) are not registered;
 ROADMAP lists them beside their subsystems.
 """
@@ -75,6 +75,10 @@ class Metrics:
             "gubernator_wire_lane_requests",
             "requests by serving lane (wire-columnar vs pb2 fallback)",
             ["lane"], registry=r)
+        self.hot_demotion_counter = Counter(
+            "gubernator_hotset_demotions",
+            "hot-set pinned keys demoted back to the sharded path",
+            ["reason"], registry=r)
         # ---- dispatcher waves, watchdog, pipeline ----
         self.wave_size = Histogram(
             "gubernator_dispatcher_wave_size",

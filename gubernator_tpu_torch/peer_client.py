@@ -356,9 +356,11 @@ class PeerClient:
     """One gRPC channel + the columnar send lanes to a single peer."""
 
     def __init__(self, info: PeerInfo, behaviors: BehaviorConfig,
-                 metrics=None, faults=None):
+                 metrics=None, faults=None, tls_creds=None):
         self.info = info
         self.behaviors = behaviors
+        #: gRPC channel credentials of a TLS cluster (None: plaintext)
+        self._tls = tls_creds
         #: the owning instance's Metrics registry (optional)
         self._metrics = metrics
         #: the owning instance's FaultSet (optional): the peer_send,
@@ -395,7 +397,8 @@ class PeerClient:
     def _ensure_stub(self) -> PeersV1Stub:
         with self._lock:
             if self._stub is None:
-                self._channel = dial_peer(self.info.grpc_address)
+                self._channel = dial_peer(self.info.grpc_address,
+                                          self._tls)
                 self._stub = PeersV1Stub(self._channel)
             return self._stub
 

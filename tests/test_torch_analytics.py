@@ -153,12 +153,89 @@ def both_analytics(**kw):
             jax_analytics.KeyAnalytics(clock=clock, **kw))
 
 
+def named_tap(reqs, over, splits=(), table_full=()):
+    """An object-lane wave as the dispatcher taps it: the key hashes, the
+    packed batch, result columns with ``over`` rows OVER_LIMIT (and
+    ``table_full`` rows table-full), and the request lists cut at
+    ``splits``."""
+    from gubernator_tpu_torch.core.batch import pack_requests
+    from gubernator_tpu_torch.hashing import hash_request_keys
+
+    kh = hash_request_keys([r.name for r in reqs],
+                           [r.unique_key for r in reqs])
+    batch, _ = pack_requests(reqs, NOW, size=len(reqs), key_hashes=kh)
+    n = len(reqs)
+    full = np.zeros(n, bool)
+    full[list(table_full)] = True
+    status = np.where(np.asarray(over, bool) & ~full, 1, 0).astype(np.int32)
+    cols = (status, np.zeros(n, np.int64), np.zeros(n, np.int64),
+            np.zeros(n, np.int64), full)
+    cuts = [0, *splits, n]
+    lists = [list(reqs[a:b]) for a, b in zip(cuts, cuts[1:])]
+    return kh, batch, cols, lists
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_columnar_tap_sketch_equals_jax_after_every_fold(seed):
+    """The object-lane tap as columns (tap_named) against the JAX list
+    tap (tap_reqs) on the same waves: byte-equal sketches and equal
+    names after every fold, with evictions (a narrow sketch), hits of
+    0, negative hits, hits past the leaky clamp, invalid Gregorian rows
+    and table-full rows."""
+    from gubernator_tpu.types import RateLimitRequest as JaxReq
+    from gubernator_tpu.types import RateLimitResponse as JaxResp
+
+    rng = np.random.default_rng(seed)
+    pa, ja = both_analytics(k=8, width=32)
+    try:
+        for w in range(12):
+            n = int(rng.integers(5, 120))
+            reqs, resps, full = [], [], []
+            for i in range(n):
+                kid = int(rng.zipf(1.2)) % 90
+                hits = int(rng.choice([0, 1, 1, 2, 7, -3, 1 << 40]))
+                greg = rng.random() < 0.05
+                r = dict(name=f"t{kid % 3}", unique_key=f"u{kid}",
+                         hits=hits, limit=100, algorithm=kid % 2,
+                         duration=99 if greg else 60_000 * (1 + kid),
+                         behavior=4 if greg else 0)
+                reqs.append(r)
+                over = bool(rng.random() < 0.2)
+                if not greg and rng.random() < 0.05:
+                    full.append(i)
+                    resps.append(JaxResp(error="rate limit table full"))
+                elif greg:
+                    resps.append(JaxResp(error="invalid gregorian"))
+                else:
+                    resps.append(JaxResp(status=int(over)))
+            over = [int(x.status) == 1 for x in resps]
+            cuts = sorted(set(rng.integers(1, n, 2).tolist()))
+            pa.tap_named(*named_tap([RateLimitRequest(**r) for r in reqs],
+                                    over, cuts, full))
+            ja.tap_reqs([JaxReq(**r) for r in reqs], resps)
+            assert pa.flush() and ja.flush()
+            assert pa.sketch.canonical_bytes() == ja.sketch.canonical_bytes()
+            assert pa.sketch._names == ja.sketch._names
+            assert pa.stats() == ja.stats()
+    finally:
+        pa.close()
+        ja.close()
+
+
 def test_topkeys_and_phases_snapshots_equal_jax():
     """The same taps (columnar and object-lane) into both: equal
     /debug/topkeys and /debug/phases documents after flush()."""
     from gubernator_tpu.types import RateLimitRequest as JaxReq
     from gubernator_tpu.types import RateLimitResponse as JaxResp
 
+    reqs = [dict(name="o", unique_key=f"u{j % 30}", hits=j % 4)
+            for j in range(50)]
+    resps = [j % 5 == 0 for j in range(50)]
+    # built before the taps: each package's worker drains what its
+    # queue holds, so the taps go in back to back, as before
+    port_named = named_tap([RateLimitRequest(**r) for r in reqs], resps)
+    jax_named = ([JaxReq(**r) for r in reqs],
+                 [JaxResp(status=int(o)) for o in resps])
     pa, ja = both_analytics(k=16, width=64)
     try:
         for i, (kh, hits, over, _) in enumerate(
@@ -167,14 +244,8 @@ def test_topkeys_and_phases_snapshots_equal_jax():
             pa.tap_packed(kh, hits, status)
             ja.tap_packed(kh, hits, status)
             if i % 2:
-                reqs = [dict(name="o", unique_key=f"u{j % 30}", hits=j % 4)
-                        for j in range(50)]
-                resps = [j % 5 == 0 for j in range(50)]
-                pa.tap_reqs([RateLimitRequest(**r) for r in reqs],
-                            [RateLimitResponse(status=int(o))
-                             for o in resps])
-                ja.tap_reqs([JaxReq(**r) for r in reqs],
-                            [JaxResp(status=int(o)) for o in resps])
+                pa.tap_named(*port_named)
+                ja.tap_reqs(*jax_named)
             for phase, secs in (("pack", 0.001 * i), ("device", 0.002),
                                 ("restore", 0.5)):
                 pa.observe_phase(phase, secs)

@@ -222,7 +222,9 @@ def test_main_and_wire_paths_rehearse_on_the_cpu(path_rehearsal,
                                                  monkeypatch):
     args = path_rehearsal
     monkeypatch.setattr(chip_smoke, "AB_PAIRS", 2)
+    monkeypatch.setattr(chip_smoke, "ANALYTICS_AB_PAIRS", 2)
     monkeypatch.setattr(chip_smoke, "AB_BATCHES", 1)
+    monkeypatch.setattr(chip_smoke, "TAP_COST_WAVES", 4)
     pop_idx, pop_keys = chip_smoke.fit_population(args.keys, args.log2_cap)
     res = chip_smoke.phase_main_path(torch, args, pop_idx, pop_keys)
     wire = res["wire"]
@@ -259,15 +261,21 @@ def test_main_and_wire_paths_rehearse_on_the_cpu(path_rehearsal,
     top = res["topkeys"]
     assert top["taps_dropped"] == 0 and len(top["hottest"]) == 16
     assert all(r["count"] >= r["sent"] > 0 for r in top["hottest"])
-    # the reference's A/B: a warm-up pair, then AB_PAIRS timed pairs
-    # with the sketch's fold in Python, then native
+    # the reference's A/B: a warm-up pair, then ANALYTICS_AB_PAIRS timed
+    # pairs with the native fold, each pair's ratio printed
     for lane in ("wire", "object"):
-        for fold in ("python", "native"):
-            a = res["analytics_ab"][lane][fold]
-            assert a["order"] == ["on", "off"] and len(a["ratios"]) == 2
-            assert len(a["on_decisions_per_s"]) == 2 and a["off_median"] > 0
-            assert a["taps_dropped"] == 0
-            assert a["overhead_pct"] == (a["median_ratio"] - 1.0) * 100
+        assert set(res["analytics_ab"][lane]) == {"native"}
+        a = res["analytics_ab"][lane]["native"]
+        assert a["order"] == ["on", "off"] and len(a["ratios"]) == 2
+        assert len(a["on_decisions_per_s"]) == 2 and a["off_median"] > 0
+        assert a["taps_dropped"] == 0
+        assert a["overhead_pct"] == (a["median_ratio"] - 1.0) * 100
+    # the tap's own cost, list against columnar, on equal sketches
+    tc = res["tap_cost"]
+    assert tc["waves"] == 4 and tc["sketches_equal"]
+    for arm in ("list", "columnar"):
+        assert tc[arm]["serving_us_median"] > 0
+        assert tc[arm]["worker_us_median"] > 0
     assert res["wire_analytics_off_launches"] > 0
     # the fold's move alone: analytics on in both arms
     for lane in ("wire", "object"):
@@ -466,6 +474,106 @@ def test_regions_phase_rehearses_on_the_cpu(path_rehearsal, monkeypatch):
     assert dd["failed_sends"] >= 0 and set(dd["hits_lost"]) == \
         set(chip_smoke.REGIONS)
     assert all(0 <= n <= dd["hits_sent"] for n in dd["hits_lost"].values())
+
+
+def test_hot_phase_rehearses_on_the_cpu(path_rehearsal, monkeypatch):
+    """One daemon alone with the hot set's defaults against one at
+    capacity 0, at a small size: the GLOBAL ranks promoted and pinned,
+    the limit-100 keys admitted exactly 100, the 10^9 keys exact, every
+    other key exact, hot waves timed, and each demotion counted."""
+    args = cluster_args(path_rehearsal, monkeypatch)
+    args.cluster_log2_cap = 14  # the 2000 keys fit, no bucket full
+    monkeypatch.setattr(chip_smoke, "HOT_AB_PAIRS", 1)
+    monkeypatch.setattr(chip_smoke, "HOT_BATCHES", 2)
+    res = chip_smoke.phase_hot(torch, args)
+    assert res["launches"] > 0 and res["promotions"] >= 16
+    assert res["seeded_promotions"] == res["promotions"]
+    assert res["hot_waves"] > 0 and res["hot_step_host_ms_mean"] > 0
+    assert res["hot_wave_ms_with_lock_wait_mean"] > 0
+    assert res["pin_calls"] >= res["promotions"]
+    for lane in ("object", "wire"):
+        ab = res["ab"][lane]
+        assert ab["order"] == ["off", "on"] and len(ab["ratios"]) == 1
+        assert ab["hot_waves"] > 0
+    assert res["global"]["on"]["admitted_limit_100"][0] == 100
+    assert res["global"]["on"] == res["global"]["off"] or \
+        res["global"]["on"]["exact_hits_sent"] > 0
+    dem = res["demotions"]
+    assert (dem["flagged"], dem["config_change"], dem["remove_counted"]) \
+        == (1, 1, 0)
+    assert dem["snapshot_membership_change"] == dem["snapshot_rows"] > 0
+
+
+def test_membership_phase_rehearses_on_the_cpu(path_rehearsal, monkeypatch):
+    """A TLS pair and a plaintext pair on file discovery at a small size:
+    the daemon alone pins every GLOBAL rank, the file rewrite joins the
+    pair and demotes them all with their rows, TLS and plaintext rounds
+    exact with no failed forward, a plaintext client refused."""
+    args = cluster_args(path_rehearsal, monkeypatch)
+    args.member_log2_cap = 14  # the 2000 keys fit, no bucket full
+    monkeypatch.setattr(chip_smoke, "TLS_PAIRS", 1)
+    monkeypatch.setattr(chip_smoke, "MEMBER_BATCHES", 1)
+    res = chip_smoke.phase_membership(torch, args)
+    assert res["certs_by"] == "cryptography"
+    assert res["demoted"] == res["pinned_before_join"] == 32
+    assert all(len(v) == 2 and min(v) > 0 for v in res["join_ms"].values())
+    assert res["forwarded_rows"]["tls"] > 0
+    assert res["failed_forwards"] == {"tls": 0, "plain": 0}
+    assert res["plaintext_client"] == "UNAVAILABLE"
+    assert res["ab"]["order"] == ["plain", "tls"] and res["launches"] > 0
+
+
+def test_certs_by_openssl_serve_tls(tmp_path, monkeypatch):
+    """Where cryptography does not import, the openssl command writes
+    the CA and certificate, and a daemon serves TLS with them."""
+    import builtins
+    import shutil
+
+    if shutil.which("openssl") is None:
+        pytest.skip("no openssl command here")
+    real = builtins.__import__
+
+    def no_crypto(name, *a, **k):
+        if name.startswith("cryptography"):
+            raise ImportError(name)
+        return real(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_crypto)
+    ca, cert, key, how = chip_smoke.write_certs(str(tmp_path))
+    monkeypatch.setattr(builtins, "__import__", real)
+    assert how == "openssl"
+    import grpc
+
+    from gubernator_tpu_torch.config import DaemonConfig, TLSSettings
+    from gubernator_tpu_torch.daemon import spawn_daemon
+
+    d = spawn_daemon(DaemonConfig(
+        grpc_listen_address="127.0.0.1:0", http_listen_address="127.0.0.1:0",
+        cache_size=4096, device="cpu",
+        tls=TLSSettings(ca_file=ca, cert_file=cert, key_file=key)))
+    try:
+        creds = d.tls.grpc_client_credentials()
+        with grpc.secure_channel(f"127.0.0.1:{d.grpc_port}", creds) as ch:
+            ch.unary_unary("/grpc.health.v1.Health/Check")(b"", timeout=10)
+    finally:
+        d.close()
+
+
+def test_gossip_phase_rehearses_on_the_cpu(path_rehearsal, monkeypatch):
+    """3 gossip daemons converge, and drop a closed one after dead_ms
+    (the gossip's timings shortened for the rehearsal)."""
+    import gubernator_tpu_torch.discovery as disc
+
+    class Quick(disc.GossipDiscovery):
+        def __init__(self, *a, **kw):
+            kw.update(interval_ms=100, suspect_ms=300, dead_ms=900)
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(disc, "GossipDiscovery", Quick)
+    res = chip_smoke.phase_gossip(torch, path_rehearsal)
+    assert res["nodes"] == 3 and res["converge_ms"] > 0
+    assert res["dead_ms"] == 900 and all(ms > 0 for ms in res["drop_ms"])
+    assert all(len(r) == 2 for r in res["rings"]) and res["launches"] > 0
 
 
 def test_rehomed_may_fill_marks_the_dead_workers_crowded_keys():

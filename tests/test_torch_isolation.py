@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package (its
 wire lane, its cluster path, one daemon's lifecycle, the cluster's
-failure path, the state beyond the device table, the subprocess group
-and MULTI_REGION included), and its entry points default to the GPU,
-raising where there is none."""
+failure path, the state beyond the device table, the subprocess group,
+MULTI_REGION, the hot set, the discovery backends and TLS included), and
+its entry points default to the GPU, raising where there is none;
+``cryptography`` loads only inside AutoTLS."""
 import ast
 import pkgutil
 import subprocess
@@ -29,7 +30,8 @@ def test_importing_every_module_loads_no_jax():
     for m in ("peers", "peer_client", "global_manager", "discovery",
               "cluster", "interval", "netutil", "telemetry", "metrics",
               "cmd.healthcheck", "faults", "store", "tiering",
-              "analytics", "multiregion", "cmd.cluster"):
+              "analytics", "multiregion", "cmd.cluster", "hotset",
+              "tlsutil", "cmd.tapcost"):
         assert f"gubernator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -37,7 +39,7 @@ def test_importing_every_module_loads_no_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gubernator_tpu' "
-        "or m.startswith('gubernator_tpu.'))\n"
+        "or m.startswith('gubernator_tpu.') or m == 'cryptography')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -68,7 +70,7 @@ def test_wire_lane_loads_nothing_of_the_jax_package():
         "inst.close()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gubernator_tpu' "
-        "or m.startswith('gubernator_tpu.'))\n"
+        "or m.startswith('gubernator_tpu.') or m == 'cryptography')\n"
         "maps = open('/proc/self/maps').read()\n"
         f"mapped = sorted({{l.split()[-1] for l in maps.splitlines() "
         f"if {str(ROOT / 'gubernator_tpu' / 'ops')!r} in l}})\n"
@@ -107,7 +109,7 @@ def test_cluster_path_loads_nothing_of_the_jax_package():
         "    c.stop()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gubernator_tpu' "
-        "or m.startswith('gubernator_tpu.'))\n"
+        "or m.startswith('gubernator_tpu.') or m == 'cryptography')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -149,7 +151,7 @@ def test_lifecycle_path_loads_nothing_of_the_jax_package():
         "d.close()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gubernator_tpu' "
-        "or m.startswith('gubernator_tpu.'))\n"
+        "or m.startswith('gubernator_tpu.') or m == 'cryptography')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -189,7 +191,7 @@ def test_state_path_loads_nothing_of_the_jax_package(tmp_path):
         "d.close()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gubernator_tpu' "
-        "or m.startswith('gubernator_tpu.'))\n"
+        "or m.startswith('gubernator_tpu.') or m == 'cryptography')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -244,7 +246,7 @@ def test_failure_path_loads_nothing_of_the_jax_package():
         "    c.stop()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gubernator_tpu' "
-        "or m.startswith('gubernator_tpu.'))\n"
+        "or m.startswith('gubernator_tpu.') or m == 'cryptography')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -304,9 +306,53 @@ def test_group_and_region_paths_load_nothing_of_the_jax_package():
         "    c.stop()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gubernator_tpu' "
-        "or m.startswith('gubernator_tpu.'))\n"
+        "or m.startswith('gubernator_tpu.') or m == 'cryptography')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+
+
+def test_hot_set_discovery_and_tls_paths_load_nothing_of_the_jax_package(
+        tmp_path):
+    """A promoted GLOBAL key on the hot set, a daemon on file discovery
+    and a pair of AutoTLS daemons (one forwarding to the other), in a
+    fresh process: no JAX-package module is loaded, and ``cryptography``
+    only once AutoTLS runs."""
+    peers = tmp_path / "peers"
+    code = (
+        "import sys\n"
+        "from gubernator_tpu_torch.config import (Config, DaemonConfig, "
+        "TLSSettings)\n"
+        "from gubernator_tpu_torch.daemon import spawn_daemon\n"
+        "from gubernator_tpu_torch.instance import V1Instance\n"
+        "from gubernator_tpu_torch.types import RateLimitRequest as R\n"
+        "inst = V1Instance(Config(device='cpu', hot_set_capacity=64, "
+        "hot_promote_threshold=1))\n"
+        "r = R(name='n', unique_key='g', limit=9, duration=60000, "
+        "behavior=2)\n"
+        "inst.get_rate_limits([r]); inst.get_rate_limits([r])\n"
+        "assert inst._hotset.slots\n"
+        "inst.close()\n"
+        f"open({str(peers)!r}, 'w').write('127.0.0.1:1\\n')\n"
+        "d = spawn_daemon(DaemonConfig(device='cpu', cache_size=4096, "
+        "grpc_listen_address='127.0.0.1:0', http_listen_address="
+        f"'127.0.0.1:0', peer_discovery_type='file', peers_file="
+        f"{str(peers)!r}))\n"
+        "assert [p.info.grpc_address for p in d.instance.peers()] == "
+        "['127.0.0.1:1']\n"
+        "d.close()\n"
+        "early = 'cryptography' in sys.modules\n"
+        "d = spawn_daemon(DaemonConfig(device='cpu', cache_size=4096, "
+        "grpc_listen_address='127.0.0.1:0', http_listen_address="
+        "'127.0.0.1:0', tls=TLSSettings(auto_tls=True)))\n"
+        "d.close()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'gubernator_tpu' "
+        "or m.startswith('gubernator_tpu.'))\n"
+        "print(bad, early)\n"
+        "sys.exit(1 if bad or early else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=180)
     assert r.returncode == 0, r.stdout + r.stderr[-3000:]
@@ -334,6 +380,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from gubernator_tpu_torch.config import Config, DaemonConfig
     from gubernator_tpu_torch.daemon import spawn_daemon
     from gubernator_tpu_torch.engine import BucketEngine
+    from gubernator_tpu_torch.hotset import HotSetEngine
     from gubernator_tpu_torch.instance import V1Instance
     from gubernator_tpu_torch.sharded import ShardedEngine
 
@@ -350,6 +397,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cluster.start(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        HotSetEngine()
     assert Config().device == DaemonConfig().device == "cuda"
 
 

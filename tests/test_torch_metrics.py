@@ -33,7 +33,6 @@ from test_torch_wire import (CAP, ENGINES, jax_instance, port_instance,  # noqa:
 
 #: JAX families of subsystems the port has not ported, by subsystem
 NOT_PORTED = {
-    "hot set": {"gubernator_hotset_demotions"},
     "fused Pallas serving counters": {"gubernator_pallas_fused_waves",
                                       "gubernator_pallas_mesh_fused_hits"},
     "compile ledger": {"gubernator_jit_compiles"},
@@ -66,7 +65,7 @@ def families(m):
 
 def test_every_port_family_has_its_jax_namesake():
     port, ref = families(Metrics()), families(JaxMetrics())
-    assert len(port) == 50
+    assert len(port) == 51
     for attr, fam in port.items():
         assert ref.get(attr) == fam, attr
 
@@ -169,6 +168,7 @@ def test_failed_forward_counts_match_jax(monkeypatch):
     me, dead = "127.0.0.1:1", dead_address()
     port = V1Instance(Config(cache_size=CAP, batch_rows=64, device="cpu",
                              sweep_interval_ms=0, advertise_address=me,
+                             hot_set_capacity=0,
                              behaviors=BehaviorConfig()))
     ref = JaxInstance(JaxConfig(cache_size=CAP, batch_rows=64,
                                 sweep_interval_ms=0, hot_set_capacity=0,

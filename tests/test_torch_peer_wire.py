@@ -159,6 +159,7 @@ def engines(request, monkeypatch):
     def port():
         inst = V1Instance(Config(cache_size=CAP, batch_rows=64,
                                  device="cpu", sweep_interval_ms=0,
+                                 hot_set_capacity=0,
                                  engine="" if bucket else "xla"))
         made.append(inst)
         return inst

@@ -148,8 +148,9 @@ def test_static_discovery_adds_self_and_other_types_raise():
     assert len(seen) == 1
     assert discovery.make_discovery(config.DaemonConfig(), me,
                                     seen.append) is None
-    cfg.peer_discovery_type = "dns"
-    with pytest.raises(ValueError, match="not ported yet"):
+    # every backend is ported now; an unknown type still raises
+    cfg.peer_discovery_type = "carrier-pigeon"
+    with pytest.raises(ValueError, match="unknown peer discovery type"):
         discovery.make_discovery(cfg, me, seen.append)
 
 

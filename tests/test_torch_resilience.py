@@ -240,7 +240,8 @@ def gated(monkeypatch, jax_env):  # noqa: F811
     monkeypatch.setattr(port_pc, "time", clock)
     monkeypatch.setattr(jax_pc, "time", clock)
     port = V1Instance(Config(device="cpu", cache_size=4096, batch_rows=64,
-                             sweep_interval_ms=0, advertise_address=ME))
+                             sweep_interval_ms=0, advertise_address=ME,
+                             hot_set_capacity=0))
     ref = JaxInstance(JaxConfig(cache_size=4096, batch_rows=64,
                                 sweep_interval_ms=0, hot_set_capacity=0,
                                 advertise_address=ME))

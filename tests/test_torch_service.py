@@ -125,7 +125,7 @@ def test_16_concurrent_callers_match_jax_instance(monkeypatch, seed):
         monkeypatch.setenv(var, "0")
     streams = {c: caller_stream(c, seed) for c in range(16)}
     port = V1Instance(Config(cache_size=CAP, batch_rows=64, device="cpu",
-                             sweep_interval_ms=0))
+                             sweep_interval_ms=0, hot_set_capacity=0))
     try:
         got = run_callers(port, RateLimitRequest, streams)
     finally:
@@ -138,6 +138,75 @@ def test_16_concurrent_callers_match_jax_instance(monkeypatch, seed):
     try:
         want = run_callers(jax_inst, JaxReq, streams)
     finally:
+        jax_inst.close()
+    for c in streams:
+        assert flat(got[c]) == flat(want[c]), c
+
+
+def hot_caller_stream(caller: int, seed: int):
+    """GLOBAL-heavy batches at the hot set's default settings: a few keys
+    take enough hits to pass the default promotion threshold (64) and
+    ride the hot set; RESET_REMAINING rows and a new limit on a key
+    demote it again; non-GLOBAL rows take the table."""
+    rng = np.random.default_rng(seed * 100 + caller + 7)
+    batches = []
+    for b in range(8):
+        reqs = []
+        for _ in range(int(rng.integers(20, 60))):
+            kid = int(rng.zipf(1.3)) % 8
+            beh = int(rng.choice([2, 2, 2, 2, 0, 10]))  # 10 = GLOBAL|RESET
+            limit = 500 + kid * 50 + (25 if b == 6 and kid == 1 else 0)
+            reqs.append(dict(name=f"h{caller}", unique_key=f"k{kid}",
+                             hits=int(rng.integers(0, 5)), limit=limit,
+                             duration=60_000, algorithm=kid % 2,
+                             behavior=beh, burst=0))
+        batches.append((reqs, NOW + 200 * b + caller))
+    return batches
+
+
+def demotion_counts(inst):
+    return [inst.metrics.registry.get_sample_value(
+        "gubernator_hotset_demotions_total", {"reason": r}) or 0.0
+        for r in ("flagged", "config_change", "membership_change")]
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_hot_set_at_the_default_matches_jax_instance(monkeypatch, seed):
+    """Both packages at the default hot_set_capacity (1024) and
+    threshold (64), GLOBAL rows in the mix: equal answers, pinned keys
+    and demotion counters.  The callers run one after another on both
+    sides: a promotion queued by one caller can be drained by another's
+    batch before its own step (JAX's too), so concurrent runs may
+    differ."""
+    from gubernator_tpu.config import Config as JaxConfig
+    from gubernator_tpu.instance import V1Instance as JaxInstance
+    from gubernator_tpu.parallel import make_mesh
+    from gubernator_tpu.parallel.pallas_engine import PallasServingEngine
+    from gubernator_tpu.types import RateLimitRequest as JaxReq
+
+    for var in ("GUBER_ANALYTICS", "GUBER_SLO", "GUBER_MEM_LEDGER"):
+        monkeypatch.setenv(var, "0")
+    streams = {c: hot_caller_stream(c, seed) for c in range(4)}
+
+    def run(inst, cls):
+        return {c: [inst.get_rate_limits([cls(**r) for r in reqs],
+                                         now_ms=now)
+                    for reqs, now in streams[c]] for c in streams}
+
+    port = V1Instance(Config(cache_size=CAP, batch_rows=64, device="cpu",
+                             sweep_interval_ms=0))
+    jax_inst = JaxInstance(
+        JaxConfig(cache_size=CAP, batch_rows=64, sweep_interval_ms=0),
+        engine=PallasServingEngine(make_mesh(n=1), capacity_per_shard=CAP,
+                                   batch_per_shard=64))
+    try:
+        got, want = run(port, RateLimitRequest), run(jax_inst, JaxReq)
+        assert port._hotset is not None and port._hotset.slots
+        assert port._hotset.slots == jax_inst._hotset.slots
+        assert demotion_counts(port) == demotion_counts(jax_inst)
+        assert sum(demotion_counts(port)) > 0
+    finally:
+        port.close()
         jax_inst.close()
     for c in streams:
         assert flat(got[c]) == flat(want[c]), c
@@ -229,7 +298,8 @@ def test_classic_engine_instance_matches_jax_instance(monkeypatch, seed):
     _quiet_jax_instance(monkeypatch)
     streams = {c: caller_stream(c, seed + 10) for c in range(8)}
     port = V1Instance(Config(cache_size=CAP, batch_rows=64, device="cpu",
-                             engine="xla", sweep_interval_ms=0))
+                             engine="xla", sweep_interval_ms=0,
+                             hot_set_capacity=0))
     assert isinstance(port.engine, ShardedEngine)
     health = port.health_check()
     try:
@@ -269,7 +339,7 @@ def test_limit_2_40_classic_serves_bucket_refuses(monkeypatch):
             ("xla", JaxEngine, True), ("", PallasServingEngine, False)):
         port = V1Instance(Config(cache_size=CAP, batch_rows=64,
                                  device="cpu", engine=engine,
-                                 sweep_interval_ms=0))
+                                 sweep_interval_ms=0, hot_set_capacity=0))
         jax_inst = JaxInstance(
             JaxConfig(cache_size=CAP, batch_rows=64, sweep_interval_ms=0,
                       hot_set_capacity=0),
@@ -327,7 +397,8 @@ def test_small_cache_size_gets_the_jax_capacity(monkeypatch, engine):
 
     _quiet_jax_instance(monkeypatch)
     port = V1Instance(Config(cache_size=256, batch_rows=64, device="cpu",
-                             engine=engine, sweep_interval_ms=0))
+                             engine=engine, sweep_interval_ms=0,
+                             hot_set_capacity=0))
     classic = engine == "xla"
     jax_inst = JaxInstance(
         JaxConfig(cache_size=256, batch_rows=64, sweep_interval_ms=0,

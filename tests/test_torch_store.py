@@ -140,7 +140,8 @@ def jax_instance(engine: str, **jax_kw):
 
 def pair(engine: str, port_kw: dict, jax_kw: dict):
     port = V1Instance(Config(cache_size=CAP, batch_rows=64, device="cpu",
-                             sweep_interval_ms=0, engine=engine, **port_kw))
+                             sweep_interval_ms=0, engine=engine,
+                             hot_set_capacity=0, **port_kw))
     try:
         return port, jax_instance(engine, **jax_kw)
     except BaseException:

@@ -160,7 +160,7 @@ def test_native_store_build_failure_raises(monkeypatch, tmp_path):
 def port_instance(engine: str, cap: int = CAP, tier: bool = True):
     return V1Instance(Config(cache_size=cap, batch_rows=64, device="cpu",
                              sweep_interval_ms=0, engine=engine,
-                             tier_cold=tier))
+                             hot_set_capacity=0, tier_cold=tier))
 
 
 def jax_instance(engine: str, cap: int = CAP):
@@ -499,6 +499,7 @@ def test_bucket_restore_keeps_every_row_as_jax_classic(quiet, seed):
                          batch_per_shard=64))
     port = V1Instance(Config(cache_size=CAP, batch_rows=64, device="cpu",
                              sweep_interval_ms=0, tier_cold=True,
+                             hot_set_capacity=0,
                              loader=store.MockLoader(
                                  contents=store.items_from_arrays(rows))))
     try:
@@ -611,7 +612,8 @@ def test_jax_pipelined_lane_answers_out_of_domain_rows_table_full(quiet):
 def store_instance(engine: str, store, cap: int = CAP, tier: bool = True):
     return V1Instance(Config(cache_size=cap, batch_rows=64, device="cpu",
                              sweep_interval_ms=0, engine=engine,
-                             tier_cold=tier, store=store))
+                             hot_set_capacity=0, tier_cold=tier,
+                             store=store))
 
 
 FILL = [dict(name="f", unique_key=f"f{i}", hits=1, limit=5,

@@ -53,7 +53,7 @@ def jax_instance(engine: str, batch_rows: int = 64):
 def port_instance(engine: str, batch_rows: int = 64):
     return V1Instance(Config(cache_size=CAP, batch_rows=batch_rows,
                              device="cpu", engine=engine,
-                             sweep_interval_ms=0))
+                             sweep_interval_ms=0, hot_set_capacity=0))
 
 
 def wire_stream(caller: int, seed: int):
@@ -147,6 +147,49 @@ def test_concurrent_wire_callers_match_jax(monkeypatch, engine, seed):
         jax_inst.close()
     for c in streams:
         assert got[c] == want[c], c
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_hot_set_at_the_default_matches_jax(monkeypatch, engine):
+    """The hot-set streams of test_torch_service as wire bytes, both
+    packages at the default hot_set_capacity (1024), the callers one
+    after another (see that test): byte-equal answers, equal pinned
+    keys and demotion counters.  GLOBAL batches take the wire_hotset
+    lane, or the protobuf lane where a pinned key demotes."""
+    from gubernator_tpu.config import Config as JaxConfig
+    from gubernator_tpu.instance import V1Instance as JaxInstance
+    from gubernator_tpu.parallel import make_mesh
+    from gubernator_tpu.parallel.pallas_engine import PallasServingEngine
+    from gubernator_tpu.parallel.sharded import ShardedEngine as JaxEngine
+
+    from test_torch_service import demotion_counts, hot_caller_stream
+
+    quiet_jax(monkeypatch)
+    streams = {c: [(encode_get_rate_limits(
+        [RateLimitRequest(**r) for r in reqs]), now)
+        for reqs, now in hot_caller_stream(c, 3)] for c in range(4)}
+    port = V1Instance(Config(cache_size=CAP, batch_rows=64, device="cpu",
+                             engine=ENGINES[engine], sweep_interval_ms=0))
+    cls = JaxEngine if ENGINES[engine] == "xla" else PallasServingEngine
+    jax_inst = JaxInstance(
+        JaxConfig(cache_size=CAP, batch_rows=64, sweep_interval_ms=0),
+        engine=cls(make_mesh(n=1), capacity_per_shard=CAP,
+                   batch_per_shard=64))
+    try:
+        for c in streams:
+            for data, now in streams[c]:
+                assert port.get_rate_limits_wire(data, now) == \
+                    jax_inst.get_rate_limits_wire(data, now), c
+        assert port._hotset.slots == jax_inst._hotset.slots
+        assert demotion_counts(port) == demotion_counts(jax_inst)
+        lanes = port.metrics.registry.get_sample_value(
+            "gubernator_wire_lane_requests_total", {"lane": "wire_hotset"})
+        assert lanes == jax_inst.metrics.registry.get_sample_value(
+            "gubernator_wire_lane_requests_total", {"lane": "wire_hotset"})
+        assert lanes > 0
+    finally:
+        port.close()
+        jax_inst.close()
 
 
 def lane_batch(lane: str):
