@@ -22,6 +22,14 @@ current seven arguments (then both K2s are launched raw, the same way).
 PyTorch's default stream.  ``--k3-only`` and ``--k2-only`` compare one
 kernel.
 
+``--old-tree DIR`` compares whole trees instead: an earlier checkout
+unpacked inside this one (``git archive <commit> | tar -x -C DIR``) and
+this tree each run chip_smoke.py's phase 5 (the bucket daemon's
+rounds, its wire path and its A/Bs) in a process of its own, in turns
+old, new, new, old; each turn prints the object and wire lanes' rates
+and p99 and the analytics on / off A/B (overhead, per-pair ratios) of
+that tree, and the last line their means by tree.
+
 Each pair is first checked equal on the same input (K1: outputs and the
 whole table), then timed in turns, old, new, new, old, with two
 measures: "device", the CUDA events around launches the host queued
@@ -319,11 +327,83 @@ def k1_phases(torch, args, old_lib):
     return k1, sweep
 
 
+#: phase 5 of a tree's chip_smoke.py, in a process of its own (run with
+#: the tree as the working directory, so its own package is imported)
+PHASE5 = """
+import json, sys, types
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+with cs.phase("device"):
+    cs.phase_device(torch)
+with cs.phase("build"):
+    cs.phase_build()
+args = types.SimpleNamespace(
+    log2_cap=25, soa_log2_cap=24, keys=10_000_000, waves=4, main_waves=2,
+    wave_rows=8192, small_rows=1024, threads=8, rounds=2, classic_rounds=2,
+    classic_sweep_ms=1000, sweep_reps=5, batches=50, profile_batches=20,
+    seed=0, cluster_log2_cap=24, cluster_rounds=2, outage_batches=50,
+    handover_log2_cap=22, tier_log2_cap=23, member_log2_cap=22, only="")
+res = cs.phase_main_path(torch, args, *cs.fit_population(args.keys,
+                                                         args.log2_cap))
+ab = {lane: {k: v["native"][k] for k in ("overhead_pct", "ratios",
+                                          "on_median", "off_median")}
+      for lane, v in res["analytics_ab"].items()}
+print("PHASE5 " + json.dumps({
+    "object_decisions_per_s": res["decisions_per_s"],
+    "object_p99_ms": res["p99_ms"],
+    "wire_decisions_per_s": res["wire"]["decisions_per_s"],
+    "wire_p99_ms": res["wire"]["p99_ms"], "analytics_ab": ab}), flush=True)
+"""
+
+
+def trees_ab(old_tree: Path) -> int:
+    """Phase 5 of the earlier tree and of this one, in turns old, new,
+    new, old, each in a process of its own; the turns' logs go to
+    build/trees_ab/<turn>.log (a failed turn's tail is printed)."""
+    here = Path(__file__).resolve().parent
+    trees = {"old": old_tree.resolve(), "new": here}
+    out_dir = here / "build" / "trees_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    turns = []
+    for i, which in enumerate(("old", "new", "new", "old")):
+        log = out_dir / f"{i}_{which}.log"
+        with open(log, "w") as f:
+            rc = subprocess.run([sys.executable, "-c", PHASE5],
+                                cwd=trees[which], stdout=f,
+                                stderr=subprocess.STDOUT).returncode
+        line = [x for x in log.read_text().splitlines()
+                if x.startswith("PHASE5 ")]
+        if rc != 0 or not line:
+            print(f"turn {i} ({which}) failed (rc {rc}):\n"
+                  f"{log.read_text()[-4000:]}", flush=True)
+            return 1
+        got = json.loads(line[-1][len("PHASE5 "):])
+        print(f"turn {i} ({which}): {json.dumps(got)}", flush=True)
+        turns.append((which, got))
+    means = {}
+    for which in ("old", "new"):
+        mine = [g for w, g in turns if w == which]
+        means[which] = {
+            k: float(np.mean([g[k] for g in mine]))
+            for k in ("object_decisions_per_s", "object_p99_ms",
+                      "wire_decisions_per_s", "wire_p99_ms")}
+        for lane in ("wire", "object"):
+            means[which][f"{lane}_analytics_overhead_pct"] = float(np.mean(
+                [g["analytics_ab"][lane]["overhead_pct"] for g in mine]))
+    print(json.dumps({"old_tree": str(old_tree), "means": means}),
+          flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old-csrc", type=Path, required=True,
+    ap.add_argument("--old-csrc", type=Path,
                     help="directory holding the earlier decide.cu, "
                          "sweep.cu and probe.cu")
+    ap.add_argument("--old-tree", type=Path,
+                    help="an earlier checkout: compare phase 5 of both "
+                         "trees instead of the kernels")
     ap.add_argument("--old-k1-takes-hot", action="store_true",
                     help="the earlier K1 takes the hot and stats arguments")
     ap.add_argument("--k3-only", action="store_true",
@@ -343,6 +423,10 @@ def main(argv=None) -> int:
     ap.add_argument("--small-rows", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.old_tree is not None:
+        return trees_ab(args.old_tree)
+    if args.old_csrc is None:
+        ap.error("--old-csrc or --old-tree is required")
 
     import torch
 

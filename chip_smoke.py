@@ -14,6 +14,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py            # full size: 10M keys on each path
     python3 chip_smoke.py --only hot,membership,gossip   # those phases
+    python3 chip_smoke.py --only main,cluster   # phase 5, the cluster
 
 Phases (each prints a line with its seconds; any failure exits non-zero):
 
@@ -89,6 +90,21 @@ Phases (each prints a line with its seconds; any failure exits non-zero):
    profile-batches with the analytics on and one detached, each under a
    host profile (the CPU seconds of the dispatcher's and the analytics'
    workers, a stack sample every 5 ms);
+   observability, after the timed rounds: one object round of 8 x
+   AB_BATCHES batches, after which the tenant ledger's requests, hits,
+   OVER_LIMIT and error rows grew by exactly the round's (flushed, no
+   tap dropped); /debug/memory's device_bytes equal to the table's
+   tensors' nbytes, printed beside torch.cuda.memory_allocated(), and
+   ?advise=1 splitting exactly the row budget; /debug/slo's verdicts,
+   none breached or burning; TRACE_BATCHES gRPC batches of TRACE_ROWS
+   rows from one caller with sampled traceparents (the recorder's rate
+   at 1): each commits one tree, the handler's span over its wave,
+   whose phase children partition it exactly (the wave's share of the
+   handler's time printed), then as many at the default rate 0, which
+   record nothing; /debug/profile?seconds=PROFILE_S while 8 callers
+   send wire batches, its rate beside a round of the same size without
+   a capture, a second request answered 409, and the capture's Chrome
+   trace naming K1's kernel (decide_kernel);
    admission: one round of wire traffic with the admission bound at
    ADMISSION_ROWS rows: some batches must shed (ResourceExhausted,
    queue_full), the admitted ones are checked per key, and the shed
@@ -115,7 +131,15 @@ cluster: 3 daemons in this process (cluster.start_with), each with a
    flushes, GLOBAL hits, broadcasts and over-admission.  The daemons run
    the JAX package's BehaviorConfig defaults (degraded serves and the
    health-gated ring on); no row of a healthy round may come back
-   degraded.
+   degraded.  Their SLO windows are CLUSTER_SLO_WINDOWS (10 s / 30 s).
+   Once the GLOBAL queues drained: CLUSTER_TRACES batches of
+   non-GLOBAL rows of every owner, sampled, one after another through
+   daemon 0, each assembled (tracing.assemble over the three
+   /debug/traces) into one tree: the handler's span, its wave, a
+   peer.forward hop and under it the owner's grpc.GetPeerRateLimits and
+   wave; /debug/audit on every daemon at drift 0, fold_audits
+   conserved; /debug/costmodel holding broadcast and peer_flush
+   samples.
    outage (on the same daemons and tables): daemons 0 and 1 arm
    peer_send@<daemon 2>:error through POST /debug/faults and 8 callers
    send the same traffic to them only (caller mod 2), with 64 keys of
@@ -136,12 +160,24 @@ cluster: 3 daemons in this process (cluster.start_with), each with a
    none in the third, the degraded counter equal to the rows flagged,
    two generation bumps on daemons 0 and 1, the 64 keys on daemon 2 at
    exactly 10^9 less the hits sent, daemons 0 and 1's own keys exact,
-   no leak;
+   no leak.  The SLO plane: once every SLO of daemons 0 and 1 cooled
+   (the GLOBAL rounds may have burned fleet_conservation),
+   cmd/healthcheck.py --fail-on-burn exits 0 on both before the arming;
+   at the end of each window error_ratio's fast and slow burns, its
+   breach and the seconds from arming to its breach event, and the
+   fleet_conservation SLO's value (hits parked for daemon 2) are
+   printed; in the degraded window --fail-on-burn exits 1 exactly when
+   the daemon is unhealthy or error_ratio breached; the degraded serves'
+   traces are kept at sample 0 (forced), and the tenants count the
+   degraded rows gubernator_degraded_served counts;
    handover: a 4th daemon (2^22 rows) joins with handover_on_reshard on
    all four (set_peers on each); every moved row it placed equals its
    state before the join, the rows its full buckets refused are exactly
    its dropped_rows count and the count its buckets predict, and no old
    owner still holds a moved row; prints the step's ms and rows moved;
+   then the cluster closes with GUBER_DEBUG_DUMP_DIR set: each daemon
+   leaves its event ring with its SLO verdicts, and the three cluster
+   daemons their spans, as JSONL;
    group: GROUP_NODES daemon processes (cluster.start_subprocess_group:
    each its own interpreter and a 2^24-row bucket engine on the card,
    the kernels built first by this process), one SO_REUSEPORT client
@@ -265,6 +301,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -365,7 +402,7 @@ AB_BATCHES = 10
 ANALYTICS_AB_PAIRS = 9
 #: the hot phase: the interleaved pairs of a lane (default hot set
 #: against hot_set_capacity 0) and each arm's batches a caller
-HOT_AB_PAIRS = 5
+HOT_AB_PAIRS = 3
 HOT_BATCHES = 20
 #: object-lane waves of 1000 rows the tap's own cost is measured on
 TAP_COST_WAVES = 200
@@ -381,6 +418,28 @@ GOSSIP_NODES = 3
 #: keys the document is asked for
 TOPKEYS_CHECKED = 16
 TOPKEYS_LIMIT = 64
+#: phase 5's trace check: batches sent sampled, then as many unsampled,
+#: one caller, rows a batch
+TRACE_BATCHES = 100
+TRACE_ROWS = 100
+#: phase 5's profile capture: its seconds, and the batches a caller
+#: sends in the round timed with it and in the one timed without
+PROFILE_S = 2
+PROFILE_BATCHES = 30
+#: the tenant ledger's own A/B (tenants on / detached), pairs a lane
+TENANT_AB_PAIRS = 3
+#: the cluster phase's sampled forwards, sent one after another
+CLUSTER_TRACES = 10
+#: the cluster's SLO burn windows (GUBER_SLO_FAST / GUBER_SLO_SLOW; JAX's
+#: defaults are 1 and 5 minutes), short enough that an SLO the healthy
+#: rounds burned cools before the outage, within SLO_COOL_S
+CLUSTER_SLO_WINDOWS = ("10s", "30s")
+SLO_COOL_S = 30.0
+#: the cluster's decision_p99 target where GUBER_SLO_P99_MS sets none
+#: (JAX's default is 250 ms): three daemons in one interpreter share its GIL, and a wave's
+#: device phase, launch to sync, takes those waits in (the healthy
+#: rounds breached 250 ms on the card)
+CLUSTER_SLO_P99_MS = "1000"
 #: the tiers phase's population: every TIER_LEAKY_EVERY-th row LEAKY,
 #: every TIER_OOD_EVERY-th at a limit of OOD_LIMIT (outside K1's domain)
 TIER_LEAKY_EVERY = 10
@@ -933,6 +992,16 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
                      ("native", lambda: flushed(inst, nullcontext()))))
                 fold_ab[lane]["taps_dropped"] = \
                     inst.analytics.stats()["taps_dropped"] - dropped0
+            # the tenant ledger's share: analytics on in both arms, the
+            # tenants detached in one, the worker flushed before each
+            tenant_ab = {}
+            for lane in ("wire", "object"):
+                tenant_ab[lane] = interleaved_pairs(
+                    f"{lane} lane tenant ledger", ab_arms.runner(lane),
+                    (("tenants", lambda: flushed(inst, nullcontext())),
+                     ("detached", lambda: flushed(
+                         inst, tenants_detached(inst)))),
+                    pairs=TENANT_AB_PAIRS)
         with phase("analytics tap cost"):
             from gubernator_tpu_torch.cmd.tapcost import measure
 
@@ -947,6 +1016,10 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
             host_profile = profiled_object_rounds(
                 inst, rng, len(pop_idx), key_of, limit, duration, args,
                 timer, pauses, tally)
+        with phase("observability"):
+            observe = phase5_observability(
+                torch, d, rng, len(pop_idx), key_of, limit, duration, args,
+                tally, grpc)
         with phase("admission"):
             shed = admission_round(inst, rng, len(pop_idx), key_of, limit,
                                    duration, args, tally)
@@ -982,7 +1055,7 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
            "p99_ms": float(np.percentile(lat_ms, 99)),
            "batches": len(lat_ms), "launches": launches, "rounds": rounds,
            "metrics": metrics, "healthz_deep": health,
-           "admission": shed, "drain": drain}
+           "admission": shed, "drain": drain, "observability": observe}
     print(f"main path: {n_obj} decisions ({tally.n_req} with the wire, "
           f"pipeline-off and admission rounds', each key exact) over "
           f"{len(tally.count)} keys; {len(timed)} timed rounds: "
@@ -1003,6 +1076,7 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
     res["analytics_ab"] = ana_ab
     res["wire_analytics_off_launches"] = noana_launches
     res["fold_ab"] = fold_ab
+    res["tenant_ab"] = tenant_ab
     res["tap_cost"] = tap_cost
     res["hash_ab"] = hash_ab
     print(f"analytics on / off, the reference's method: " + json.dumps(
@@ -1034,6 +1108,243 @@ def phase_main_path(torch, args, pop_idx, pop_keys):
     require(res["wire_pipeline_off"]["pipelined_waves"] == 0,
             "the pipeline-off rounds pipelined")
     return res
+
+
+def object_jobs(per, key_of, limit: int, duration: int) -> list:
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    return [[[RateLimitRequest(name="smoke", unique_key=key_of(r), hits=1,
+                               limit=limit, duration=duration)
+              for r in ranks] for ranks in thread] for thread in per]
+
+
+def tenant_round(inst, rng, n_keys, key_of, limit, duration, args,
+                 tally) -> dict:
+    """One object round of 8 x AB_BATCHES batches: after a flush, the
+    tenant ledger's requests, hits, OVER_LIMIT and error rows grew by
+    exactly what the round sent and was answered (an object-lane wave is
+    tapped whole, table-full rows as errors)."""
+    ana = inst.analytics
+    require(ana.flush(timeout=60.0), "analytics flush")
+    before, dropped0 = ana.tenant_totals(), ana.stats()["taps_dropped"]
+    per = [[zipf_ranks(rng, 1.1, n_keys, 1000) for _ in range(AB_BATCHES)]
+           for _ in range(args.threads)]
+    _, wall, _, results = drive(inst.get_rate_limits,
+                                object_jobs(per, key_of, limit, duration))
+    tally.add(per, results)
+    resps = [r for t in results.values() for b in t for r in b]
+    require(ana.flush(timeout=60.0), "analytics flush")
+    after = ana.tenant_totals()
+    delta = {f: after[f] - before[f] for f in after}
+    want = {"requests": len(resps), "hits": len(resps),
+            "over_limit": sum(r.status == 1 and not r.error
+                              for r in resps),
+            "errors": sum(bool(r.error) for r in resps), "degraded": 0,
+            "shed": 0}
+    out = {"delta": delta, "tally": want, "wall_s": wall,
+           "tenants": len(ana.tenants_snapshot()["tenants"]),
+           "taps_dropped": ana.stats()["taps_dropped"] - dropped0}
+    print(f"tenants over one object round: {json.dumps(out)}", flush=True)
+    require(out["taps_dropped"] == 0, "a tap was dropped")
+    require(delta == want, f"tenant totals {delta} != the round's {want}")
+    return out
+
+
+def memory_check(torch, d) -> dict:
+    """/debug/memory: device_bytes is the enrolled tensors' nbytes (the
+    table's, and the hot set's replicas if built), printed beside
+    torch.cuda.memory_allocated(); ?advise=1 splits exactly the row
+    budget."""
+    inst = d.instance
+    code, body = get_json(d.http_port, "/debug/memory")
+    require(code == 200, f"/debug/memory {code}")
+    tensors = sum(int(t.nbytes) for t in inst.engine.table_tensors())
+    hs = inst._hotset
+    if hs is not None:
+        tensors += sum(int(t.nbytes) for t in
+                       list(hs.state) + [hs.base_rem, hs.base_t])
+    code, adv = get_json(d.http_port, "/debug/memory?advise=1")
+    a = adv["advise"]
+    out = {"device_bytes": body["device_bytes"], "tensor_nbytes": tensors,
+           "memory_allocated": (torch.cuda.memory_allocated()
+                                if DEVICE == "cuda" else None),
+           "host_bytes": body["host_bytes"], "pressure": body["pressure"],
+           "consumers": {n: c.get("bytes") for n, c in
+                         body["consumers"].items()},
+           "advise_total_rows": a["total_rows"],
+           "advised": a["advised"]}
+    print(f"memory ledger: {json.dumps(out)}", flush=True)
+    require(body["device_bytes"] == tensors,
+            f"device_bytes {body['device_bytes']} != {tensors}")
+    require(sum(a["advised"].values()) == a["total_rows"],
+            f"advice {a['advised']} does not split {a['total_rows']}")
+    return out
+
+
+def slo_check(d, label: str) -> dict:
+    """/debug/slo of a healthy daemon: every verdict printed, none
+    breached or burning."""
+    code, body = get_json(d.http_port, "/debug/slo")
+    require(code == 200, f"/debug/slo {code}")
+    rows = [{k: r.get(k) for k in ("slo", "tenant", "fast_burn",
+                                    "slow_burn", "breached", "value",
+                                    "target")} for r in body["slos"]]
+    print(f"slo verdicts, {label}: {json.dumps(rows)}", flush=True)
+    thr = body["burn_threshold"]
+    bad = [r for r in rows if r["breached"] or r["fast_burn"] > thr]
+    require(not bad, f"SLOs burning in a healthy round: {bad}")
+    return {"ticks": body["ticks"], "slos": rows}
+
+
+def wave_nodes(trace) -> list:
+    out = []
+
+    def walk(n):
+        if n["name"] == "wave":
+            out.append(n)
+        for ch in n["children"]:
+            walk(ch)
+
+    for r in trace["roots"]:
+        walk(r)
+    return out
+
+
+def exact_partition(wave) -> bool:
+    kids = wave["children"]
+    return (bool(kids) and kids[0]["start"] == wave["start"]
+            and kids[-1]["end"] == wave["end"]
+            and all(b["start"] == a["end"] for a, b in zip(kids, kids[1:])))
+
+
+def trace_check(d, rng, n_keys, key_of, limit, duration, tally) -> dict:
+    """TRACE_BATCHES batches of TRACE_ROWS rows over gRPC, one caller,
+    each with its own traceparent, sampled (the recorder's rate at 1):
+    each trace commits one tree, the handler's span over its wave, whose
+    phase children partition it exactly; then as many at the default
+    rate 0: none records anything.  Prints the wave's share of the
+    batch's time in the handler."""
+    import grpc
+    import secrets
+
+    from gubernator_tpu_torch.grpc_api import raw_unary
+    from gubernator_tpu_torch.tracing import assemble
+
+    rec = d.instance.span_recorder
+    sample0 = rec.sample
+    ch = grpc.insecure_channel(f"127.0.0.1:{d.grpc_port}")
+    call = raw_unary(ch, "GetRateLimits")
+    sent = {True: [], False: []}
+    try:
+        for sampled in (True, False):
+            rec.sample = 1.0 if sampled else 0.0
+            per = [[zipf_ranks(rng, 1.1, n_keys, TRACE_ROWS)
+                    for _ in range(TRACE_BATCHES)]]
+            jobs = wire_jobs(per, key_of, limit, duration)
+            res = {0: []}
+            for data in jobs[0]:
+                tid = secrets.token_hex(16)
+                out = call(data, timeout=60, metadata=[(
+                    "traceparent", f"00-{tid}-{secrets.token_hex(8)}-01")])
+                res[0].append(decode_responses(out))
+                sent[sampled].append(tid)
+            tally.add(per, res)
+    finally:
+        rec.sample = sample0
+        ch.close()
+    shares, bad = [], []
+    for tid in sent[True]:
+        trees = assemble(rec.spans(trace_id=tid), tid)
+        waves = wave_nodes(trees[0]) if trees else []
+        ok = (len(trees) == 1 and len(trees[0]["roots"]) == 1
+              and trees[0]["roots"][0]["name"] == "grpc.GetRateLimits"
+              and len(waves) == 1 and exact_partition(waves[0])
+              and waves[0]["parent_id"] == trees[0]["roots"][0]["span_id"])
+        if not ok:
+            bad.append(tid)
+            continue
+        root = trees[0]["roots"][0]
+        shares.append((waves[0]["end"] - waves[0]["start"])
+                      / max(root["end"] - root["start"], 1e-9))
+    leaked = [t for t in sent[False] if rec.spans(trace_id=t)]
+    out = {"sampled": len(sent[True]), "trees_ok": len(shares),
+           "unsampled": len(sent[False]),
+           "unsampled_recorded": len(leaked),
+           "wave_share_of_handler_median": (float(np.median(shares))
+                                            if shares else None),
+           "wave_share_of_handler_p10_p90": (
+               [float(np.percentile(shares, 10)),
+                float(np.percentile(shares, 90))] if shares else None),
+           "recorder": rec.stats()}
+    print(f"traces: {json.dumps(out)}", flush=True)
+    require(not bad, f"{len(bad)} sampled batches without one partitioned "
+            f"tree, e.g. {bad[:3]}")
+    require(not leaked, f"{len(leaked)} unsampled batches recorded spans")
+    return out
+
+
+def profile_check(torch, d, rng, n_keys, key_of, limit, duration, args,
+                  tally) -> dict:
+    """/debug/profile?seconds=PROFILE_S while 8 callers send wire
+    batches (PROFILE_BATCHES each), after a round of the same size
+    without a capture: the rates side by side; a second request during
+    the capture answers 409; the capture's trace names K1's kernel
+    symbol (on the card)."""
+    inst = d.instance
+
+    def round_():
+        per = [[zipf_ranks(rng, 1.1, n_keys, 1000)
+                for _ in range(PROFILE_BATCHES)]
+               for _ in range(args.threads)]
+        jobs = wire_jobs(per, key_of, limit, duration)
+        _, wall, lat, raw = drive(inst.get_rate_limits_wire, jobs)
+        tally.add(per, {t: [decode_responses(x) for x in b]
+                        for t, b in raw.items()})
+        return sum(len(x) for t in per for x in t) / wall, wall
+
+    base_rate, base_wall = round_()
+    code, started = get_json(d.http_port, f"/debug/profile?seconds={PROFILE_S}")
+    require(code == 200 and started.get("profiling"),
+            f"/debug/profile start: {code} {started}")
+    code2, second = get_json(d.http_port, "/debug/profile?seconds=1")
+    cap_rate, cap_wall = round_()
+    deadline = time.monotonic() + 120
+    while True:
+        _, st = get_json(d.http_port, "/debug/profile")
+        if not st["active"] or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    require(not st["active"], "the profile capture never ended")
+    with open(st["trace"], encoding="utf-8") as f:
+        text = f.read()
+    out = {"rate_without": base_rate, "rate_with_capture": cap_rate,
+           "ratio": cap_rate / base_rate, "walls_s": [base_wall, cap_wall],
+           "second_request": code2, "trace_bytes": len(text),
+           "k1_symbol_in_trace": "decide_kernel" in text,
+           "events": text.count('"ph"')}
+    print(f"profile capture: {json.dumps(out)}", flush=True)
+    require(code2 == 409, f"a second capture answered {code2}: {second}")
+    require(DEVICE != "cuda" or out["k1_symbol_in_trace"],
+            "the capture does not name K1's kernel")
+    return out
+
+
+def phase5_observability(torch, d, rng, n_keys, key_of, limit, duration,
+                         args, tally, grpc) -> dict:
+    """The bucket daemon's observability, after its timed rounds: the
+    tenant ledger against one round's tally, the memory ledger against
+    the tensors, the SLO verdicts of the healthy daemon, sampled and
+    unsampled traces, and a profile capture under load."""
+    require(grpc, "the trace check needs grpcio")
+    inst = d.instance
+    return {"tenants": tenant_round(inst, rng, n_keys, key_of, limit,
+                                    duration, args, tally),
+            "memory": memory_check(torch, d),
+            "slo": slo_check(d, "bucket daemon after its rounds"),
+            "traces": trace_check(d, rng, n_keys, key_of, limit, duration,
+                                  tally),
+            "profile": profile_check(torch, d, rng, n_keys, key_of, limit,
+                                     duration, args, tally)}
 
 
 class _RingPeer:
@@ -1158,11 +1469,16 @@ def phase_cluster(torch, args, solo_rate=None):
     # the JAX package's BehaviorConfig defaults (degraded serves and the
     # health gate on)
     behaviors = BehaviorConfig(**CLUSTER_BEHAVIOR_OVERRIDES)
-    c = cluster.start_with([DaemonConfig(
-        grpc_listen_address="127.0.0.1:0", http_listen_address="127.0.0.1:0",
-        cache_size=1 << args.cluster_log2_cap, batch_rows=1024,
-        device=DEVICE, behaviors=behaviors)
-        for _ in range(CLUSTER_NODES)])
+    with scoped_env("GUBER_SLO_FAST", CLUSTER_SLO_WINDOWS[0]), \
+            scoped_env("GUBER_SLO_SLOW", CLUSTER_SLO_WINDOWS[1]), \
+            scoped_env("GUBER_SLO_P99_MS", os.environ.get(
+                "GUBER_SLO_P99_MS") or CLUSTER_SLO_P99_MS):
+        c = cluster.start_with([DaemonConfig(
+            grpc_listen_address="127.0.0.1:0",
+            http_listen_address="127.0.0.1:0",
+            cache_size=1 << args.cluster_log2_cap, batch_rows=1024,
+            device=DEVICE, behaviors=behaviors)
+            for _ in range(CLUSTER_NODES)])
     chans = []
     try:
         n = len(c.daemons)
@@ -1322,6 +1638,9 @@ def phase_cluster(torch, args, solo_rate=None):
         require(totals["forward_failures"] == 0,
                 f"{totals['forward_failures']} forwards failed")
         require(totals["leaks"] == 0, f"{totals['leaks']} leases leaked")
+        # after the rounds' counters are read: its forwards are its own
+        traces = cluster_trace_check(c, chans, rng, len(pop_idx), n_all,
+                                     owner, key_of, limit, duration, tally)
         tally.check()
         # a forwarded key lives on its owner alone
         touched = np.array(sorted(tally.count), np.int64)
@@ -1337,6 +1656,8 @@ def phase_cluster(torch, args, solo_rate=None):
                     f"daemon {i} holds rows it does not own")
             held += found
         require((held == 1).all(), "a touched key is not on its owner")
+        audit = cluster_audit_check(c, "after the GLOBAL queues drained")
+        costmodel = cluster_costmodel_check(c)
         ctx = OutageContext(
             ring=ring, owner=owner, pop_idx=pop_idx, pop_keys=pop_keys,
             tally=tally, key_of=key_of, limit=limit, duration=duration,
@@ -1346,6 +1667,7 @@ def phase_cluster(torch, args, solo_rate=None):
                                         for r in rounds[:-1]])))
         outage = phase_outage(torch, args, c, ctx)
         handover = phase_handover(args, c, ctx)
+        dump = close_dump_check(c)
     finally:
         for ch in chans:
             ch.close()
@@ -1379,7 +1701,8 @@ def phase_cluster(torch, args, solo_rate=None):
            "device": rounds[-1]["device"],
            "share_of_solo_wire": (float(np.mean(rates)) / solo_rate
                                   if solo_rate else None),
-           "outage": outage, "handover": handover}
+           "outage": outage, "handover": handover, "traces": traces,
+           "audit": audit, "costmodel": costmodel, "dump": dump}
     print(f"cluster: {n} daemons, {n_rows} decisions ({tally.n_req} "
           f"non-GLOBAL, each key exact); {len(timed)} timed rounds: "
           f"{res['decisions_per_s']} decisions/s ({rates}); batch p50 "
@@ -1398,6 +1721,156 @@ def phase_cluster(torch, args, solo_rate=None):
     require(launches > 0 and all(steps),
             f"a daemon never launched K1: {steps}")
     return res
+
+
+def cluster_trace_check(c, chans, rng, n_keys, n_all, owner, key_of, limit,
+                        duration, tally) -> dict:
+    """CLUSTER_TRACES batches of non-GLOBAL rows of every owner, one
+    after another through daemon 0's gRPC front door, each with a
+    sampled traceparent (the recorders' rate at 1): ``assemble`` over
+    the three daemons' /debug/traces builds one tree per trace, holding
+    the handler's span, its wave, a ``peer.forward`` hop and under it
+    the owner's ``grpc.GetPeerRateLimits`` and its wave; no parent is
+    missing (one root)."""
+    import secrets
+
+    from gubernator_tpu_torch.grpc_api import raw_unary
+    from gubernator_tpu_torch.tracing import assemble
+
+    recs = [d.instance.span_recorder for d in c.daemons]
+    for r in recs:
+        r.sample = 1.0
+    call = raw_unary(chans[0], "GetRateLimits")
+    tids, per, res = [], [[]], {0: []}
+    try:
+        for _ in range(CLUSTER_TRACES):
+            ranks = rng.integers(n_all, n_keys, 200)
+            tid = secrets.token_hex(16)
+            out = call(wire_jobs([[ranks]], key_of, limit, duration)[0][0],
+                       timeout=60, metadata=[(
+                           "traceparent",
+                           f"00-{tid}-{secrets.token_hex(8)}-01")])
+            per[0].append(ranks)
+            res[0].append(decode_responses(out))
+            tids.append(tid)
+    finally:
+        for r in recs:
+            r.sample = 0.0
+    tally.add(per, res)
+    spans = []
+    for d in c.daemons:
+        code, body = get_json(d.http_port, "/debug/traces")
+        require(code == 200, f"/debug/traces {code}")
+        spans += body["spans"]
+    bad, sizes = [], []
+    for tid in tids:
+        trees = assemble(spans, tid)
+        names, owner_waves = set(), 0
+
+        def walk(n, under_owner):
+            nonlocal owner_waves
+            names.add(n["name"])
+            if n["name"] == "wave" and under_owner:
+                owner_waves += 1
+            for ch in n["children"]:
+                walk(ch, under_owner or n["name"] == "grpc.GetPeerRateLimits")
+
+        for r in (trees[0]["roots"] if trees else []):
+            walk(r, False)
+        ok = (len(trees) == 1 and len(trees[0]["roots"]) == 1
+              and trees[0]["roots"][0]["name"] == "grpc.GetRateLimits"
+              and {"wave", "peer.forward", "grpc.GetPeerRateLimits"} <= names
+              and owner_waves >= 1
+              and all(exact_partition(w) for w in wave_nodes(trees[0])))
+        if ok:
+            sizes.append(trees[0]["spans"])
+        else:
+            bad.append((tid, [r["name"] for r in trees[0]["roots"]]
+                        if trees else None))
+    out = {"traces": len(tids), "one_tree_each": len(sizes),
+           "spans_per_trace": sizes,
+           "owners_of_rows": np.bincount(owner[np.concatenate(per[0])],
+                                         minlength=len(c.daemons)).tolist()}
+    print(f"cluster traces: {json.dumps(out)}", flush=True)
+    require(not bad, f"traces not assembled into one tree: {bad[:3]}")
+    return out
+
+
+def cluster_audit_check(c, label: str) -> dict:
+    """/debug/audit on every daemon: drift 0, and fold_audits of the
+    three conserves."""
+    from gubernator_tpu_torch.fleet import fold_audits, ring_verdict
+
+    docs = []
+    for d in c.daemons:
+        code, doc = get_json(d.http_port, "/debug/audit")
+        require(code == 200, f"/debug/audit {code}")
+        docs.append(doc)
+    fold = fold_audits(docs)
+    out = {"drift": [x["drift"] for x in docs],
+           "injected": [x["lanes"]["global"]["injected"] for x in docs],
+           "applied": [x["lanes"]["global"]["applied"] for x in docs],
+           "absorbed": [x["lanes"]["global"]["absorbed"] for x in docs],
+           "fold": {k: fold[k] for k in ("drift", "conserved", "totals")},
+           "ring_consistent": ring_verdict(docs)["consistent"]}
+    print(f"audit, {label}: {json.dumps(out)}", flush=True)
+    require(all(x["drift"] == 0 for x in docs) and fold["conserved"],
+            f"conservation drift: {out}")
+    return out
+
+
+def cluster_costmodel_check(c) -> dict:
+    """/debug/costmodel on every daemon: the cluster holds broadcast
+    and peer_flush samples."""
+    out = {}
+    for i, d in enumerate(c.daemons):
+        code, body = get_json(d.http_port, "/debug/costmodel")
+        require(code == 200, f"/debug/costmodel {code}")
+        out[i] = body["buckets"]
+    phases = {b["phase"] for bs in out.values() for b in bs
+              if b["samples"] > 0}
+    print(f"cost model: {json.dumps(out)}", flush=True)
+    require({"broadcast", "peer_flush"} <= phases,
+            f"cost model phases {sorted(phases)}")
+    return {"phases": sorted(phases), "buckets": out}
+
+
+def close_dump_check(c) -> dict:
+    """The cluster closed with GUBER_DEBUG_DUMP_DIR set: each daemon
+    leaves its event ring with its SLO verdicts, and its spans, as
+    JSONL."""
+    import glob
+    import tempfile
+
+    dump_dir = tempfile.mkdtemp(prefix="guber_dump_")
+    with scoped_env("GUBER_DEBUG_DUMP_DIR", dump_dir):
+        c.stop()
+    out = {"dir": dump_dir, "daemons": []}
+    for i, d in enumerate(c.daemons):
+        safe = "".join(ch if ch.isalnum() or ch in "-._" else "_"
+                       for ch in d.advertise_address)
+        ev = glob.glob(f"{dump_dir}/guber_dump_{safe}_*.jsonl")
+        tr = glob.glob(f"{dump_dir}/guber_traces_{safe}_*.jsonl")
+        require(len(ev) == 1, f"event dumps of {d.advertise_address}: {ev}")
+        with open(ev[0], encoding="utf-8") as f:
+            lines = f.read().splitlines()
+        head = json.loads(lines[0])
+        spans = []
+        if tr:
+            with open(tr[0], encoding="utf-8") as f:
+                spans = f.read().splitlines()[1:]
+        row = {"events": head["events"], "lines": len(lines) - 1,
+               "slo_verdicts": len(head.get("slo_verdicts") or []),
+               "spans": len(spans)}
+        out["daemons"].append(row)
+        require(row["events"] == row["lines"] > 0 and row["slo_verdicts"],
+                f"dump {row}")
+        # the cluster's daemons hold sampled and forced spans; the one
+        # that joined for the handover may hold none (then no file)
+        require(i >= CLUSTER_NODES or row["spans"] > 0,
+                f"daemon {i} dumped no span")
+    print(f"dumps on close: {json.dumps(out)}", flush=True)
+    return out
 
 
 class OutageContext(NamedTuple):
@@ -1617,6 +2090,20 @@ def phase_outage(torch, args, c, ctx) -> dict:
     decide_cuda.launches = 0
     seq0 = [insts[i].recorder.events()[-1]["seq"] for i in (0, 1)]
     spec = f"peer_send@{addr2}:error"
+    # the SLO plane, the tenants and the traces before the outage: the
+    # cluster rounds' GLOBAL backlog may have burned fleet_conservation
+    # (the audit drift is rarely 0 at a tick under GLOBAL load); the
+    # probe runs once every SLO cooled
+    cooled_s = [await_no_breach(c.daemons[i], SLO_COOL_S) for i in (0, 1)]
+    burn_rc0 = [fail_on_burn(c.daemons[i]) for i in (0, 1)]
+    slo_windows = {"before": outage_slo(c, time.time())}
+    require(burn_rc0 == [0, 0],
+            f"--fail-on-burn before the arming exited {burn_rc0}")
+    for i in insts:
+        require(i.analytics.flush(timeout=60.0), "analytics flush")
+    tenant_deg0 = sum(i.analytics.tenant_totals()["degraded"] for i in insts)
+    traces0 = [{x["trace_id"] for x in insts[i].span_recorder.spans()}
+               for i in (0, 1)]
 
     # 1-2. the degraded window: armed, traffic until just before the
     # first gate may flip, then the callers pause until both flipped
@@ -1640,6 +2127,9 @@ def phase_outage(torch, args, c, ctx) -> dict:
                                              since_seq=seq0[i]),
                 "a gate flipped while the degraded window's callers ran")
     rec = account("degraded", per, t0, wall, lat, raw)
+    slo_windows["degraded"] = outage_slo(c, t_arm, check_cli=True)
+    forced = [len({x["trace_id"] for x in insts[i].span_recorder.spans()}
+                  - traces0[i]) for i in (0, 1)]
     opened = min(s for s in (peer_of(insts[i], addr2)._route_bad_since
                              for i in (0, 1)) if s)
     before_open = [x[1] * 1e3 for x in starts if x[0] < opened]
@@ -1659,6 +2149,7 @@ def phase_outage(torch, args, c, ctx) -> dict:
     per, jobs = jobs_of(args.outage_batches)
     t0, wall, lat, raw = drive(rpc, jobs)
     account("rehomed", per, t0, wall, lat, raw)
+    slo_windows["rehomed"] = outage_slo(c, t_arm)
     for i in (0, 1):
         require(not insts[i].recorder.events(kind="ring_readmitted",
                                              since_seq=seq1[i]),
@@ -1676,6 +2167,7 @@ def phase_outage(torch, args, c, ctx) -> dict:
     per, jobs = jobs_of(args.outage_batches)
     t0, wall, lat, raw = drive(rpc, jobs)
     account("recovered", per, t0, wall, lat, raw)
+    slo_windows["recovered"] = outage_slo(c, t_arm)
     t_drain = time.perf_counter()
     deadline = time.monotonic() + CONVERGE_S
     while True:
@@ -1710,6 +2202,10 @@ def phase_outage(torch, args, c, ctx) -> dict:
                        for i in insts) - fault_metric0
     leaks = sum(i.engine.wave_pool.stats()["leaks"] for i in insts) - leaks0
     flagged = sum(w["degraded_rows"] for w in windows.values())
+    for i in insts:
+        require(i.analytics.flush(timeout=60.0), "analytics flush")
+    tenant_deg = sum(i.analytics.tenant_totals()["degraded"]
+                     for i in insts) - tenant_deg0
     lim100 = (ctx.owner == 2) & ~is_out
     lim100[:ctx.n_all] = False
     cluster_under = np.zeros(len(ctx.pop_idx), np.int64)
@@ -1727,7 +2223,11 @@ def phase_outage(torch, args, c, ctx) -> dict:
            "over_admission_max": int(over.max()) if over.size else 0,
            "over_admission_sum": int(over.sum()),
            "hits_degraded": totals.get("hits_degraded", 0),
-           "healthy_cluster_decisions_per_s": ctx.healthy_rate}
+           "healthy_cluster_decisions_per_s": ctx.healthy_rate,
+           "tenant_degraded": tenant_deg,
+           "forced_traces_degraded_window": forced,
+           "fail_on_burn_before_arming": burn_rc0, "slo": slo_windows,
+           "slo_cooled_s_before_arming": cooled_s}
     print(f"outage: {json.dumps({k: v for k, v in res.items() if k != 'windows'})}",
           flush=True)
     require(windows["degraded"]["degraded_rows"] > 0
@@ -1738,11 +2238,89 @@ def phase_outage(torch, args, c, ctx) -> dict:
     require(deg_metric == flagged,
             f"gubernator_degraded_served {deg_metric} != {flagged} rows "
             "flagged")
+    require(tenant_deg == deg_metric,
+            f"tenants count {tenant_deg} degraded rows, "
+            f"gubernator_degraded_served {deg_metric}")
+    require(all(forced), f"no degraded serve's trace was kept at sample "
+            f"0: {forced}")
     require(all(g1 - g0 == 2 for g0, g1 in zip(gen0[:2], gen1[:2])),
             f"ring generations {gen0} -> {gen1}: not two bumps each")
     require(leaks == 0, f"{leaks} leases leaked")
     require(launches > 0, "K1 never launched in the outage phase")
     return res
+
+
+def await_no_breach(d, bound_s: float) -> float:
+    """Seconds until the daemon is healthy with no SLO breached (polled
+    on /healthz?deep=1); fails past ``bound_s``, printing the SLOs."""
+    t0 = time.monotonic()
+    while True:
+        _, h = get_json(d.http_port, "/healthz?deep=1")
+        if h["status"] == "healthy" and not h["slo"]["breached"]:
+            return time.monotonic() - t0
+        if time.monotonic() - t0 >= bound_s:
+            slo_check(d, f"{d.advertise_address} before the outage")
+        require(time.monotonic() - t0 < bound_s,
+                f"{d.advertise_address} still {h['status']}, breached "
+                f"{h['slo']['breached']} after {bound_s} s")
+        time.sleep(0.2)
+
+
+def fail_on_burn(d) -> int:
+    """``cmd/healthcheck.py --fail-on-burn``'s exit code against a
+    daemon (its output kept off this script's)."""
+    import contextlib
+    import io
+
+    from gubernator_tpu_torch.cmd.healthcheck import main
+
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        return main(["--url", f"http://127.0.0.1:{d.http_port}/healthz",
+                     "--fail-on-burn", "--timeout", "30"])
+
+
+def outage_slo(c, t_arm: float, check_cli: bool = False) -> dict:
+    """Daemons 0 and 1 at the end of an outage window: error_ratio's
+    fast and slow burns and breach (both burns above the threshold, the
+    JAX rule), the seconds from arming to its breach event, the
+    fleet_conservation SLO's value (the seconds the audit drift has
+    been nonzero: hits parked for daemon 2); with ``check_cli`` the
+    --fail-on-burn exit code, which must be 1 exactly when the daemon
+    is unhealthy (a failing hits flush) or error_ratio has breached."""
+    out = {}
+    for i in (0, 1):
+        d = c.daemons[i]
+        snap = d.instance.slo.snapshot()
+        rows = {r["slo"]: r for r in snap["slos"] if "tenant" not in r}
+        er, fc = rows["error_ratio"], rows["fleet_conservation"]
+        breaches = [e for e in d.instance.recorder.events(kind="slo_breach")
+                    if e["slo"] == "error_ratio"
+                    and e["t_ms"] >= t_arm * 1000]
+        row = {"error_ratio_fast_burn": er["fast_burn"],
+               "error_ratio_slow_burn": er["slow_burn"],
+               "error_ratio_breached": er["breached"],
+               "breach_s_after_arming": (
+                   (breaches[0]["t_ms"] - t_arm * 1000) / 1000
+                   if breaches else None),
+               "fleet_conservation_s": fc.get("value"),
+               "fleet_conservation_target_s": fc.get("target"),
+               "decision_p99_s": rows["decision_p99"].get("value"),
+               "burn_threshold": snap["burn_threshold"]}
+        if check_cli:
+            code, health = get_json(d.http_port, "/healthz?deep=1")
+            rc = fail_on_burn(d)
+            want = int(health["status"] != "healthy"
+                       or "error_ratio" in health["slo"]["breached"])
+            row.update(status=health["status"],
+                       breached=health["slo"]["breached"],
+                       fail_on_burn_rc=rc)
+            require(rc == want, f"--fail-on-burn exited {rc} on daemon {i}"
+                    f" ({health['status']}, breached "
+                    f"{health['slo']['breached']})")
+        out[i] = row
+    print(f"outage slo: {json.dumps(out)}", flush=True)
+    return out
 
 
 def group_worker_env(args, snap_dir: str, state: dict):
@@ -4293,6 +4871,18 @@ def plain_hashing():
 
 
 @contextmanager
+def tenants_detached(inst):
+    """The analytics on, its tenant ledger detached inside (the learn
+    and flag taps and the worker's tenant folds skip)."""
+    ana = inst.analytics
+    tl, ana._tenants = ana._tenants, None
+    try:
+        yield
+    finally:
+        ana._tenants = tl
+
+
+@contextmanager
 def analytics_detached(inst):
     """The instance's analytics detached from the serving path (the
     dispatcher's taps and the engine's device tap): what an instance
@@ -5556,8 +6146,9 @@ def main(argv=None) -> int:
                     help="the membership phase's bucket-table rows (log2)")
     ap.add_argument("--only", default="",
                     help="run only these phases after the build (comma-"
-                         "separated: hot, membership, gossip); prints "
-                         "their results and no kernels or ok line")
+                         "separated: main, cluster, hot, membership, "
+                         "gossip); prints their results and no kernels "
+                         "or ok line")
     args = ap.parse_args(argv)
 
     import torch
@@ -5568,7 +6159,12 @@ def main(argv=None) -> int:
         phase_build()
     only = [p for p in args.only.split(",") if p]
     if only:
-        runs = {"hot": phase_hot, "membership": phase_membership,
+        def main_path(torch, args):
+            return phase_main_path(torch, args, *fit_population(
+                args.keys, args.log2_cap))
+
+        runs = {"main": main_path, "cluster": phase_cluster,
+                "hot": phase_hot, "membership": phase_membership,
                 "gossip": phase_gossip}
         out = {}
         for p in only:

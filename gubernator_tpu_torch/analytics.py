@@ -14,7 +14,7 @@ gubernator_tpu/analytics.py).
   resolve, restore, snapshot) for ``GET /debug/phases`` and the
   ``gubernator_phase_duration`` histogram.
 
-``KeyAnalytics`` owns both and a bounded tap queue: the dispatcher and
+``KeyAnalytics`` owns them and a bounded tap queue: the dispatcher and
 the engines enqueue each resolved wave's columns and one worker thread
 folds them, in paced batches (one fold per ``BATCH_INTERVAL_S``).  A
 full queue drops the wave and counts it: analytics never holds back a
@@ -23,12 +23,24 @@ caller.  A CUDA engine's device tap (``tap_device``) carries the wave's
 waits for the event and copies the tensor to the host on a side stream,
 so neither the serving thread nor later waves wait for that copy.
 
-Not ported: the tenant ledger, the cost model and their taps
-(``tap_wire_names``, ``tap_flag``, ``tap_cost``); tenant attribution is
-off (``_tenants`` is None, a state the JAX package supports).
+- ``TenantLedger``: the bounded per-tenant RED ledger (a tenant is a key
+  name's prefix up to GUBER_TENANT_DELIM; at most GUBER_TENANT_MAX get a
+  bucket, the rest fold into ``__other__``), on by default as in JAX.
+  Its attribution runs in the host library (csrc/tenants.cpp,
+  ``NativeTenantTable``) with the GIL released: a learned table of key
+  hash → bucket, bounded and evicted as JAX's ``_kh_tenant`` dict, folds
+  each wave's rows and learns the wire lanes' new keys from their bytes;
+  Python resolves only tenants the table has not mapped yet, and the
+  object lane's new keys.  ``PlainTenantTable`` is its plain version (the
+  JAX algorithm: a dict, a sorted lookup, ``iter_wire_names``).  Taps:
+  ``tap_wire_names`` (the wire lanes), ``tap_flag`` (errors, degraded and
+  shed rows), with the object lane's taps and every columnar wave.
+- ``CostModel``: the online α-β cost model of the broadcast and the peer
+  flush (``tap_cost``), for ``GET /debug/costmodel``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import logging
 import os
@@ -40,6 +52,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .hashing import hash_request_keys, mix64_np
+from .metrics import observe_with_exemplar
 from .types import TD_BOUND, VALUE_MAX
 
 log = logging.getLogger("gubernator_tpu_torch.analytics")
@@ -586,6 +600,511 @@ class PhaseLedger:
             return out
 
 
+def _read_varint(data, pos: int):
+    shift = result = 0
+    while True:
+        b = data[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, pos
+        shift += 7
+        if shift > 63:
+            raise ValueError("varint overflow")
+
+
+def _skip_field(data, wt: int, pos: int) -> int:
+    if wt == 0:
+        _, pos = _read_varint(data, pos)
+    elif wt == 1:
+        pos += 8
+    elif wt == 5:
+        pos += 4
+    else:
+        raise ValueError(f"wire type {wt}")
+    return pos
+
+
+def iter_wire_names(data) -> List[tuple]:
+    """(name, unique_key) per request TLV of a serialized
+    GetRateLimitsReq, a tolerant walk (field 1 = RateLimitReq; inside it
+    field 1 = name, 2 = unique_key): requests without a name are left
+    out.  The plain version of the host library's walk
+    (csrc/tenants.cpp › gt_wire_learn)."""
+    out: List[tuple] = []
+    pos, end = 0, len(data)
+    while pos < end:
+        tag, pos = _read_varint(data, pos)
+        if tag & 7 != 2:
+            pos = _skip_field(data, tag & 7, pos)
+            continue
+        ln, pos = _read_varint(data, pos)
+        body_end = pos + ln
+        if tag >> 3 == 1:
+            name = uniq = ""
+            p = pos
+            while p < body_end:
+                t, p = _read_varint(data, p)
+                if t & 7 != 2:
+                    p = _skip_field(data, t & 7, p)
+                    continue
+                sl, p = _read_varint(data, p)
+                if t >> 3 == 1:
+                    name = bytes(data[p:p + sl]).decode("utf-8", "replace")
+                elif t >> 3 == 2:
+                    uniq = bytes(data[p:p + sl]).decode("utf-8", "replace")
+                p += sl
+            if name:
+                out.append((name, uniq))
+        pos = body_end
+    return out
+
+
+class TenantLedger:
+    """Bounded-cardinality per-tenant RED ledger.
+
+    A tenant is a key name's prefix up to the first ``delim`` (the whole
+    name without one).  At most ``max_tenants`` ids get a bucket of their
+    own; every later newcomer folds into ``__other__`` (bucket 0), so the
+    labels, the memory and /debug/tenants stay bounded.  Every attributed
+    row lands in exactly one bucket, so the buckets sum to the totals.
+
+    The counts are one [max_tenants + 1, 6] int64 array (exact sums where
+    JAX's hits are a float64 bincount), so the host library's folds add
+    to it in place; its lock guards it (held across a fold)."""
+
+    OTHER = "__other__"
+    FIELDS = ("requests", "hits", "over_limit", "errors", "degraded",
+              "shed")
+
+    def __init__(self, delim: Optional[str] = None,
+                 max_tenants: Optional[int] = None):
+        if delim is None:
+            delim = os.environ.get("GUBER_TENANT_DELIM", "/") or "/"
+        self.delim = delim
+        self.max_tenants = (max_tenants if max_tenants is not None
+                            else _env_int("GUBER_TENANT_MAX", 64))
+        self._mu = threading.Lock()
+        self._idx: Dict[str, int] = {self.OTHER: 0}  # guarded-by: self._mu
+        self._tenant_names: List[str] = [self.OTHER]  # guarded-by: self._mu
+        #: per-bucket [requests, hits, over, errors, degraded, shed]
+        self._counts = np.zeros((self.max_tenants + 1, 6), np.int64)  # guarded-by: self._mu
+        self._overflowed = False  # guarded-by: self._mu
+
+    def tenant_of(self, name: str) -> str:
+        """The prefix alone: no bucket assigned (event-field hints)."""
+        i = name.find(self.delim)
+        return name if i < 0 else name[:i]
+
+    def _index_locked(self, tenant: str) -> int:
+        i = self._idx.get(tenant)
+        if i is not None:
+            return i
+        if len(self._tenant_names) > self.max_tenants:
+            self._overflowed = True
+            return 0
+        i = len(self._tenant_names)
+        self._idx[tenant] = i
+        self._tenant_names.append(tenant)
+        return i
+
+    def index_of(self, name: str, pre_split: bool = False) -> int:
+        """Bucket of a key name (or of a tenant id when ``pre_split``),
+        assigning one while room remains, else ``__other__``."""
+        tenant = name if pre_split else self.tenant_of(name)
+        with self._mu:
+            return self._index_locked(tenant)
+
+    def indices_of(self, tenants: List[str]) -> List[int]:
+        """``index_of(t, pre_split=True)`` for each id, in order, under
+        one lock acquisition."""
+        with self._mu:
+            return [self._index_locked(t) for t in tenants]
+
+    def fold(self, tidx: np.ndarray, hits: np.ndarray,
+             over: np.ndarray) -> None:
+        """Attribute one wave's rows by bucket (the plain fold)."""
+        tidx = np.asarray(tidx, np.int64)
+        with self._mu:
+            c = self._counts
+            np.add.at(c[:, 0], tidx, 1)
+            np.add.at(c[:, 1], tidx, np.asarray(hits, np.int64))
+            np.add.at(c[:, 2], tidx, np.asarray(over, bool).astype(np.int64))
+
+    def add(self, idx: int, field: str, n: int = 1) -> None:
+        f = self.FIELDS.index(field)
+        with self._mu:
+            self._counts[idx, f] += int(n)
+
+    def add_many(self, tidx: np.ndarray, field: str) -> None:
+        """One ``add(i, field, 1)`` per entry of ``tidx``."""
+        f = self.FIELDS.index(field)
+        with self._mu:
+            np.add.at(self._counts[:, f], np.asarray(tidx, np.int64), 1)
+
+    def totals(self) -> Dict[str, int]:
+        with self._mu:
+            sums = self._counts.sum(axis=0).tolist()
+        return dict(zip(self.FIELDS, sums))
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            names = list(self._tenant_names)
+            rows = self._counts[:len(names)].tolist()
+            overflowed = self._overflowed
+        tenants = {name: dict(zip(self.FIELDS, r))
+                   for name, r in zip(names, rows)}
+        totals = {f: sum(t[f] for t in tenants.values())
+                  for f in self.FIELDS}
+        return {"delim": self.delim, "max_tenants": self.max_tenants,
+                "overflowed": overflowed, "tenant_count": len(tenants),
+                "tenants": tenants, "totals": totals}
+
+    def red(self, kind: str) -> Dict[str, tuple]:
+        """Cumulative (bad, total) per tenant for the SLO engine's
+        groups: ``errors`` → (errors + degraded, requests); ``shed`` →
+        (shed, requests + shed)."""
+        with self._mu:
+            names = list(self._tenant_names)
+            rows = self._counts[:len(names)].tolist()
+        out = {}
+        for name, c in zip(names, rows):
+            if kind == "shed":
+                bad, total = c[5], c[0] + c[5]
+            else:
+                bad, total = c[3] + c[4], c[0]
+            if total:
+                out[name] = (bad, total)
+        return out
+
+
+class PlainTenantTable:
+    """The learned key hash → bucket table and the attribution, as the
+    JAX package does them: a bounded dict (the oldest half evicted when
+    full), a sorted lookup rebuilt when it changed, the wire lanes' names
+    walked in Python (``iter_wire_names``).  The plain version of
+    ``NativeTenantTable``."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self._kh: Dict[int, int] = {}
+        self._sorted = np.empty(0, np.uint64)
+        self._tidx = np.empty(0, np.int64)
+        self._dirty = False
+
+    def __len__(self) -> int:
+        return len(self._kh)
+
+    def bucket_of(self, kh: int) -> Optional[int]:
+        return self._kh.get(int(kh))
+
+    #: a dict read never waits
+    peek = bucket_of
+
+    def _note(self, kh: int, tidx: int) -> None:
+        cache = self._kh
+        if kh in cache:
+            if cache[kh] != tidx:
+                cache[kh] = tidx
+                self._dirty = True
+            return
+        if len(cache) >= self.cap:
+            for old in list(cache)[: self.cap // 2]:
+                del cache[old]
+        cache[kh] = tidx
+        self._dirty = True
+
+    def _lookup_arrays(self):
+        if self._dirty or self._sorted.size != len(self._kh):
+            kh = np.fromiter(self._kh.keys(), np.uint64, len(self._kh))
+            ti = np.fromiter(self._kh.values(), np.int64, len(self._kh))
+            order = np.argsort(kh)
+            self._sorted, self._tidx = kh[order], ti[order]
+            self._dirty = False
+        return self._sorted, self._tidx
+
+    def fold(self, tl: TenantLedger, khash, hits, over) -> None:
+        """A columnar wave: each row to its learned bucket, an unknown
+        key to ``__other__`` (JAX ``_fold_tenants``)."""
+        khash = np.asarray(khash, np.uint64)
+        ks, ti = self._lookup_arrays()
+        if ks.size:
+            pos = np.minimum(np.searchsorted(ks, khash), ks.size - 1)
+            tidx = np.where(ks[pos] == khash, ti[pos], 0)
+        else:
+            tidx = np.zeros(len(khash), np.int64)
+        tl.fold(tidx, hits, over)
+
+    def learn_fold_objects(self, tl: TenantLedger, khash, reqs_of, hits,
+                           over) -> np.ndarray:
+        """An object-lane wave (JAX ``_apply``): every row's bucket from
+        its name, noted in row order, then folded.  ``reqs_of()`` gives
+        the rows' requests, as a list.  Returns the buckets."""
+        names = [r.name for r in reqs_of()]
+        tidx = np.fromiter((tl.index_of(n) for n in names), np.int64,
+                           len(names))
+        for k, t in zip(np.asarray(khash, np.uint64).tolist(),
+                        tidx.tolist()):
+            self._note(k, t)
+        tl.fold(tidx, hits, over)
+        return tidx
+
+    def learn_wire(self, tl: TenantLedger, data, khash=None,
+                   raw: bool = False) -> None:
+        """The wire lanes' learn (JAX ``_apply_learn``): nothing when the
+        lane's key hashes are all known, else every named request's key
+        noted with its name's bucket."""
+        if khash is not None and len(self._kh):
+            khm = np.asarray(khash)
+            if khm.dtype != np.uint64:
+                khm = (khm.view(np.uint64) if khm.dtype == np.int64
+                       else khm.astype(np.uint64))
+            if raw:
+                khm = mix64_np(khm)
+            ks, _ = self._lookup_arrays()
+            pos = np.minimum(np.searchsorted(ks, khm), ks.size - 1)
+            if bool((ks[pos] == khm).all()):
+                return
+        pairs = iter_wire_names(data)
+        if not pairs:
+            return
+        khash = hash_request_keys([p[0] for p in pairs],
+                                  [p[1] for p in pairs])
+        for i, (name, _uniq) in enumerate(pairs):
+            self._note(int(khash[i]), tl.index_of(name))
+
+    def learn_wire_many(self, tl: TenantLedger, items: list) -> None:
+        """``learn_wire`` of each (data, khash, raw), in order."""
+        for data, khash, raw in items:
+            try:
+                self.learn_wire(tl, data, khash, raw)
+            except Exception:  # noqa: BLE001 - a message JAX fails to walk
+                log.exception("tenant learn")
+
+
+class NativeTenantTable:
+    """``PlainTenantTable`` in the host library (csrc/tenants.cpp), each
+    call with the GIL released.  The same notes in the same order leave
+    the same table (its insertion order included), so every fold
+    attributes as the plain version and JAX do.  Beside the key hashes
+    it maps tenant ids (a name's prefix, as UTF-8) to their buckets, so
+    the wire lanes learn new keys without Python: only a tenant it has
+    not mapped yet comes back, resolved by ``TenantLedger.index_of``.  A
+    host library that cannot be built raises."""
+
+    def __init__(self, cap: int):
+        from .ops.build import load_wire_library, load_wire_pylib
+
+        self.cap = cap
+        self._lib = load_wire_library()
+        self._pylib = load_wire_pylib()
+        self._h = self._lib.gt_new(cap)
+        #: tenant ids mapped in the table already
+        self._mapped: set = set()
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            self._lib.gt_free(h)
+
+    def __len__(self) -> int:
+        return int(self._lib.gt_len(self._h))
+
+    def bucket_of(self, kh: int) -> Optional[int]:
+        out = np.empty(1, np.int64)
+        k = np.array([int(kh)], np.uint64)
+        self._lib.gt_lookup(self._h, k.ctypes.data, 1, out.ctypes.data)
+        return None if out[0] < 0 else int(out[0])
+
+    def peek(self, kh: int) -> Optional[int]:
+        """``bucket_of`` for a serving thread: None also while the worker
+        holds the table (a hint never waits on it)."""
+        # bound with the GIL held: the caller is a serving thread, which
+        # could wait a switch interval to take the GIL back
+        b = self._pylib.gt_peek(self._h, int(kh) & 0xFFFFFFFFFFFFFFFF)
+        return None if b < 0 else int(b)
+
+    def _map(self, tenants: List[str], idx: List[int]) -> None:
+        for t, i in zip(tenants, idx):
+            if t not in self._mapped:
+                b = t.encode("utf-8", "surrogatepass")
+                self._lib.gt_tenant_set(self._h, b, len(b), int(i))
+                self._mapped.add(t)
+
+    def fold(self, tl: TenantLedger, khash, hits, over) -> None:
+        kh = np.ascontiguousarray(khash, np.uint64)
+        h = np.ascontiguousarray(hits, np.int64)
+        o = np.ascontiguousarray(over, bool).view(np.uint8)
+        with tl._mu:
+            c = tl._counts
+            self._lib.gt_fold(self._h, c.ctypes.data, c.shape[0],
+                              kh.ctypes.data, h.ctypes.data, o.ctypes.data,
+                              len(kh))
+
+    def learn_fold_objects(self, tl: TenantLedger, khash, reqs_of, hits,
+                           over) -> np.ndarray:
+        kh = np.ascontiguousarray(khash, np.uint64)
+        n = len(kh)
+        tidx = np.empty(n, np.int64)
+        unknown = self._lib.gt_lookup(self._h, kh.ctypes.data, n,
+                                      tidx.ctypes.data)
+        if unknown:
+            # a known key's bucket is the one its name gives (buckets
+            # never move), so only the new keys' tenants are read, in C
+            # with the GIL held; a tenant not mapped yet comes back
+            reqs = reqs_of()
+            delim = tl.delim.encode("utf-8")
+            need = np.empty(n, np.int64)
+            k = self._pylib.gt_learn_objects(
+                self._h, reqs, tidx.ctypes.data, n, delim, len(delim),
+                need.ctypes.data, n)
+            if k:
+                rows = need[:k].tolist()
+                tenants = [tl.tenant_of(reqs[i].name) for i in rows]
+                idx = tl.indices_of(tenants)
+                tidx[rows] = idx
+                self._map(tenants, idx)
+            self._lib.gt_note(self._h, kh.ctypes.data, tidx.ctypes.data, n)
+        h = np.ascontiguousarray(hits, np.int64)
+        o = np.ascontiguousarray(over, bool).view(np.uint8)
+        with tl._mu:
+            c = tl._counts
+            self._lib.gt_fold_idx(c.ctypes.data, c.shape[0],
+                                  tidx.ctypes.data, h.ctypes.data,
+                                  o.ctypes.data, n)
+        return tidx
+
+    def learn_wire(self, tl: TenantLedger, data, khash=None,
+                   raw: bool = False) -> None:
+        data = bytes(data)
+        delim = tl.delim.encode("utf-8")
+        # no room for names first: the steady state (every tenant
+        # mapped) needs none, and a learn that stops notes nothing
+        cap, off, ln = 0, None, None
+        while True:
+            need = self._lib.gt_wire_learn(
+                self._h, data, len(data), delim, len(delim),
+                None if off is None else off.ctypes.data,
+                None if ln is None else ln.ctypes.data, cap)
+            if need <= 0:
+                return
+            if cap == 0:
+                cap = max(len(data) // 3, 1)
+                off = np.empty(cap, np.int64)
+                ln = np.empty(cap, np.int64)
+                continue
+            tenants = [tl.tenant_of(data[a:a + b].decode("utf-8", "replace"))
+                       for a, b in zip(off[:need].tolist(),
+                                       ln[:need].tolist())]
+            before = len(self._mapped)
+            self._map(tenants, tl.indices_of(tenants))
+            if len(self._mapped) == before:
+                # the table holds its cap of tenant ids: learn these rows
+                # as the plain version does
+                return self._learn_wire_slow(tl, data)
+
+    def learn_wire_many(self, tl: TenantLedger, items: list) -> None:
+        """The learn taps a worker drained together, in one call
+        (``gt_wire_learn_many``; the lanes' key hashes are not needed:
+        the library hashes the named requests itself)."""
+        datas = [bytes(it[0]) for it in items]
+        delim = tl.delim.encode("utf-8")
+        while datas:
+            n = len(datas)
+            ptrs = (ctypes.c_char_p * n)(*datas)
+            lens = np.array([len(d) for d in datas], np.int64)
+            done = np.zeros(1, np.int64)
+            need = self._lib.gt_wire_learn_many(
+                self._h, ctypes.cast(ptrs, ctypes.c_void_p), lens.ctypes.data,
+                n, delim, len(delim), None, None, 0, done.ctypes.data)
+            if need <= 0:
+                return
+            # a tenant not mapped yet: that message alone, then the rest
+            i = int(done[0])
+            self.learn_wire(tl, datas[i])
+            datas = datas[i + 1:]
+
+    def _learn_wire_slow(self, tl: TenantLedger, data) -> None:
+        pairs = iter_wire_names(data)
+        if not pairs:
+            return
+        kh = np.ascontiguousarray(hash_request_keys(
+            [p[0] for p in pairs], [p[1] for p in pairs]), np.uint64)
+        tidx = np.array([tl.index_of(p[0]) for p in pairs], np.int64)
+        self._lib.gt_note(self._h, kh.ctypes.data, tidx.ctypes.data,
+                          len(kh))
+
+class CostModel:
+    """Online α-β cost model: T(bytes) = α + β·bytes per (phase,
+    device-count) bucket.  Each ``broadcast`` / ``peer_flush`` sample
+    adds to five running sums and the fit is closed-form least squares:
+    no history, O(1) a sample.  Thread-safe (own leaf lock)."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        #: (phase, ndev) → [n, Σx, Σy, Σxx, Σxy]
+        self._b: Dict[tuple, list] = {}  # guarded-by: self._mu
+
+    def add(self, phase: str, nbytes: int, ndev: int,
+            seconds: float) -> None:
+        x, y = float(nbytes), float(seconds)
+        with self._mu:
+            b = self._b.get((phase, int(ndev)))
+            if b is None:
+                b = self._b[(phase, int(ndev))] = [0, 0.0, 0.0, 0.0, 0.0]
+            b[0] += 1
+            b[1] += x
+            b[2] += y
+            b[3] += x * x
+            b[4] += x * y
+
+    @staticmethod
+    def _solve(b: list) -> Optional[dict]:
+        n, sx, sy, sxx, sxy = b
+        if n < 2:
+            return None
+        det = n * sxx - sx * sx
+        if det <= 1e-12 * max(n * sxx, 1.0):
+            # every sample one size: β cannot be told apart; the mean
+            # is reported as pure α
+            return {"n": int(n), "alpha_s": sy / n,
+                    "beta_s_per_byte": 0.0, "mean_bytes": sx / n}
+        beta = (n * sxy - sx * sy) / det
+        alpha = (sy - beta * sx) / n
+        return {"n": int(n), "alpha_s": alpha, "beta_s_per_byte": beta,
+                "mean_bytes": sx / n}
+
+    def fit(self, phase: str, ndev: int) -> Optional[dict]:
+        with self._mu:
+            b = self._b.get((phase, int(ndev)))
+            b = list(b) if b else None
+        return self._solve(b) if b else None
+
+    def predict(self, phase: str, ndev: int,
+                nbytes: int) -> Optional[float]:
+        f = self.fit(phase, ndev)
+        if f is None:
+            return None
+        return f["alpha_s"] + f["beta_s_per_byte"] * float(nbytes)
+
+    def snapshot(self) -> dict:
+        """The ``GET /debug/costmodel`` document: every bucket's fitted
+        constants (α in µs, β in ns a byte) and its sample count."""
+        with self._mu:
+            items = [(k, list(v)) for k, v in self._b.items()]
+        buckets = []
+        for (phase, ndev), b in sorted(items):
+            f = self._solve(b)
+            row = {"phase": phase, "ndev": ndev, "samples": int(b[0])}
+            if f is not None:
+                row.update({"alpha_us": round(f["alpha_s"] * 1e6, 3),
+                            "beta_ns_per_byte":
+                                round(f["beta_s_per_byte"] * 1e9, 6),
+                            "mean_bytes": round(f["mean_bytes"], 1)})
+            buckets.append(row)
+        return {"model": "T = alpha + beta * bytes", "buckets": buckets}
+
+
 class _Flush:
     """Queue sentinel: the worker sets the event when it reaches it."""
 
@@ -594,13 +1113,18 @@ class _Flush:
 
 
 class KeyAnalytics:
-    """The analytics subsystem: tap queue, worker, sketch and phases.
+    """The analytics subsystem: tap queue, worker, sketch, phases, the
+    tenant ledger and the cost model.
 
     ``tap_packed`` copies a wave's (khash, hits, status) columns and
     enqueues them; ``tap_named`` enqueues an object-lane wave's columns
     with its request lists, from which the worker names the keys the
-    sketch has not named yet; ``tap_device`` enqueues a device tap.  A
-    full queue DROPS the wave and counts it."""
+    sketch has not named yet; ``tap_device`` enqueues a device tap;
+    ``tap_wire_names`` a wire batch's bytes (the tenants learn its new
+    keys), ``tap_flag`` an error, degraded or shed outcome.  A full queue
+    DROPS the item and counts it.  ``tenant_fold`` picks the tenant
+    attribution: ``"native"`` (the host library, the default) or
+    ``"python"`` (its plain version)."""
 
     #: worker pacing: after folding a drained batch, rest this long; all
     #: that queued meanwhile folds in ONE update, which bounds the
@@ -613,7 +1137,7 @@ class KeyAnalytics:
 
     def __init__(self, metrics=None, k: Optional[int] = None,
                  width: Optional[int] = None, queue_cap: int = 512,
-                 clock=time.time):
+                 clock=time.time, tenant_fold: str = "native"):
         self.metrics = metrics
         #: per-phase histogram children, resolved once
         self._phase_hist: Dict[str, object] = {}
@@ -624,8 +1148,19 @@ class KeyAnalytics:
         self._mu = threading.Lock()  # guards the sketch and the counters
         self.sketch = NativeHeavyHitterSketch(k=k, width=width)  # guarded-by: self._mu
         self.phases = PhaseLedger()  # internally locked
-        #: per-tenant ledger: not ported, attribution off
-        self._tenants = None
+        #: the per-tenant ledger (None turns attribution off: the A/B's
+        #: detached arm takes it with the whole plane)
+        self._tenants: Optional[TenantLedger] = TenantLedger()
+        #: the learned key hash → bucket table (worker thread; lookups
+        #: from serving threads for hints)
+        self._kh_cap = max(8 * width, 4096)
+        if tenant_fold not in ("native", "python"):
+            raise ValueError(f"unknown tenant fold {tenant_fold!r}")
+        self._table = (NativeTenantTable(self._kh_cap)
+                       if tenant_fold == "native"
+                       else PlainTenantTable(self._kh_cap))
+        #: the α-β cost model (leaf lock; samples from flush threads)
+        self.costmodel = CostModel()
         self._q: "queue.Queue" = queue.Queue(maxsize=queue_cap)
         self._waves = 0  # guarded-by: self._mu
         self._dropped = 0  # guarded-by: self._mu
@@ -664,6 +1199,34 @@ class KeyAnalytics:
             return True
         return self._put(("named", khash, batch, cols,
                           int(self._clock() * 1000), req_lists))
+
+    def tap_wire_names(self, data, khash=None, raw: bool = False) -> bool:
+        """Tenant learn tap of the wire lanes, which carry key hashes
+        only: the (immutable) request bytes and the lane's key hashes
+        (``raw``: before the finalizer) by reference; the worker learns
+        the keys its table does not know.  Queued ahead of the wave's
+        columns, so it is learned before they fold."""
+        if self._tenants is None:
+            return True
+        return self._put(("learn", data, khash, raw))
+
+    def tap_flag(self, field: str, n: int = 1,
+                 tenant: Optional[str] = None,
+                 khash: Optional[int] = None,
+                 name: Optional[str] = None) -> bool:
+        """An ``errors`` / ``degraded`` / ``shed`` outcome of ``n`` rows:
+        enqueued here, resolved to a bucket on the worker (a tenant id,
+        else the key hash's learned bucket, else the key name, else
+        ``__other__``)."""
+        if self._tenants is None:
+            return True
+        return self._put(("flag", field, int(n), tenant, khash, name))
+
+    def tap_cost(self, phase: str, nbytes: int, ndev: int,
+                 seconds: float) -> None:
+        """One cost sample (direct: flush and broadcast threads, never
+        per wave)."""
+        self.costmodel.add(phase, nbytes, ndev, seconds)
 
     def tap_device(self, tap) -> bool:
         """Device tap of an engine that taps in its step, called right
@@ -722,8 +1285,11 @@ class KeyAnalytics:
 
     # ---- phase attribution ---------------------------------------------
 
-    def observe_phase(self, phase: str, seconds: float) -> None:
-        """One phase sample → the histogram and /debug/phases."""
+    def observe_phase(self, phase: str, seconds: float,
+                      exemplar=None) -> None:
+        """One phase sample → the histogram and /debug/phases;
+        ``exemplar`` (a sampled trace's label dict) rides the histogram
+        observation."""
         seconds = max(seconds, 0.0)
         self.phases.observe(phase, seconds)
         m = self.metrics
@@ -732,7 +1298,7 @@ class KeyAnalytics:
             if child is None:  # benign race: labels() is idempotent
                 child = self._phase_hist[phase] = \
                     m.phase_duration.labels(phase=phase)
-            child.observe(seconds)
+            observe_with_exemplar(child, seconds, exemplar)
 
     # ---- worker ---------------------------------------------------------
 
@@ -741,7 +1307,24 @@ class KeyAnalytics:
         while True:
             item = q.get()
             cols: list = []
+            #: learn taps, applied together before anything that must
+            #: come after them (every later item but columns, which fold
+            #: at the end of the drain anyway)
+            learns: list = []
             while True:
+                if item is not None and not isinstance(item, _Flush) \
+                        and item[0] == "learn":
+                    learns.append(item)
+                    try:
+                        item = q.get_nowait()
+                    except queue.Empty:
+                        break
+                    continue
+                if learns and not (item is not None
+                                   and not isinstance(item, _Flush)
+                                   and item[0] in ("cols", "dev")):
+                    self._safe_learn(learns)
+                    learns = []
                 if item is None:
                     self._fold_cols(cols)
                     return
@@ -756,6 +1339,8 @@ class KeyAnalytics:
                     c = self._dev_to_cols(item)
                     if c is not None:
                         cols.append(c)
+                elif item[0] == "flag":
+                    self._safe_flag(item)
                 else:
                     # an object-lane (named) tap: fold the queued
                     # columns first, so the waves fold in order
@@ -766,6 +1351,8 @@ class KeyAnalytics:
                     item = q.get_nowait()
                 except queue.Empty:
                     break
+            if learns:
+                self._safe_learn(learns)
             self._fold_cols(cols)
             if not self._closing:
                 time.sleep(self.BATCH_INTERVAL_S)
@@ -786,6 +1373,8 @@ class KeyAnalytics:
             with self._mu:
                 self.sketch.update(khash, hits, over, t_ms)
                 self._waves += len(cols)
+            if self._tenants is not None:
+                self._table.fold(self._tenants, khash, hits, over)
             if self.metrics is not None:
                 self.metrics.analytics_waves.inc(len(cols))
             self._maybe_publish()
@@ -799,19 +1388,33 @@ class KeyAnalytics:
             log.exception("analytics tap apply")
 
     def _apply(self, item) -> None:
-        """Fold a named tap: the columns in one update, then a name for
-        each of the wave's keys the sketch has none for, in hash order
-        (the order JAX's list tap notes them in).  The weight is the
-        request's hits: the packed column holds it except on invalid
-        rows (zeroed) and at the packer's clamp, which read the
-        request."""
+        """Fold a named tap: the columns in one sketch update, then a
+        name for each of the wave's keys the sketch has none for, then
+        the tenants (``cmd/tapcost.py`` times these sections apart)."""
+        w = self._named_columns(item)
+        with self._mu:
+            self.sketch.update(w["khash"], w["hits"], w["over"], w["t_ms"])
+            self._note_named(w)
+            self._waves += 1
+        self._fold_named_tenants(w)
+        if self.metrics is not None:
+            self.metrics.analytics_waves.inc()
+        self._maybe_publish()
+
+    @staticmethod
+    def _named_columns(item) -> dict:
+        """A named tap's numpy work before the fold: OVER_LIMIT rows, and
+        the weight, the request's hits (the packed column holds them
+        except on invalid rows (zeroed), below 0 (packed as 0) and at
+        the packer's clamp, which read the request); the unique keys and
+        each one's first row."""
         _, khash, batch, cols, t_ms, req_lists = item
         over = (cols[0] == 1) & ~cols[4] & batch.valid
         hits = batch.hits
         cap = np.where(batch.algorithm == 1,
                        np.minimum(TD_BOUND // np.maximum(batch.eff_ms, 1),
                                   VALUE_MAX), VALUE_MAX)
-        exact = np.nonzero(~batch.valid | (hits >= cap))[0]
+        exact = np.nonzero(~batch.valid | (hits >= cap) | (hits == 0))[0]
         flat = None  # the wave's requests in row order, when needed
         if len(exact):
             flat = [r for rl in req_lists for r in rl]
@@ -820,23 +1423,92 @@ class KeyAnalytics:
                 hits[i] = int(flat[i].hits)
         uniq, first = np.unique(np.asarray(khash, np.uint64),
                                 return_index=True)
-        with self._mu:
-            self.sketch.update(khash, hits, over, t_ms)
-            # checked key by key: a name the bounded table evicts while
-            # this wave's names go in is noted again, as the list tap did
-            named = self.sketch._names
-            note = self.sketch._note_name
-            for k, i in zip(uniq.tolist(), first.tolist()):
-                if k in named:
-                    continue
-                if flat is None:
-                    flat = [r for rl in req_lists for r in rl]
-                r = flat[i]
-                note(k, f"{r.name}_{r.unique_key}")
-            self._waves += 1
-        if self.metrics is not None:
-            self.metrics.analytics_waves.inc()
-        self._maybe_publish()
+        return {"khash": khash, "hits": hits, "over": over, "t_ms": t_ms,
+                "uniq": uniq, "first": first, "flat": flat,
+                "req_lists": req_lists,
+                "err": ~batch.valid | cols[4]}
+
+    def _flat(self, w: dict) -> list:
+        if w["flat"] is None:
+            w["flat"] = [r for rl in w["req_lists"] for r in rl]
+        return w["flat"]
+
+    def _note_named(self, w: dict) -> None:
+        """A name for each of the wave's keys the sketch has none for, in
+        hash order (the order JAX's list tap notes them in), checked key
+        by key: a name the bounded table evicts while this wave's names
+        go in is noted again, as the list tap did.  Under self._mu."""
+        named = self.sketch._names
+        note = self.sketch._note_name
+        for k, i in zip(w["uniq"].tolist(), w["first"].tolist()):
+            if k in named:
+                continue
+            r = self._flat(w)[i]
+            note(k, f"{r.name}_{r.unique_key}")
+
+    def _fold_named_tenants(self, w: dict) -> None:
+        """The wave's rows to their tenants (each key's bucket from its
+        name, learned where the table does not know it), and each error
+        row (invalid or table-full) to its tenant's errors."""
+        tl = self._tenants
+        if tl is None:
+            return
+        tidx = self._table.learn_fold_objects(
+            tl, w["khash"], lambda: self._flat(w), w["hits"], w["over"])
+        err = w["err"]
+        if err.any():
+            tl.add_many(tidx[err], "errors")
+
+    # ---- tenant attribution (worker thread) -----------------------------
+
+    def _safe_learn(self, items: list) -> None:
+        """Learn taps, in order: a learn precedes the fold of the columns
+        queued behind it (FIFO); those queued ahead fold later, as in
+        JAX, where each learn applies when drained."""
+        try:
+            tl = self._tenants
+            if tl is not None:
+                self._table.learn_wire_many(
+                    tl, [(it[1], it[2], it[3]) for it in items])
+        except Exception:  # pragma: no cover - must never die
+            log.exception("tenant learn")
+
+    def _safe_flag(self, item) -> None:
+        try:
+            tl = self._tenants
+            if tl is None:
+                return
+            _, field, n, tenant, khash, name = item
+            idx = None
+            if tenant is not None:
+                idx = tl.index_of(tenant, pre_split=True)
+            elif khash is not None:
+                idx = self._table.bucket_of(khash)
+            if idx is None:
+                idx = tl.index_of(name) if name is not None else 0
+            tl.add(idx, field, n)
+        except Exception:  # pragma: no cover - must never die
+            log.exception("tenant flag")
+
+    def tenant_hint(self, khash: Optional[int] = None,
+                    name: Optional[str] = None) -> Optional[str]:
+        """Best-effort tenant id for event fields: the key hash's learned
+        bucket, else the prefix of ``name``.  Assigns no bucket and never
+        waits on the worker (a table it holds gives no hint): cheap from
+        any serving thread."""
+        tl = self._tenants
+        if tl is None:
+            return None
+        if khash is not None:
+            idx = self._table.peek(int(khash))
+            if idx is not None:
+                try:
+                    return tl._tenant_names[idx]  # lock-free: append-only list
+                except IndexError:  # pragma: no cover - benign race
+                    return None
+        if name is not None:
+            return tl.tenant_of(name)
+        return None
 
     def _maybe_publish(self) -> None:
         now = time.monotonic()
@@ -876,6 +1548,20 @@ class KeyAnalytics:
             for label, val in fresh.items():
                 gauge.labels(key=label).set(val)
             self._published = fresh
+        self._publish_tenants()
+
+    def _publish_tenants(self) -> None:
+        """gubernator_tenant_* refresh: bounded by the ledger itself
+        (GUBER_TENANT_MAX + __other__); buckets never leave, so no label
+        is removed."""
+        tl, m = self._tenants, self.metrics
+        if tl is None or m is None:
+            return
+        gauges = (m.tenant_requests, m.tenant_hits, m.tenant_over_limit,
+                  m.tenant_errors, m.tenant_degraded, m.tenant_shed)
+        for tenant, counts in tl.snapshot()["tenants"].items():
+            for gauge, field in zip(gauges, TenantLedger.FIELDS):
+                gauge.labels(tenant=tenant).set(float(counts[field]))
 
     # ---- reporting ------------------------------------------------------
 
@@ -912,6 +1598,15 @@ class KeyAnalytics:
                     "tracked_keys": len(self.sketch),
                     "queue_depth": self._q.qsize()}
 
+    def mem_stats(self) -> dict:
+        """The memory ledger's probe feed: the sketch's five columns."""
+        with self._mu:
+            sk = self.sketch
+            nbytes = int(sk._cnt.nbytes + sk._err.nbytes + sk._over.nbytes
+                         + sk._last.nbytes + sk._kh.nbytes)
+            return {"bytes": nbytes, "width": sk.width, "used": len(sk),
+                    "total_weight": int(sk.total_weight)}
+
     def rank_distribution(self, limit: int = 4096) -> List[int]:
         """The tracked counts, descending (rank r's count is the demand a
         table of r+1 rows would hold at the margin)."""
@@ -936,6 +1631,29 @@ class KeyAnalytics:
 
     def phases_snapshot(self) -> dict:
         return {"phases": self.phases.snapshot()}
+
+    def tenants_snapshot(self) -> dict:
+        """The ``GET /debug/tenants`` document."""
+        tl = self._tenants
+        if tl is None:
+            return {"enabled": False}
+        out = tl.snapshot()
+        out["enabled"] = True
+        return out
+
+    def tenant_red(self, kind: str) -> Dict[str, tuple]:
+        """Per-tenant cumulative (bad, total) for the SLO engine's tenant
+        groups (empty when attribution is off)."""
+        tl = self._tenants
+        return tl.red(kind) if tl is not None else {}
+
+    def tenant_totals(self) -> Dict[str, int]:
+        tl = self._tenants
+        return tl.totals() if tl is not None else {}
+
+    def costmodel_snapshot(self) -> dict:
+        """The ``GET /debug/costmodel`` document."""
+        return self.costmodel.snapshot()
 
     def close(self) -> None:
         self._closing = True

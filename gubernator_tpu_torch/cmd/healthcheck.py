@@ -2,14 +2,15 @@
 port's copy of gubernator_tpu/cmd/healthcheck.py).
 
 Usage: python -m gubernator_tpu_torch.cmd.healthcheck [--url URL]
-[--timeout S] [--deep] [--fail-on-stall]
+[--timeout S] [--deep] [--fail-on-stall] [--fail-on-burn]
 
 ``--deep`` asks for the daemon's deep health (``/healthz?deep=1``) and
 prints its dispatcher block (queue depth, last-wave age, stalled state).
 A stalled wave does not fail the check by itself (a first-use kernel
 build recovers on its own, and a restart mid-build makes it worse)
-unless ``--fail-on-stall`` is also given.  The JAX CLI's
-``--fail-on-burn`` waits for the SLO slice.
+unless ``--fail-on-stall`` is also given.  ``--fail-on-burn`` (implies
+``--deep``) exits 1 when the SLO engine reports a breached SLO: the
+readiness hook that takes a burning daemon out of rotation.
 """
 from __future__ import annotations
 
@@ -38,8 +39,13 @@ def main(argv=None) -> int:
     ap.add_argument("--fail-on-stall", action="store_true",
                     help="with --deep: exit 1 when the dispatcher "
                          "reports a stalled wave")
+    ap.add_argument("--fail-on-burn", action="store_true",
+                    help="exit 1 when any SLO is breached (implies "
+                         "--deep; the k8s readiness hook — a burning "
+                         "pod stops taking traffic before it pages)")
     args = ap.parse_args(argv)
-    url = _with_deep(args.url) if args.deep else args.url
+    deep = args.deep or args.fail_on_burn
+    url = _with_deep(args.url) if deep else args.url
     try:
         with urllib.request.urlopen(url, timeout=args.timeout) as f:
             body = json.loads(f.read())
@@ -50,6 +56,15 @@ def main(argv=None) -> int:
     if body.get("status") != "healthy":
         print(f"unhealthy: {body}", file=sys.stderr)
         return 1
+    slo = body.get("slo")
+    if args.fail_on_burn and slo is not None:
+        if slo.get("breached"):
+            print(f"SLO breached: {', '.join(slo['breached'])} "
+                  f"(max_fast_burn={slo.get('max_fast_burn')}, "
+                  f"threshold={slo.get('burn_threshold')})",
+                  file=sys.stderr)
+            return 1
+        print("slo:", json.dumps(slo, sort_keys=True))
     disp = body.get("dispatcher")
     if args.deep and disp is not None:
         print("dispatcher:", json.dumps(disp, sort_keys=True))

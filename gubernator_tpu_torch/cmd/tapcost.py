@@ -1,5 +1,7 @@
-"""The object-lane analytics tap's own cost: the list tap it replaced
-against the columnar tap (``KeyAnalytics.tap_named``), on the same waves.
+"""The analytics worker's cost per wave: the object-lane tap (list
+against columnar), and the worker's fold by section with the tenant
+ledger off, on through the plain fold (the JAX algorithm) and on
+through the host library's, on the object and the wire lane.
 
     python -m gubernator_tpu_torch.cmd.tapcost [--waves 200] [--jobs 8]
         [--batch 125] [--keys 10000000] [--seed 0]
@@ -7,23 +9,35 @@ against the columnar tap (``KeyAnalytics.tap_named``), on the same waves.
 The waves are built as the dispatcher builds an object-lane wave: --jobs
 callers' batches of --batch requests on Zipf(1.1) ranks over --keys keys,
 hashed and packed, with result columns that answer one row in ten
-OVER_LIMIT, and the callers' response objects.  Each arm runs every
-wave, in the order list, columnar, columnar, list, each run on a fresh
-sketch:
+OVER_LIMIT, and the callers' response objects.  A wire wave is the same
+callers' batches as GetRateLimitsReq bytes (one tenant learn tap each)
+and the wave's columns.
+
+The list / columnar comparison runs every wave in the order list,
+columnar, columnar, list, each run on a fresh sketch:
 
 - serving: the dispatcher thread's part, per wave (perf_counter): for
   the list tap the flattening of the wave's request and response lists
   and the enqueue, for the columnar tap its enqueue of references;
-- worker: the analytics worker's part: the list tap's per-request hits,
-  status and name with the sketch's fold, against the columnar tap's
-  fold and names for the keys the sketch has not named; per wave on the
-  host's clock (perf_counter, the median), and over all the waves on
-  this thread's CPU clock (thread_time, the mean a wave: a coarse clock
-  reads 0 for one wave).
+- worker: the analytics worker's part (the columnar tap's fold with the
+  tenants off, as before the tenant ledger): per wave on the host's
+  clock (perf_counter, the median), and over all the waves on this
+  thread's CPU clock (thread_time, the mean a wave: a coarse clock reads
+  0 for one wave).
 
-Both arms must leave equal sketches (the canonical bytes and the names).
-Prints one JSON line: the µs a wave of each part, per arm, and the
-columnar / list ratios.  CPU only: no device is touched.
+The tenant arms (``off``, ``python``, ``native``) each run every wave
+on a fresh KeyAnalytics, in the order off, python, native, native,
+python, off, and time the worker's sections on this thread's CPU clock
+(the sums over the waves, per wave): on the object lane ``numpy`` (the
+work before the sketch's fold), ``sketch`` (its fold), ``names`` (the
+name noting), ``tenants`` (the tenant learn and fold) and ``publish``
+(``_maybe_publish``); on the wire lane ``learn`` (the wave's tenant
+learn taps, applied together as the worker applies a drain's),
+``sketch``, ``tenants`` (the fold) and ``publish``.  The host
+library's calls (csrc/sketch.cpp, csrc/tenants.cpp) release the GIL:
+their CPU time is counted apart (``cxx``), and ``gil_held`` is the rest.
+Arms must leave equal sketches, and the two tenant folds equal ledgers.
+Prints one JSON line.  CPU only: no device is touched.
 """
 from __future__ import annotations
 
@@ -125,6 +139,145 @@ def run_arm(arm: str, ana, waves) -> tuple:
                               dict(ana.sketch._names))
 
 
+class _CxxClock:
+    """The host library with its ``gs_*`` and ``gt_*`` calls timed: each
+    adds its thread CPU time to ``cxx``."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self.cxx = 0.0
+
+    def __getattr__(self, name):
+        f = getattr(self._lib, name)
+        if not name.startswith(("gs_", "gt_")):
+            return f
+
+        def call(*a):
+            t0 = time.thread_time()
+            try:
+                return f(*a)
+            finally:
+                self.cxx += time.thread_time() - t0
+
+        return call
+
+
+def wire_items(waves) -> list:
+    """Each wave's callers' batches as GetRateLimitsReq bytes with their
+    key hashes (one tenant learn tap each), and the wave's columns."""
+    from ..wire import encode_get_rate_limits
+
+    out = []
+    for khash, packed, cols, req_lists, _ in waves:
+        learns, a = [], 0
+        for reqs in req_lists:
+            learns.append(("learn", encode_get_rate_limits(reqs),
+                           khash[a:a + len(reqs)], False))
+            a += len(reqs)
+        over = (cols[0] == 1) & ~cols[4]
+        out.append((learns, ("cols", khash, np.asarray(packed.hits),
+                             over, 1)))
+    return out
+
+
+def tenant_arm(arm: str, waves, wire: list) -> dict:
+    """One tenant arm over every wave, object lane then wire lane, each
+    on a fresh KeyAnalytics: per-section CPU µs a wave, their C++ share,
+    and the state the arm leaves."""
+    from ..analytics import KeyAnalytics
+    from ..metrics import Metrics
+
+    out = {}
+    for lane in ("object", "wire"):
+        ana = KeyAnalytics(metrics=Metrics(),
+                           tenant_fold="python" if arm == "python"
+                           else "native")
+        ana.close()  # the arm calls the worker's parts here
+        if arm == "off":
+            ana._tenants = None
+        clock = _CxxClock(ana.sketch._lib)
+        ana.sketch._lib = clock
+        if arm == "native":
+            ana._table._lib = clock
+        secs: dict = {}
+        cxx: dict = {}
+
+        def part(name, fn, *a):
+            c0, x0 = time.thread_time(), clock.cxx
+            r = fn(*a)
+            secs[name] = secs.get(name, 0.0) + time.thread_time() - c0
+            cxx[name] = cxx.get(name, 0.0) + clock.cxx - x0
+            return r
+
+        wall = []
+        for j, (khash, packed, cols, req_lists, _) in enumerate(waves):
+            t0 = time.perf_counter()
+            if lane == "object":
+                item = ("named", khash, packed, cols, 1, req_lists)
+                w = part("numpy", ana._named_columns, item)
+                part("sketch", ana.sketch.update, w["khash"], w["hits"],
+                     w["over"], w["t_ms"])
+                part("names", ana._note_named, w)
+                part("tenants", ana._fold_named_tenants, w)
+            else:
+                learns, (_, kh, hits, over, t_ms) = wire[j]
+                # the worker applies a drain's learn taps together
+                part("learn", ana._safe_learn, learns)
+                part("sketch", ana.sketch.update, kh, hits, over, t_ms)
+                if ana._tenants is not None:
+                    part("tenants", ana._table.fold, ana._tenants, kh,
+                         hits, over)
+            part("publish", ana._maybe_publish)
+            wall.append((time.perf_counter() - t0) * 1e6)
+        n = len(waves)
+        cpu = sum(secs.values())
+        tot_cxx = sum(cxx.values())
+        out[lane] = {
+            "worker_us_median": float(np.median(wall)),
+            "worker_cpu_us": cpu / n * 1e6,
+            "cxx_us": tot_cxx / n * 1e6,
+            "gil_held_us": (cpu - tot_cxx) / n * 1e6,
+            "sections_cpu_us": {k: v / n * 1e6 for k, v in secs.items()},
+            "sections_gil_held_us": {k: (secs[k] - cxx[k]) / n * 1e6
+                                     for k in secs},
+            "state": (ana.sketch.canonical_bytes(),
+                      ana.tenants_snapshot()),
+        }
+    return out
+
+
+def measure_tenants(waves) -> dict:
+    """The three tenant arms (see the module), each run twice."""
+    wire = wire_items(waves)
+    runs: dict = {}
+    for arm in ("off", "python", "native", "native", "python", "off"):
+        runs.setdefault(arm, []).append(tenant_arm(arm, waves, wire))
+    out: dict = {}
+    for lane in ("object", "wire"):
+        states = {arm: r[0][lane]["state"] for arm, r in runs.items()}
+        if not states["off"][0] == states["python"][0] \
+                == states["native"][0]:
+            raise AssertionError(f"{lane}: the arms' sketches differ")
+        if states["python"][1] != states["native"][1]:
+            raise AssertionError(f"{lane}: the native tenant fold's "
+                                 "ledger differs from the plain one's")
+        lo = out[lane] = {"tenants_equal": True,
+                          "tenant_totals": states["native"][1]["totals"]}
+        for arm, rs in runs.items():
+            a = {}
+            for k in ("worker_us_median", "worker_cpu_us", "cxx_us",
+                      "gil_held_us"):
+                a[k] = float(np.mean([r[lane][k] for r in rs]))
+            for k in ("sections_cpu_us", "sections_gil_held_us"):
+                a[k] = {s: float(np.mean([r[lane][k][s] for r in rs]))
+                        for s in rs[0][lane][k]}
+            a["gil_longest_section"] = max(
+                a["sections_gil_held_us"],
+                key=a["sections_gil_held_us"].get)
+            lo[arm] = a
+    return out
+
+
 def measure(n_waves: int = 200, jobs: int = 8, batch: int = 125,
             n_keys: int = 10_000_000, seed: int = 0) -> dict:
     """The tap's own cost, list against columnar (see the module)."""
@@ -133,6 +286,7 @@ def measure(n_waves: int = 200, jobs: int = 8, batch: int = 125,
     waves = build_waves(n_waves, jobs, batch, n_keys, seed)
     ana = KeyAnalytics()
     ana.close()  # its worker stops: the arms call the worker's part here
+    ana._tenants = None  # the tap alone, as it was measured before
     got = {"list": ([], [], []), "columnar": ([], [], [])}
     states = {}
     for arm in ("list", "columnar", "columnar", "list"):
@@ -156,6 +310,7 @@ def measure(n_waves: int = 200, jobs: int = 8, batch: int = 125,
         base = out["list"][part]
         out[f"{part}_columnar_over_list"] = (out["columnar"][part] / base
                                              if base else None)
+    out["tenants"] = measure_tenants(waves)
     return out
 
 

@@ -14,7 +14,11 @@ does a TLS setting the port cannot honor when the daemon starts
 (tlsutil.py); an unknown discovery type raises there too.  Keys of
 subsystems the port does not have yet are ignored, so the repository's
 example.conf loads as is.  ``HELP`` holds the operator description of
-the discovery and TLS keys (JAX's ENV_REGISTRY entries).
+the discovery, TLS and observability keys (JAX's ENV_REGISTRY entries);
+the observability keys (GUBER_TRACE_*, GUBER_TENANT_*, GUBER_SLO*,
+GUBER_MEM_*, GUBER_FLEET_*, GUBER_PROFILE_DIR, GUBER_DEBUG_DUMP_DIR,
+GUBER_INSTANCE_ID) are read from the environment where the JAX package
+reads them, with its defaults.
 """
 from __future__ import annotations
 
@@ -25,8 +29,8 @@ from typing import Dict, List, Optional
 
 from .types import PeerInfo
 
-#: the operator description of the discovery and TLS keys (the JAX
-#: package's ENV_REGISTRY entries, word for word)
+#: the operator description of the discovery, TLS and observability keys
+#: (the JAX package's ENV_REGISTRY entries, word for word)
 HELP: Dict[str, str] = {
     "GUBER_DNS_FQDN": "DNS discovery: FQDN to resolve for peers",
     "GUBER_DNS_RESOLVE_INTERVAL": "DNS discovery: re-resolve interval (duration)",
@@ -47,6 +51,27 @@ HELP: Dict[str, str] = {
     "GUBER_TLS_CLIENT_AUTH_CA_CERT": "TLS client-auth CA path",
     "GUBER_TLS_INSECURE_SKIP_VERIFY": "peer clients skip TLS verification",
     "GUBER_TLS_KEY": "TLS server key path",
+    # the observability planes, read from the environment where the JAX
+    # package reads them (instance.py, analytics.py, slo.py,
+    # memledger.py, fleet.py, daemon.py)
+    "GUBER_DEBUG_DUMP_DIR": "crash forensics: close() dumps the event ring + final SLO verdicts here as JSONL",
+    "GUBER_FLEET_AUDIT": "conservation auditor on the GLOBAL lanes: 0 disables the audit taps + /debug/audit drift (default on)",
+    "GUBER_FLEET_DRIFT_BOUND": "conservation drift staleness bound (duration) before the fleet_conservation SLO burns; default 2x GUBER_GLOBAL_SYNC_WAIT",
+    "GUBER_INSTANCE_ID": "stable instance id (defaults to advertise address)",
+    "GUBER_MEM_ADVISE_FLOOR": "memory ledger: per-consumer minimum rows in the advised split (default 64)",
+    "GUBER_MEM_LEDGER": "0 disables the device-memory ledger plane (default 1)",
+    "GUBER_MEM_PRESSURE": "hbm_pressure SLO target: byte-weighted occupancy fraction (default 0.85)",
+    "GUBER_PROFILE_DIR": "on-demand device-profiler capture directory",
+    "GUBER_SLO": "0 disables the in-process SLO burn-rate engine",
+    "GUBER_SLO_BURN": "burn-rate breach threshold (multiple of the error-budget spend rate, default 2.0)",
+    "GUBER_SLO_FAST": "SLO fast burn window (duration, default 1m)",
+    "GUBER_SLO_P99_MS": "decision_p99 SLO target: device-phase p99 ms (default 250)",
+    "GUBER_SLO_SLOW": "SLO slow burn window (duration, default 5m)",
+    "GUBER_SLO_TICK": "SLO engine evaluation interval (duration, default 1s)",
+    "GUBER_TENANT_DELIM": "tenant id = key-name prefix up to this delimiter (default /)",
+    "GUBER_TENANT_MAX": "max distinct tenant buckets; overflow folds into __other__ (default 64)",
+    "GUBER_TRACE_SAMPLE": "head-sampling rate for the trace plane (0 disables)",
+    "GUBER_TRACE_SPANS": "span-recorder ring capacity (completed spans kept)",
 }
 
 _DUR_RE = re.compile(r"(\d+(?:\.\d+)?)(ns|us|µs|ms|s|m|h)")

@@ -320,6 +320,18 @@ class WaveBufferPool:
                     "leaks": self.leaks, "outstanding": self.outstanding,
                     "pooled": sum(len(v) for v in self._free.values())}
 
+    def mem_stats(self) -> dict:
+        """The memory ledger's probe feed: the host bytes the idle pairs
+        hold right now, summed from the live arrays."""
+        with self._mu:
+            pooled = nbytes = 0
+            for ring in self._free.values():
+                for a64, a32 in ring:
+                    pooled += 1
+                    nbytes += int(a64.nbytes) + int(a32.nbytes)
+            return {"pooled": pooled, "pooled_bytes": nbytes,
+                    "hits": self.hits}
+
 
 def lease_batch(lease: WaveLease, idx) -> RequestBatch:
     """The leased rows ``idx`` as a RequestBatch of numpy columns, as

@@ -34,10 +34,24 @@ of gubernator_tpu/daemon.py):
   and POST /debug/faults (``{"spec": "peer_send@host:port:error",
   "seed": 7}`` arms, ``{"clear": true}`` disarms; a malformed spec
   answers 400 and changes nothing), GET /debug/topkeys (the
-  heavy-hitter sketch's top keys, ``?limit=``, each with its ring owner)
-  and GET /debug/phases (the per-phase latency ledger and the waves'
-  percentiles); both answer 404 with GUBER_ANALYTICS=0; GET
-  /debug/kernels (this process's CUDA kernel launches);
+  heavy-hitter sketch's top keys, ``?limit=``, each with its ring owner),
+  GET /debug/phases (the per-phase latency ledger and the waves'
+  percentiles), GET /debug/tenants (the tenant ledger) and GET
+  /debug/costmodel (the fitted cost model); these answer 404 with
+  GUBER_ANALYTICS=0; GET /debug/kernels (this process's CUDA kernel
+  launches); GET /debug/traces (the span ring, ``?trace_id=`` and
+  ``?limit=``), GET /debug/audit (the conservation audit, always
+  served), GET /debug/slo (404 with GUBER_SLO=0), GET /debug/memory
+  (``?advise=1`` adds the advisor's split; 404 with GUBER_MEM_LEDGER=0)
+  and GET /debug/profile (``?seconds=N`` starts one ``torch.profiler``
+  capture into a fresh temporary directory: 400 for a bad N, 409 while
+  any capture runs; without ``seconds`` its status).  ``?deep=1`` on
+  /healthz adds the SLO engine's ``slo`` block and the memory ledger's
+  ``memory`` totals;
+- every gRPC handler and the HTTP GetRateLimits run in a request context
+  (tracing.py): the inbound ``traceparent`` is adopted (or a trace
+  started), a span records the handler, and the trace commits at its
+  end; GUBER_PROFILE_DIR starts a capture at start-up, stopped at close;
 - ``snapshot_path`` (GUBER_SNAPSHOT_PATH): a FileLoader, so the table
   (both tiers) is restored at start and saved at close.
 
@@ -63,6 +77,7 @@ from .netutil import resolve_host_ip, split_host_port
 from .store import FileLoader
 from .telemetry import exc_text
 from .tlsutil import setup_tls
+from .tracing import grpc_request_context, request_context, span
 from .types import Behavior, PeerInfo, RateLimitRequest
 
 log = logging.getLogger("gubernator_tpu_torch.daemon")
@@ -111,9 +126,12 @@ class _V1Servicer:
     def GetRateLimitsWire(self, request: bytes, context):
         import grpc
 
-        with request_deadline(context.time_remaining()):
+        inst = self.instance
+        with grpc_request_context(context, recorder=inst.span_recorder), \
+                span("grpc.GetRateLimits", metrics=inst.metrics), \
+                request_deadline(context.time_remaining()):
             try:
-                return self.instance.get_rate_limits_wire(request)
+                return inst.get_rate_limits_wire(request)
             except ValueError as e:
                 context.abort(grpc.StatusCode.INVALID_ARGUMENT, exc_text(e))
             except ResourceExhausted as e:
@@ -136,9 +154,12 @@ class _PeersServicer:
     def GetPeerRateLimitsWire(self, request: bytes, context):
         import grpc
 
-        with request_deadline(context.time_remaining()):
+        inst = self.instance
+        with grpc_request_context(context, recorder=inst.span_recorder), \
+                span("grpc.GetPeerRateLimits", metrics=inst.metrics), \
+                request_deadline(context.time_remaining()):
             try:
-                return self.instance.get_peer_rate_limits_wire(request)
+                return inst.get_peer_rate_limits_wire(request)
             except ValueError as e:
                 context.abort(grpc.StatusCode.INVALID_ARGUMENT, exc_text(e))
             except ResourceExhausted as e:
@@ -148,8 +169,11 @@ class _PeersServicer:
     def UpdatePeerGlobals(self, request, context):
         from .proto import peers_pb2 as peers_pb
 
-        self.instance.update_peer_globals(list(request.globals))
-        return peers_pb.UpdatePeerGlobalsResp()
+        inst = self.instance
+        with grpc_request_context(context, recorder=inst.span_recorder), \
+                span("grpc.UpdatePeerGlobals", metrics=inst.metrics):
+            inst.update_peer_globals(list(request.globals))
+            return peers_pb.UpdatePeerGlobalsResp()
 
 
 class Daemon:
@@ -173,6 +197,11 @@ class Daemon:
         self.advertise_address = cfg.advertise_address
         #: the TLS context (tlsutil.py), None in plaintext
         self.tls = None
+        #: the GUBER_PROFILE_DIR capture, and one /debug/profile capture
+        #: at a time (the profiler is process-wide)
+        self.profiler = None
+        self._prof_mu = threading.Lock()
+        self._runtime_prof: Optional[dict] = None  # guarded-by: self._prof_mu
         try:
             self.tls = setup_tls(cfg.tls)
             if cfg.grpc_listen_address:
@@ -199,6 +228,9 @@ class Daemon:
             self._start_http(cfg.http_listen_address)
             self.discovery = make_discovery(cfg, self.peer_info(),
                                             self.instance.set_peers)
+            from .tracing import DeviceProfiler
+
+            self.profiler = DeviceProfiler.from_env(cuda=self._on_cuda())
         except BaseException:
             # a half-built daemon leaks no listener or thread
             self._closed = True
@@ -302,6 +334,11 @@ class Daemon:
                     ana = daemon.instance.analytics
                     if ana is not None:
                         ana.republish()  # the top-K gauge, at scrape time
+                    led = daemon.instance.memledger
+                    if led is not None:
+                        # the ledger's gauges too: its probes run on the
+                        # scraper's time
+                        led.republish(daemon.instance.metrics)
                     self._send(200, daemon.instance.metrics.render(),
                                "text/plain; version=0.0.4")
                 elif path in ("/healthz", "/v1/HealthCheck"):
@@ -320,10 +357,15 @@ class Daemon:
                 elif path == "/debug/faults":
                     self._send(200, json.dumps(
                         daemon.instance.faults.describe()).encode())
-                elif path in ("/debug/topkeys", "/debug/phases"):
+                elif path in ("/debug/topkeys", "/debug/phases",
+                              "/debug/tenants", "/debug/costmodel"):
                     self._send(*daemon.analytics_doc(path, q))
                 elif path == "/debug/kernels":
                     self._send(200, json.dumps(kernel_launches()).encode())
+                elif path in ("/debug/traces", "/debug/audit", "/debug/slo",
+                              "/debug/memory", "/debug/profile"):
+                    code, body = daemon.debug_doc(path, q)
+                    self._send(code, json.dumps(body).encode())
                 else:
                     self._send(404, b'{"error":"not found"}')
 
@@ -357,7 +399,11 @@ class Daemon:
                     payload = json.loads(self.rfile.read(length) or b"{}")
                     reqs = [_json_to_req(o)
                             for o in payload.get("requests", [])]
-                    resps = daemon.instance.get_rate_limits(reqs)
+                    inst = daemon.instance
+                    with request_context(self.headers.get("traceparent"),
+                                         recorder=inst.span_recorder), \
+                            span("http.GetRateLimits", metrics=inst.metrics):
+                        resps = inst.get_rate_limits(reqs)
                 except ValueError as e:
                     self._send(400, json.dumps(
                         {"error": exc_text(e)}).encode())
@@ -384,9 +430,10 @@ class Daemon:
     def health(self, deep: bool) -> tuple:
         """(HTTP code, body) of /healthz: 503 "draining" once close()
         began; else the instance's health check, and with ``deep`` the
-        dispatcher's ``debug_stats()`` and each peer's ``lane_stats()``
-        (the SLO and memory blocks of the JAX daemon wait for their
-        subsystems)."""
+        dispatcher's ``debug_stats()``, each peer's ``lane_stats()``, the
+        SLO engine's ``health()`` (``slo``: breached and burning SLOs, the
+        ``--fail-on-burn`` feed) and the memory ledger's totals
+        (``memory``)."""
         inst = self.instance
         if self._draining:
             return 503, {"status": "draining",
@@ -399,10 +446,18 @@ class Daemon:
             body["dispatcher"] = inst.dispatcher.debug_stats()
             body["peers"] = {p.info.grpc_address: p.lane_stats()
                              for p in inst.peers()}
+            if inst.slo is not None:
+                body["slo"] = inst.slo.health()
+            if inst.memledger is not None:
+                snap = inst.memledger.snapshot()
+                body["memory"] = {k: snap[k] for k in (
+                    "device_bytes", "host_bytes", "pressure",
+                    "pressure_target")}
         return (200 if h.status == "healthy" else 503), body
 
     def analytics_doc(self, path: str, q: dict) -> tuple:
-        """(HTTP code, JSON body) of /debug/topkeys or /debug/phases."""
+        """(HTTP code, JSON body) of /debug/topkeys, /debug/phases,
+        /debug/tenants or /debug/costmodel."""
         inst = self.instance
         ana = inst.analytics
         if ana is None:
@@ -414,12 +469,117 @@ class Daemon:
             for e in snap["keys"]:
                 e["owner"] = inst.owner_addr_by_khash(int(e["khash"], 16))
             return 200, json.dumps(snap).encode()
+        if path == "/debug/tenants":
+            ana.flush(timeout=2.0)  # fold the queued taps first
+            return 200, json.dumps(ana.tenants_snapshot()).encode()
+        if path == "/debug/costmodel":
+            return 200, json.dumps(ana.costmodel_snapshot()).encode()
         body = ana.phases_snapshot()
         tel = inst.dispatcher.telemetry_snapshot()
         body["waves"] = {k: tel.get(k) for k in (
             "waves", "wave_duration_p50_ms", "wave_duration_p99_ms",
             "queue_wait_p50_ms", "queue_wait_p99_ms")}
         return 200, json.dumps(body).encode()
+
+    def debug_doc(self, path: str, q: dict) -> tuple:
+        """(HTTP code, JSON-able body) of /debug/traces, /debug/audit,
+        /debug/slo, /debug/memory or /debug/profile."""
+        inst = self.instance
+        if path == "/debug/traces":
+            rec = inst.span_recorder
+            st = rec.stats()
+            return 200, {"sample": st["sample"], "capacity": st["capacity"],
+                         "dropped": st["dropped"],
+                         "spans": rec.spans(
+                             trace_id=q.get("trace_id", [""])[-1] or None,
+                             limit=_int_arg(q, "limit"))}
+        if path == "/debug/audit":
+            return 200, inst.audit_doc()
+        if path == "/debug/slo":
+            if inst.slo is None:
+                return 404, {"error": "slo engine disabled (GUBER_SLO=0)"}
+            return 200, inst.slo.snapshot()
+        if path == "/debug/memory":
+            led = inst.memledger
+            if led is None:
+                return 404, {"error": "memory ledger disabled "
+                                      "(GUBER_MEM_LEDGER=0)"}
+            body = led.snapshot()
+            if q.get("advise", ["0"])[-1] not in ("", "0", "false"):
+                body["advise"] = led.advise()
+            return 200, body
+        return self._handle_profile(q)
+
+    #: the longest runtime capture: a capture taxes the serving loop and
+    #: its trace grows with time
+    PROFILE_MAX_SECONDS = 300.0
+
+    def _on_cuda(self) -> bool:
+        return getattr(self.instance.engine.device, "type", "") == "cuda"
+
+    def _handle_profile(self, q: dict) -> tuple:
+        """``?seconds=N`` starts a DeviceProfiler capture for N seconds
+        into a fresh directory (GUBER_PROFILE_DIR's parent is not used:
+        each capture its own); 400 for a bad N, 409 while any capture
+        (runtime or GUBER_PROFILE_DIR's) runs.  Without ``seconds``: the
+        capture's status, its trace file once written."""
+        from .tracing import DeviceProfiler, ProfilerBusy
+
+        raw = q.get("seconds", [""])[-1]
+        with self._prof_mu:
+            rp = self._runtime_prof
+            active = rp is not None and not rp["done"].is_set()
+            if not raw:
+                body = {"active": active}
+                if rp is not None:
+                    body.update({"dir": rp["dir"], "seconds": rp["seconds"]})
+                    if rp["done"].is_set():
+                        body["trace"] = rp["profiler"].path
+                elif self.profiler is not None:
+                    body.update({"active": True,
+                                 "dir": self.profiler.log_dir,
+                                 "startup_env": True})
+                return 200, body
+            try:
+                seconds = float(raw)
+            except ValueError:
+                return 400, {"error": f"invalid seconds={raw!r}"}
+            if not 0 < seconds <= self.PROFILE_MAX_SECONDS:
+                return 400, {"error": f"seconds must be in (0, "
+                                      f"{self.PROFILE_MAX_SECONDS:.0f}]"}
+            if active or self.profiler is not None:
+                return 409, {"error": "a profile capture is already active"}
+            import tempfile
+
+            log_dir = tempfile.mkdtemp(prefix="guber_profile_")
+            try:
+                prof = DeviceProfiler(log_dir, cuda=self._on_cuda())
+            except ProfilerBusy as e:  # another daemon of the process
+                return 409, {"error": exc_text(e)}
+            except Exception as e:  # noqa: BLE001 - the caller's answer
+                return 500, {"error": f"profiler start failed: "
+                                      f"{exc_text(e)}"}
+            done = threading.Event()
+            stop = threading.Event()
+            state = {"profiler": prof, "dir": log_dir, "seconds": seconds,
+                     "done": done, "stop": stop}
+            self._runtime_prof = state
+        inst = self.instance
+        inst.recorder.record("profile_start", dir=log_dir, seconds=seconds)
+
+        def stop_later():
+            stop.wait(seconds)  # close() cuts a capture short
+            try:
+                prof.stop()
+            finally:
+                done.set()
+                inst.recorder.record("profile_stop", dir=log_dir)
+
+        t = threading.Thread(target=stop_later, daemon=True,
+                             name="debug-profile-stop")
+        state["thread"] = t
+        t.start()
+        return 200, {"profiling": True, "dir": log_dir, "seconds": seconds}
 
     def close(self) -> None:
         """Graceful shutdown: drain first.  /healthz answers 503
@@ -445,6 +605,13 @@ class Daemon:
             inst.recorder.record("drain_completed")
 
     def _teardown(self) -> None:
+        if self.profiler is not None:
+            self.profiler.stop()
+        with self._prof_mu:
+            rp = self._runtime_prof
+        if rp is not None:
+            rp["stop"].set()
+            rp["thread"].join(timeout=30)
         if self.discovery is not None:
             self.discovery.close()
         if self.client_server is not None:

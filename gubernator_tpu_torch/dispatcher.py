@@ -43,9 +43,17 @@ are serialized by one lock, which the instance's row-level operations
   the sketch learns the names of new keys; the engine's device tap is
   muted for it), any other wave with its columns (``_tap_packed``),
   which an engine that taps in its step (``fused_tap``) skips.  Phase samples feed the analytics'
-  PhaseLedger beside the histogram.
-
-Not ported: wave spans wait for the tracing slice.
+  PhaseLedger beside the histogram.  A shed is tapped as the tenant's
+  ``shed`` rows (``tap_flag``).
+- **Traces.** A job carries its caller's trace id and innermost span
+  (``tracing.current_trace_id`` / ``current_span_id``, read at submit).
+  With a ``span_recorder`` (the instance's), every wave with a trace
+  records a ``wave`` span, parented under its first traced job's span
+  and linking up to ``WAVE_LINKS`` other traced jobs, with one child
+  span per phase (pack, device, resolve) laid end to end, so the
+  children partition it exactly.  A pipelined wave's span runs from its
+  launch to its sync; an inline wave takes its caller's trace.  A shed
+  forces its caller's trace to be sampled.
 """
 from __future__ import annotations
 
@@ -66,7 +74,10 @@ import numpy as np
 
 from .core.batch import RequestBatch, pack_requests, responses_from_columns
 from .hashing import hash_request_keys
+from .metrics import observe_with_exemplar
 from .telemetry import exc_text
+from .tracing import (current_span_id, current_trace_id, force_sample,
+                      new_span_id)
 from .types import RateLimitRequest, RateLimitResponse
 
 log = logging.getLogger("gubernator_tpu_torch.dispatcher")
@@ -120,7 +131,8 @@ class _Job:
     """One caller's submission: request objects (``reqs``) or packed
     columns (``batch`` + ``khash``); ``t_enq`` is stamped at submit."""
 
-    __slots__ = ("reqs", "batch", "khash", "now_ms", "future", "t_enq")
+    __slots__ = ("reqs", "batch", "khash", "now_ms", "future", "t_enq",
+                 "trace", "span")
 
     def __init__(self, now_ms: int, reqs=None, batch=None, khash=None):
         self.reqs = reqs
@@ -129,6 +141,9 @@ class _Job:
         self.now_ms = now_ms
         self.future: Future = Future()
         self.t_enq: Optional[float] = None
+        #: the caller's trace id and innermost span id, read at submit
+        self.trace: Optional[str] = None
+        self.span: Optional[str] = None
 
     def __len__(self) -> int:
         return len(self.reqs) if self.reqs is not None else len(self.khash)
@@ -165,6 +180,8 @@ class Dispatcher:
     #: rows queued before ingress sheds, in waves of max_wave rows
     #: (GUBER_ADMISSION_LIMIT in rows; 0 disables the bound)
     ADMISSION_LIMIT_WAVES = 8
+    #: other traced jobs a wave span links, at most
+    WAVE_LINKS = 8
 
     def __init__(self, engine, max_wave: int = 8192,
                  max_delay_ms: float = 0.2,
@@ -197,6 +214,9 @@ class Dispatcher:
         #: per-instance Metrics registry and FlightRecorder, both optional
         self.metrics = metrics
         self.recorder = recorder
+        #: the instance's tracing.SpanRecorder: waves record spans when
+        #: set (swapped whole, racy reads are fine)
+        self.span_recorder = None
         self._clock = clock
         #: waves the worker ran / waves callers ran inline
         self.wave_count = 0
@@ -390,9 +410,21 @@ class Dispatcher:
 
     # ---- admission -----------------------------------------------------
 
-    def _shed(self, reason: str, nrows: int) -> None:
+    def _shed(self, reason: str, nrows: int, tenant_cb=None) -> None:
+        # the rejected caller's trace is the one worth keeping
+        force_sample("shed")
         if self.metrics is not None:
             self.metrics.admission_shed.labels(reason=reason).inc(nrows)
+        # the tenant is resolved only here: an admitted batch never pays
+        tenant = None
+        if tenant_cb is not None:
+            try:
+                tenant = tenant_cb()
+            except Exception:  # pragma: no cover - attribution only
+                tenant = None
+        ana = self.analytics
+        if ana is not None:
+            ana.tap_flag("shed", nrows, tenant=tenant)
         with self._submit_mu:
             self._shed_rows += nrows
             now = self._clock()
@@ -401,9 +433,14 @@ class Dispatcher:
                 self._last_shed_event = now
         if self.recorder is not None and not throttled:
             # under sustained overload one event a second, not one a call
-            self.recorder.record(
-                "admission_shed", reason=reason, rows=nrows,
-                queued_rows=self._queued_rows)  # lock-free: diagnostic snapshot
+            ev = {"reason": reason, "rows": nrows,
+                  "queued_rows": self._queued_rows}  # lock-free: diagnostic snapshot
+            if tenant is not None:
+                ev["tenant"] = tenant
+            sid = current_span_id()
+            if sid is not None:
+                ev["span_id"] = sid
+            self.recorder.record("admission_shed", **ev)
         raise ResourceExhausted(
             f"admission control shed {nrows} requests ({reason}: "
             f"queued_rows={self._queued_rows}, "  # lock-free: diagnostic snapshot
@@ -427,22 +464,24 @@ class Dispatcher:
         rows_per_wave = min(max(avg_rows, queued), self.max_wave)
         return math.ceil(queued / rows_per_wave) * wave_s
 
-    def admit(self, nrows: int, deadline_s: Optional[float] = None) -> None:
+    def admit(self, nrows: int, deadline_s: Optional[float] = None,
+              tenant_cb=None) -> None:
         """The ingress gate: raise ResourceExhausted instead of queueing
         work that cannot finish (no device work, no allocation).  The
         deadline sheds only behind a backlog: an idle dispatcher serves
-        any deadline."""
+        any deadline.  ``tenant_cb`` names the batch's tenant, called
+        only when it sheds."""
         if self._draining:
-            self._shed("draining", nrows)
+            self._shed("draining", nrows, tenant_cb)
         lim = self.admission_limit
         if lim and self._queued_rows + nrows > lim:  # lock-free: GIL-atomic int read; admission is approximate
-            self._shed("queue_full", nrows)
+            self._shed("queue_full", nrows, tenant_cb)
         dl = deadline_s if deadline_s is not None \
             else _REQUEST_DEADLINE.get()
         if dl is not None and dl > 0 and self._queued_rows > 0:  # lock-free: GIL-atomic int read
             # the wait is what is AHEAD of this batch
             if self.projected_queue_wait_s(0) > dl:
-                self._shed("deadline", nrows)
+                self._shed("deadline", nrows, tenant_cb)
 
     def drain(self) -> None:
         """Drain mode: queued and in-flight waves complete, new ingress
@@ -454,6 +493,9 @@ class Dispatcher:
         n = len(job)
         self.admit(n)
         job.t_enq = self._clock()
+        # the worker thread has no request context: the job carries it
+        job.trace = current_trace_id()
+        job.span = current_span_id()
         with self._submit_mu:
             # under the lock close() takes: no job slips in after the
             # final drain
@@ -482,16 +524,36 @@ class Dispatcher:
                     slot: Optional[int] = None) -> int:
         t0 = self._clock()
         waits = []
+        trace = parent = None
+        links = []
+        sr = self.span_recorder
         if jobs:
             nreq = sum(len(j) for j in jobs)
             waits = [max(t0 - j.t_enq, 0.0) for j in jobs
                      if j.t_enq is not None]
+            for j in jobs:
+                if trace is None:
+                    trace, parent = j.trace, j.span
+                elif sr is not None and j.trace \
+                        and len(links) < self.WAVE_LINKS:
+                    # fan-in: the other requests batched into this wave
+                    links.append(f"{j.trace}:{j.span or ''}")
+        else:
+            # an inline wave runs in its caller's thread
+                trace, parent = current_trace_id(), current_span_id()
+        wspan = None
+        if sr is not None and trace is not None:
+            wspan = new_span_id()
+        tenant = (self._job_tenant(jobs[0])
+                  if jobs and self.recorder is not None else None)
         with self._tel_mu:
             self._wave_seq += 1
             wid = self._wave_seq
             self._inflight[wid] = {"t0": t0, "kind": kind, "size": nreq,
                                    "stalled": False, "slot": slot,
-                                   "marks": []}
+                                   "trace": trace, "span": wspan,
+                                   "parent": parent, "links": links,
+                                   "tenant": tenant, "marks": []}
             self._recent_sizes.append(nreq)
             self._recent_waits.extend(waits)
         m = self.metrics
@@ -503,13 +565,27 @@ class Dispatcher:
         for w in waits:
             self._obs_phase("queue_wait", w)
         if self.recorder is not None:
-            ev = {"wave": wid, "wave_kind": kind, "size": nreq,
-                  "jobs": len(jobs) if jobs else 1}
+            ev = {"trace": trace, "wave": wid, "wave_kind": kind,
+                  "size": nreq, "jobs": len(jobs) if jobs else 1}
+            if wspan is not None:
+                ev["span_id"] = wspan
             if slot is not None:
                 # position in the in-flight ring at launch (0 = oldest)
                 ev["slot"] = slot
+            if tenant is not None:
+                ev["tenant"] = tenant
             self.recorder.record("wave_launched", **ev)
         return wid
+
+    def _job_tenant(self, job: _Job) -> Optional[str]:
+        """The event hint of a wave's tenant: its first job's first key
+        (the raw prefix, or the key hash's learned bucket)."""
+        ana = self.analytics
+        if ana is None or not len(job):
+            return None
+        if job.reqs is not None:
+            return ana.tenant_hint(name=job.reqs[0].name)
+        return ana.tenant_hint(khash=int(job.khash[0]))
 
     def _wave_mark(self, wid: int, name: str) -> None:
         t = self._clock()
@@ -518,19 +594,20 @@ class Dispatcher:
             if info is not None:
                 info["marks"].append((name, t))
 
-    def _obs_phase(self, phase: str, seconds: float) -> None:
+    def _obs_phase(self, phase: str, seconds: float,
+                   exemplar=None) -> None:
         """One phase sample → the analytics' ledger and the histogram
         (KeyAnalytics.observe_phase feeds both), or the histogram alone
-        without analytics."""
+        without analytics; ``exemplar`` links the bucket to a trace."""
         ana = self.analytics
         if ana is not None:
-            ana.observe_phase(phase, seconds)
+            ana.observe_phase(phase, seconds, exemplar=exemplar)
         elif self.metrics is not None:
             child = self._phase_hist.get(phase)
             if child is None:  # benign race: labels() is idempotent
                 child = self._phase_hist[phase] = \
                     self.metrics.phase_duration.labels(phase=phase)
-            child.observe(max(seconds, 0.0))
+            observe_with_exemplar(child, max(seconds, 0.0), exemplar)
 
     def _tap_packed(self, khash, hits, status) -> None:
         """A resolved wave's columns to the analytics (never raises into
@@ -569,6 +646,8 @@ class Dispatcher:
             self._last_wave_end = t1
             was_stalled = info["stalled"]
             any_stalled = any(i["stalled"] for i in self._inflight.values())
+        sr = self.span_recorder
+        ex = sr.exemplar() if sr is not None else None
         phases = None
         if info["marks"]:
             phases = {}
@@ -578,10 +657,12 @@ class Dispatcher:
                 prev = tm
             phases["resolve"] = max(t1 - prev, 0.0)
         for name, secs in (phases or {}).items():
-            self._obs_phase(name, secs)
+            self._obs_phase(name, secs, exemplar=ex)
+        if sr is not None and info["span"] and info["trace"]:
+            self._record_wave_span(sr, wid, info, dur, phases, error)
         m = self.metrics
         if m is not None:
-            m.wave_duration.observe(dur)
+            observe_with_exemplar(m.wave_duration, dur, ex)
             m.waves_in_flight.dec()
             if first:
                 m.first_wave_duration.set(dur)
@@ -593,10 +674,15 @@ class Dispatcher:
                         info["size"], dur,
                         " with error" if error is not None else "")
         if self.recorder is not None:
-            ev = {"wave": wid, "wave_kind": info["kind"],
-                  "size": info["size"], "duration_ms": round(dur * 1000, 3)}
+            ev = {"trace": info["trace"], "wave": wid,
+                  "wave_kind": info["kind"], "size": info["size"],
+                  "duration_ms": round(dur * 1000, 3)}
+            if info["span"]:
+                ev["span_id"] = info["span"]
             if info["slot"] is not None:
                 ev["slot"] = info["slot"]
+            if info["tenant"] is not None:
+                ev["tenant"] = info["tenant"]
             if phases is not None:
                 # per-phase breakdown in ms; sums to duration_ms
                 ev["phases"] = {k: round(v * 1000, 3)
@@ -608,8 +694,45 @@ class Dispatcher:
                 self.recorder.record("wave_completed", **ev)
             if first:
                 # the first wave pays what the warm-up did not cover
-                self.recorder.record("first_wave",
+                self.recorder.record("first_wave", trace=info["trace"],
                                      duration_ms=round(dur * 1000, 3))
+
+    def _record_wave_span(self, sr, wid: int, info: dict, dur: float,
+                          phases, error) -> None:
+        """The wave's span and its phase children.  The wave clock is
+        monotonic and spans carry wall time, so the wave is laid out
+        backwards from now: the children end to end, and the wave's end
+        taken from the same running sum, partition it exactly.  Never
+        raises into the serving path."""
+        try:
+            total = sum(phases.values()) if phases else dur
+            start = time.time() - total  # clock-ok: span wall time
+            c = start
+            kids = []
+            for name, secs in (phases or {}).items():
+                kids.append((name, c, c + secs))
+                c += secs
+            end = c if kids else start + total
+            tid = info["trace"]
+            attrs = {"wave": wid, "kind": info["kind"],
+                     "size": info["size"]}
+            if info["slot"] is not None:
+                attrs["slot"] = info["slot"]
+            if info["tenant"] is not None:
+                attrs["tenant"] = info["tenant"]
+            if info["links"]:
+                attrs["links"] = ",".join(info["links"])
+            if error is not None:
+                attrs["error"] = exc_text(error)
+            sr.add({"trace_id": tid, "span_id": info["span"],
+                    "parent_id": info["parent"], "name": "wave",
+                    "start": start, "end": end, "attrs": attrs})
+            for name, k0, k1 in kids:
+                sr.add({"trace_id": tid, "span_id": new_span_id(),
+                        "parent_id": info["span"], "name": f"wave.{name}",
+                        "start": k0, "end": k1, "attrs": {}})
+        except Exception:  # pragma: no cover - tracing only
+            log.exception("wave span record")
 
     # ---- the stall watchdog --------------------------------------------
 

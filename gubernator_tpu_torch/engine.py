@@ -230,6 +230,12 @@ class BucketEngine(ShardedEngine):
     def occupancy(self) -> int:
         return self.occupancy_and_saturation()[0]
 
+    def _live_count(self) -> torch.Tensor:
+        return ((self.rows[:, W_KLO] != 0) | (self.rows[:, W_KHI] != 0)).sum()
+
+    def table_tensors(self) -> list:
+        return [self.rows]
+
     # ---- row ops (cold path) -------------------------------------------
 
     def _find(self, keys: torch.Tensor):

@@ -26,7 +26,15 @@ key rehomed) ride the same queues and reconcile exactly once the owner
 answers; they are counted apart (``hits_degraded``).  The instance's
 ``FaultSet`` may abort a tick at its start (``global_hits``,
 ``global_broadcast``), before any queue is popped, so nothing is lost.
-The conservation audit and tracing wait for their slices.
+
+The conservation audit (fleet.py › AuditTap, ``audit``; None with
+GUBER_FLEET_AUDIT=0) counts hit weight injected at queue entry and
+applied at the owner's acknowledgement or absorbed where this daemon is
+the owner; the degraded share rides per key beside the queues (``_deg``,
+``_deg_raw``, and in the parked entries), so ``queued_hits`` reports it.
+Each tick runs in a trace of its own (``global.hits_flush``,
+``global.broadcast``), whose hop spans the owners' handlers parent
+under; a clean broadcast feeds the analytics' cost model.
 """
 from __future__ import annotations
 
@@ -34,11 +42,13 @@ import logging
 import threading
 import time
 from concurrent.futures import Future
+from contextlib import contextmanager, nullcontext
 from typing import Dict, List, Tuple
 
 import numpy as np
 
 from .config import BehaviorConfig
+from .fleet import AuditTap, audit_enabled
 from .hashing import fnv1a64
 from .interval import IntervalLoop
 from .telemetry import exc_text
@@ -79,9 +89,16 @@ class GlobalManager:
         self._hits_raw: Dict[int, Tuple[bytes, int, int]] = {}  # guarded-by: self._mu
         #: raw key hash → (seq, request TLV): the wire lane, owner side
         self._updates_raw: Dict[int, Tuple[int, bytes]] = {}  # guarded-by: self._mu
-        #: owner address → {raw key hash: (prototype, hits, seq)}: the
-        #: aggregates held back while that owner's circuit is open
+        #: the degraded share of the queued hits, keyed as the queues
+        self._deg: Dict[str, int] = {}  # guarded-by: self._mu
+        self._deg_raw: Dict[int, int] = {}  # guarded-by: self._mu
+        #: owner address → {raw key hash: (prototype, hits, seq,
+        #: degraded share)}: the aggregates held back while that owner's
+        #: circuit is open
         self._parked: Dict[str, Dict[int, tuple]] = {}  # guarded-by: self._mu
+        #: the conservation audit's sender-side ledger (own leaf lock,
+        #: touched outside self._mu)
+        self.audit = AuditTap() if audit_enabled() else None
         #: totals since start: hits queued, hits the owners acknowledged,
         #: hits absorbed (this daemon owns the key), hit flushes that
         #: failed, broadcasts sent and those that failed
@@ -115,7 +132,11 @@ class GlobalManager:
             self.stats["hits_queued"] += inc
             if degraded:
                 self.stats["hits_degraded"] += inc
+                if inc:
+                    self._deg[req.key] = self._deg.get(req.key, 0) + inc
             n = len(self._hits) + len(self._hits_raw)
+        if self.audit is not None:
+            self.audit.inject(inc, degraded)
         self.metrics.queue_length.set(n)
         if n >= self.behaviors.global_batch_limit:
             self._hits_loop.poke()
@@ -143,7 +164,11 @@ class GlobalManager:
             self.stats["hits_queued"] += inc
             if degraded:
                 self.stats["hits_degraded"] += inc
+                if inc:
+                    self._deg_raw[khash] = self._deg_raw.get(khash, 0) + inc
             n = len(self._hits_raw) + len(self._hits)
+        if self.audit is not None:
+            self.audit.inject(inc, degraded)
         self.metrics.queue_length.set(n)
         if n >= self.behaviors.global_batch_limit:
             self._hits_loop.poke()
@@ -167,19 +192,36 @@ class GlobalManager:
                     "hits": (sum(a for _, a, _ in self._hits.values())
                              + sum(a for _, a, _ in
                                    self._hits_raw.values())
-                             + sum(a for _, a, _ in parked)),
+                             + sum(e[1] for e in parked)),
                     "update_keys": len(self._updates)
                     + len(self._updates_raw)}
+
+    def queued_hits(self) -> Tuple[int, int]:
+        """(hit weight queued, its degraded share) across both lanes and
+        the parked owners: the audit vector's live-queue leg."""
+        with self._mu:
+            parked = [e for q in self._parked.values() for e in q.values()]
+            q = (sum(a for _, a, _ in self._hits.values())
+                 + sum(a for _, a, _ in self._hits_raw.values())
+                 + sum(e[1] for e in parked))
+            d = (sum(self._deg.values()) + sum(self._deg_raw.values())
+                 + sum(e[3] for e in parked))
+        return q, d
 
     def _requeue_hits(self, entries) -> None:
         """Put a failed flush's aggregates back (an unreachable owner
         must not lose hits): entries are (key or raw hash, prototype,
-        hits, seq), merged with whatever was queued since."""
+        hits, seq, degraded share), merged with whatever was queued
+        since.  Not a new injection: the audit counted them queued."""
         with self._mu:
-            for k, proto, acc, seq in entries:
-                q = self._hits_raw if isinstance(proto, bytes) else self._hits
+            for k, proto, acc, seq, deg in entries:
+                raw = isinstance(proto, bytes)
+                q = self._hits_raw if raw else self._hits
                 p0, a0, s0 = q.get(k, (proto, 0, 0))
                 q[k] = (proto if seq >= s0 else p0, a0 + acc, max(s0, seq))
+                if deg:
+                    dq = self._deg_raw if raw else self._deg
+                    dq[k] = dq.get(k, 0) + deg
             n = len(self._hits) + len(self._hits_raw)
         self.metrics.queue_length.set(n)
 
@@ -203,16 +245,33 @@ class GlobalManager:
 
     @staticmethod
     def _merge_into(dst: dict, src: dict) -> None:
-        """Merge raw-hash-space aggregates: the prototype of the later
-        arrival wins, hits add up."""
-        for kh, (proto, acc, seq) in src.items():
+        """Merge raw-hash-space aggregates (prototype, hits, seq,
+        degraded share): the prototype of the later arrival wins, hits
+        and shares add up."""
+        for kh, (proto, acc, seq, deg) in src.items():
             cur = dst.get(kh)
             if cur is None:
-                dst[kh] = (proto, acc, seq)
+                dst[kh] = (proto, acc, seq, deg)
             else:
-                p0, a0, s0 = cur
+                p0, a0, s0, d0 = cur
                 dst[kh] = (proto if seq >= s0 else p0, a0 + acc,
-                           max(s0, seq))
+                           max(s0, seq), d0 + deg)
+
+    def _tick_context(self, name: str):
+        """A tick's own trace (no caller request on this thread): a root
+        span named after it, under which the lanes' sends record their
+        hops, so the owners' handlers stitch back to the tick."""
+        rec = getattr(self.instance, "span_recorder", None)
+        if rec is None:
+            return nullcontext()
+        from .tracing import request_context, span
+
+        @contextmanager
+        def cm():
+            with request_context(None, recorder=rec), span(name):
+                yield
+
+        return cm()
 
     def _hits_tick(self) -> None:
         """Flush every key's aggregate to its owner: both lanes' queues
@@ -226,19 +285,29 @@ class GlobalManager:
         They rejoin the flush as soon as the circuit lets a send through
         (its half-open probe), and the tick still reports the failure as
         a refused send would."""
+        with self._tick_context("global.hits_flush"):
+            self._hits_tick_traced()
+
+    def _hits_tick_traced(self) -> None:
         if self._fault_tick("global_hits", "global hits flush"):
             return
         with self._mu:
             hits, self._hits = self._hits, {}
             hits_raw, self._hits_raw = self._hits_raw, {}
+            deg, self._deg = self._deg, {}
+            deg_raw, self._deg_raw = self._deg_raw, {}
             parked = self._parked
         # lock-free: only this tick's thread adds or removes parked owners
         self.metrics.queue_length.set(sum(len(v) for v in parked.values()))
         inst = self.instance
+        tap = self.audit
         peers = {p.info.grpc_address: p for p in inst.peers()}
-        merged: Dict[int, Tuple[object, int, int]] = dict(hits_raw)
+        merged: Dict[int, tuple] = {
+            kh: (tlv, acc, seq, deg_raw.get(kh, 0))
+            for kh, (tlv, acc, seq) in hits_raw.items()}
         self._merge_into(merged, {
-            fnv1a64(key.encode("utf-8")): v for key, v in hits.items()})
+            fnv1a64(key.encode("utf-8")): (req, acc, seq, deg.get(key, 0))
+            for key, (req, acc, seq) in hits.items()})
         for addr in list(parked):
             p = peers.get(addr)
             if p is None or not p._circuit_blocked():
@@ -252,13 +321,14 @@ class GlobalManager:
         by_owner: Dict[str, Tuple[object, List[bytes], List[tuple]]] = {}
         to_park: Dict[str, dict] = {}
         blocked: Dict[str, bool] = {}
-        absorbed = 0
-        for j, (kh, (proto, acc, seq)) in enumerate(merged.items()):
+        absorbed = absorbed_deg = 0
+        for j, (kh, (proto, acc, seq, d)) in enumerate(merged.items()):
             if acc <= 0:
                 continue
             peer = None if owners is None else owners[0][owners[1][j]]
             if peer is None or inst.is_self(peer):
                 absorbed += acc  # the owner: applied already
+                absorbed_deg += d
                 continue
             addr = peer.info.grpc_address
             b = blocked.get(addr)
@@ -266,11 +336,11 @@ class GlobalManager:
                 b = blocked[addr] = (addr in parked
                                      or peer._circuit_blocked())
             if b:
-                to_park.setdefault(addr, {})[kh] = (proto, acc, seq)
+                to_park.setdefault(addr, {})[kh] = (proto, acc, seq, d)
                 continue
             if isinstance(proto, bytes):
                 tlv = tlv_with_hits(proto, acc)
-                entry = (kh, proto, acc, seq)
+                entry = (kh, proto, acc, seq, d)
             else:
                 # the JAX flush builds these from the prototype's
                 # fields, so its created_at does not ride along
@@ -279,10 +349,12 @@ class GlobalManager:
                     limit=proto.limit, duration=proto.duration,
                     algorithm=proto.algorithm, behavior=proto.behavior,
                     burst=proto.burst))
-                entry = (proto.key, proto, acc, seq)
+                entry = (proto.key, proto, acc, seq, d)
             slot = by_owner.setdefault(addr, (peer, [], []))
             slot[1].append(tlv)
             slot[2].append(entry)
+        if tap is not None:
+            tap.apply(absorbed, absorbed_deg, absorbed=True)
         futs = []
         limit = self.behaviors.global_batch_limit
         for addr, (peer, tlvs, entries) in by_owner.items():
@@ -316,6 +388,9 @@ class GlobalManager:
                 self._flush_error(errors, addr, exc_text(e))
                 continue
             flushed += sum(e[2] for e in ent)
+            if tap is not None:
+                # the owner acknowledged this chunk
+                tap.apply(sum(e[2] for e in ent), sum(e[4] for e in ent))
         with self._mu:
             self.stats["hits_absorbed"] += absorbed
             self.stats["hits_flushed"] += flushed
@@ -335,6 +410,10 @@ class GlobalManager:
     def _broadcast_tick(self) -> None:
         """Owner side: send the changed keys' authoritative rows to every
         other peer (UpdatePeerGlobals), each message serialized once."""
+        with self._tick_context("global.broadcast"):
+            self._broadcast_tick_traced()
+
+    def _broadcast_tick_traced(self) -> None:
         if self._fault_tick("global_broadcast", "global broadcast"):
             return
         with self._mu:
@@ -395,7 +474,18 @@ class GlobalManager:
             self.stats["broadcast_failures"] += len(failed)
         self._record(errors)
         self.metrics.global_broadcast_counter.inc()
-        self.metrics.broadcast_duration.observe(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.metrics.broadcast_duration.observe(dt)
+        disp = getattr(inst, "dispatcher", None)
+        if disp is not None:
+            disp._obs_phase("broadcast", dt)
+            ana = disp.analytics
+            if ana is not None and peers and not errors:
+                # one broadcast fans the serialized updates out to every
+                # peer; a failed round measures its deadline: left out
+                ana.tap_cost("broadcast",
+                             sum(m.ByteSize() for m in msgs) * len(peers),
+                             len(peers) + 1, dt)
         self._record_event("broadcast", keys=len(msgs), peers=len(peers),
                            errors=len(errors),
                            error=("; ".join(errors) or None))

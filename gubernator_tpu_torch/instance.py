@@ -97,7 +97,26 @@ the cold tier), by a flagged request or a new config on it, by a peer
 joining, by a snapshot and by ``remove``, each counted in
 ``gubernator_hotset_demotions{reason}``.  The wire lane serves a lone
 daemon's GLOBAL batches through the same routing in columns (lane
-``wire_hotset``).  Tenant analytics and tracing wait for their slices.
+``wire_hotset``).
+
+Observability (the JAX package's defaults, all on):
+
+- **Traces**: a ``SpanRecorder`` (tracing.py; GUBER_TRACE_SAMPLE,
+  GUBER_TRACE_SPANS) shared with the dispatcher, armed per request by
+  the daemon's handlers; degraded serves force their trace's sample.
+- **Tenants**: the analytics' tenant ledger learns the wire lanes' keys
+  from their bytes (``tap_wire_names``) and counts the fused lane's
+  table-full rows, degraded serves and sheds (``tap_flag``).
+- **Memory ledger** (memledger.py, GUBER_MEM_LEDGER): the table's
+  tensors, the hot set's, the wave pool, the sketch and the cold store
+  enroll with probes that read live attributes; the table's occupancy
+  comes from ``occupancy_nowait``, which never waits on the serving
+  stream.
+- **Conservation audit** (fleet.py, GUBER_FLEET_AUDIT): ``audit_doc``.
+- **SLO engine** (slo.py, GUBER_SLO): every SLO the JAX instance
+  registers, ticked by an IntervalLoop (GUBER_SLO_TICK).
+- ``close()`` writes the event ring, the SLO verdicts and the spans as
+  JSONL under GUBER_DEBUG_DUMP_DIR when it is set.
 """
 from __future__ import annotations
 
@@ -117,12 +136,14 @@ from .core.batch import lease_batch, pack_columns
 from .dispatcher import Dispatcher
 from .engine import BucketEngine
 from .faults import FaultSet
+from .fleet import ConservationAuditor
 from .global_manager import GlobalManager
 from .hotset import HotSetEngine
 from .gregorian import gregorian_rate_duration_ms
 from .hashing import (hash_key, hash_keys, hash_request_keys, mix64_np,
                       mixed_fnv1a64)
 from .interval import IntervalLoop
+from .memledger import MemoryLedger
 from .metrics import Metrics
 from .multiregion import MultiRegionManager
 from .ops import native as wire_native
@@ -131,6 +152,7 @@ from .peers import RegionPeerPicker, ReplicatedConsistentHash
 from .sharded import ShardedEngine, autogrow_limit_per_shard
 from .store import CacheItem, arrays_from_items, items_from_arrays
 from .telemetry import FlightRecorder, exc_text
+from .tracing import SpanRecorder, current_span_id, force_sample
 from .types import (MAX_BATCH_SIZE, Algorithm, Behavior,
                     HealthCheckResponse, PeerInfo, RateLimitRequest,
                     RateLimitResponse, Status)
@@ -248,6 +270,25 @@ class V1Instance:
         self.faults = FaultSet.from_env()
         self.faults.metrics = self.metrics
         self.faults.recorder = self.recorder
+        # the trace plane: a bounded ring of completed spans, armed per
+        # request by the daemon's handlers; head-sampled at
+        # GUBER_TRACE_SAMPLE (0: only forced samples record)
+        try:
+            sample = float(os.environ.get("GUBER_TRACE_SAMPLE") or 0.0)
+        except ValueError:
+            sample = 0.0
+        try:
+            tcap = int(os.environ.get("GUBER_TRACE_SPANS") or 2048)
+        except ValueError:
+            tcap = 2048
+        self.span_recorder = SpanRecorder(capacity=max(tcap, 1),
+                                          sample=sample)
+        # the memory ledger (GUBER_MEM_LEDGER=0 turns it off)
+        self.memledger: Optional[MemoryLedger] = None
+        #: the table occupancy's last sample (occupancy_nowait)
+        self._memledger_live = 0
+        if os.environ.get("GUBER_MEM_LEDGER", "1") != "0":
+            self.memledger = MemoryLedger(recorder=self.recorder)
         # at least 1024 rows, a power of two (the JAX instance's
         # per-shard floor at one shard)
         cap = 1 << (max(config.cache_size, 1024) - 1).bit_length()
@@ -292,6 +333,7 @@ class V1Instance:
                      else None),
                 rank_batch=(analytics.sketch_counts
                             if analytics is not None else None))
+        self._enroll_memledger()
         self.store = config.store
         self.loader = config.loader
         if self.loader is not None:
@@ -340,16 +382,24 @@ class V1Instance:
         #: held shared by a batch from its GLOBAL routing through its
         #: steps, exclusive by the pins (_drain_promotions)
         self._promote_gate = _Gate()
+        # the conservation audit over the GLOBAL lanes' own accounting
+        self.auditor = ConservationAuditor(self)
+        # the SLO engine (GUBER_SLO=0 turns it off)
+        self.slo = None
+        self._slo_loop: Optional[IntervalLoop] = None
+        if os.environ.get("GUBER_SLO", "1") != "0":
+            self._build_slo()
 
     def _make_dispatcher(self) -> Dispatcher:
         """A dispatcher over this instance's engine, lock, registry,
         recorder and faultpoints; the GUBER_* dispatcher knobs are read
         now."""
-        return Dispatcher(self.engine,
-                          max_wave=self.engine.wave_buckets[-1],
-                          lock=self._engine_mu, metrics=self.metrics,
-                          recorder=self.recorder, faults=self.faults,
-                          analytics=self._analytics)
+        d = Dispatcher(self.engine, max_wave=self.engine.wave_buckets[-1],
+                       lock=self._engine_mu, metrics=self.metrics,
+                       recorder=self.recorder, faults=self.faults,
+                       analytics=self._analytics)
+        d.span_recorder = self.span_recorder
+        return d
 
     @property
     def analytics(self):
@@ -529,7 +579,8 @@ class V1Instance:
                            PeerClient(info, self.config.behaviors,
                                       metrics=self.metrics,
                                       faults=self.faults,
-                                      tls_creds=self._peer_tls))
+                                      tls_creds=self._peer_tls,
+                                      analytics=self._analytics))
             self._picker = picker
             # a membership change invalidates the gated view: the next
             # routing lookup derives it again from live health
@@ -845,7 +896,8 @@ class V1Instance:
             raise ValueError(
                 f"Requests.RateLimits list too large; max size is "
                 f"{MAX_BATCH_SIZE}")
-        self.dispatcher.admit(len(reqs))
+        self.dispatcher.admit(
+            len(reqs), tenant_cb=lambda: self._tenant_of_reqs(reqs))
         now = clock_ms() if now_ms is None else now_ms
         return self._counted("api", len(reqs), None,
                              lambda: self._get_rate_limits(reqs, now))
@@ -957,6 +1009,7 @@ class V1Instance:
                 self._flag_degraded(resp, addr)
                 gm.queue_hits(_req_stamped(reqs[i], now), degraded=True)
                 self.metrics.degraded_served.labels(peer_addr=addr).inc()
+                self._note_degraded(addr, 1, name=reqs[i].name, log=False)
         if glob_q:
             # only now: a broadcast tick before the step above would
             # gather a row that does not exist yet and drop the update
@@ -1009,17 +1062,64 @@ class V1Instance:
                           f"{exc_text(e)}")
             return 0
         gm = self._ensure_global_manager()
-        over = 0
+        over = flagged = 0
         for (i, req, addr), resp in zip(deg_failed, dresps):
             if not resp.error:
                 self._flag_degraded(resp, addr)
                 gm.queue_hits(_req_stamped(req, now), degraded=True)
                 self.metrics.degraded_served.labels(peer_addr=addr).inc()
                 over += resp.status == Status.OVER_LIMIT
+                flagged += 1
             responses[i] = resp
-        self.recorder.record("degraded", peer=deg_failed[0][2],
-                             rows=len(deg_failed))
+        self._note_degraded(deg_failed[0][2], flagged,
+                            name=deg_failed[0][1].name,
+                            rows=len(deg_failed))
         return over
+
+    def _note_degraded(self, peer: str, flagged: int, khash=None,
+                       name=None, log: bool = True, **ev) -> None:
+        """The tenant, trace and event of a degraded serve of
+        ``flagged`` rows (those counted in gubernator_degraded_served):
+        the tenant ledger's ``degraded`` rows, the trace force-sampled,
+        and (``log``) a ``degraded`` event naming the tenant and span."""
+        ana = self.analytics
+        tenant = None
+        if ana is not None:
+            tenant = ana.tenant_hint(khash=khash, name=name)
+            if flagged:
+                ana.tap_flag("degraded", flagged, khash=khash,
+                             tenant=None if khash is not None else tenant)
+        force_sample("degraded")
+        if not log:
+            return
+        ev.setdefault("rows", flagged)
+        if tenant is not None:
+            ev["tenant"] = tenant
+        sid = current_span_id()
+        if sid is not None:
+            ev["span_id"] = sid
+        self.recorder.record("degraded", peer=peer, **ev)
+
+    def _tenant_of_reqs(self, reqs) -> Optional[str]:
+        """A shed's tenant on the object lane (run only when it sheds)."""
+        ana = self.analytics
+        if ana is None or not reqs:
+            return None
+        return ana.tenant_hint(name=reqs[0].name)
+
+    def _tenant_of_wire(self, data: bytes) -> Optional[str]:
+        """A shed's tenant on the wire lanes: the first request's name,
+        walked in Python (run only when it sheds)."""
+        ana = self.analytics
+        if ana is None:
+            return None
+        try:
+            from .analytics import iter_wire_names
+
+            pairs = iter_wire_names(data)
+        except Exception:  # noqa: BLE001 - a hint only
+            return None
+        return ana.tenant_hint(name=pairs[0][0]) if pairs else None
 
     @staticmethod
     def _flag_degraded(resp: RateLimitResponse, addr: str) -> None:
@@ -1213,6 +1313,8 @@ class V1Instance:
                 self._hot_sync_loop = IntervalLoop(
                     self.config.behaviors.global_sync_wait_ms,
                     self._hotset.sync, name="hotset-sync")
+                if self.memledger is not None:
+                    self.memledger.enroll("hotset", self._probe_hotset)
             return self._hotset
 
     def health_check(self) -> HealthCheckResponse:
@@ -1317,7 +1419,11 @@ class V1Instance:
                     if mr.any():
                         self._queue_mr_raw(parsed, data, mr, stamp_ms=now)
                 return out
-        self.dispatcher.admit(n)
+        self.dispatcher.admit(n, tenant_cb=lambda: self._tenant_of_wire(data))
+        ana = self.analytics
+        if ana is not None:
+            # the tenants learn new keys from the bytes, on the worker
+            ana.tap_wire_names(data, parsed["khash_raw"], raw=True)
 
         def run_and_sweep():
             out = run()
@@ -1346,23 +1452,28 @@ class V1Instance:
                 f"Requests.RateLimits list too large; max size is "
                 f"{MAX_BATCH_SIZE}")
         try:
-            self.dispatcher.admit(pre.n)
+            self.dispatcher.admit(
+                pre.n, tenant_cb=lambda: self._tenant_of_wire(data))
         except BaseException:
             pre.lease.release()
             raise
+        ana = self.analytics
+        if ana is not None:
+            ana.tap_wire_names(data, pre.khash)
 
         def run():
-            out = self._run_fused(pre, now)
+            out = self._run_fused(pre, now, True)  # flag_errors
             self._maybe_sweep(now)
             return out
 
         return self._counted("api", pre.n, "wire_local", run)
 
-    def _run_fused(self, pre, now: int) -> bytes:
+    def _run_fused(self, pre, now: int, flag_errors: bool = False) -> bytes:
         """Run a prepacked wave and serialize its responses.  Idle: one
         inline wave in this thread.  Busy: the rows are copied out of the
         lease (the queued job outlives it) and coalesce with the other
-        callers' waves."""
+        callers' waves.  ``flag_errors`` (the client lane) counts each
+        table-full row as its tenant's error, as JAX's fused lane does."""
         disp, n = self.dispatcher, pre.n
         # the tap's hits live in the lease, which the wave releases: an
         # engine tapped on the host needs them copied first
@@ -1372,6 +1483,8 @@ class V1Instance:
         out = disp.run_inline_wave(
             lambda: self.engine.check_prepacked(pre, now), nreq=n)
         if out is not disp._BUSY:
+            if flag_errors:
+                self._flag_full_rows(out[4][:n], pre.khash)
             resp = self._columns_to_bytes(out, 0, n)
             if hits_tap is not None:
                 disp._tap_packed(pre.khash[:n], hits_tap, out[0])
@@ -1382,7 +1495,17 @@ class V1Instance:
         finally:
             pre.lease.release()
         view = disp.check_packed_view(batch, pre.khash, now)
+        if flag_errors:
+            self._flag_full_rows(view.cols[4][view.lo:view.hi], pre.khash)
         return self._columns_to_bytes(view.cols, view.lo, view.hi)
+
+    def _flag_full_rows(self, full, khash) -> None:
+        """Each table-full row, one ``errors`` flag of its key's tenant."""
+        ana = self.analytics
+        if ana is None or not full.any():
+            return
+        for i in np.nonzero(full)[0].tolist():
+            ana.tap_flag("errors", 1, khash=int(khash[i]))
 
     def _columns_to_bytes(self, cols, lo: int, hi: int, errs=None) -> bytes:
         """Rows [lo, hi) of result columns → response bytes (their
@@ -1728,7 +1851,9 @@ class V1Instance:
                                                     stamp_ms=now):
             gm.queue_hits_raw(k, tlv, a, degraded=True)
         self.metrics.degraded_served.labels(peer_addr=peer_addr).inc(flagged)
-        self.recorder.record("degraded", peer=peer_addr, rows=int(idxs.size))
+        self._note_degraded(peer_addr, flagged,
+                            khash=int(kh[idxs][0]) if idxs.size else None,
+                            rows=int(idxs.size))
         return out
 
     def _degrade_failed_forward(self, parsed: dict, data: bytes,
@@ -1809,8 +1934,9 @@ class V1Instance:
         for addr, cnt in by_addr.items():
             self.metrics.degraded_served.labels(peer_addr=addr).inc(cnt)
         if by_addr:
-            self.recorder.record("degraded", peer=min(by_addr),
-                                 rows=sum(by_addr.values()), rehomed=True)
+            kh0 = mix64_np(parsed["khash_raw"][mask][:1])[0]
+            self._note_degraded(min(by_addr), sum(by_addr.values()),
+                                khash=int(kh0) or 1, rehomed=True)
         return b"".join(items)
 
     def _peer_degraded_objects(self, reqs, resps, now: int) -> None:
@@ -1833,6 +1959,7 @@ class V1Instance:
             self._ensure_global_manager().queue_hits(
                 _req_stamped(req, now), degraded=True)
             self.metrics.degraded_served.labels(peer_addr=addr).inc()
+            self._note_degraded(addr, 1, name=req.name, log=False)
 
     @staticmethod
     def _splice(item_tlvs: list, idxs, rbytes: bytes, sp=None) -> None:
@@ -2109,6 +2236,209 @@ class V1Instance:
         out.responses.extend(resp_to_pb(r) for r in resps)
         return out.SerializeToString()
 
+    # ---- the memory ledger's probes ------------------------------------
+    #
+    # Each probe re-reads the live attributes when a snapshot runs (the
+    # engines rebind their tensors on grow and restore); none waits on
+    # the serving stream or holds a lock across a device read.
+
+    def _enroll_memledger(self) -> None:
+        led = self.memledger
+        if led is None:
+            return
+        led.enroll("hot_table", self._probe_hot_table, advisable=True)
+        led.enroll("wave_pool", self._probe_wave_pool, host=True)
+        if self._analytics is not None:
+            led.enroll("sketch", self._probe_sketch, host=True)
+        if self._tier is not None:
+            led.enroll("cold_store", self._probe_cold_store, host=True)
+
+    def _probe_hot_table(self) -> dict:
+        eng = self.engine
+        nbytes = sum(int(t.nbytes) for t in eng.table_tensors())
+        live = int(getattr(eng, "live_rows", -1))
+        if live < 0:
+            # a tick-cadence sampler must not wait on the waves: the
+            # last sample stands until a fresh count has landed
+            fresh = eng.occupancy_nowait(lock=self._engine_mu)
+            if fresh is None:
+                live = self._memledger_live
+            else:
+                live = self._memledger_live = int(fresh)
+        demand: dict = {}
+        ana = self.analytics
+        if ana is not None:
+            demand["ranks"] = ana.rank_distribution()
+        tier = self._tier
+        if tier is not None:
+            st = tier.stats()
+            demand["promote_rate"] = st.get("promotions", 0)
+            demand["demote_rate"] = st.get("demotions", 0)
+            demand["overflow"] = st.get("cold_served", 0)
+        return {"bytes": nbytes, "capacity_rows": int(eng.cap_local),
+                "occupied_rows": max(live, 0), "demand": demand}
+
+    def _probe_wave_pool(self) -> dict:
+        st = self.engine.wave_pool.mem_stats()
+        return {"bytes": st["pooled_bytes"], "capacity_rows": 0,
+                "occupied_rows": st["pooled"],
+                "demand": {"rate": st["hits"]}}
+
+    def _probe_sketch(self) -> dict:
+        ana = self._analytics
+        st = ana.mem_stats()
+        return {"bytes": st["bytes"], "capacity_rows": st["width"],
+                "occupied_rows": st["used"],
+                "demand": {"rate": st["total_weight"]}}
+
+    def _probe_cold_store(self) -> dict:
+        tier = self._tier
+        st = tier.stats()
+        return {"bytes": tier.mem_bytes(), "capacity_rows": 0,
+                "occupied_rows": st["cold_keys"],
+                "demand": {"promote_rate": st["promotions"],
+                           "demote_rate": st["demotions"],
+                           "rate": st["cold_served"]}}
+
+    def _probe_hotset(self) -> dict:
+        hs = self._hotset
+        if hs is None:
+            return {"bytes": 0}
+        nbytes = sum(int(t.nbytes) for t in
+                     list(hs.state) + [hs.base_rem, hs.base_t])
+        with hs._mu:
+            occ = len(hs.slots)
+        with self._hot_mu:
+            rate = float(sum(self._hot_counts.values()))
+        return {"bytes": nbytes, "capacity_rows": int(hs.capacity),
+                "occupied_rows": occ, "demand": {"hit_rate": rate}}
+
+    # ---- the SLO engine and the audit ------------------------------------
+
+    def _build_slo(self) -> None:
+        """Register the SLOs the JAX instance registers against this
+        instance's signals and start the tick loop.  Sources read state
+        the other planes keep: the serving path does no extra work."""
+        from .config import parse_duration_ms
+        from .slo import (DEFAULT_BURN_THRESHOLD, DEFAULT_FAST_S,
+                          DEFAULT_SLOW_S, SLO, SLO_CATALOG, SLOEngine)
+
+        def dur_s(v: str, default_s: float) -> float:
+            if not v:
+                return default_s
+            try:
+                return parse_duration_ms(v) / 1000.0
+            except (ValueError, TypeError):
+                return default_s
+
+        def flt(v: str, default: float) -> float:
+            try:
+                return float(v or default)
+            except ValueError:
+                return default
+
+        env = os.environ.get
+        fast = dur_s(env("GUBER_SLO_FAST", ""), DEFAULT_FAST_S)
+        slow = dur_s(env("GUBER_SLO_SLOW", ""), DEFAULT_SLOW_S)
+        tick_s = dur_s(env("GUBER_SLO_TICK", ""), 1.0)
+        burn = flt(env("GUBER_SLO_BURN", ""), DEFAULT_BURN_THRESHOLD)
+        p99_s = flt(env("GUBER_SLO_P99_MS", ""), 250.0) / 1000.0
+
+        def breach_exemplar():
+            ex = self.span_recorder.exemplar()
+            return ex["trace_id"] if ex else None
+
+        eng = SLOEngine(metrics=self.metrics, recorder=self.recorder,
+                        fast_s=fast, slow_s=slow, burn_threshold=burn,
+                        exemplar=breach_exemplar)
+        stale_target = 2.0 * max(
+            self.config.behaviors.global_sync_wait_ms, 100) / 1000.0
+
+        def decision_p99():
+            ana = self.analytics
+            p = ana.phases.recent_p99("device") if ana is not None else None
+            return (p or 0.0, p99_s)
+
+        def global_staleness():
+            # no mesh-GLOBAL tier: the JAX instance's reading without one
+            return (0.0, stale_target)
+
+        def error_ratio():
+            ana = self.analytics
+            t = ana.tenant_totals() if ana is not None else {}
+            return (t.get("errors", 0) + t.get("degraded", 0),
+                    t.get("requests", 0))
+
+        def shed_ratio():
+            ana = self.analytics
+            t = ana.tenant_totals() if ana is not None else {}
+            return (t.get("shed", 0),
+                    t.get("requests", 0) + t.get("shed", 0))
+
+        eng.register(SLO("decision_p99", "threshold", 0.95, decision_p99,
+                         SLO_CATALOG["decision_p99"]))
+        eng.register(SLO("global_staleness", "threshold", 0.95,
+                         global_staleness, SLO_CATALOG["global_staleness"]))
+        eng.register(SLO("error_ratio", "ratio", 0.999, error_ratio,
+                         SLO_CATALOG["error_ratio"]))
+        eng.register(SLO("shed_ratio", "ratio", 0.999, shed_ratio,
+                         SLO_CATALOG["shed_ratio"]))
+        led = self.memledger
+        if led is not None:
+            # the pressure sample is the (value, target) pair, and it
+            # edge-triggers the memory_pressure event on the same tick
+            eng.register(SLO("hbm_pressure", "threshold", 0.95,
+                             led.pressure_sample,
+                             SLO_CATALOG["hbm_pressure"]))
+        if self._analytics is not None:
+            eng.register_group(
+                "tenant_error_ratio", 0.999,
+                lambda: (self.analytics.tenant_red("errors")
+                         if self.analytics is not None else {}),
+                SLO_CATALOG["tenant_error_ratio"])
+            eng.register_group(
+                "tenant_shed_ratio", 0.999,
+                lambda: (self.analytics.tenant_red("shed")
+                         if self.analytics is not None else {}),
+                SLO_CATALOG["tenant_shed_ratio"])
+        if self.auditor.enabled:
+            # seconds the audit drift has been nonzero against the one
+            # flush window bound
+            eng.register(SLO("fleet_conservation", "threshold", 0.95,
+                             self.auditor.slo_sample,
+                             SLO_CATALOG["fleet_conservation"]))
+        self.slo = eng
+        self._slo_loop = IntervalLoop(max(int(tick_s * 1000), 10),
+                                      eng.tick, name="slo-engine")
+
+    def audit_doc(self) -> dict:
+        """The conservation audit served at GET /debug/audit
+        (fleet.py › ConservationAuditor.doc)."""
+        return self.auditor.doc()
+
+    def _write_debug_dump(self) -> None:
+        """With GUBER_DEBUG_DUMP_DIR set, the event ring with the final
+        SLO verdicts, and the sampled spans, as JSONL files there.
+        Best-effort: a closing process never wedges on its dump."""
+        dirpath = os.environ.get("GUBER_DEBUG_DUMP_DIR", "")
+        if not dirpath:
+            return
+        try:
+            from .telemetry import write_debug_dump, write_trace_dump
+
+            verdicts = self.slo.verdicts() if self.slo is not None else None
+            iid = (os.environ.get("GUBER_INSTANCE_ID", "")
+                   or self.config.advertise_address or "instance")
+            path = write_debug_dump(dirpath, iid, self.recorder.events(),
+                                    slo_verdicts=verdicts)
+            self.recorder.record("debug_dump_written", path=path,
+                                 events=len(self.recorder))
+            spans = self.span_recorder.spans()
+            if spans:
+                write_trace_dump(dirpath, iid, spans)
+        except Exception as e:  # noqa: BLE001 - the dump is best-effort
+            log.warning("debug dump failed: %s", exc_text(e))
+
     def close(self) -> None:
         """Stop the health prober, flush the GLOBAL and MULTI_REGION
         managers, drain the peer clients, stop the dispatcher (the engine's one user), then
@@ -2119,6 +2449,10 @@ class V1Instance:
         with self._gm_mu:
             self._closed = True
             probe = self._probe_loop
+        if self._slo_loop is not None:
+            # first: its close runs one final tick, so the verdicts the
+            # dump takes below are the end-of-life state
+            self._slo_loop.close()
         if probe is not None:
             probe.close()
         if self.global_manager is not None:
@@ -2132,4 +2466,9 @@ class V1Instance:
         self.dispatcher.close()
         if self.dispatcher.analytics is not None:
             self.dispatcher.analytics.close()
+        self._write_debug_dump()
         self._save_to_loader()
+        if self.memledger is not None:
+            # every consumer released: the ledger stands down empty
+            for consumer in self.memledger.consumers():
+                self.memledger.release(consumer)

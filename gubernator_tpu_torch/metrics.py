@@ -10,10 +10,11 @@ counters, table gauges, the wire lane, the hot set, the dispatcher's
 waves, stall watchdog and pipeline, the wave pool, admission and drain,
 the peer lanes and circuit, forwards, GLOBAL queue and broadcasts,
 degraded serves, the health-gated ring, fault injection, the
-heavy-hitter analytics, the cold tier).  The JAX families of subsystems
-not ported yet (fused Pallas counters, compile ledger, scenarios,
-mesh-GLOBAL, tenants, SLO, fleet, memory ledger) are not registered;
-ROADMAP lists them beside their subsystems.
+heavy-hitter analytics, the cold tier, tenants, the SLO engine, the
+fleet audit, the memory ledger).  The JAX families of subsystems not
+ported yet (fused Pallas counters, compile ledger, scenarios,
+mesh-GLOBAL) are not registered; ROADMAP lists them beside their
+subsystems.
 """
 from __future__ import annotations
 
@@ -262,6 +263,56 @@ class Metrics:
             "tier migrations abandoned at the tier_promote/tier_demote "
             "faultpoints (the row stays in its source tier — no state "
             "is lost)", registry=r)
+        # ---- tenants, SLO, fleet audit, memory ledger ----
+        self.tenant_requests = Gauge(
+            "gubernator_tenant_requests",
+            "rows attributed to this tenant (tenant = key-name prefix "
+            "up to GUBER_TENANT_DELIM; overflow folds into __other__)",
+            ["tenant"], registry=r)
+        self.tenant_hits = Gauge(
+            "gubernator_tenant_hits",
+            "hit weight attributed to this tenant", ["tenant"],
+            registry=r)
+        self.tenant_over_limit = Gauge(
+            "gubernator_tenant_over_limit",
+            "OVER_LIMIT rows attributed to this tenant", ["tenant"],
+            registry=r)
+        self.tenant_errors = Gauge(
+            "gubernator_tenant_errors",
+            "error rows attributed to this tenant", ["tenant"],
+            registry=r)
+        self.tenant_degraded = Gauge(
+            "gubernator_tenant_degraded",
+            "degraded-mode serves attributed to this tenant",
+            ["tenant"], registry=r)
+        self.tenant_shed = Gauge(
+            "gubernator_tenant_shed",
+            "admission-shed rows attributed to the tenant that "
+            "triggered the shed", ["tenant"], registry=r)
+        self.slo_burn = Gauge(
+            "gubernator_slo_burn",
+            "fast-window burn rate per SLO (error-budget spend "
+            "multiple; breach latches when fast AND slow exceed the "
+            "threshold — see GET /debug/slo); tenant label empty for "
+            "instance-level SLOs", ["slo", "tenant"], registry=r)
+        self.fleet_conservation_drift = Gauge(
+            "gubernator_fleet_conservation_drift",
+            "conservation drift this daemon contributes to the fleet "
+            "fold: GLOBAL hits injected minus applied across both "
+            "backends (nonzero while flushes fail or are in flight; "
+            "held nonzero past the flush-window bound it burns the "
+            "fleet_conservation SLO — see GET /debug/audit)",
+            registry=r)
+        self.memledger_bytes = Gauge(
+            "gubernator_memledger_bytes",
+            "live bytes per memory-ledger consumer (host-side "
+            "consumers report host bytes — see GET /debug/memory)",
+            ["consumer"], registry=r)
+        self.memledger_rows = Gauge(
+            "gubernator_memledger_rows",
+            "memory-ledger rows per consumer: state=capacity is the "
+            "allocated row budget, state=occupied the live occupancy",
+            ["consumer", "state"], registry=r)
 
     @contextmanager
     def time_func(self, name: str):
@@ -275,3 +326,17 @@ class Metrics:
     def render(self) -> bytes:
         """Text exposition for the /metrics endpoint."""
         return generate_latest(self.registry)
+
+
+def observe_with_exemplar(hist, value: float, exemplar=None) -> None:
+    """Histogram observe with a best-effort exemplar (``{"trace_id":
+    ...}`` from SpanRecorder.exemplar()), linking the bucket to one
+    sampled trace in the OpenMetrics exposition; a client that rejects
+    it gets a plain observe."""
+    if exemplar:
+        try:
+            hist.observe(value, exemplar)
+            return
+        except (TypeError, ValueError):
+            pass
+    hist.observe(value)

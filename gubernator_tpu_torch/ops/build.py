@@ -8,7 +8,8 @@ Two libraries, each with a plain C interface, loaded with ctypes:
   ``build/gubernator_tpu_torch/libgubertorch.so`` in the checkout (no
   PyTorch headers, so a build takes seconds);
 - the host library (csrc/wire.cpp, ops/native.py; csrc/cold.cpp, the
-  tier's cold store; csrc/sketch.cpp, the heavy-hitter sketch's fold),
+  tier's cold store; csrc/sketch.cpp, the heavy-hitter sketch's fold;
+  csrc/tenants.cpp, the tenant ledger's attribution),
   built with the host C++ compiler and the running
   interpreter's Python headers into ``libguberwire.so``.  It needs no
   CUDA, so the CPU-only tests build and use it too.  Its key-hashing
@@ -42,6 +43,7 @@ WIRE_LIB_NAME = "libguberwire.so"
 WIRE_SOURCE = CSRC / "wire.cpp"
 COLD_SOURCE = CSRC / "cold.cpp"
 SKETCH_SOURCE = CSRC / "sketch.cpp"
+TENANTS_SOURCE = CSRC / "tenants.cpp"
 CXX_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared"]
 
 
@@ -170,7 +172,7 @@ def load_library() -> ctypes.CDLL:
 
 
 def _host_sources() -> list[Path]:
-    return [WIRE_SOURCE, COLD_SOURCE, SKETCH_SOURCE]
+    return [WIRE_SOURCE, COLD_SOURCE, SKETCH_SOURCE, TENANTS_SOURCE]
 
 
 def _compile_wire(cxx: str, lib: Path) -> str:
@@ -237,15 +239,36 @@ def _bind_wire(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gs_admit_merge.restype = None
     lib.gs_admit_level.argtypes = [i64] + [p] * 6 + [p, p, i64, i64]
     lib.gs_admit_level.restype = None
+    lib.gt_new.argtypes = [i64]
+    lib.gt_new.restype = p
+    lib.gt_free.argtypes = [p]
+    lib.gt_free.restype = None
+    lib.gt_len.argtypes = [p]
+    lib.gt_len.restype = i64
+    lib.gt_lookup.argtypes = [p, p, i64, p]
+    lib.gt_lookup.restype = i64
+    lib.gt_note.argtypes = [p, p, p, i64]
+    lib.gt_note.restype = None
+    lib.gt_fold.argtypes = [p, p, i64, p, p, p, i64]
+    lib.gt_fold.restype = None
+    lib.gt_fold_idx.argtypes = [p, i64, p, p, p, i64]
+    lib.gt_fold_idx.restype = None
+    lib.gt_tenant_set.argtypes = [p, buf, i64, i64]
+    lib.gt_tenant_set.restype = None
+    lib.gt_wire_learn.argtypes = [p, buf, i64, buf, i64, p, p, i64]
+    lib.gt_wire_learn.restype = i64
+    lib.gt_wire_learn_many.argtypes = [p, p, p, i64, buf, i64, p, p, i64,
+                                       p]
+    lib.gt_wire_learn_many.restype = i64
     return lib
 
 
 def load_wire_library() -> ctypes.CDLL:
-    """The host library, built from csrc/wire.cpp, csrc/cold.cpp and
-    csrc/sketch.cpp with the host C++ compiler if it is missing or stale.
-    Raises when it cannot be built: neither the wire lane, the key
-    hashing, the native cold store nor the sketch's fold has a
-    substitute."""
+    """The host library, built from csrc/wire.cpp, csrc/cold.cpp,
+    csrc/sketch.cpp and csrc/tenants.cpp with the host C++ compiler if it
+    is missing or stale.  Raises when it cannot be built: neither the
+    wire lane, the key hashing, the native cold store, the sketch's fold
+    nor the tenant attribution has a substitute."""
     global _wire_lib
     if _wire_lib is not None:
         return _wire_lib
@@ -264,7 +287,10 @@ def load_wire_library() -> ctypes.CDLL:
 
 def load_wire_pylib() -> ctypes.PyDLL:
     """The host library's entry points that take Python objects
-    (``gw_hash_keys``, ``gw_hash_pairs``), bound through ``ctypes.PyDLL``:
+    (``gw_hash_keys``, ``gw_hash_pairs``, ``gt_learn_objects``) or must
+    not release the GIL (``gt_peek``, a serving thread's tenant hint: a
+    thread that releases it may wait a switch interval to get it back),
+    bound through ``ctypes.PyDLL``:
     the GIL stays held and a Python exception they set is raised."""
     global _wire_pylib
     if _wire_pylib is not None:
@@ -279,5 +305,10 @@ def load_wire_pylib() -> ctypes.PyDLL:
             lib.gw_hash_keys.restype = i64
             lib.gw_hash_pairs.argtypes = [obj, obj, p, i64, c_int]
             lib.gw_hash_pairs.restype = i64
+            lib.gt_learn_objects.argtypes = [p, obj, p, i64,
+                                             ctypes.c_char_p, i64, p, i64]
+            lib.gt_learn_objects.restype = i64
+            lib.gt_peek.argtypes = [p, ctypes.c_uint64]
+            lib.gt_peek.restype = i64
             _wire_pylib = lib
         return _wire_pylib

@@ -28,7 +28,12 @@ instance's health-gated ring (``route_healthy``): a circuit-open streak
 that lasts ``peer_eject_after_ms`` ejects the peer, and it returns only
 after staying recovered for ``peer_readmit_after_ms``.  ``probe`` sends
 one empty globals flush, so an ejected peer (whose keys rehome and send
-it no traffic) can close its circuit.  Tracing waits for its slice.
+it no traffic) can close its circuit.  Each send carries its caller's
+trace: ``forward_raw``, ``send_globals_raw`` and ``enqueue`` record a
+``peer.forward`` hop span and queue its traceparent with the entry, and
+a flush sends its first traced entry's as gRPC metadata.  With the
+instance's analytics, each flush feeds the ``peer_flush`` phase and,
+when it succeeded, the cost model.
 
 Shutdown drains in-flight flushes before it closes the channel.
 """
@@ -45,6 +50,7 @@ from .config import BehaviorConfig
 from .grpc_api import PEERS_SERVICE, PeersV1Stub, dial_peer, raw_unary
 from .ops import native as wire_native
 from .telemetry import exc_text
+from .tracing import hop_traceparent, outbound_metadata
 from .types import Behavior, PeerInfo, RateLimitRequest, RateLimitResponse
 from .wire import req_to_pb, req_to_tlv, resp_from_pb
 
@@ -64,15 +70,18 @@ class ErrCircuitOpen(Exception):
 class _Entry:
     """One send-buffer entry: ``n_items`` request TLVs in the lane's
     shared buffer; ``future`` resolves to this entry's contiguous slice
-    of the response bytes; ``t_enq`` is when it was queued."""
+    of the response bytes; ``t_enq`` is when it was queued; ``trace``
+    the caller's outbound traceparent (the flusher thread has none)."""
 
-    __slots__ = ("nbytes", "n_items", "future", "t_enq")
+    __slots__ = ("nbytes", "n_items", "future", "t_enq", "trace")
 
-    def __init__(self, nbytes: int, n_items: int, future: Future):
+    def __init__(self, nbytes: int, n_items: int, future: Future,
+                 trace: Optional[str] = None):
         self.nbytes = nbytes
         self.n_items = n_items
         self.future = future
         self.t_enq = time.monotonic()
+        self.trace = trace
 
 
 class _SendLane:
@@ -109,8 +118,10 @@ class _SendLane:
 
     # ---- producer side -------------------------------------------------
 
-    def enqueue(self, data: bytes, n_items: int) -> Future:
-        """Queue ``n_items`` request TLVs for the next flush.  Raises
+    def enqueue(self, data: bytes, n_items: int,
+                traceparent: Optional[str] = None) -> Future:
+        """Queue ``n_items`` request TLVs for the next flush; a flush
+        carries its first traced entry's ``traceparent``.  Raises
         ErrClosing / ErrCircuitOpen instead of queuing."""
         if self.client._circuit_blocked():
             raise ErrCircuitOpen(
@@ -120,7 +131,8 @@ class _SendLane:
             if self._closing:
                 raise ErrClosing("peer client is closing")
             self._buf += data
-            self._entries.append(_Entry(len(data), int(n_items), fut))
+            self._entries.append(_Entry(len(data), int(n_items), fut,
+                                        traceparent))
             self._queued_items += int(n_items)
             depth = self._queued_items
             if self._thread is None or not self._thread.is_alive():
@@ -224,8 +236,10 @@ class _SendLane:
         try:
             # a faulted send takes the path of a real dial failure
             client._fault("peer_send")
+            tp = next((e.trace for e in entries if e.trace), None)
             rpc = client._raw_call(self.method).future(
-                data, timeout=self.rpc_timeout_s)
+                data, timeout=self.rpc_timeout_s,
+                metadata=[("traceparent", tp)] if tp else None)
         except Exception as e:  # noqa: BLE001 - incl. a closed channel
             self._on_done(None, entries, data, attempt, t0, err=e)
             return
@@ -261,10 +275,18 @@ class _SendLane:
                  err: Optional[BaseException] = None) -> None:
         client = self.client
         m = client._metrics
+        dt = time.perf_counter() - t0
         if m is not None:
             m.batch_send_duration.labels(
-                peer_addr=client.info.grpc_address).observe(
-                    time.perf_counter() - t0)
+                peer_addr=client.info.grpc_address).observe(dt)
+        ana = client._analytics
+        if ana is not None:
+            # the forward hop's share of a request's time; a sent flush
+            # is one point-to-point cost sample (a failed one measures
+            # its deadline: left out)
+            ana.observe_phase("peer_flush", dt)
+            if err is None:
+                ana.tap_cost("peer_flush", len(data), 2, dt)
         if err is not None:
             if (attempt < self.retries and not self._closing
                     and not client._circuit_blocked()):
@@ -356,9 +378,12 @@ class PeerClient:
     """One gRPC channel + the columnar send lanes to a single peer."""
 
     def __init__(self, info: PeerInfo, behaviors: BehaviorConfig,
-                 metrics=None, faults=None, tls_creds=None):
+                 metrics=None, faults=None, tls_creds=None, analytics=None):
         self.info = info
         self.behaviors = behaviors
+        #: the owning instance's KeyAnalytics (optional): the peer_flush
+        #: phase and the cost model's samples
+        self._analytics = analytics
         #: gRPC channel credentials of a TLS cluster (None: plaintext)
         self._tls = tls_creds
         #: the owning instance's Metrics registry (optional)
@@ -548,7 +573,11 @@ class PeerClient:
         resolves to its RateLimitResponse."""
         if self._closing.is_set():
             raise ErrClosing("peer client is closing")
-        inner = self._forward_lane.enqueue(req_to_tlv(req), 1)
+        inner = self._forward_lane.enqueue(
+            req_to_tlv(req), 1,
+            hop_traceparent("peer.forward",
+                            attrs={"peer": self.info.grpc_address,
+                                   "items": 1}))
         outer: Future = Future()
 
         def convert(f: Future) -> None:
@@ -569,18 +598,30 @@ class PeerClient:
         GetPeerRateLimitsReq's).  The future resolves to this call's
         contiguous slice of response TLVs (exactly ``n_items``, counted).
         Concurrent callers forwarding to one peer share flush RPCs.
-        Raises ErrClosing / ErrCircuitOpen."""
+        Raises ErrClosing / ErrCircuitOpen.  The caller's trace rides
+        the flush: a hop span is recorded here whose id the owner's
+        handler parents under (``hop_traceparent``)."""
         if self._closing.is_set():
             raise ErrClosing("peer client is closing")
-        return self._forward_lane.enqueue(data, n_items)
+        return self._forward_lane.enqueue(
+            data, n_items,
+            hop_traceparent("peer.forward",
+                            attrs={"peer": self.info.grpc_address,
+                                   "items": int(n_items)}))
 
     def send_globals_raw(self, data: bytes, n_items: int) -> Future:
         """The owner broadcast's lane: ``data`` is ``n_items`` serialized
         UpdatePeerGlobalsReq.globals TLVs; the future resolves to the
-        (empty) response bytes."""
+        (empty) response bytes; the calling thread's trace rides it as
+        ``forward_raw``'s does."""
         if self._closing.is_set():
             raise ErrClosing("peer client is closing")
-        return self._globals_lane.enqueue(data, n_items)
+        return self._globals_lane.enqueue(
+            data, n_items,
+            hop_traceparent("peer.forward",
+                            attrs={"peer": self.info.grpc_address,
+                                   "items": int(n_items),
+                                   "lane": "globals"}))
 
     def get_peer_rate_limits(self, reqs: Sequence[RateLimitRequest],
                              timeout_s: Optional[float] = None
@@ -597,7 +638,8 @@ class PeerClient:
             timeout_s = self.behaviors.batch_timeout_ms / 1000.0 + 60.0
         with self._lock:
             self.single_calls += 1
-        resp = stub.GetPeerRateLimits(msg, timeout=timeout_s)
+        resp = stub.GetPeerRateLimits(msg, timeout=timeout_s,
+                                      metadata=outbound_metadata())
         return [resp_from_pb(m) for m in resp.rate_limits]
 
     def update_peer_globals(self, updates) -> None:
@@ -608,7 +650,8 @@ class PeerClient:
         msg = peers_pb.UpdatePeerGlobalsReq()
         msg.globals.extend(updates)
         stub.UpdatePeerGlobals(
-            msg, timeout=self.behaviors.global_timeout_ms / 1000.0)
+            msg, timeout=self.behaviors.global_timeout_ms / 1000.0,
+            metadata=outbound_metadata())
 
     # ---- lifecycle -----------------------------------------------------
 

@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -149,6 +149,8 @@ class ShardedEngine:
         self.tier = None
         #: packed upload pairs of the wire lane (prepack_wire)
         self.wave_pool = WaveBufferPool()
+        #: occupancy_nowait's queued count: (pinned buffer, event)
+        self._occ_pending = None
         self._init_table()
 
     # ---- subclass hooks ------------------------------------------------
@@ -553,6 +555,46 @@ class ShardedEngine:
     def occupancy(self) -> int:
         """Live (non-empty) rows right now."""
         return int(occupancy(self.state))
+
+    def _live_count(self) -> torch.Tensor:
+        """The live rows as a 0-d device tensor (queued, not read)."""
+        return occupancy(self.state)
+
+    def table_tensors(self) -> list:
+        """The tensors that hold the table (the memory ledger's bytes)."""
+        return list(self.state)
+
+    def occupancy_nowait(self, lock=None) -> Optional[int]:
+        """The live rows without waiting on the serving stream (the
+        memory ledger's tick-cadence probe).  On CUDA a count is queued on
+        the stream behind the waves, copied into a pinned host buffer, and
+        an event recorded; a later call reads it only once the event has
+        completed, and queues the next.  None while no count has
+        completed: the caller reuses its last sample.  On the CPU the
+        count runs in the caller's thread when ``lock`` (the lock the
+        waves hold) is free, else None."""
+        if self.device.type != "cuda":
+            if lock is not None and not lock.acquire(blocking=False):
+                return None
+            try:
+                return int(self._live_count())
+            finally:
+                if lock is not None:
+                    lock.release()
+        out = None
+        pend = self._occ_pending
+        if pend is not None:
+            buf, ev = pend
+            if not ev.query():
+                return None
+            out = int(buf[0])
+        buf = (pend[0] if pend is not None
+               else torch.empty(1, dtype=torch.int64, pin_memory=True))
+        buf.copy_(self._live_count().reshape(1), non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._occ_pending = (buf, ev)
+        return out
 
     # ---- row ops (cold path) -------------------------------------------
 

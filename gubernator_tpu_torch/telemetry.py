@@ -7,17 +7,21 @@ daemon serves the ring as JSON at ``GET /debug/events``.  Events are
 plain dicts, JSON-safe by construction, ordered by a monotonic ``seq``;
 the ring is bounded, so recording on the hot path is O(1).
 
-The tracing slice is not ported: an event's ``trace`` is what its caller
-stamps (None by default), where the JAX recorder reads the calling
-thread's trace id.  The crash dumps (``write_debug_dump`` /
-``write_trace_dump``) wait for that slice too.
+An event's ``trace`` is what its caller stamps, by default the calling
+thread's active trace id (tracing.py).  ``write_debug_dump`` and
+``write_trace_dump`` spill the ring, the final SLO verdicts and the
+sampled spans as JSONL at close (GUBER_DEBUG_DUMP_DIR).
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
 from collections import deque
 from typing import List, Optional
+
+from .tracing import current_trace_id
 
 
 def exc_text(e: BaseException) -> str:
@@ -46,7 +50,10 @@ class FlightRecorder:
 
     def record(self, kind: str, trace: Optional[str] = None,
                **fields) -> dict:
-        """Append one event; returns the stored dict."""
+        """Append one event; returns the stored dict.  ``trace`` defaults
+        to the calling thread's active trace id."""
+        if trace is None:
+            trace = current_trace_id()
         ev = {"kind": kind, "t_ms": int(self._clock() * 1000),
               "trace": trace}
         for k, v in fields.items():
@@ -100,3 +107,50 @@ class FlightRecorder:
     def __len__(self) -> int:
         with self._mu:
             return len(self._ring)
+
+
+def write_debug_dump(dirpath: str, instance_id: str,
+                     events: List[dict],
+                     slo_verdicts: Optional[List[dict]] = None,
+                     clock=time.time) -> str:
+    """Crash-forensics dump: one JSONL file per close —
+    header line with the final SLO verdicts, then the whole event
+    ring — so a killed pod leaves a post-mortem artifact in
+    ``GUBER_DEBUG_DUMP_DIR``.  Returns the written path.  Callers
+    (instance.close) treat any failure as best-effort: a dying
+    process must never wedge on its own black box."""
+
+    os.makedirs(dirpath, exist_ok=True)
+    t_ms = int(clock() * 1000)
+    safe = "".join(c if c.isalnum() or c in "-._" else "_"
+                   for c in str(instance_id)) or "instance"
+    path = os.path.join(dirpath, f"guber_dump_{safe}_{t_ms}.jsonl")
+    header = {"kind": "dump_header", "t_ms": t_ms,
+              "instance": str(instance_id), "events": len(events)}
+    if slo_verdicts is not None:
+        header["slo_verdicts"] = slo_verdicts
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(json.dumps(header) + "\n")
+        for ev in events:
+            f.write(json.dumps(ev) + "\n")
+    return path
+
+
+def write_trace_dump(dirpath: str, instance_id: str,
+                     spans: List[dict], clock=time.time) -> str:
+    """The span ring beside ``write_debug_dump``: a header line, then
+    one completed span per line, so sampled traces survive the
+    process.  Same best-effort contract as the event dump."""
+
+    os.makedirs(dirpath, exist_ok=True)
+    t_ms = int(clock() * 1000)
+    safe = "".join(c if c.isalnum() or c in "-._" else "_"
+                   for c in str(instance_id)) or "instance"
+    path = os.path.join(dirpath, f"guber_traces_{safe}_{t_ms}.jsonl")
+    header = {"kind": "trace_header", "t_ms": t_ms,
+              "instance": str(instance_id), "spans": len(spans)}
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(json.dumps(header) + "\n")
+        for s in spans:
+            f.write(json.dumps(s) + "\n")
+    return path

@@ -353,6 +353,13 @@ class TierController:
         with self._mu:
             return len(self._store)
 
+    def mem_bytes(self) -> int:
+        """Host bytes of the cold rows (the memory ledger's probe): an
+        8-byte key and the ROW_COLS int64 columns a row, the native
+        store's layout (the dict store's estimate uses the same)."""
+        with self._mu:
+            return len(self._store) * (len(ROW_COLS) + 1) * 8
+
     def stats(self) -> dict:
         with self._mu:
             return {"cold_keys": len(self._store),

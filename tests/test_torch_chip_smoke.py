@@ -201,6 +201,9 @@ def path_rehearsal(monkeypatch):
     # below one batch: every batch of the admission round sheds, so the
     # rehearsal's result does not depend on its few callers' timing
     monkeypatch.setattr(chip_smoke, "ADMISSION_ROWS", 999)
+    # the plain step on the CPU takes ~100x K1's time: the decision_p99
+    # SLO's target (250 ms on the card) scaled to it
+    monkeypatch.setenv("GUBER_SLO_P99_MS", "60000")
 
     def k1(rows, b, now, hot=dmod.HOT_SEGMENT, stats=None):
         return dmod.decide_plain(rows, b, now)
@@ -225,6 +228,7 @@ def test_main_and_wire_paths_rehearse_on_the_cpu(path_rehearsal,
     monkeypatch.setattr(chip_smoke, "ANALYTICS_AB_PAIRS", 2)
     monkeypatch.setattr(chip_smoke, "AB_BATCHES", 1)
     monkeypatch.setattr(chip_smoke, "TAP_COST_WAVES", 4)
+    monkeypatch.setattr(chip_smoke, "TENANT_AB_PAIRS", 1)
     pop_idx, pop_keys = chip_smoke.fit_population(args.keys, args.log2_cap)
     res = chip_smoke.phase_main_path(torch, args, pop_idx, pop_keys)
     wire = res["wire"]
@@ -283,9 +287,39 @@ def test_main_and_wire_paths_rehearse_on_the_cpu(path_rehearsal,
         assert f["order"] == ["python", "native"] and len(f["ratios"]) == 2
         assert f["python_median"] > 0 and f["native_median"] > 0
         assert f["taps_dropped"] == 0
+    for lane in ("wire", "object"):
+        t = res["tenant_ab"][lane]
+        assert t["order"] == ["tenants", "detached"] and len(t["ratios"]) == 1
+    # the worker's sections, tenants off / python / native, on equal
+    # ledgers
+    for lane in ("object", "wire"):
+        arms = tc["tenants"][lane]
+        assert arms["tenants_equal"]
+        for arm in ("off", "python", "native"):
+            assert arms[arm]["gil_held_us"] <= arms[arm]["worker_cpu_us"]
+            assert arms[arm]["gil_longest_section"]
     h = res["hash_ab"]
     assert h["order"] == ["native", "plain"] and len(h["ratios"]) == 2
     assert h["native_median"] > 0 and h["plain_median"] > 0
+    # the observability checks: tenants against the round's tally, the
+    # memory ledger against the tensors, a healthy daemon's SLOs, sampled
+    # traces (and unsampled ones recording nothing), a profile capture
+    obs = res["observability"]
+    t = obs["tenants"]
+    assert t["delta"] == t["tally"] and t["delta"]["requests"] == \
+        args.threads * chip_smoke.AB_BATCHES * 1000
+    m = obs["memory"]
+    assert m["device_bytes"] == m["tensor_nbytes"] == (1 << 13) * 128
+    assert sum(m["advised"].values()) == m["advise_total_rows"]
+    assert not any(r["breached"] for r in obs["slo"]["slos"])
+    tr = obs["traces"]
+    assert tr["trees_ok"] == tr["sampled"] == chip_smoke.TRACE_BATCHES
+    assert tr["unsampled"] == chip_smoke.TRACE_BATCHES
+    assert tr["unsampled_recorded"] == 0
+    assert 0 < tr["wave_share_of_handler_median"] <= 1
+    p = obs["profile"]
+    assert p["second_request"] == 409 and p["trace_bytes"] > 0
+    assert p["rate_without"] > 0 and p["rate_with_capture"] > 0
     prof = res["object_host_profile"]
     assert prof["order"] == ["on", "off"]
     for state in prof["order"]:
@@ -360,6 +394,28 @@ def test_cluster_phase_rehearses_on_the_cpu(path_rehearsal, monkeypatch):
     assert out["leaks"] == 0 and out["outage_hits"] > 0
     assert all(ms > 0 for ms in out["eject_ms_after_arming"]
                + out["readmit_ms_after_clearing"])
+    # the new planes: sampled forwards assemble into one tree each, the
+    # audit conserves once the queues drained, the cost model holds both
+    # phases; the outage's degraded serves are force-sampled and counted
+    # by the tenants, error_ratio breaches (both burns past the
+    # threshold) and --fail-on-burn follows it; a closed daemon dumps
+    assert res["traces"]["one_tree_each"] == res["traces"]["traces"] == \
+        chip_smoke.CLUSTER_TRACES
+    assert res["audit"]["fold"]["conserved"] and \
+        res["audit"]["drift"] == [0, 0, 0]
+    assert {"broadcast", "peer_flush"} <= set(res["costmodel"]["phases"])
+    assert out["tenant_degraded"] == out["degraded_served"]
+    assert all(out["forced_traces_degraded_window"])
+    assert out["fail_on_burn_before_arming"] == [0, 0]
+    for i in ("0", "1"):
+        deg = out["slo"]["degraded"][int(i)]
+        assert deg["fail_on_burn_rc"] == 1
+        if deg["error_ratio_breached"]:
+            assert deg["error_ratio_fast_burn"] > 2 \
+                and deg["error_ratio_slow_burn"] > 2
+    dump = res["dump"]["daemons"]
+    assert len(dump) == 4 and all(d["events"] > 0 for d in dump)
+    assert all(d["spans"] > 0 and d["slo_verdicts"] for d in dump[:3])
     # the handover: every moved row sent, placed or counted dropped
     ho = res["handover"]
     assert ho["rows_moved"] == ho["rows_sent"] > 0

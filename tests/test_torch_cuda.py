@@ -603,3 +603,43 @@ def test_device_tap_folds_from_the_card(cuda):
         finally:
             ka.close()
     assert docs[0] == docs[1] and docs[0]["waves_tapped"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["", "xla"])
+def test_occupancy_nowait_never_waits_on_the_stream(cuda, engine):
+    """While the serving stream spins, a queued count has not landed:
+    occupancy_nowait answers None (the memory ledger keeps its last
+    sample) and returns at once; once the stream drains it reads the
+    live rows."""
+    import time
+
+    from gubernator_tpu_torch.config import Config
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    inst = V1Instance(Config(cache_size=1 << 14, engine=engine,
+                             hot_set_capacity=0))
+    try:
+        inst.get_rate_limits([RateLimitRequest(
+            name="occ", unique_key=f"k{i}", hits=1, limit=5,
+            duration=60_000) for i in range(40)])
+        torch.cuda.synchronize()
+        eng = inst.engine
+        assert eng.occupancy_nowait() is None  # the first count queued
+        torch.cuda.synchronize()
+        assert eng.occupancy_nowait() == 40
+        torch.cuda._sleep(2_000_000_000)  # the stream spins ~1 s
+        t0 = time.perf_counter()
+        # the count queued before the spin may have landed; the one
+        # queued now waits behind it
+        assert eng.occupancy_nowait() in (40, None)
+        assert eng.occupancy_nowait() is None
+        assert eng.occupancy_nowait() is None
+        assert time.perf_counter() - t0 < 0.1
+        torch.cuda.synchronize()
+        assert eng.occupancy_nowait() == 40
+        led = inst.memledger.snapshot()["consumers"]["hot_table"]
+        assert led["bytes"] == sum(t.nbytes for t in eng.table_tensors())
+    finally:
+        inst.close()

@@ -31,7 +31,8 @@ def test_importing_every_module_loads_no_jax():
               "cluster", "interval", "netutil", "telemetry", "metrics",
               "cmd.healthcheck", "faults", "store", "tiering",
               "analytics", "multiregion", "cmd.cluster", "hotset",
-              "tlsutil", "cmd.tapcost"):
+              "tlsutil", "cmd.tapcost", "tracing", "slo", "memledger",
+              "fleet"):
         assert f"gubernator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

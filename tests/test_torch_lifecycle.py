@@ -118,8 +118,15 @@ def test_deep_healthz_has_the_jax_keys(daemon, jax_daemon):
         assert code == 200
         bodies.append(json.loads(body))
     got, want = bodies
-    assert got.keys() == want.keys() == {"status", "message", "peer_count",
-                                         "dispatcher", "peers"}
+    assert want.keys() == {"status", "message", "peer_count", "dispatcher",
+                           "peers"}
+    # the port's daemon runs the SLO engine and the memory ledger (JAX's
+    # defaults); the JAX daemon here runs with them off (QUIET)
+    assert got.keys() == want.keys() | {"slo", "memory"}
+    assert got["slo"].keys() == {"breached", "burning", "max_fast_burn",
+                                 "burn_threshold"}
+    assert got["memory"].keys() == {"device_bytes", "host_bytes",
+                                    "pressure", "pressure_target"}
     assert got["dispatcher"].keys() == want["dispatcher"].keys()
     assert got["dispatcher"]["admission"].keys() == \
         want["dispatcher"]["admission"].keys()

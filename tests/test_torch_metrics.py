@@ -42,13 +42,6 @@ NOT_PORTED = {
                     "gubernator_mesh_global_staleness_seconds",
                     "gubernator_mesh_global_degraded",
                     "gubernator_mesh_global_keys"},
-    "tenants": {"gubernator_tenant_requests", "gubernator_tenant_hits",
-                "gubernator_tenant_over_limit", "gubernator_tenant_errors",
-                "gubernator_tenant_degraded", "gubernator_tenant_shed"},
-    "SLO": {"gubernator_slo_burn"},
-    "fleet audit": {"gubernator_fleet_conservation_drift"},
-    "memory ledger": {"gubernator_memledger_bytes",
-                      "gubernator_memledger_rows"},
 }
 
 
@@ -65,7 +58,7 @@ def families(m):
 
 def test_every_port_family_has_its_jax_namesake():
     port, ref = families(Metrics()), families(JaxMetrics())
-    assert len(port) == 51
+    assert len(port) == 61
     for attr, fam in port.items():
         assert ref.get(attr) == fam, attr
 
