@@ -6,15 +6,18 @@ bucket engine (K1), a cluster of bucket-engine daemons, a group of
 daemon processes sharing the card behind one client port, two regions
 replicating MULTI_REGION hits, a daemon alone serving its hottest
 GLOBAL keys from the hot set, daemons whose peers come from a peers
-file and from gossip, a pair forwarding over TLS, the daemon on the
-classic SoA engine (K2), and a daemon whose 10M keys outgrow its table,
-served by the cold tier behind it.
+file and from gossip, a pair forwarding over TLS, both engines at n = 4
+shards against n = 1, a daemon serving GLOBAL from the mesh-resident
+tier (GUBER_GLOBAL_MODE=mesh), the multi-host bootstrap on NCCL, the
+daemon on the classic SoA engine (K2), and a daemon whose 10M keys
+outgrow its table, served by the cold tier behind it.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py            # full size: 10M keys on each path
     python3 chip_smoke.py --only hot,membership,gossip   # those phases
     python3 chip_smoke.py --only main,cluster   # phase 5, the cluster
+    python3 chip_smoke.py --only shards,mesh,multihost   # n > 1
 
 Phases (each prints a line with its seconds; any failure exits non-zero):
 
@@ -246,6 +249,30 @@ cluster: 3 daemons in this process (cluster.start_with), each with a
    15 s) and their rings hold the rest.  DNS, etcd and k8s discovery
    run in the CPU tests only: this machine has no resolver records, etcd
    or API server to point them at;
+   shards: the bucket engine (2^log2-cap rows) and the classic engine
+   (2^soa-log2-cap rows) at n = SHARDS shards (one GPU: all on cuda:0,
+   a rehearsal of n devices; more GPUs: spread over them) against n =
+   1, the same seeded stream of SHARD_WAVES 8192-row waves over
+   SHARD_KEYS keys through both: every answer equal, the tables equal
+   row for row once sorted by key, K1 launched once a shard a wave, K2
+   once a shard a sweep; then the wire lane's decisions/s of a
+   V1Instance at n = 1 and n = SHARDS (rounds 1, n, n, 1), every key
+   exact in both;
+   mesh: a daemon with GUBER_GLOBAL_MODE=mesh on the default mesh and
+   the bucket engine, 8 callers of 1000-request batches, half GLOBAL
+   (MESH_KEYS keys, limit 10^9), on the object and the wire lane: two
+   ticks after each round folded == injected; every healthy tick
+   folded, each fold's staleness under 2 x global_sync_wait_ms;
+   global_psum armed over HTTP while the callers send stands the tier
+   down, a round serves from the table, the fault cleared while they
+   send re-arms it, a round serves from it again; every key exact;
+   /metrics' six mesh
+   families moved.  Prints K1's launches and mesh_fused_hits of the
+   fused waves, the mesh SoA step's ms a wave, and the rate against
+   the same daemon in gRPC mode;
+   multihost: a subprocess forms a NCCL group of world size 1 hosting
+   SHARDS shards, checks one all_reduce and runs K1 on every shard over
+   global_mesh();
 6. sweep vs plain: a 2^24-row SoA table holding 10M keys (placed with
    upsert_rows; ~30% expired, some removed) swept by K2 and by its
    plain version on two copies: key and expire_at equal, the other
@@ -403,7 +430,7 @@ ANALYTICS_AB_PAIRS = 9
 #: the hot phase: the interleaved pairs of a lane (default hot set
 #: against hot_set_capacity 0) and each arm's batches a caller
 HOT_AB_PAIRS = 3
-HOT_BATCHES = 20
+HOT_BATCHES = 10
 #: object-lane waves of 1000 rows the tap's own cost is measured on
 TAP_COST_WAVES = 200
 #: gubernator_hotset_demotions' reasons
@@ -448,6 +475,24 @@ OOD_LIMIT = 1 << 40
 #: rows of the item path against the column path (a Loader's items are
 #: Python objects: the whole population would take minutes)
 ITEM_PATH_ROWS = 1_000_000
+#: the shards phase: shards of the n > 1 engines (on one GPU all on
+#: cuda:0), keys of its stream (3% of the table: no bucket fills, so n = 1
+#: and n = SHARDS answer alike), 8192-row waves through both, and wire
+#: batches a caller in each rate round
+SHARDS = 4
+SHARD_KEYS = 1_000_000
+SHARD_WAVES = 12
+#: the classic engine's waves of that stream (its SoA step takes ~2 s on
+#: a wave of this skew: PERF.md §5)
+SHARD_CLASSIC_WAVES = 2
+SHARD_BATCHES = 25
+#: the mesh phase: GLOBAL keys (a quarter of the tier's 4096 slots), the
+#: GLOBAL share of each 1000-request batch, batches a caller a round
+MESH_KEYS = 1024
+MESH_GLOBAL_SHARE = 0.5
+MESH_BATCHES = 12
+#: the bound of a healthy fold's staleness, in global_sync_wait_ms
+STALENESS_SYNC_WAITS = 2
 
 
 def require(ok, what: str) -> None:
@@ -4454,13 +4499,14 @@ class WaveTimer:
                 "max_slot": max(slots) if slots else None}
 
 
-def time_steps(torch, eng) -> list:
-    """Time every decision step the engine runs (``eng._decide``, the
-    SoA step alone: no packing, upload or download) on the host clock
-    and, on the card, with CUDA events around it.  Appends (start s,
-    host s, start event, end event) per step to the returned list; read
-    the events' times after a synchronize."""
-    decide = eng._decide
+def time_steps(torch, eng, attr: str = "_decide") -> list:
+    """Time every decision step the engine runs (``eng._decide``, or
+    the step method ``attr``: the SoA step alone, no packing, upload or
+    download) on the host clock and, on the card, with CUDA events
+    around it.  Appends (start s, host s, start event, end event) per
+    step to the returned list; read the events' times after a
+    synchronize."""
+    decide = getattr(eng, attr)
     rec: list = []
 
     def timed_decide(*a):
@@ -4476,7 +4522,7 @@ def time_steps(torch, eng) -> list:
         rec.append((t, host) + (tuple(ev) if ev else (None, None)))
         return out
 
-    eng._decide = timed_decide
+    setattr(eng, attr, timed_decide)
     return rec
 
 
@@ -6107,6 +6153,626 @@ def phase_gossip(torch, args) -> dict:
     return res
 
 
+# ---- more than one device: the shards, mesh and multihost phases -------
+
+
+def shard_stream(n_keys: int, waves: int, rows: int, t0: int, seed: int):
+    """[(khash, batch, now)]: ``waves`` columnar waves of ``rows``
+    Zipf(1.1) requests over ``n_keys`` smoke keys, hits 0-3, every fifth
+    key LEAKY, limits 50-99 (the hot keys go OVER), one now a wave."""
+    from gubernator_tpu_torch.core.batch import pack_columns
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for w in range(waves):
+        idx = zipf_ranks(rng, 1.1, n_keys, rows)
+        kh = smoke_hashes(idx)
+        alg = (idx % 5 == 0).astype(np.int64)
+        limit = 50 + idx % 50
+        now = t0 + 50 * w
+        batch, _ = pack_columns(
+            kh, rng.integers(0, 4, rows), limit,
+            np.where(alg == 1, 60_000, 30_000), alg,
+            np.zeros(rows, np.int64), limit, now)
+        out.append((kh, batch, now))
+    return out
+
+
+def sorted_snapshot(eng) -> dict:
+    """The engine's snapshot, rows sorted by key."""
+    snap = eng.snapshot()
+    order = np.argsort(snap["key"], kind="stable")
+    return {f: np.asarray(c)[order] for f, c in snap.items()}
+
+
+def shard_counter(eng) -> list:
+    """Count each shard's decision steps (K1 launches on the card) of
+    ``eng`` in the returned list."""
+    counts = [0] * eng.n
+    decide = eng._decide
+
+    def counted(shard, *a):
+        counts[shard] += 1
+        return decide(shard, *a)
+
+    eng._decide = counted
+    return counts
+
+
+def shard_mesh(n: int):
+    """n shards over the visible devices, repeating them when fewer (on
+    one GPU: n shards on cuda:0)."""
+    from gubernator_tpu_torch.mesh import make_mesh
+
+    devs = make_mesh().devices if DEVICE == "cuda" else ("cpu",)
+    return make_mesh([devs[i % len(devs)] for i in range(n)])
+
+
+def shard_engines(torch, args, kind: str):
+    """(engine at n = 1, engine at n = SHARDS): the bucket engine at
+    2^log2-cap rows (the main path's table), the classic at
+    2^soa-log2-cap, the n = SHARDS one split into SHARDS blocks."""
+    from gubernator_tpu_torch.engine import BucketEngine
+    from gubernator_tpu_torch.sharded import ShardedEngine
+
+    cls, log2 = ((BucketEngine, args.log2_cap) if kind == "bucket"
+                 else (ShardedEngine, args.soa_log2_cap))
+    one = cls(capacity=1 << log2, batch_rows=1024, mesh=shard_mesh(1))
+    four = cls(capacity=(1 << log2) // SHARDS, batch_rows=1024,
+               mesh=shard_mesh(SHARDS))
+    return one, four
+
+
+def shards_engine_check(torch, args, kind: str) -> dict:
+    """The same seeded stream through n = 1 and n = SHARDS: every
+    answer equal, then both tables equal row for row once sorted by key
+    (the n = SHARDS table is the n = 1 table re-routed); on the classic
+    engine one sweep each, K2 once a shard.  Prints K1's launches per
+    shard and the host ms a wave at each n."""
+    from gubernator_tpu_torch.ops.decide import decide_cuda
+    from gubernator_tpu_torch.ops.sweep import sweep_cuda
+
+    one, four = shard_engines(torch, args, kind)
+    counts = shard_counter(four)
+    stream = shard_stream(SHARD_KEYS, SHARD_WAVES if kind == "bucket"
+                          else SHARD_CLASSIC_WAVES, args.wave_rows,
+                          1_765_000_000_000, args.seed + 14)
+    ms = {1: [], SHARDS: []}
+    launches = {1: 0, SHARDS: 0}
+    for kh, batch, now in stream:
+        cols = {}
+        for n, eng in ((1, one), (SHARDS, four)):
+            k0 = decide_cuda.launches
+            t = time.perf_counter()
+            cols[n] = eng.check_packed(batch, kh, now)
+            ms[n].append((time.perf_counter() - t) * 1e3)
+            launches[n] += decide_cuda.launches - k0
+        for a, b in zip(cols[1], cols[SHARDS]):
+            require((np.asarray(a) == np.asarray(b)).all(),
+                    f"shards: {kind} answers differ at n = {SHARDS}")
+        require(not cols[1][4].any(), f"shards: {kind} table-full rows")
+    s1, s4 = sorted_snapshot(one), sorted_snapshot(four)
+    for f in s1:
+        require((s1[f] == s4[f]).all(),
+                f"shards: {kind} tables differ in {f}")
+    out = {"rows": int(len(s1["key"])), "waves": len(stream),
+           "requests": len(stream) * args.wave_rows,
+           "steps_per_shard": counts,
+           "host_ms_per_wave": {str(n): float(np.mean(v[1:]))
+                                for n, v in ms.items()},
+           "over": int(one.over_count)}
+    if DEVICE == "cuda" and kind == "bucket":
+        out["launches"] = launches
+        require(launches[SHARDS] == sum(counts) >= SHARDS * len(stream)
+                and launches[1] >= len(stream),
+                f"shards: K1 launches {launches}, steps {counts}")
+    if kind == "classic":
+        k0 = sweep_cuda.launches
+        one.sweep(stream[-1][2] + 40_000)
+        k1 = sweep_cuda.launches
+        four.sweep(stream[-1][2] + 40_000)
+        k2 = sweep_cuda.launches
+        require(one.live_rows == four.live_rows > 0,
+                f"shards: live rows {one.live_rows} against "
+                f"{four.live_rows}")
+        out["live_after_sweep"] = int(one.live_rows)
+        if DEVICE == "cuda":
+            out["sweep_launches"] = {"1": k1 - k0, str(SHARDS): k2 - k1}
+            require(k2 - k1 == SHARDS and k1 - k0 == 1,
+                    f"shards: K2 launches {k1 - k0}, {k2 - k1}")
+    print(f"shards {kind}: {out}", flush=True)
+    del one, four
+    return out
+
+
+def shards_wire_rate(torch, args) -> dict:
+    """Wire-lane decisions/s of V1Instance at n = 1 and at n = SHARDS
+    (the same 2^log2-cap rows), SHARD_THREADS callers of 1000-request
+    batches, rounds in the order 1, n, n, 1 after an untimed warm-up
+    each; then every key of both instances reads exactly 10^9 less the
+    hits sent (a gather of all of them)."""
+    from gubernator_tpu_torch.config import Config
+    from gubernator_tpu_torch.instance import V1Instance
+
+    rng = np.random.default_rng(args.seed + 141)
+    per_round = [[[zipf_ranks(rng, 1.1, SHARD_KEYS, 1000)
+                   for _ in range(SHARD_BATCHES)]
+                  for _ in range(args.threads)] for _ in range(3)]
+    jobs = [wire_jobs(p, lambda i: f"k{i:08d}", EXACT_GLOBAL_LIMIT, 60_000)
+            for p in per_round]
+    insts = {n: V1Instance(Config(cache_size=1 << args.log2_cap,
+                                  batch_rows=1024, device=DEVICE),
+                           mesh=shard_mesh(n)) for n in (1, SHARDS)}
+    rates = {1: [], SHARDS: []}
+    try:
+        for n, inst in insts.items():
+            drive(inst.get_rate_limits_wire, jobs[0])  # warm-up
+        for n, r in ((1, 1), (SHARDS, 1), (SHARDS, 2), (1, 2)):
+            _, wall, _, _ = drive(insts[n].get_rate_limits_wire, jobs[r])
+            rates[n].append(args.threads * SHARD_BATCHES * 1000 / wall)
+        ids = np.concatenate([np.concatenate([np.concatenate(t) for t in p])
+                              for p in per_round])
+        keys, sent = np.unique(ids, return_counts=True)
+        kh = smoke_hashes(keys)
+        for n, inst in insts.items():
+            # every instance took all three rounds' batches
+            found, cols = inst.engine.gather_rows(kh)
+            require(found.all(), f"shards: wire keys missing at n = {n}")
+            require((cols["remaining"] == EXACT_GLOBAL_LIMIT - sent).all(),
+                    f"shards: a wire key is not exact at n = {n}")
+    finally:
+        for inst in insts.values():
+            inst.close()
+    out = {"decisions_per_s": {str(n): v for n, v in rates.items()},
+           "ratio": float(np.mean(rates[SHARDS]) / np.mean(rates[1])),
+           "keys": int(len(keys))}
+    print(f"shards wire rate (n = 1, n = {SHARDS}): {out}", flush=True)
+    return out
+
+
+def phase_shards(torch, args) -> dict:
+    """The bucket and the classic engine at n = SHARDS on the card (one
+    GPU: SHARDS shards on cuda:0; more GPUs: spread over them), each
+    against n = 1 on one stream, then the wire lane's rate at both."""
+    out = {kind: shards_engine_check(torch, args, kind)
+           for kind in ("bucket", "classic")}
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out["wire"] = shards_wire_rate(torch, args)
+    out["mesh"] = [str(d) for d in shard_mesh(SHARDS).devices]
+    return out
+
+
+def mesh_jobs(rng, args, batches: int):
+    """Each caller's batches of 1000 ids: MESH_GLOBAL_SHARE GLOBAL ids
+    (negative: -1 - rank over MESH_KEYS keys, Zipf(1.1)) and the rest
+    plain smoke keys (Zipf(1.1) over SHARD_KEYS)."""
+    g = int(1000 * MESH_GLOBAL_SHARE)
+    return [[np.concatenate([-1 - zipf_ranks(rng, 1.1, MESH_KEYS, g),
+                             zipf_ranks(rng, 1.1, SHARD_KEYS, 1000 - g)])
+             for _ in range(batches)] for _ in range(args.threads)]
+
+
+def mesh_key(i: int) -> str:
+    return f"g{-1 - i:05d}" if i < 0 else f"k{i:08d}"
+
+
+def mesh_request(i: int):
+    from gubernator_tpu_torch.types import Behavior, RateLimitRequest
+
+    return RateLimitRequest(
+        name="mesh" if i < 0 else "smoke", unique_key=mesh_key(i), hits=1,
+        limit=EXACT_GLOBAL_LIMIT, duration=600_000,
+        behavior=Behavior.GLOBAL if i < 0 else 0)
+
+
+def mesh_jobs_built(per, lane: str) -> list:
+    """Each caller's batches of ``per`` as the lane takes them: request
+    objects, or their wire encoding."""
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    reqs = [[[mesh_request(i) for i in b.tolist()] for b in t] for t in per]
+    if lane == "wire":
+        return [[encode_get_rate_limits(b) for b in t] for t in reqs]
+    return reqs
+
+
+def mesh_round(inst, per, lane: str, jobs=None) -> float:
+    """One round of ``per`` through a lane (``jobs``: its batches built
+    beforehand); returns decisions/s.  The object lane's answers must
+    carry no error (the wire lane's are checked by the exact counts
+    afterwards)."""
+    if jobs is None:
+        jobs = mesh_jobs_built(per, lane)
+    if lane == "wire":
+        _, wall, _, _ = drive(inst.get_rate_limits_wire, jobs)
+    else:
+        _, wall, _, res = drive(inst.get_rate_limits, jobs)
+        require(not any(r.error for t in res.values() for b in t
+                        for r in b), "mesh: an object-lane error")
+    return sum(len(b) for t in per for b in t) / wall
+
+
+def mesh_traffic_across(inst, per, event, sent: dict) -> dict:
+    """Wire traffic while ``event()`` runs in this thread: each caller
+    cycles through its batches of ``per``; the event starts once every
+    caller has sent a batch, and the callers stop once each has sent
+    one more after it returned.  The batches sent join ``sent``.
+    Returns the event's reading and the batches sent before, across and
+    after it."""
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    enc = [[encode_get_rate_limits([mesh_request(i) for i in b.tolist()])
+            for b in t] for t in per]
+    jobs = [t * 1000 for t in enc]
+    starts: list = []  # (start, latency) of each batch done
+    done = threading.Event()
+    box: dict = {}
+
+    def callers():
+        try:
+            box["res"] = drive(inst.get_rate_limits_wire, jobs,
+                               stop=done.is_set, starts=starts)[3]
+        except BaseException as e:  # re-raised below, after join
+            box["err"] = e
+
+    th = threading.Thread(target=callers)
+    th.start()
+    try:
+        wait_for(lambda: len(starts) >= len(per) or "err" in box, 60.0)
+        t0 = time.monotonic()
+        reading = event()
+        t1 = time.monotonic()
+        wait_for(lambda: sum(s >= t1 for s, _ in list(starts)) >= len(per)
+                 or "err" in box, 60.0)
+    finally:
+        done.set()
+        th.join()
+    if "err" in box:
+        raise box["err"]
+    for t, answers in box["res"].items():
+        for j in range(len(answers)):
+            for i in per[t][j % len(per[t])].tolist():
+                sent[i] = sent.get(i, 0) + 1
+    ends = [(s, s + lat) for s, lat in starts]
+    return {"reading": reading,
+            "batches": len(starts),
+            "batches_before": sum(e <= t0 for _, e in ends),
+            "batches_across": sum(s < t1 and e > t0 for s, e in ends),
+            "batches_after": sum(s >= t1 for s, _ in ends)}
+
+
+def mesh_exact(inst, sent: dict) -> int:
+    """Every key sent reads exactly 10^9 less its hits: the GLOBAL keys
+    by a hits=0 request (their tier or the table answers), the others
+    from the table."""
+    from gubernator_tpu_torch.types import Behavior, RateLimitRequest
+
+    ids = np.array(sorted(sent), np.int64)
+    want = EXACT_GLOBAL_LIMIT - np.array([sent[i] for i in ids.tolist()])
+    g = ids < 0
+    q = [RateLimitRequest(name="mesh", unique_key=mesh_key(i), hits=0,
+                          limit=EXACT_GLOBAL_LIMIT, duration=600_000,
+                          behavior=Behavior.GLOBAL)
+         for i in ids[g].tolist()]
+    got = [r.remaining for a in range(0, len(q), 1000)
+           for r in inst.get_rate_limits(q[a:a + 1000])]
+    require(got == want[g].tolist(), "mesh: a GLOBAL key is not exact")
+    found, cols = inst.engine.gather_rows(smoke_hashes(ids[~g]))
+    require(found.all() and (cols["remaining"] == want[~g]).all(),
+            "mesh: a plain key is not exact")
+    return int(len(ids))
+
+
+def tally_sent(sent: dict, per) -> None:
+    for t in per:
+        for b in t:
+            for i in b.tolist():
+                sent[i] = sent.get(i, 0) + 1
+
+
+def mesh_quiesce(inst, bound_s: float = 10.0) -> dict:
+    """Wait for two reconcile ticks after the traffic stopped, then the
+    tier's ledger: folded == injected."""
+    mge = inst._meshglobal
+    gen = mge.generation
+    t = wait_for(lambda: mge.generation >= gen + 2, bound_s)
+    s = mge.stats()
+    require(s["folded_hits"] == s["injected_hits"],
+            f"mesh: folded {s['folded_hits']} != injected "
+            f"{s['injected_hits']}")
+    return dict(s, wait_s=t)
+
+
+def phase_mesh(torch, args) -> dict:
+    """A daemon with GUBER_GLOBAL_MODE=mesh on the default mesh (every
+    GPU) and the bucket engine at the main path's 2^log2-cap rows: 8
+    callers of 1000-request batches, MESH_GLOBAL_SHARE of each GLOBAL
+    (Zipf over MESH_KEYS keys at limit 10^9), on the object and the wire
+    lane.  Checks after each round: two ticks later folded == injected;
+    every tick of the healthy rounds folded, each fold's staleness under
+    STALENESS_SYNC_WAITS x global_sync_wait_ms; then global_psum armed
+    over HTTP while the callers send stands the tier down (every key
+    demoted), a round serves from the table, the fault cleared while
+    they send re-arms the tier, a round serves from it again, and every
+    key reads exactly its limit less the hits sent; /metrics shows the
+    six families, each moved.  Records K1's
+    launches and mesh_fused_hits of the fused waves, the mesh SoA
+    step's ms a wave, and the same traffic's rate on an identical
+    daemon in gRPC mode (the hot set on, JAX's default)."""
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.ops.decide import decide_cuda
+
+    def cfg(mode):
+        return DaemonConfig(grpc_listen_address="127.0.0.1:0",
+                            http_listen_address="127.0.0.1:0",
+                            cache_size=1 << args.log2_cap, batch_rows=1024,
+                            device=DEVICE, global_mode=mode)
+
+    rng = np.random.default_rng(args.seed + 142)
+    rounds = {lane: mesh_jobs(rng, args, MESH_BATCHES)
+              for lane in ("warm", "object", "wire", "degraded", "back")}
+    sync_s = cfg("mesh").behaviors.global_sync_wait_ms / 1000.0
+    d = spawn_daemon(cfg("mesh"))
+    sent: dict = {}
+    out: dict = {}
+    try:
+        inst = d.instance
+        mge = inst._meshglobal
+        require(mge is not None and inst.engine.mesh_bound,
+                "mesh: the tier is not bound at start")
+        stale, healthy = [], [False]
+        tick = inst._mesh_reconcile_tick
+
+        gauge = []  # the staleness family's reading after each fold
+        ticks = []  # (start s, seconds) of each healthy tick
+        parts = {"swap": [], "fold": []}  # seconds inside each call
+
+        def timed(name, fn):
+            def call(*a):
+                t = time.monotonic()
+                try:
+                    return fn(*a)
+                finally:
+                    if healthy[0]:
+                        parts[name].append(time.monotonic() - t)
+                        if name == "fold":
+                            # every fold's, the tick's or a caller's
+                            stale.append(mge.last_staleness_s)
+            return call
+
+        mge.retire_accum = timed("swap", mge.retire_accum)
+        mge.fold = timed("fold", mge.fold)
+
+        missed = []  # healthy ticks that folded nothing
+
+        def timed_tick():
+            g = mge.generation
+            t = time.monotonic()
+            tick()
+            if not healthy[0]:
+                return
+            if mge.generation == g:
+                missed.append(t)
+                return
+            ticks.append((t, time.monotonic() - t))
+            gauge.append(inst.metrics.mesh_global_staleness._value.get())
+
+        inst._mesh_reconcile_tick = timed_tick
+        steps = time_steps(torch, mge, "decide_replica")
+        mesh_round(inst, rounds["warm"], "wire")
+        tally_sent(sent, rounds["warm"])
+        mesh_quiesce(inst)
+        steps.clear()
+        rates = {}
+        built = {lane: mesh_jobs_built(rounds[lane], lane)
+                 for lane in ("object", "wire")}
+        # the heap the earlier phases left is not this phase's: every
+        # collection stops all threads, folds included, for as long as it
+        # scans (gen-2 collections of up to 840 ms in phase 4's rounds
+        # on an H100 host)
+        gc.collect()
+        gc.freeze()
+        pauses: list = []
+        on_gc = time_gc(pauses)
+        gc.callbacks.append(on_gc)
+        k0, h0 = decide_cuda.launches, inst.engine.mesh_fused_hits
+        healthy[0] = True
+        try:
+            for lane in ("object", "wire"):
+                rates[lane] = mesh_round(inst, rounds[lane], lane,
+                                         built.pop(lane))
+                tally_sent(sent, rounds[lane])
+                out[f"{lane}_quiesce"] = mesh_quiesce(inst)
+        finally:
+            healthy[0] = False
+            gc.callbacks.remove(on_gc)
+            gc.unfreeze()
+        g = np.asarray(pauses, dtype=np.float64).reshape(-1, 3)
+        out["gc"] = {"collections": len(g),
+                     "gen2": int((g[:, 2] == 2).sum()),
+                     "ms_max": float((g[:, 1] - g[:, 0]).max() * 1e3)
+                     if len(g) else 0.0}
+        out["launches"] = decide_cuda.launches - k0
+        out["mesh_fused_hits"] = inst.engine.mesh_fused_hits - h0
+        out["mesh_step"] = dict(step_stats(torch, steps),
+                                step_host_ms_max=max(
+                                    (t[1] * 1e3 for t in steps),
+                                    default=None))
+        require(out["mesh_fused_hits"] > 0 and out["launches"] > 0,
+                "mesh: the fused lane did not run")
+        # every healthy fold under the bound
+        gaps = np.diff([t for t, _ in ticks])
+        durs = np.array([d for _, d in ticks])
+        bound = STALENESS_SYNC_WAITS * sync_s
+        over = [k for k, v in enumerate(stale) if v >= bound]
+        out["staleness_s"] = {
+            "max": max(stale, default=None),
+            "p50": float(np.median(stale)) if stale else None,
+            "mean": float(np.mean(stale)) if stale else None,
+            "folds": len(stale), "ticks": len(ticks),
+            "folds_over_bound": len(over),
+            "tick_s_max": max(durs, default=None),
+            "tick_gap_s_p50_max": [float(np.median(gaps)), float(gaps.max())]
+            if len(gaps) else None,
+            # end of a tick to the start of the next: the interval, the
+            # GLOBAL manager's own work and the thread's wait for the GIL
+            "idle_gap_s_p50_max": [
+                float(np.median(gaps - durs[:-1])),
+                float((gaps - durs[:-1]).max())] if len(gaps) else None,
+            "swap_s_p50_max": [float(np.median(parts["swap"])),
+                               max(parts["swap"])] if parts["swap"] else None,
+            "fold_s_p50_max": [float(np.median(parts["fold"])),
+                               max(parts["fold"])] if parts["fold"] else None}
+        out["staleness_s"]["missed_ticks"] = len(missed)
+        require(stale and not over and not missed,
+                f"mesh: staleness {out['staleness_s']}, gc {out['gc']}")
+        out["pinned"] = len(mge.pinned_keys())
+
+        # the stand-down and the recovery, each while the callers send
+        def stand_down():
+            post_json(d.http_port, "/debug/faults",
+                      {"spec": "global_psum:error"})
+            # the flag and the demotion of every key come together
+            return wait_for(lambda: inst._mesh_degraded
+                            and not mge.pinned_keys(), 10.0)
+
+        def recover():
+            post_json(d.http_port, "/debug/faults", {"clear": True})
+            return wait_for(lambda: not inst._mesh_degraded, 10.0)
+
+        down = mesh_traffic_across(inst, rounds["degraded"], stand_down, sent)
+        require(inst._mesh_degraded and not mge.pinned_keys()
+                and down["batches_across"] > 0,
+                f"mesh: global_psum did not stand the tier down under "
+                f"traffic: {down}")
+        degraded_gauge = inst.metrics.mesh_global_degraded._value.get()
+        rates["degraded_wire"] = mesh_round(inst, rounds["degraded"], "wire")
+        tally_sent(sent, rounds["degraded"])
+        require(not mge.pinned_keys(), "mesh: a key pinned while degraded")
+        up = mesh_traffic_across(inst, rounds["back"], recover, sent)
+        require(not inst._mesh_degraded, f"mesh: the tier did not recover: "
+                                         f"{up}")
+        rates["recovered_wire"] = mesh_round(inst, rounds["back"], "wire")
+        tally_sent(sent, rounds["back"])
+        out["back_quiesce"] = mesh_quiesce(inst)
+        require(mge.pinned_keys(), "mesh: routing did not resume")
+        out["outage"] = {"down": down, "up": up,
+                         "degraded_gauge": degraded_gauge}
+        out["keys_exact"] = mesh_exact(inst, sent)
+        m = scrape_metrics(d.http_port)
+        fams = {name: v for (name, _), v in m.items()
+                if name.startswith("gubernator_mesh_global")
+                or name.startswith("gubernator_pallas_mesh_fused_hits")}
+        want = ("gubernator_mesh_global_folds_total",
+                "gubernator_mesh_global_fold_errors_total",
+                "gubernator_mesh_global_staleness_seconds",
+                "gubernator_mesh_global_degraded",
+                "gubernator_mesh_global_keys",
+                "gubernator_pallas_mesh_fused_hits_total")
+        require(all(w in fams for w in want), f"mesh: /metrics {fams}")
+        # the gauges: staleness read > 0 after the healthy rounds' folds
+        # (an idle tick folds nothing and reads 0), degraded 1 while
+        # stood down and 0 now
+        require(all(fams[w] > 0 for w in want if w not in want[2:4])
+                and max(gauge) > 0 and degraded_gauge == 1
+                and fams[want[3]] == 0,
+                f"mesh: a family did not move: {fams}")
+        out["metrics"] = fams
+        out["decisions_per_s"] = rates
+    finally:
+        d.close()
+    # the same traffic on the same daemon in gRPC mode
+    g = spawn_daemon(cfg("grpc"))
+    try:
+        mesh_round(g.instance, rounds["warm"], "wire")
+        out["grpc_decisions_per_s"] = {
+            lane: mesh_round(g.instance, rounds[lane], lane)
+            for lane in ("object", "wire")}
+    finally:
+        g.close()
+    out["rate_ratio_mesh_over_grpc"] = {
+        lane: out["decisions_per_s"][lane] / out["grpc_decisions_per_s"][lane]
+        for lane in ("object", "wire")}
+    print(f"mesh: {out}", flush=True)
+    return out
+
+
+MULTIHOST_CODE = r"""
+import json, socket, sys, time
+import numpy as np
+import torch
+from gubernator_tpu_torch import multihost
+from gubernator_tpu_torch.core.batch import RequestBatch, pack_columns
+from gubernator_tpu_torch.core.table import init_table
+from gubernator_tpu_torch.ops.decide import decide, decide_cuda
+shards, rows, device = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]
+s.close()
+t = time.perf_counter()
+multihost.initialize(f"127.0.0.1:{port}", 1, 0, local_device_count=shards,
+                     device=device, timeout_s=60)
+init_s = time.perf_counter() - t
+import torch.distributed as dist
+mesh = multihost.global_mesh()
+x = multihost.process_local_batch(
+    mesh, np.arange(shards * 8, dtype=np.int64).reshape(shards, 8))
+t = time.perf_counter()
+tot = multihost.psum(x)
+if device == "cuda":
+    torch.cuda.synchronize()
+reduce_ms = (time.perf_counter() - t) * 1e3
+want = np.arange(shards * 8).reshape(shards, 8).sum(0)
+assert (tot.cpu().numpy() == want).all(), tot
+rng = np.random.default_rng(7)
+kh = rng.integers(1, 1 << 62, shards * rows).astype(np.uint64)
+n = shards * rows
+batch, _ = pack_columns(kh, np.ones(n, np.int64), np.full(n, 5, np.int64),
+                        np.full(n, 60000, np.int64), np.zeros(n, np.int64),
+                        np.zeros(n, np.int64), np.full(n, 5, np.int64),
+                        1_760_000_000_000)
+blocks = [multihost.process_local_batch(mesh, np.asarray(c)) for c in batch]
+batches = [RequestBatch(*[b[d] for b in blocks]) for d in range(shards)]
+tables = [init_table(1 << 16, dev) for dev in mesh.local_devices]
+k0 = decide_cuda.launches
+outs, (over, ins) = multihost.sharded_step(mesh, tables, batches,
+                                           1_760_000_000_000, step=decide)
+assert ins == n and over == 0, (ins, over)
+assert all((o.status == 0).all() and (o.remaining == 4).all() for o in outs)
+res = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+       "shards": mesh.n, "init_s": init_s, "all_reduce_ms": reduce_ms,
+       "inserted": ins, "launches": decide_cuda.launches - k0}
+multihost.shutdown()
+print("MULTIHOST " + json.dumps(res), flush=True)
+"""
+
+
+def phase_multihost(torch, args) -> dict:
+    """The multi-host bootstrap in a process of its own (its own
+    timeout): initialize with NCCL at world size 1 hosting SHARDS shards
+    on the card (gloo on the CPU), one all_reduce checked against its
+    sum, and a decision step (K1 on each shard) over global_mesh():
+    every key inserted, each answer UNDER with 4 remaining."""
+    r = subprocess.run([sys.executable, "-c", MULTIHOST_CODE, str(SHARDS),
+                        "1024", DEVICE], cwd=os.path.dirname(os.path.abspath(
+                            __file__)), capture_output=True, text=True,
+                       timeout=300)
+    line = [ln for ln in r.stdout.splitlines()
+            if ln.startswith("MULTIHOST ")]
+    require(r.returncode == 0 and line,
+            f"multihost: exit {r.returncode}\n{r.stdout[-2000:]}"
+            f"{r.stderr[-3000:]}")
+    out = json.loads(line[-1][len("MULTIHOST "):])
+    require(out["world_size"] == 1 and out["shards"] == SHARDS
+            and (out["backend"], out["launches"]) == (
+                ("nccl", SHARDS) if DEVICE == "cuda" else ("gloo", 0)),
+            f"multihost: {out}")
+    print(f"multihost: {out}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2-cap", type=int, default=25,
@@ -6135,7 +6801,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cluster-log2-cap", type=int, default=24,
                     help="each cluster daemon's bucket-table rows (log2)")
     ap.add_argument("--cluster-rounds", type=int, default=2)
-    ap.add_argument("--outage-batches", type=int, default=50,
+    ap.add_argument("--outage-batches", type=int, default=30,
                     help="batches per caller in the outage phase's "
                          "rehomed and recovered rounds")
     ap.add_argument("--handover-log2-cap", type=int, default=22,
@@ -6147,8 +6813,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="run only these phases after the build (comma-"
                          "separated: main, cluster, hot, membership, "
-                         "gossip); prints their results and no kernels "
-                         "or ok line")
+                         "gossip, shards, mesh, multihost); prints their "
+                         "results and no kernels or ok line")
     args = ap.parse_args(argv)
 
     import torch
@@ -6165,7 +6831,8 @@ def main(argv=None) -> int:
 
         runs = {"main": main_path, "cluster": phase_cluster,
                 "hot": phase_hot, "membership": phase_membership,
-                "gossip": phase_gossip}
+                "gossip": phase_gossip, "shards": phase_shards,
+                "mesh": phase_mesh, "multihost": phase_multihost}
         out = {}
         for p in only:
             with phase(p):
@@ -6216,6 +6883,18 @@ def main(argv=None) -> int:
     gc.collect()
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+    with phase("shards"):
+        sh = phase_shards(torch, args)
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    with phase("mesh"):
+        msh = phase_mesh(torch, args)
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    with phase("multihost"):
+        mh = phase_multihost(torch, args)
     with phase("sweep vs plain"):
         k2 = phase_sweep_vs_plain(torch, args)
     if DEVICE == "cuda":
@@ -6229,7 +6908,8 @@ def main(argv=None) -> int:
         tiers = phase_tiers(torch, args)
     print(json.dumps({"main_path": m, "cluster": cl, "group": grp,
                       "regions": reg, "hot": hot, "membership": mem,
-                      "gossip": gos, "kernel_detail": k,
+                      "gossip": gos, "shards": sh, "mesh": msh,
+                      "multihost": mh, "kernel_detail": k,
                       "classic_main_path": c, "sweep_detail": k2,
                       "probe_detail": k3, "tiers": tiers}), flush=True)
     print(smi, flush=True)
@@ -6250,6 +6930,11 @@ def main(argv=None) -> int:
          "gossip_launches": gos["launches"],
          "wire_analytics_off_launches": m["wire_analytics_off_launches"],
          "tiers_launches": tiers["served"]["launches"],
+         "shards_launches": sh["bucket"]["launches"],
+         "shards_steps_per_shard": sh["bucket"]["steps_per_shard"],
+         "mesh_launches": msh["launches"],
+         "mesh_fused_hits": msh["mesh_fused_hits"],
+         "multihost_launches": mh["launches"],
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
@@ -6260,6 +6945,7 @@ def main(argv=None) -> int:
          "replaces": "gubernator_tpu/ops/pallas_sweep.py:48",
          "launches": c["launches"], "wire_launches": c["wire"]["launches"],
          "wire_pipeline_off_launches": c["wire_pipeline_off"]["launches"],
+         "shards_launches": sh["classic"]["sweep_launches"],
          "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",

@@ -64,7 +64,7 @@ class Cluster:
                       http_listen_address=http,
                       advertise_address=old.advertise_address)
         old.close()
-        d = spawn_daemon(cfg)
+        d = spawn_daemon(cfg, mesh=old.mesh)
         self.daemons[i] = d
         infos = [dm.peer_info() for dm in self.daemons]
         for dm in self.daemons:
@@ -89,13 +89,14 @@ def start(n: int, behaviors: Optional[BehaviorConfig] = None,
         for _ in range(n)])
 
 
-def start_with(cfgs: List[DaemonConfig]) -> Cluster:
-    """Boot one daemon per config and join them (cluster.go ›
-    StartWith); a daemon that fails to start stops the ones before it."""
+def start_with(cfgs: List[DaemonConfig], mesh=None) -> Cluster:
+    """Boot one daemon per config, each on ``mesh`` when given, and join
+    them (cluster.go › StartWith); a daemon that fails to start stops
+    the ones before it."""
     daemons: List[Daemon] = []
     try:
         for cfg in cfgs:
-            daemons.append(spawn_daemon(cfg))
+            daemons.append(spawn_daemon(cfg, mesh=mesh))
         infos = [d.peer_info() for d in daemons]
         for d in daemons:
             d.set_peers(infos)

@@ -9,7 +9,11 @@ SO_REUSEPORT client port), GUBER_DATA_CENTER, GUBER_INSTANCE_ID,
 GUBER_BATCH_*, GUBER_GLOBAL_* and GUBER_MULTI_REGION_* apply; see
 config.py; an empty GUBER_GRPC_ADDRESS serves no gRPC and no
 peers).  Serves on the GPU unless GUBER_DEVICE=cpu, through the bucket
-engine unless GUBER_ENGINE=xla selects the classic SoA engine.
+engine unless GUBER_ENGINE=xla selects the classic SoA engine.  On
+``cuda`` the mesh is every visible GPU, one shard each.
+GUBER_GLOBAL_MODE=mesh serves GLOBAL
+keys from the mesh-resident tier (GUBER_MESH_GLOBAL_CAP,
+GUBER_MESH_FALLBACK_AFTER).
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ def main(argv=None) -> int:
           f"advertise={d.advertise_address or '-'} "
           f"peers={len(d.instance.peers())} "
           f"http={cfg.http_listen_address} "
-          f"device={cfg.device} "
+          f"device={cfg.device} shards={d.instance.engine.n} "
           f"engine={type(d.instance.engine).__name__}", flush=True)
     stop.wait()
     d.close()

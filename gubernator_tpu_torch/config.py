@@ -72,6 +72,10 @@ HELP: Dict[str, str] = {
     "GUBER_TENANT_MAX": "max distinct tenant buckets; overflow folds into __other__ (default 64)",
     "GUBER_TRACE_SAMPLE": "head-sampling rate for the trace plane (0 disables)",
     "GUBER_TRACE_SPANS": "span-recorder ring capacity (completed spans kept)",
+    # the mesh-GLOBAL tier (instance.py)
+    "GUBER_GLOBAL_MODE": "GLOBAL reconcile backend: grpc (default) or mesh (pod-local collective fold)",
+    "GUBER_MESH_FALLBACK_AFTER": "consecutive mesh-GLOBAL fold failures before the tier stands down to the gRPC path",
+    "GUBER_MESH_GLOBAL_CAP": "mesh-GLOBAL replica table capacity (keys; power of two)",
 }
 
 _DUR_RE = re.compile(r"(\d+(?:\.\d+)?)(ns|us|µs|ms|s|m|h)")
@@ -206,6 +210,12 @@ class Config:
     #: 0 turns it off
     hot_set_capacity: int = 1024
     hot_promote_threshold: int = 64
+    #: GLOBAL reconcile backend: "" / "grpc" keeps the hit queues and
+    #: owner broadcasts; "mesh" serves a lone daemon's GLOBAL keys from
+    #: the mesh-resident replica tier (meshglobal.py) and reconciles
+    #: them with one fold a tick, no gRPC fan-out.  Anything else
+    #: raises.  GUBER_GLOBAL_MODE overrides.
+    global_mode: str = ""
 
     def set_defaults(self) -> "Config":
         """Normalize invalid values (config.go › SetDefaults)."""
@@ -297,12 +307,14 @@ class DaemonConfig:
     data_center: str = ""
     #: a name for logs (GUBER_INSTANCE_ID)
     instance_id: str = ""
+    #: Config.global_mode (GUBER_GLOBAL_MODE)
+    global_mode: str = ""
 
     def instance_config(self) -> Config:
         return Config(cache_size=self.cache_size,
                       batch_rows=self.batch_rows,
                       cache_autogrow_max=self.cache_autogrow_max,
-                      engine=self.engine,
+                      engine=self.engine, global_mode=self.global_mode,
                       sweep_interval_ms=self.sweep_interval_ms,
                       device=self.device, behaviors=self.behaviors,
                       advertise_address=self.advertise_address,
@@ -346,6 +358,7 @@ def setup_daemon_config(conf_file: str = "",
     d.cache_autogrow_max = int(conf.get("GUBER_CACHE_AUTOGROW_MAX",
                                         d.cache_autogrow_max))
     d.engine = conf.get("GUBER_ENGINE", d.engine)
+    d.global_mode = conf.get("GUBER_GLOBAL_MODE", d.global_mode)
     d.device = conf.get("GUBER_DEVICE", d.device)
     d.log_level = conf.get("GUBER_LOG_LEVEL", d.log_level)
     d.advertise_address = conf.get("GUBER_ADVERTISE_ADDRESS",

@@ -179,8 +179,10 @@ class _PeersServicer:
 class Daemon:
     """Use spawn_daemon() to construct."""
 
-    def __init__(self, cfg: DaemonConfig):
+    def __init__(self, cfg: DaemonConfig, mesh=None):
         self.cfg = cfg
+        #: the instance's mesh (mesh.py) as given; None: its default
+        self.mesh = mesh
         self._closed = False
         #: True from the moment close() starts: /healthz answers 503
         #: "draining" through the grace window
@@ -215,7 +217,8 @@ class Daemon:
                 icfg.loader = FileLoader(cfg.snapshot_path)
             self.instance = V1Instance(
                 icfg, peer_tls_creds=(self.tls.grpc_client_credentials()
-                                      if self.tls is not None else None))
+                                      if self.tls is not None else None),
+                mesh=mesh)
             # warm-up: build the kernel and run one wave before serving
             self.instance.get_rate_limits(
                 [RateLimitRequest(name="_warmup", unique_key="w", hits=0,
@@ -648,9 +651,10 @@ def _int_arg(q: dict, name: str) -> Optional[int]:
         return None
 
 
-def spawn_daemon(cfg: DaemonConfig) -> Daemon:
-    """reference: daemon.go › SpawnDaemon."""
-    d = Daemon(cfg)
+def spawn_daemon(cfg: DaemonConfig, mesh=None) -> Daemon:
+    """reference: daemon.go › SpawnDaemon.  ``mesh`` (mesh.py) is the
+    instance's: by default every visible GPU on ``cuda``."""
+    d = Daemon(cfg, mesh=mesh)
     log.info("gubernator-tpu-torch daemon up: grpc=%s http=%s "
              "advertise=%s device=%s engine=%s",
              cfg.grpc_listen_address or "off", cfg.http_listen_address,

@@ -129,15 +129,19 @@ class ResultView:
 
 class _Job:
     """One caller's submission: request objects (``reqs``) or packed
-    columns (``batch`` + ``khash``); ``t_enq`` is stamped at submit."""
+    columns (``batch`` + ``khash``, with ``mslot``, each row's
+    mesh-GLOBAL replica slot, or None); ``t_enq`` is stamped at
+    submit."""
 
-    __slots__ = ("reqs", "batch", "khash", "now_ms", "future", "t_enq",
-                 "trace", "span")
+    __slots__ = ("reqs", "batch", "khash", "mslot", "now_ms", "future",
+                 "t_enq", "trace", "span")
 
-    def __init__(self, now_ms: int, reqs=None, batch=None, khash=None):
+    def __init__(self, now_ms: int, reqs=None, batch=None, khash=None,
+                 mslot=None):
         self.reqs = reqs
         self.batch = batch
         self.khash = khash
+        self.mslot = mslot
         self.now_ms = now_ms
         self.future: Future = Future()
         self.t_enq: Optional[float] = None
@@ -157,6 +161,22 @@ def _concat(parts) -> tuple:
         np.concatenate([np.asarray(b[f]) for b, _ in parts])
         for f in range(len(RequestBatch._fields))])
     return batch, np.concatenate([kh for _, kh in parts])
+
+
+def _concat_mslot(jobs) -> Optional[np.ndarray]:
+    """The wave's mesh-GLOBAL slot column (-1 for every row of a job
+    without one), or None when no job has one."""
+    if all(j.mslot is None for j in jobs):
+        return None
+    return np.concatenate([
+        np.asarray(j.mslot, np.int32) if j.mslot is not None
+        else np.full(len(j), -1, np.int32) for j in jobs])
+
+
+def _mslot_kw(mslot) -> dict:
+    """``mslot`` as an engine keyword, or none (not every engine takes
+    it)."""
+    return {} if mslot is None else {"mslot": mslot}
 
 
 def _fail(jobs, e: BaseException) -> None:
@@ -220,6 +240,9 @@ class Dispatcher:
         self._clock = clock
         #: waves the worker ran / waves callers ran inline
         self.wave_count = 0
+        #: the mesh-GLOBAL tier's fold generation, stamped on each wave
+        #: (the instance's reconcile tick sets it)
+        self.reconcile_gen = 0
         self.inline_waves = 0
         self._phase_hist: dict = {}  # phase → histogram child (benign race)
         # ---- wave telemetry (under _tel_mu) ----
@@ -325,25 +348,28 @@ class Dispatcher:
         return self._wait(self._submit(_Job(now_ms, reqs=list(reqs))))
 
     def check_packed(self, batch: RequestBatch, khash: np.ndarray,
-                     now_ms: int) -> tuple:
+                     now_ms: int, mslot=None) -> tuple:
         """Columnar submit (engine.check_packed's contract): returns the
-        caller's (status, limit, remaining, reset, table_full) slice."""
-        return self.check_packed_view(batch, khash, now_ms).sliced()
+        caller's (status, limit, remaining, reset, table_full) slice.
+        ``mslot``: each row's mesh-GLOBAL replica slot (-1: the table),
+        for an engine with a bound mesh tier."""
+        return self.check_packed_view(batch, khash, now_ms, mslot).sliced()
 
     def check_packed_view(self, batch: RequestBatch, khash: np.ndarray,
-                          now_ms: int) -> ResultView:
+                          now_ms: int, mslot=None) -> ResultView:
         """``check_packed`` returning the ResultView: row bounds into the
         wave's shared result columns.  Idle (and not pipelined): the wave
         runs inline, in this thread (a lone packed job's wave is exactly
         engine.check_packed); else it coalesces with the queued jobs."""
         out = self.run_inline_wave(
-            lambda: self.engine.check_packed(batch, khash, now_ms),
+            lambda: self.engine.check_packed(batch, khash, now_ms,
+                                             **_mslot_kw(mslot)),
             kind="inline_packed", nreq=len(khash))
         if out is not self._BUSY:
             self._tap_packed(khash, batch.hits, out[0])
             return ResultView(out, 0, len(khash))
         return self._wait(self._submit(_Job(now_ms, batch=batch,
-                                            khash=khash)))
+                                            khash=khash, mslot=mslot)))
 
     def _fault(self, point: str) -> None:
         f = self._faults
@@ -546,11 +572,13 @@ class Dispatcher:
             wspan = new_span_id()
         tenant = (self._job_tenant(jobs[0])
                   if jobs and self.recorder is not None else None)
+        gen = self.reconcile_gen
         with self._tel_mu:
             self._wave_seq += 1
             wid = self._wave_seq
             self._inflight[wid] = {"t0": t0, "kind": kind, "size": nreq,
                                    "stalled": False, "slot": slot,
+                                   "gen": gen,
                                    "trace": trace, "span": wspan,
                                    "parent": parent, "links": links,
                                    "tenant": tenant, "marks": []}
@@ -569,6 +597,9 @@ class Dispatcher:
                   "size": nreq, "jobs": len(jobs) if jobs else 1}
             if wspan is not None:
                 ev["span_id"] = wspan
+            if gen:
+                # the mesh-GLOBAL fold generation the wave served under
+                ev["gen"] = gen
             if slot is not None:
                 # position in the in-flight ring at launch (0 = oldest)
                 ev["slot"] = slot
@@ -679,6 +710,8 @@ class Dispatcher:
                   "duration_ms": round(dur * 1000, 3)}
             if info["span"]:
                 ev["span_id"] = info["span"]
+            if info["gen"]:
+                ev["gen"] = info["gen"]
             if info["slot"] is not None:
                 ev["slot"] = info["slot"]
             if info["tenant"] is not None:
@@ -716,6 +749,8 @@ class Dispatcher:
             tid = info["trace"]
             attrs = {"wave": wid, "kind": info["kind"],
                      "size": info["size"]}
+            if info["gen"]:
+                attrs["gen"] = info["gen"]
             if info["slot"] is not None:
                 attrs["slot"] = info["slot"]
             if info["tenant"] is not None:
@@ -953,9 +988,11 @@ class Dispatcher:
             self._fault("dispatch_launch")
             batch, khash = _concat([(j.batch, j.khash) for j in jobs])
             now = max(j.now_ms for j in jobs)
+            mslot = _concat_mslot(jobs)
             with self._engine_lock:
                 self._fault("device_step")
-                token = self.engine.launch_packed(batch, khash, now)
+                token = self.engine.launch_packed(batch, khash, now,
+                                                  **_mslot_kw(mslot))
             # the launch's host routing and upload are pack work; device
             # time runs from here until sync_packed returns
             self._wave_mark(wid, "pack")
@@ -1025,7 +1062,8 @@ class Dispatcher:
                 self._fault("device_step")
                 self.engine._tap_mute = mute
                 try:
-                    cols = self.engine.check_packed(batch, khash, now)
+                    cols = self.engine.check_packed(
+                        batch, khash, now, **_mslot_kw(_concat_mslot(wave)))
                 finally:
                     self.engine._tap_mute = False
             self._wave_mark(wid, "device")

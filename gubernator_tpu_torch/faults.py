@@ -27,11 +27,10 @@ replays draw for draw, as the JAX package's does.  A ``FaultSet`` is per
 instance: arming one daemon of an in-process cluster leaves its
 siblings alone.
 
-:data:`FAULT_POINTS` holds only the points whose sites exist in the
-port; the JAX package's ``global_accum_swap`` and ``global_psum``
-arrive with their subsystem.  Arming a point outside
-the catalog raises: a chaos run must never test nothing without saying
-so.
+:data:`FAULT_POINTS` is the JAX package's catalog, each point fired
+where JAX fires it (``global_accum_swap`` and ``global_psum`` in the
+mesh-GLOBAL reconcile tick).  Arming a point outside the catalog raises:
+a chaos run must never test nothing without saying so.
 """
 from __future__ import annotations
 
@@ -81,6 +80,12 @@ FAULT_POINTS = {
                         "owner broadcast tick",
     "global_hits": "GlobalManager._hits_tick — before the hit flush "
                    "tick (an aborted tick pops nothing)",
+    "global_accum_swap": "V1Instance._mesh_reconcile_tick — before the "
+                         "mesh-GLOBAL accumulator double-buffer swap "
+                         "(error aborts the tick; buffers untouched)",
+    "global_psum": "V1Instance._mesh_reconcile_tick — before the "
+                   "mesh-GLOBAL reconcile collective launches (error "
+                   "swaps the retired buffer back; no hit stranded)",
     "mr_sync": "MultiRegionManager._run_async_reqs — before the "
                "cross-region flush tick (queues not yet popped, so an "
                "aborted tick loses nothing)",

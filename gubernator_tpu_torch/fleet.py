@@ -12,8 +12,9 @@ documents.
   live queues into the ``GET /debug/audit`` document, drives
   ``gubernator_fleet_conservation_drift`` and feeds the
   ``fleet_conservation`` SLO (seconds since the backlog last drained,
-  against the drift bound).  The port has no mesh-GLOBAL tier: the
-  document's lanes hold ``global`` alone.
+  against the drift bound).  In mesh mode the document's lanes add
+  ``mesh``: the mesh-GLOBAL tier's injected and folded hits (its
+  backlog counts toward the drift).
 - **fold_audits / ring_verdict / RingWatch / merge_***: pure folds over
   the daemons' documents (audits, top keys, tenants, SLOs, memory,
   health).
@@ -154,6 +155,16 @@ class ConservationAuditor:
         g["in_flight"] = g["backlog"] - g["queued"] - g["lost"]
         g["deg_pending"] = g["deg_injected"] - g["deg_applied"]
         m = None
+        mge = inst._meshglobal
+        if mge is not None:
+            st = mge.stats()
+            m = {"injected": int(st["injected_hits"]),
+                 "folded": int(st["folded_hits"]),
+                 "backlog": int(st["injected_hits"])
+                 - int(st["folded_hits"]),
+                 "generation": st["generation"],
+                 "pinned_keys": st["pinned_keys"],
+                 "last_staleness_s": st["last_staleness_s"]}
         return g, m
 
     def _drift_of(self, g: dict, m: Optional[dict]) -> int:

@@ -291,6 +291,13 @@ class GlobalManager:
     def _hits_tick_traced(self) -> None:
         if self._fault_tick("global_hits", "global hits flush"):
             return
+        # the mesh backend (GUBER_GLOBAL_MODE=mesh): a lone daemon's
+        # GLOBAL counters converge through the instance's fold, not the
+        # queues (a no-op in grpc mode); the queues below keep the gRPC
+        # lanes either way, the tier's degraded fallback among them
+        tick = getattr(self.instance, "_mesh_reconcile_tick", None)
+        if tick is not None:
+            tick()
         with self._mu:
             hits, self._hits = self._hits, {}
             hits_raw, self._hits_raw = self._hits_raw, {}

@@ -1,15 +1,17 @@
 """The replicated hot set: GLOBAL rate limits answered from replicas and
 folded once per sync tick (the port of gubernator_tpu/parallel/hotset.py).
 
-A small table of pinned keys is held ``n`` times, one replica per
-device (``[n, capacity]`` columns of core/table.py › TableState).  The
-host pins a key to one slot, the same on every replica, routes requests
-for it round-robin across the replicas, and on the sync tick folds every
-replica's consumption into a new common base.  ``n`` stands where the
-JAX mesh size stands: the instance passes its engine's device count (1
-on one GPU); the tests pass 4 to hold the fold against a JAX mesh of
-four.  The JAX ``psum`` is a sum over the replica axis here, ``pmax``
-an amax; at n = 1 the fold changes nothing, as JAX elides it.
+A small table of pinned keys is held ``n`` times, one replica per mesh
+device (a core/table.py › TableState of ``capacity`` rows on
+``mesh.devices[d]``).  The host pins a key to one slot, the same on
+every replica, routes requests for it round-robin across the replicas,
+and on the sync tick folds every replica's consumption into a new
+common base.  The instance passes its engine's mesh (mesh.py); without
+one, ``n`` replicas share ``device`` (the tests hold 4 on the CPU to a
+JAX mesh of four).  The fold gathers the replicas' columns to
+``devices[0]``, where the JAX ``psum`` is a sum over the replica axis
+and ``pmax`` an amax, and writes the merged base back to every
+replica; at n = 1 it changes nothing, as JAX elides it.
 
 Scope (enforced by the instance): TOKEN_BUCKET or LEAKY_BUCKET keys
 with a stable (algorithm, limit, duration, burst) and none of
@@ -30,7 +32,8 @@ Between syncs the replicas together can admit up to (n - 1) × the
 window's consumption beyond the limit: GLOBAL's documented window.
 
 Each replica's step is core/step.py › decide_batch on its own sub-batch,
-in place.  A wave is 2 uploads, n steps and 1 download.
+in place, on its device.  A wave is 2 uploads a device, n steps and one
+download a device.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from .core.batch import (RequestBatch, clamp_config, empty_batch,
                          pack_requests, pack_wave_host)
 from .core.step import PROBES, decide_batch
 from .core.table import TableState, init_soa_table
+from .mesh import Mesh
 from .ops.decide import batch_from_packed
 from .sharded import resolve_device
 from .types import EFF_MAX, RateLimitRequest, RateLimitResponse, Status
@@ -106,11 +110,18 @@ class HotSetEngine:
     ``sync()``."""
 
     def __init__(self, n: int = 1, capacity: int = 1024,
-                 batch_per_chip: int = 512, device="cuda"):
-        self.n = int(n)
+                 batch_per_chip: int = 512, device="cuda",
+                 mesh: Optional[Mesh] = None):
+        if mesh is None:
+            mesh = Mesh([resolve_device(device)] * int(n))
+        self.mesh = mesh
+        self.devices = mesh.devices
+        self.n = mesh.n
+        #: replica 0's device
+        self.device = self.devices[0]
+        self._one_device = len(set(self.devices)) == 1
         self.capacity = capacity
         self.B = batch_per_chip
-        self.device = resolve_device(device)
         self.slots: Dict[int, int] = {}  # key hash → slot
         #: key hash → (alg, limit, duration, burst), see _cfg_of
         self.pinned_cfg: Dict[int, tuple] = {}
@@ -125,15 +136,34 @@ class HotSetEngine:
         #: sync tick, pins): a fold computed from pre-step state would
         #: overwrite a concurrent step's consumption
         self._state_mu = threading.Lock()
-        base = init_soa_table(capacity, self.device)
-        self.state = TableState(*[c.unsqueeze(0).repeat(
-            (self.n,) + (1,) * c.dim()) for c in base])
-        self.base_rem = torch.zeros((self.n, capacity), dtype=_I64,
-                                    device=self.device)
-        self.base_t = torch.zeros((self.n, capacity), dtype=_I64,
-                                  device=self.device)
+        #: replica d, its fold base (remaining, t_ms), on devices[d]
+        self.reps = [init_soa_table(capacity, dev) for dev in self.devices]
+        self._base_rem = [torch.zeros(capacity, dtype=_I64, device=dev)
+                          for dev in self.devices]
+        self._base_t = [torch.zeros(capacity, dtype=_I64, device=dev)
+                        for dev in self.devices]
         self._rr = 0  # round-robin cursor across replicas
         self.sync_count = 0
+
+    @property
+    def state(self) -> TableState:
+        """Every replica's columns as [n, capacity] tensors on replica
+        0's device (a copy)."""
+        return TableState(*[torch.stack([c.to(self.device) for c in cols])
+                            for cols in zip(*self.reps)])
+
+    @property
+    def base_rem(self) -> torch.Tensor:
+        return torch.stack([b.to(self.device) for b in self._base_rem])
+
+    @property
+    def base_t(self) -> torch.Tensor:
+        return torch.stack([b.to(self.device) for b in self._base_t])
+
+    def table_tensors(self) -> list:
+        """The replicas' and fold bases' tensors (the memory ledger)."""
+        return ([c for rep in self.reps for c in rep]
+                + self._base_rem + self._base_t)
 
     # ---- host slot management ------------------------------------------
 
@@ -197,10 +227,11 @@ class HotSetEngine:
                 row[f] = int(seed[f])
         # one slot of every column, on every replica
         with self._state_mu:
-            for f in TableState._fields:
-                getattr(self.state, f)[:, slot] = row[f]
-            self.base_rem[:, slot] = row["remaining"]
-            self.base_t[:, slot] = row["t_ms"]
+            for d, rep in enumerate(self.reps):
+                for f in TableState._fields:
+                    getattr(rep, f)[slot] = row[f]
+                self._base_rem[d][slot] = row["remaining"]
+                self._base_t[d][slot] = row["t_ms"]
         return True
 
     def is_pinned(self, key_hash: int) -> bool:
@@ -218,7 +249,7 @@ class HotSetEngine:
             return None
         fields = [f for f in TableState._fields if f != "key"]
         with self._state_mu:
-            vals = torch.stack([getattr(self.state, f)[0, slot].to(_I64)
+            vals = torch.stack([getattr(self.reps[0], f)[slot].to(_I64)
                                 for f in fields]).cpu().numpy()
         return {f: (np.int32(v) if f == "meta" else np.int64(v))
                 for f, v in zip(fields, vals.tolist())}
@@ -243,30 +274,35 @@ class HotSetEngine:
 
     # ---- request path ---------------------------------------------------
 
-    def _replica(self, i: int) -> TableState:
-        """Replica ``i``'s columns as views: the step writes through."""
-        return TableState(*[c[i] for c in self.state])
-
     def _run_hot_wave(self, glob: RequestBatch, now_ms: int):
-        """One wave over the packed layout: 2 uploads, one step per
-        replica on its block of B rows, 1 download.  ``glob`` holds
-        [n·B] numpy columns in block order; returns (status, remaining,
-        reset_time, limit, lost) arrays."""
+        """One wave over the packed layout: the uploads, one step per
+        replica on its block of B rows on its device, the downloads.
+        ``glob`` holds [n·B] numpy columns in block order; returns
+        (status, remaining, reset_time, limit, lost) arrays."""
         a64, a32 = pack_wave_host(glob)
-        d64 = torch.from_numpy(a64).to(self.device)
-        d32 = torch.from_numpy(a32).to(self.device)
         B = self.B
+        if self._one_device:
+            d64 = torch.from_numpy(a64).to(self.device)
+            d32 = torch.from_numpy(a32).to(self.device)
+            blocks = [(d64[:, i * B:(i + 1) * B], d32[:, i * B:(i + 1) * B])
+                      for i in range(self.n)]
+        else:
+            blocks = [(torch.from_numpy(np.ascontiguousarray(
+                a64[:, i * B:(i + 1) * B])).to(dev),
+                torch.from_numpy(np.ascontiguousarray(
+                    a32[:, i * B:(i + 1) * B])).to(dev))
+                for i, dev in enumerate(self.devices)]
         outs = []
         with self._state_mu:
-            for i in range(self.n):
-                blk = slice(i * B, (i + 1) * B)
-                out = decide_batch(self._replica(i),
-                                   batch_from_packed(d64[:, blk],
-                                                     d32[:, blk]), now_ms)
+            for i, (b64, b32) in enumerate(blocks):
+                out = decide_batch(self.reps[i], batch_from_packed(b64, b32),
+                                   now_ms)
                 outs.append(torch.stack([
                     out.status.to(_I64), out.remaining, out.reset_time,
                     out.limit, out.err.to(_I64)]))
-            host = torch.cat(outs, dim=1).cpu().numpy()
+            host = (torch.cat(outs, dim=1).cpu().numpy() if self._one_device
+                    else np.concatenate([o.cpu().numpy() for o in outs],
+                                        axis=1))
         return host[0], host[1], host[2], host[3], host[4] != 0
 
     def check_batch(self, reqs: Sequence[RateLimitRequest],
@@ -353,13 +389,21 @@ class HotSetEngine:
     # ---- the tick -------------------------------------------------------
 
     def sync(self) -> None:
-        """Fold every replica's consumption into the common base."""
+        """Fold every replica's consumption into the common base: the
+        replicas' columns gathered to replica 0's device, folded, and
+        the merged (remaining, t_ms, expire_at) and base written back to
+        every replica."""
+        dev = self.device
         with self._state_mu:
-            st = self.state
-            rem, t, exp = hot_sync(st, self.base_rem, self.base_t)
-            st.remaining.copy_(rem)
-            st.t_ms.copy_(t)
-            st.expire_at.copy_(exp)
-            self.base_rem = rem.clone()
-            self.base_t = t.clone()
+            st = TableState(*[torch.stack([c.to(dev) for c in cols])
+                              for cols in zip(*self.reps)])
+            rem, t, exp = hot_sync(
+                st, torch.stack([b.to(dev) for b in self._base_rem]),
+                torch.stack([b.to(dev) for b in self._base_t]))
+            for d, rep in enumerate(self.reps):
+                rep.remaining.copy_(rem[d])
+                rep.t_ms.copy_(t[d])
+                rep.expire_at.copy_(exp[d])
+                self._base_rem[d].copy_(rem[d])
+                self._base_t[d].copy_(t[d])
         self.sync_count += 1

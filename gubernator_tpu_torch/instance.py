@@ -16,8 +16,22 @@ queues its hits for the key's owner in every other region
 The owner side is ``get_peer_rate_limits`` /
 ``get_peer_rate_limits_wire`` and ``update_peer_globals``.
 ``Config.engine`` picks the bucket engine (K1) or the classic SoA engine
-(``xla``).  Building or launching a kernel raises, and so does building
-an engine: there is no fallback engine.
+(``xla``), over the instance's mesh (mesh.py: the caller's ``mesh``, else
+every visible GPU on ``cuda``, as JAX's ``make_mesh()`` takes every local
+device), ``cache_size / n`` rows a shard.  Building or launching a kernel
+raises, and so does building an engine: there is no fallback engine.
+
+``Config.global_mode`` / GUBER_GLOBAL_MODE ``mesh`` (anything but
+``grpc`` or ``mesh`` raises): a daemon alone serves qualifying GLOBAL
+keys from the mesh-resident tier (meshglobal.py), pinned on first touch
+with their table row as seed, on both lanes (the bucket engine decides
+them in its wave's launch, ``mslot``); the GLOBAL manager's hits tick
+runs ``_mesh_reconcile_tick`` (the ``global_accum_swap`` and
+``global_psum`` faultpoints, the fold, its cost sample); failed folds
+past GUBER_MESH_FALLBACK_AFTER stand the tier down (every key demoted
+exactly) until a fold succeeds after a cooldown.  A flagged request or
+a new config demotes a key, and so do a peer joining, a snapshot and
+``remove``.  Mesh mode builds no hot set.
 
 Two client entries: ``get_rate_limits`` takes request objects (the HTTP
 gateway), ``get_rate_limits_wire`` takes and returns GetRateLimits wire
@@ -127,7 +141,7 @@ import time
 from concurrent.futures import Future
 from contextlib import contextmanager, nullcontext
 from dataclasses import replace
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -144,6 +158,8 @@ from .hashing import (hash_key, hash_keys, hash_request_keys, mix64_np,
                       mixed_fnv1a64)
 from .interval import IntervalLoop
 from .memledger import MemoryLedger
+from .mesh import Mesh, make_mesh
+from .meshglobal import MeshGlobalEngine, config_of as _mesh_cfg_of
 from .metrics import Metrics
 from .multiregion import MultiRegionManager
 from .ops import native as wire_native
@@ -212,6 +228,16 @@ def resolve_engine_kind(selector: str) -> str:
                      "pallas, xla or sharded)")
 
 
+class _MeshChanges(Exception):
+    """A wire batch's GLOBAL keys need pins or demotions before it can
+    route: ``keys`` maps each key hash to (its config for the mesh tier
+    or None, a request of it), as ``_mesh_apply`` takes them."""
+
+    def __init__(self, keys: dict):
+        super().__init__("mesh-GLOBAL keys to pin or demote")
+        self.keys = keys
+
+
 class _Gate:
     """A shared / exclusive gate that prefers its exclusive holder: once
     one waits, new shared holders wait behind it, so a stream of shared
@@ -257,7 +283,17 @@ class V1Instance:
     """One daemon: its device engine, dispatcher, peers and GLOBAL
     manager."""
 
-    def __init__(self, config: Config, peer_tls_creds=None):
+    def __init__(self, config: Config, peer_tls_creds=None,
+                 mesh: Optional[Mesh] = None):
+        # the GLOBAL reconcile backend: "grpc" keeps the hit queues and
+        # broadcasts; "mesh" serves a lone daemon's GLOBAL keys from the
+        # mesh-resident replica tier (meshglobal.py), folded once a tick;
+        # a typo must not silently serve the wrong coherence model
+        global_mode = (os.environ.get("GUBER_GLOBAL_MODE")
+                       or config.global_mode or "grpc")
+        if global_mode not in ("grpc", "mesh"):
+            raise ValueError(f"unknown global_mode {global_mode!r} (want "
+                             "'grpc' or 'mesh')")
         self.config = config
         #: the peer clients' gRPC credentials in a TLS cluster
         self._peer_tls = peer_tls_creds
@@ -289,12 +325,21 @@ class V1Instance:
         self._memledger_live = 0
         if os.environ.get("GUBER_MEM_LEDGER", "1") != "0":
             self.memledger = MemoryLedger(recorder=self.recorder)
-        # at least 1024 rows, a power of two (the JAX instance's
-        # per-shard floor at one shard)
-        cap = 1 << (max(config.cache_size, 1024) - 1).bit_length()
+        # the mesh: the caller's, else every visible GPU for "cuda" (as
+        # JAX's make_mesh() takes every local device), else the one
+        # device named
+        if mesh is None:
+            mesh = (make_mesh() if config.device == "cuda"
+                    else Mesh([config.device]))
+        # rows per shard: at least 1024, a power of two (the JAX
+        # instance's split of cache_size)
+        cap = max(config.cache_size // mesh.n, 1024)
+        cap = 1 << (cap - 1).bit_length()
         self.engine = self._build_engine(
-            resolve_engine_kind(config.engine), cap, config)
+            resolve_engine_kind(config.engine), cap, config, mesh)
         self.engine.wave_pool.metrics = self.metrics
+        if isinstance(self.engine, BucketEngine):
+            self.engine.metrics_ref = self.metrics
         self._engine_mu = threading.Lock()
         # key analytics: the heavy-hitter sketch and the phase ledger,
         # fed off the serving path (GUBER_ANALYTICS=0 turns it off)
@@ -371,7 +416,26 @@ class V1Instance:
         self._handover_mu = threading.Lock()
         self._handover_gen_mu = threading.Lock()
         self._handover_gen = 0  # guarded-by: self._handover_gen_mu
-        # the replicated hot set: built at the first promotion
+        self._global_mode = global_mode
+        self._meshglobal: Optional[MeshGlobalEngine] = None  # guarded-by: self._gm_mu
+        #: the reconcile tick's state: the failed folds in a row, set by
+        #: whichever thread folds (the tick or a caller) and read by the
+        #: tick for the stand-down
+        self._mesh_fail_streak = 0  # lock-free: set under _mesh_tick_mu
+        #: one swap and fold at a time: the tick's, or a serving
+        #: thread's when the tick is late (_mesh_fold_if_late)
+        self._mesh_tick_mu = threading.Lock()
+        #: monotonic stamp of the last fold tried
+        self._mesh_last_try = 0.0  # lock-free: set under _mesh_tick_mu
+        #: set and cleared with the mesh gate exclusive, read by the
+        #: batches holding it shared
+        self._mesh_degraded = False  # guarded-by: self._mesh_gate
+        self._mesh_down_until = 0.0  # lock-free: a single racy float
+        #: monotonic stamp of the last fold that succeeded (the staleness
+        #: SLO ages against it)
+        self._mesh_last_fold_ok: Optional[float] = None  # lock-free: tick thread writes, SLO tick reads
+        # the replicated hot set: built at the first promotion (never in
+        # mesh mode: two replica tiers for one key would double-count)
         self._hotset: Optional[HotSetEngine] = None  # guarded-by: self._gm_mu
         self._hot_mu = threading.Lock()
         #: promotion counts by key hash, halved on the sweep tick
@@ -382,6 +446,19 @@ class V1Instance:
         #: held shared by a batch from its GLOBAL routing through its
         #: steps, exclusive by the pins (_drain_promotions)
         self._promote_gate = _Gate()
+        #: the mesh tier's key set changes only with this held exclusive
+        #: (pins, demotions, the stand-down, a peer joining); a batch
+        #: with GLOBAL rows holds it shared from its routing through its
+        #: steps, so a demotion reads a row no routed wave still owes
+        self._mesh_gate = _Gate()
+        if self._mesh_mode():
+            # the fold rides the GLOBAL manager's hits tick: start it
+            # now; run the tier's step, its fold and the fused mesh
+            # launch once before serving
+            self._ensure_global_manager()
+            self._ensure_meshglobal().warmup()
+            if hasattr(self.engine, "warmup_mesh_fused"):
+                self.engine.warmup_mesh_fused()
         # the conservation audit over the GLOBAL lanes' own accounting
         self.auditor = ConservationAuditor(self)
         # the SLO engine (GUBER_SLO=0 turns it off)
@@ -433,8 +510,11 @@ class V1Instance:
             return
         self._fault_point("snapshot")
         t0 = time.perf_counter()
-        # hot rows live outside the table: fold them back in first
+        # hot-set and mesh-tier rows live outside the table: fold them
+        # back in first
         self._demote_all()
+        with self._mesh_gate.exclusive():
+            self._mesh_demote_all()
         arrays = self.engine.snapshot()
         if self._tier is not None:
             # cold rows are state too: restore puts back in the cold
@@ -506,6 +586,10 @@ class V1Instance:
         if self._hotset is not None and self._hotset.is_pinned(kh):
             # uncounted, as in JAX: the row is deleted next
             self._demote(kh)
+        mge = self._meshglobal
+        if mge is not None and mge.is_pinned(kh):
+            with self._mesh_gate.exclusive():
+                self._mesh_demote(kh)
         with self._engine_mu:
             n = self.engine.remove_rows(np.array([kh], np.uint64))
             if self._tier is not None \
@@ -516,11 +600,14 @@ class V1Instance:
         return n > 0
 
     def _tier_victim_pinned(self, kh: int) -> bool:
-        """The tier's eviction filter: a hot-set pinned key's table row is
-        the home of its state, which moving it cold while the pin serves
-        would fork."""
+        """The tier's eviction filter: a hot-set or mesh-tier pinned
+        key's table row is the home of its state, which moving it cold
+        while the pin serves would fork."""
         hs = self._hotset
-        return hs is not None and hs.is_pinned(kh)
+        if hs is not None and hs.is_pinned(kh):
+            return True
+        mge = self._meshglobal
+        return mge is not None and mge.is_pinned(kh)
 
     def owner_addr_by_khash(self, khash: int) -> Optional[str]:
         """The owner's address of a mixed table key hash (the sketch's
@@ -545,21 +632,21 @@ class V1Instance:
             f.fire(point, tag)
 
     @staticmethod
-    def _build_engine(kind: str, cap: int, config: Config):
-        """Construct the resolved engine kind; a failure raises."""
+    def _build_engine(kind: str, cap: int, config: Config, mesh: Mesh):
+        """Construct the resolved engine kind over ``mesh`` with ``cap``
+        rows a shard; a failure raises."""
         if kind == "bucket":
             if config.cache_autogrow_max:
                 log.warning(
                     "the bucket engine ignores cache_autogrow_max=%d: it "
                     "has no on-device grow; size cache_size for peak keys "
                     "up front", config.cache_autogrow_max)
-            return BucketEngine(device=config.device, capacity=cap,
-                                batch_rows=config.batch_rows)
+            return BucketEngine(capacity=cap, batch_rows=config.batch_rows,
+                                mesh=mesh)
         return ShardedEngine(
-            device=config.device, capacity=cap,
-            batch_rows=config.batch_rows,
+            capacity=cap, batch_rows=config.batch_rows,
             auto_grow_limit=autogrow_limit_per_shard(
-                config.cache_autogrow_max, 1, cap))
+                config.cache_autogrow_max, mesh.n, cap), mesh=mesh)
 
     # ---- peers (gubernator.go › SetPeers) ------------------------------
 
@@ -569,6 +656,27 @@ class V1Instance:
         left; the health gate starts afresh.  Keys re-home and moved
         keys start afresh (the reference's behavior), unless
         ``handover_on_reshard`` hands their rows to the new owners."""
+        have_others = any(info.grpc_address != self._self_addr
+                          for info in infos)
+        # in mesh mode the ring changes and the tier's keys leave it with
+        # the gate exclusive: no batch routes by one and steps by the other
+        with (self._mesh_gate.exclusive() if self._mesh_mode()
+              else nullcontext()):
+            old_picker, old = self._swap_picker(infos)
+            if have_others:
+                # the hot set and the mesh tier serve a daemon alone: their
+                # keys go back to the table with their consumption
+                self._demote_all()
+                self._mesh_demote_all()
+        for departed in old.values():
+            threading.Thread(target=departed.shutdown, daemon=True,
+                             name="peer-shutdown").start()
+        if self.config.handover_on_reshard and have_others:
+            self._start_handover(old_picker, "handover")
+
+    def _swap_picker(self, infos: Sequence[PeerInfo]) -> tuple:
+        """Swap in a ring of ``infos``; returns (the old ring, the clients
+        of the peers that left)."""
         with self._peer_mu:
             old_picker = self._picker  # immutable: the handover's "before"
             old = {p.info.grpc_address: p for p in self._picker.peers()}
@@ -590,17 +698,7 @@ class V1Instance:
             gen = self._ring_gen
         self.metrics.ring_generation.set(gen)
         self.metrics.ring_ejected_peers.set(0)
-        for departed in old.values():
-            threading.Thread(target=departed.shutdown, daemon=True,
-                             name="peer-shutdown").start()
-        have_others = any(info.grpc_address != self._self_addr
-                          for info in infos)
-        if have_others:
-            # the hot set serves a daemon alone: its keys go back to the
-            # table with their consumption
-            self._demote_all()
-        if self.config.handover_on_reshard and have_others:
-            self._start_handover(old_picker, "handover")
+        return old_picker, old
 
     def peers(self) -> List[PeerClient]:
         with self._peer_mu:
@@ -917,9 +1015,23 @@ class V1Instance:
             m.concurrent_checks.dec()
 
     def _get_rate_limits(self, reqs, now) -> List[RateLimitResponse]:
+        if self._mesh_mode():
+            with self._mesh_routing(reqs, now) as served:
+                out = self._get_rate_limits_routed(reqs, now, served)
+            if served:
+                self._mesh_fold_if_late()
+            return out
+        return self._get_rate_limits_routed(reqs, now, None)
+
+    def _get_rate_limits_routed(self, reqs, now, mesh_served
+                                ) -> List[RateLimitResponse]:
+        """The object lane's routing and steps; ``mesh_served`` maps the
+        request indices the mesh tier serves to their key hashes (None
+        outside mesh mode)."""
         responses: List[Optional[RateLimitResponse]] = [None] * len(reqs)
         local_idx: List[int] = []
         hot: List[tuple] = []  # (request index, key hash): the hot set
+        meshl: List[tuple] = []  # (request index, key hash): mesh tier
         glob_q: List[tuple] = []  # (request, we own it), after the step
         fwd: List[tuple] = []  # (request index, owner, request)
         deg_local: List[tuple] = []  # (request index, membership owner)
@@ -932,8 +1044,11 @@ class V1Instance:
         GLOBAL = int(Behavior.GLOBAL)  # hot loop: plain-int flag tests
         MULTI_REGION = int(Behavior.MULTI_REGION)
         EXCL = int(self._DEGRADED_EXCLUDED)
-        # alone, GLOBAL keys may ride the hot set
-        hot_on = membership is None and self.config.hot_set_capacity > 0
+        # alone, GLOBAL keys may ride the mesh tier (mesh mode) or else
+        # the hot set
+        mesh_on = membership is None and bool(mesh_served)
+        hot_on = (membership is None and self.config.hot_set_capacity > 0
+                  and self._global_mode != "mesh")
         # a batch that may send a GLOBAL key to the table holds the
         # promotion gate from routing through its step: a pin then
         # waits for it, so its seed row holds every hit routed
@@ -947,6 +1062,9 @@ class V1Instance:
                     responses[i] = RateLimitResponse(
                         error="field 'name' cannot be empty")
                 elif int(req.behavior) & GLOBAL:
+                    if mesh_on and i in mesh_served:
+                        meshl.append((i, mesh_served[i]))
+                        continue
                     if hot_on and self._hot_route(req, hot, i):
                         continue
                     # answered from the local replica; reconciled later
@@ -980,6 +1098,16 @@ class V1Instance:
             futures = [(i, self._forward_one(peer, req, now),
                         peer.info.grpc_address, req) for i, peer, req in fwd]
             over = 0
+            if meshl:
+                m_reqs = [reqs[i] for i, _ in meshl]
+                m_resps = self._meshglobal.check_batch(
+                    m_reqs, [h for _, h in meshl], now)
+                for (i, _), resp in zip(meshl, m_resps):
+                    responses[i] = resp
+                    over += resp.status == Status.OVER_LIMIT
+                # the Store's write-through covers mesh keys too (home
+                # replica values are exact)
+                self._after_local(m_reqs, m_resps)
             if hot:
                 hot_reqs = [reqs[i] for i, _ in hot]
                 hot_resps = self._hotset.check_batch(
@@ -1303,19 +1431,463 @@ class V1Instance:
             self._decay_counts_locked()
 
     def _ensure_hotset(self) -> HotSetEngine:
-        """The hot set on the engine's device, one replica (the engine's
-        device count), and its sync loop, built at the first promotion."""
+        """The hot set, one replica on each of the engine's mesh
+        devices, and its sync loop, built at the first promotion."""
         with self._gm_mu:
             if self._hotset is None:
                 cap = 1 << (self.config.hot_set_capacity - 1).bit_length()
-                self._hotset = HotSetEngine(1, capacity=cap,
-                                            device=self.engine.device)
+                self._hotset = HotSetEngine(capacity=cap,
+                                            mesh=self.engine.mesh)
                 self._hot_sync_loop = IntervalLoop(
                     self.config.behaviors.global_sync_wait_ms,
                     self._hotset.sync, name="hotset-sync")
                 if self.memledger is not None:
                     self.memledger.enroll("hotset", self._probe_hotset)
             return self._hotset
+
+    # ---- the mesh-resident GLOBAL tier (meshglobal.py) ------------------
+
+    def _mesh_mode(self) -> bool:
+        """Whether the mesh reconcile backend is selected."""
+        return self._global_mode == "mesh"
+
+    def _mesh_routable(self) -> bool:
+        """Mesh routing serves a daemon alone (the hot set's rule: no
+        peer but itself) and stands down while the fold is degraded;
+        then the owner-sharded path serves, always correct."""
+        if not self._mesh_mode() or self._mesh_degraded:
+            return False
+        peers = self.peers()
+        return not peers or all(self.is_self(p) for p in peers)
+
+    def _ensure_meshglobal(self) -> MeshGlobalEngine:
+        """The mesh tier over the engine's mesh, enrolled with the memory
+        ledger and bound to the bucket engine's fused launch."""
+        with self._gm_mu:
+            if self._meshglobal is None:
+                raw = os.environ.get("GUBER_MESH_GLOBAL_CAP", "")
+                try:
+                    cap = int(raw) if raw else 4096
+                except ValueError:
+                    cap = 4096
+                cap = 1 << max((cap - 1).bit_length(), 4)
+                self._meshglobal = MeshGlobalEngine(
+                    self.engine.mesh, capacity=cap,
+                    batch_per_chip=self.config.batch_rows)
+                if self.memledger is not None:
+                    self.memledger.enroll("mesh_global",
+                                          self._probe_meshglobal,
+                                          advisable=True)
+                # the bucket engine decides the tier's rows in its wave's
+                # launch; routing still gates on _mesh_routable()
+                if hasattr(self.engine, "bind_mesh"):
+                    self.engine.bind_mesh(self._meshglobal)
+            return self._meshglobal
+
+    @staticmethod
+    def _mesh_fallback_after() -> int:
+        raw = os.environ.get("GUBER_MESH_FALLBACK_AFTER", "")
+        try:
+            return max(int(raw), 1) if raw else 3
+        except ValueError:
+            return 3
+
+    def _mesh_batch_keys(self, reqs) -> tuple:
+        """A batch's GLOBAL requests as (their (index, key hash) pairs,
+        each key's config for the tier or None).  A key's config is None
+        when one of its requests is flagged (RESET_REMAINING, DRAIN,
+        Gregorian, MULTI_REGION) or two ask different configs: the tier
+        then serves none of its rows in this batch."""
+        GLOBAL, EXCL = int(Behavior.GLOBAL), int(self._HOT_EXCLUDED)
+        rows: List[tuple] = []
+        keys: Dict[int, tuple] = {}  # key hash → (config or None, request)
+        for i, req in enumerate(reqs):
+            if not (int(req.behavior) & GLOBAL and req.name
+                    and req.unique_key):
+                continue
+            kh = hash_key(req.name, req.unique_key)
+            rows.append((i, kh))
+            cfg = None if int(req.behavior) & EXCL else _mesh_cfg_of(req)
+            have = keys.get(kh)
+            if have is None:
+                keys[kh] = (cfg, req)
+            elif have[0] != cfg:
+                keys[kh] = (None, have[1])
+        return rows, keys
+
+    def _mesh_change(self, mge: MeshGlobalEngine, kh: int,
+                     cfg: Optional[tuple]) -> Optional[str]:
+        """What the tier must do for a key before a batch routes it:
+        "demote" (pinned, and the batch's rows for it cannot all ride it),
+        "pin" (not pinned, its rows all qualify with one config, and the
+        admission could place it), or None."""
+        if mge.is_pinned(kh):
+            return None if cfg is not None and mge.pinned_cfg.get(kh) == cfg \
+                else "demote"
+        if cfg is not None and (mge.has_room(kh)
+                                or self._mesh_overflow_victim(kh) is not None):
+            return "pin"
+        return None
+
+    def _mesh_apply(self, mge: MeshGlobalEngine, keys: dict,
+                    now: int) -> None:
+        """Make the changes ``_mesh_change`` names; the caller holds the
+        gate exclusive.  A key demoted here is not pinned again in the
+        same batch: its rows take the table, which applies a new config
+        or a flag in order."""
+        if not self._mesh_routable():
+            return
+        for kh, (cfg, req) in keys.items():
+            change = self._mesh_change(mge, kh, cfg)
+            if change == "demote":
+                self._mesh_demote(kh)
+            elif change == "pin":
+                self._mesh_admit(req, kh, now)
+
+    @staticmethod
+    def _mesh_plan(mge: MeshGlobalEngine, keys: dict) -> Optional[set]:
+        """The keys the tier serves in this batch: those pinned with the
+        batch's config; None when a pinned key needs demoting first."""
+        served = set()
+        for kh, (cfg, _) in keys.items():
+            if mge.is_pinned(kh):
+                if cfg is None or mge.pinned_cfg.get(kh) != cfg:
+                    return None
+                served.add(kh)
+        return served
+
+    @contextmanager
+    def _mesh_routing(self, reqs, now: int):
+        """Hold the tier's gate for one object-lane batch and yield the
+        request indices the tier serves, mapped to their key hashes.  The
+        pins and demotions the batch needs are made first, with the gate
+        exclusive; the batch then routes and steps with it shared.
+        Should another batch change a key between the two, both are made
+        again with the gate exclusive, held through the steps."""
+        rows, keys = self._mesh_batch_keys(reqs)
+        if not keys:
+            yield {}
+            return
+        mge = self._ensure_meshglobal()
+        if self._mesh_routable() and any(
+                self._mesh_change(mge, kh, cfg) for kh, (cfg, _) in
+                keys.items()):
+            with self._mesh_gate.exclusive():
+                self._mesh_apply(mge, keys, now)
+        with self._mesh_gate.shared():
+            served = (self._mesh_plan(mge, keys) if self._mesh_routable()
+                      else set())
+            if served is not None:
+                yield {i: kh for i, kh in rows if kh in served}
+                return
+        with self._mesh_gate.exclusive():
+            self._mesh_apply(mge, keys, now)
+            served = (self._mesh_plan(mge, keys) if self._mesh_routable()
+                      else set())
+            yield {i: kh for i, kh in rows if kh in (served or ())}
+
+    def _mesh_admit(self, req: RateLimitRequest, kh: int, now: int) -> bool:
+        """Pin ``kh`` under the overflow admission policy: when its probe
+        window is full, the coldest pinned occupant (by sketch rank) is
+        demoted, exactly, and the pin retried, provided the newcomer
+        ranks strictly hotter."""
+        mge = self._ensure_meshglobal()
+        if mge.pin(req, kh, now, seed=self._seed_row(kh)):
+            self._seed_commit(kh)
+            return True
+        victim = self._mesh_overflow_victim(kh)
+        if victim is None:
+            return False
+        self._mesh_demote(victim)
+        self.recorder.record("mesh_overflow_demote", khash=victim,
+                             admitted=kh)
+        if not mge.pin(req, kh, now, seed=self._seed_row(kh)):
+            return False  # the window changed meanwhile: sharded path
+        self._seed_commit(kh)
+        return True
+
+    def _mesh_overflow_victim(self, kh: int) -> Optional[int]:
+        """The coldest pinned occupant of ``kh``'s probe window, or None
+        when the newcomer outranks none of them."""
+        ana = self.analytics
+        mge = self._meshglobal
+        if ana is None or mge is None:
+            return None
+        best, best_rank = None, ana.sketch_count(kh)
+        for k in mge.probe_occupants(kh):
+            if k == kh:
+                continue
+            r = ana.sketch_count(k)
+            if r < best_rank:
+                best, best_rank = k, r
+        return best
+
+    def _mesh_demote(self, key_hash: int) -> None:
+        """Move one mesh key's HOME replica row back into the table (the
+        cold tier when its window is full; exact without a fold), then
+        retire its slot.  The caller holds the gate exclusive: no wave
+        routed to the tier is still to run."""
+        mge = self._meshglobal
+        if mge is None:
+            return
+        row = mge.row_state(key_hash)
+        if row is not None:
+            cols = {f: np.array([row[f]]) for f in row}
+            with self._engine_mu:
+                placed = self.engine.upsert_rows(
+                    np.array([key_hash], np.uint64), cols)
+                if not placed and self._tier is not None:
+                    self._tier.put_row(key_hash,
+                                       {f: int(row[f]) for f in row})
+        mge.unpin(key_hash)
+
+    def _mesh_demote_all(self) -> None:
+        """Demote every mesh key in one batched write-back (a peer
+        joining, the stand-down, a snapshot): home rows need no fold,
+        so this works when the fold is what broke.  The caller holds the
+        gate exclusive."""
+        mge = self._meshglobal
+        if mge is None:
+            return
+        khs = mge.pinned_keys()
+        if not khs:
+            return
+        rows = [(kh, mge.row_state(kh)) for kh in khs]
+        rows = [(kh, r) for kh, r in rows if r is not None]
+        if rows:
+            karr = np.array([kh for kh, _ in rows], np.uint64)
+            cols = {f: np.array([r[f] for _, r in rows])
+                    for f in rows[0][1]}
+            with self._engine_mu:
+                placed = self.engine.upsert_rows(karr, cols)
+                if placed < len(rows) and self._tier is not None:
+                    found, _ = self.engine.gather_rows(karr)
+                    for j, (kh, r) in enumerate(rows):
+                        if not found[j]:
+                            self._tier.put_row(
+                                kh, {f: int(r[f]) for f in r})
+        for kh in khs:
+            mge.unpin(kh)
+
+    def _mesh_reconcile_tick(self) -> None:
+        """The GLOBAL manager's mesh backend, on its hits tick: swap the
+        accumulators, queue the fold, account generation and staleness,
+        and run the degraded fallback.  Never raises."""
+        if not self._mesh_mode():
+            return
+        mge = self._meshglobal
+        if mge is None:
+            return
+        with self._mesh_tick_mu:
+            ok = self._mesh_fold_once(mge)
+        if not ok:
+            if (self._mesh_fail_streak >= self._mesh_fallback_after()
+                    and not self._mesh_degraded):
+                self._mesh_stand_down()
+            return
+        if (self._mesh_degraded
+                and time.monotonic() >= self._mesh_down_until):
+            # the cooldown is over and a fold succeeded: re-arm the tier
+            with self._mesh_gate.exclusive():
+                self._mesh_degraded = False
+            self.metrics.mesh_global_degraded.set(0)
+            self.recorder.record("mesh_recovered",
+                                 generation=mge.generation)
+
+    def _mesh_fold_once(self, mge: MeshGlobalEngine) -> bool:
+        """One swap and fold with its faultpoints and accounting; False
+        when it failed (the unfolded hits keep accumulating).  The
+        caller holds ``_mesh_tick_mu``."""
+        t0 = time.perf_counter()
+        self._mesh_last_try = time.monotonic()
+        try:
+            self._fault_point("global_accum_swap")
+            copy = mge.retire_accum()
+            self._fault_point("global_psum")
+            mge.fold(copy)
+        except Exception as e:  # noqa: BLE001 - incl. FaultInjected
+            # nothing to undo: the unfolded hits stay in the accumulators
+            self.metrics.mesh_global_fold_errors.inc()
+            self._mesh_fail_streak += 1
+            log.warning("mesh-GLOBAL fold failed (streak %d): %s",
+                        self._mesh_fail_streak, exc_text(e))
+            return False
+        dt = time.perf_counter() - t0
+        self._mesh_fail_streak = 0
+        self.metrics.mesh_global_folds.inc()
+        self.metrics.mesh_global_staleness.set(mge.last_staleness_s)
+        self.metrics.mesh_global_keys.set(len(mge.slots))
+        # the coherence epoch on later waves, and the fold's time as
+        # its own phase
+        self.dispatcher.reconcile_gen = mge.generation
+        self.dispatcher._obs_phase("global_fold", dt)
+        self._mesh_last_fold_ok = time.monotonic()
+        ana = self.analytics
+        if ana is not None:
+            # one cost-model sample: the replicated columns and the
+            # accumulator across mge.n devices
+            ana.tap_cost("global_fold", mge.fold_nbytes, mge.n, dt)
+        return True
+
+    def _mesh_fold_if_late(self) -> None:
+        """Fold from a serving thread, after its batch and outside the
+        gate, once the oldest unfolded hit is half a reconcile interval
+        old and no fold was tried for half of one.  Under load the
+        tick's thread waits for the GIL behind the serving threads (its
+        wake-up came up to 268 ms after a 100 ms sleep under 8 callers on
+        an H100 host, PERF.md section 6), a caller's batch ends tens of
+        ms apart, and
+        the staleness bound is twice the interval.  The stand-down and
+        the recovery stay with the tick."""
+        mge = self._meshglobal
+        if mge is None or self._mesh_degraded:
+            return
+        now = time.monotonic()
+        age = mge.unfolded_age_s(now)
+        half = self.config.behaviors.global_sync_wait_ms / 2000.0
+        if age is None or age < half or now - self._mesh_last_try < half:
+            return
+        if not self._mesh_tick_mu.acquire(blocking=False):
+            return  # the tick, or another caller, is folding
+        try:
+            self._mesh_fold_once(mge)
+        finally:
+            self._mesh_tick_mu.release()
+
+    def _mesh_stand_down(self) -> None:
+        """Degraded fallback: demote every pinned key to the
+        owner-sharded path (exact) and route GLOBAL traffic there until
+        a fold succeeds after the cooldown: staleness, never
+        unavailability."""
+        cooldown = max(
+            self.config.behaviors.global_sync_wait_ms, 100) * 10 / 1000.0
+        self._mesh_down_until = time.monotonic() + cooldown
+        # the flag and the demotion with the gate exclusive: a batch sees
+        # the tier up with its keys or down without them
+        with self._mesh_gate.exclusive():
+            self._mesh_degraded = True
+            self.metrics.mesh_global_degraded.set(1)
+            self.recorder.record("mesh_degraded",
+                                 streak=self._mesh_fail_streak,
+                                 cooldown_s=round(cooldown, 3))
+            try:
+                self._mesh_demote_all()
+            except Exception:  # noqa: BLE001 - the demotion is best effort
+                log.exception("mesh-GLOBAL stand-down demotion")
+
+    def _wire_mesh_runner(self, parsed: dict, now: int):
+        """The columnar mesh-GLOBAL flow (the wire lane's ``_mesh_route``):
+        qualifying GLOBAL rows are pinned on first touch, in one batched
+        upload, and served by the mesh tier; the rest take the engine's
+        step.  On the bucket engine the whole batch is ONE wave whose
+        ``mslot`` column carries each mesh row's slot (the fused mesh
+        launch); the classic engine serves the mesh rows through the
+        tier's own waves.  Returns a zero-argument runner, or None when
+        a pinned key's config changed (the protobuf lane demotes it
+        with its state)."""
+        n = parsed["n"]
+        kh = mix64_np(parsed["khash_raw"])
+        kh = np.where(kh == 0, np.uint64(1), kh)
+        batch, errs = pack_columns(
+            kh, parsed["hits"], parsed["limit"], parsed["duration"],
+            parsed["algorithm"], parsed["behavior"], parsed["burst"], now,
+            created_at=parsed["created_at"])
+        beh = np.asarray(batch.behavior)
+        glob_mask = (beh & int(Behavior.GLOBAL)) != 0
+        excluded = (beh & int(self._HOT_EXCLUDED)) != 0
+        mesh_mask = glob_mask & ~excluded & np.asarray(batch.valid)
+        mge = self._ensure_meshglobal()
+        # the caller holds the gate shared: keys to pin or to demote raise
+        # _MeshChanges, and the caller makes the changes with the gate
+        # exclusive, then runs the batch again
+        flagged = glob_mask & excluded & np.asarray(batch.valid)
+        keys = {k: (None, None) for k in np.unique(kh[flagged]).tolist()}
+        if mesh_mask.any():
+            cfg = np.stack([np.asarray(batch.algorithm, np.int64),
+                            batch.limit, batch.duration, batch.burst])
+            midx = np.nonzero(mesh_mask)[0]
+            uniq, first, inv = np.unique(kh[midx], return_index=True,
+                                         return_inverse=True)
+            # one config a key a batch: a change within the batch takes
+            # the protobuf lane, which serves it per request
+            head = cfg[:, midx[first]]
+            if (cfg[:, midx] != head[:, inv]).any():
+                return None
+            for j, k in enumerate(uniq.tolist()):
+                if k in keys:
+                    continue  # flagged rows too: the tier serves none
+                i = int(midx[first[j]])
+                proto = RateLimitRequest(
+                    name="", unique_key="", hits=int(batch.hits[i]),
+                    limit=int(head[1, j]), duration=int(head[2, j]),
+                    algorithm=int(head[0, j]), behavior=int(beh[i]),
+                    burst=int(head[3, j]))
+                keys[k] = (_mesh_cfg_of(proto), proto)
+        if any(self._mesh_change(mge, k, cfg) is not None
+               for k, (cfg, _) in keys.items()):
+            raise _MeshChanges(keys)
+        if mesh_mask.any():
+            # keys left unpinned (no room, nothing colder, or a flag):
+            # the sharded path
+            on = np.array([mge.is_pinned(k) and keys[k][0] is not None
+                           for k in uniq.tolist()])
+            mesh_mask[midx[~on[inv]]] = False
+        mslot = None
+        if getattr(self.engine, "mesh_bound", False) and mesh_mask.any():
+            midx = np.nonzero(mesh_mask)[0]
+            uniq, inv = np.unique(kh[midx], return_inverse=True)
+            with mge._mu:
+                slot = np.array([mge.slots.get(k, -1)
+                                 for k in uniq.tolist()], np.int32)
+            mslot = np.full(n, -1, np.int32)
+            mslot[midx] = slot[inv]
+            # a key unpinned meanwhile: the sharded path is correct
+            mesh_mask = mslot >= 0
+            if not mesh_mask.any():
+                mslot = None
+
+        def run_fused() -> bytes:
+            cols = self.dispatcher.check_packed(batch, kh, now, mslot=mslot)
+            errors = dict(errs) if errs else {}
+            for j in np.nonzero(cols[4] & (mslot >= 0))[0].tolist():
+                errors.setdefault(j, "mesh-global row lost")
+            return self._columns_to_bytes(cols, 0, n, errors)
+
+        if mslot is not None:
+            return run_fused
+
+        def run() -> bytes:
+            status = np.zeros(n, np.int32)
+            lim_o = np.zeros(n, np.int64)
+            rem = np.zeros(n, np.int64)
+            rst = np.zeros(n, np.int64)
+            full = np.zeros(n, bool)
+            errors = dict(errs) if errs else {}
+            if (~mesh_mask).any():
+                idx = np.nonzero(~mesh_mask)[0]
+                sub = type(batch)(*[np.asarray(c)[idx] for c in batch])
+                s_st, s_lim, s_rem, s_rst, s_full = \
+                    self.dispatcher.check_packed(sub, kh[idx], now)
+                status[idx] = s_st
+                lim_o[idx] = s_lim
+                rem[idx] = s_rem
+                rst[idx] = s_rst
+                full[idx] = s_full
+            if mesh_mask.any():
+                idx = np.nonzero(mesh_mask)[0]
+                sub = type(batch)(*[np.asarray(c)[idx] for c in batch])
+                m_st, m_rem, m_rst, m_lim, m_lost = mge.check_columns(
+                    sub, kh[idx], now)
+                status[idx] = m_st
+                rem[idx] = m_rem
+                rst[idx] = m_rst
+                lim_o[idx] = m_lim
+                for j in np.nonzero(m_lost)[0].tolist():
+                    errors.setdefault(int(idx[j]), "mesh-global row lost")
+            return self._columns_to_bytes(
+                (status, lim_o, rem, rst, full), 0, n, errors)
+
+        return run
 
     def health_check(self) -> HealthCheckResponse:
         """reference: gubernator.go › HealthCheck: healthy and the peer
@@ -1374,19 +1946,45 @@ class V1Instance:
             now = clock_ms() if now_ms is None else now_ms
             glob = bool(parsed["behavior_or"] & int(Behavior.GLOBAL))
             # alone, GLOBAL batches take the hot set's routing under the
-            # promotion gate (see _get_rate_limits); a pinned key that
-            # needs demoting sends the batch to the protobuf lane, before
-            # any state changes
+            # promotion gate (see _get_rate_limits), or the mesh tier's
+            # under its gate; a pinned key that needs demoting sends the
+            # batch to the protobuf lane, before any state changes
             gated = (picker is None and glob
-                     and self.config.hot_set_capacity > 0)
-            with (self._promote_gate.shared() if gated else nullcontext()):
-                out = self._wire_parsed(parsed, data, now, picker, glob)
+                     and self.config.hot_set_capacity > 0
+                     and self._global_mode != "mesh")
+            if glob and self._mesh_mode():
+                out = self._wire_parsed_mesh(parsed, data, now)
+            else:
+                with (self._promote_gate.shared() if gated
+                      else nullcontext()):
+                    out = self._wire_parsed(parsed, data, now, picker, glob)
             if out is None:
                 return self._wire_pb2(data, now_ms)
             if gated and self._promote_pending:
                 self._drain_promotions(now)
             return out
         return self._wire_pb2(data, now_ms)
+
+    def _wire_parsed_mesh(self, parsed: dict, data: bytes,
+                          now: int) -> Optional[bytes]:
+        """A parsed GLOBAL batch in mesh mode, under the tier's gate held
+        shared, the ring read under it (a peer joining demotes with the
+        gate exclusive).  The pins and demotions it needs are made with
+        the gate exclusive, and the batch runs again; should it need more
+        then, the protobuf lane takes it (None)."""
+        for again in (False, True):
+            try:
+                with self._mesh_gate.shared():
+                    out = self._wire_parsed(parsed, data, now,
+                                            self._clustered_picker(), True)
+                self._mesh_fold_if_late()
+                return out
+            except _MeshChanges as e:
+                if again:
+                    return None
+                with self._mesh_gate.exclusive():
+                    self._mesh_apply(self._ensure_meshglobal(), e.keys, now)
+        return None
 
     def _wire_parsed(self, parsed: dict, data: bytes, now: int, picker,
                      glob: bool) -> Optional[bytes]:
@@ -1538,7 +2136,13 @@ class V1Instance:
         the engine's, with promotion counted per unique key.  Returns a
         zero-argument runner, or None when a pinned key needs demoting
         (a flagged request or a new config: the protobuf lane does it).
-        Nothing changes state before the runner runs."""
+        Nothing changes state before the runner runs.  In mesh mode the
+        mesh tier's runner takes the batch instead (the owner-sharded
+        lane while the tier stands down)."""
+        if self._global_mode == "mesh":
+            if self._mesh_routable():
+                return self._wire_mesh_runner(parsed, now)
+            return lambda: self._wire_check_columns(parsed, now)
         if self.config.hot_set_capacity <= 0:
             return lambda: self._wire_check_columns(parsed, now)
         n = parsed["n"]
@@ -2300,12 +2904,25 @@ class V1Instance:
                            "demote_rate": st["demotions"],
                            "rate": st["cold_served"]}}
 
+    def _probe_meshglobal(self) -> dict:
+        mge = self._meshglobal
+        if mge is None:
+            return {"bytes": 0}
+        # the replicas and both accumulator buffers; never mge.stats():
+        # it drains the folds, and a probe stays read-only
+        with mge._state_mu:
+            nbytes = sum(int(t.nbytes) for t in mge.table_tensors())
+            folded = float(mge.folded_hits + mge.injected_hits)
+        with mge._mu:
+            occ = len(mge._occupied)
+        return {"bytes": nbytes, "capacity_rows": int(mge.capacity),
+                "occupied_rows": occ, "demand": {"fold_rate": folded}}
+
     def _probe_hotset(self) -> dict:
         hs = self._hotset
         if hs is None:
             return {"bytes": 0}
-        nbytes = sum(int(t.nbytes) for t in
-                     list(hs.state) + [hs.base_rem, hs.base_t])
+        nbytes = sum(int(t.nbytes) for t in hs.table_tensors())
         with hs._mu:
             occ = len(hs.slots)
         with self._hot_mu:
@@ -2360,8 +2977,16 @@ class V1Instance:
             return (p or 0.0, p99_s)
 
         def global_staleness():
-            # no mesh-GLOBAL tier: the JAX instance's reading without one
-            return (0.0, stale_target)
+            mge = self._meshglobal
+            if mge is None:
+                return (0.0, stale_target)
+            v = float(mge.last_staleness_s)
+            ok = self._mesh_last_fold_ok
+            if ok is not None:
+                # a failing fold stops updating last_staleness_s: age
+                # against the last fold that succeeded
+                v = max(v, time.monotonic() - ok)
+            return (v, stale_target)
 
         def error_ratio():
             ana = self.analytics

@@ -313,6 +313,37 @@ class Metrics:
             "memory-ledger rows per consumer: state=capacity is the "
             "allocated row budget, state=occupied the live occupancy",
             ["consumer", "state"], registry=r)
+        # ---- the mesh-GLOBAL tier (GUBER_GLOBAL_MODE=mesh) ----
+        self.pallas_mesh_fused_hits = Counter(
+            "gubernator_pallas_mesh_fused_hits",
+            "mesh-GLOBAL hits scatter-added by the fused serving "
+            "program (the injected side of the mesh conservation "
+            "ledger for fused waves)", registry=r)
+        self.mesh_global_folds = Counter(
+            "gubernator_mesh_global_folds",
+            "mesh-GLOBAL reconcile collectives completed (one "
+            "all-reduce fold per generation)", registry=r)
+        self.mesh_global_fold_errors = Counter(
+            "gubernator_mesh_global_fold_errors",
+            "mesh-GLOBAL reconcile ticks that failed (accumulators "
+            "swap back — no hit is lost; consecutive failures past "
+            "GUBER_MESH_FALLBACK_AFTER stand the tier down)",
+            registry=r)
+        self.mesh_global_staleness = Gauge(
+            "gubernator_mesh_global_staleness_seconds",
+            "measured coherence staleness at the last mesh-GLOBAL "
+            "fold: age of the oldest hit the collective folded "
+            "(bounded by the reconcile interval when ticks are "
+            "healthy)", registry=r)
+        self.mesh_global_degraded = Gauge(
+            "gubernator_mesh_global_degraded",
+            "1 while the mesh-GLOBAL tier is stood down (keys demoted "
+            "to the owner-sharded path; reconcile rides the gRPC "
+            "queues until the fold recovers)", registry=r)
+        self.mesh_global_keys = Gauge(
+            "gubernator_mesh_global_keys",
+            "keys currently pinned in the mesh-GLOBAL replica table",
+            registry=r)
 
     @contextmanager
     def time_func(self, name: str):

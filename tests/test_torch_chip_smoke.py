@@ -865,3 +865,47 @@ def test_tier_population_and_prediction():
     assert (rows["limit"][ood] == chip_smoke.OOD_LIMIT).all()
     cold = chip_smoke.predicted_cold(rows["key"], ood, 6)  # 8 buckets
     assert cold[ood].all() and (~cold).sum() == 64
+
+
+def test_shards_mesh_and_multihost_phases_rehearse_on_the_cpu(
+        path_rehearsal, monkeypatch):
+    """The shards, mesh and multihost phases at a small size on the CPU
+    (4 CPU shards; gloo in place of NCCL): n = 4 answers and tables equal
+    n = 1's, K1 stands in on every shard, the mesh daemon's fused lane,
+    folds, stand-down and recovery, every key exact, the six families
+    moved, and the one-process group's all_reduce and step."""
+    args = path_rehearsal
+    args.log2_cap = 15  # 4096 buckets: no bucket of the rehearsal fills
+    args.wave_rows = 512
+    args.threads = 2
+    monkeypatch.setattr(chip_smoke, "SHARD_KEYS", 5_000)
+    monkeypatch.setattr(chip_smoke, "SHARD_WAVES", 2)
+    monkeypatch.setattr(chip_smoke, "SHARD_BATCHES", 2)
+    monkeypatch.setattr(chip_smoke, "SHARD_CLASSIC_WAVES", 2)
+    monkeypatch.setattr(chip_smoke, "MESH_BATCHES", 2)
+    monkeypatch.setenv("GUBER_MESH_GLOBAL_CAP", "4096")
+    sh = chip_smoke.phase_shards(torch, args)
+    for kind in ("bucket", "classic"):
+        assert sh[kind]["waves"] == 2
+        assert sh[kind]["steps_per_shard"] == [2] * 4
+    assert sh["classic"]["live_after_sweep"] > 0
+    assert sh["wire"]["keys"] > 0 and sh["wire"]["ratio"] > 0
+    msh = chip_smoke.phase_mesh(torch, args)
+    assert msh["mesh_fused_hits"] > 0 and msh["launches"] > 0
+    assert msh["keys_exact"] > 0 and msh["outage"]["degraded_gauge"] == 1
+    assert msh["mesh_step"]["steps"] > 0
+    assert set(msh["rate_ratio_mesh_over_grpc"]) == {"object", "wire"}
+    mh = chip_smoke.phase_multihost(torch, args)
+    assert mh["inserted"] == 4 * 1024 and mh["backend"] == "gloo"
+
+
+def test_only_lists_the_new_phases_and_the_last_line_is_unchanged():
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    for p in ("shards", "mesh", "multihost"):
+        assert f'"{p}": phase_{p}' in src
+    assert ('print(json.dumps({"ok": True, "device": {\n'
+            '        "platform": "gpu", "kind": name,\n'
+            '        "count": torch.cuda.device_count()}}), flush=True)'
+            in src)

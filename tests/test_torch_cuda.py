@@ -643,3 +643,83 @@ def test_occupancy_nowait_never_waits_on_the_stream(cuda, engine):
         assert led["bytes"] == sum(t.nbytes for t in eng.table_tensors())
     finally:
         inst.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["", "xla"])
+def test_four_shards_on_the_card_equal_the_cpu(cuda, engine):
+    """Both engines at 4 shards on cuda:0 (K1 once a shard a wave on the
+    bucket engine, K2 once a shard a sweep on the classic) against 4 CPU
+    shards: answers, every block and the snapshot equal."""
+    from gubernator_tpu_torch.engine import BucketEngine
+    from gubernator_tpu_torch.mesh import make_mesh
+    from gubernator_tpu_torch.ops import sweep
+    from gubernator_tpu_torch.sharded import ShardedEngine
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    cls = BucketEngine if engine == "" else ShardedEngine
+    engs = [cls(capacity=1024, batch_rows=64, mesh=make_mesh([d] * 4))
+            for d in ("cpu", cuda)]
+    k1, k2 = dmod.decide_cuda.launches, sweep.sweep_cuda.launches
+    for w in range(3):
+        reqs = [RateLimitRequest(name="s", unique_key=f"k{i % 500}",
+                                 hits=1 + i % 3, limit=50, duration=60_000,
+                                 algorithm=i % 2) for i in range(900)]
+        outs = [e.check_batch(reqs, NOW_SOA + 1_000 * w) for e in engs]
+        assert [(int(r.status), r.remaining, r.reset_time, r.error)
+                for r in outs[0]] == [(int(r.status), r.remaining,
+                                       r.reset_time, r.error)
+                                      for r in outs[1]]
+    if engine == "":
+        assert dmod.decide_cuda.launches - k1 >= 4 * 3
+        for a, c in zip(engs[0].shard_rows, engs[1].shard_rows):
+            assert torch.equal(a, c.cpu())
+    else:
+        for e in engs:
+            e.sweep(NOW_SOA + 90_000)
+        assert sweep.sweep_cuda.launches - k2 == 4
+        for sa, sc in zip(engs[0].states, engs[1].states):
+            for a, c in zip(sa, sc):
+                assert torch.equal(a, c.cpu())
+    a, c = engs[0].snapshot(), engs[1].snapshot()
+    assert all((a[f] == c[f]).all() for f in a)
+
+
+@pytest.mark.gpu
+def test_mesh_mode_fused_lane_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """GUBER_GLOBAL_MODE=mesh on 2 shards: the fused mesh lane (K1 for
+    the table's rows, the SoA step on the home replica for the tier's)
+    on cuda:0 against the same on the CPU, answers and folds equal."""
+    from gubernator_tpu_torch.config import Config
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.mesh import make_mesh
+    from gubernator_tpu_torch.types import Behavior, RateLimitRequest
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    monkeypatch.setenv("GUBER_MESH_GLOBAL_CAP", "256")
+    insts = [V1Instance(Config(device="cpu" if d == "cpu" else "cuda",
+                               cache_size=1 << 12, batch_rows=64,
+                               sweep_interval_ms=0, global_mode="mesh"),
+                        mesh=make_mesh([d] * 2)) for d in ("cpu", cuda)]
+    try:
+        for w in range(3):
+            data = encode_get_rate_limits([RateLimitRequest(
+                name="m", unique_key=f"k{i % 40}", hits=1 + i % 2,
+                limit=500, duration=60_000,
+                behavior=Behavior.GLOBAL if i % 3 else 0)
+                for i in range(200)])
+            outs = [i.get_rate_limits_wire(data, now_ms=NOW_SOA + w)
+                    for i in insts]
+            assert outs[0] == outs[1]
+        for i in insts:
+            i._mesh_reconcile_tick()
+        st = [i._meshglobal.stats() for i in insts]
+        assert st[0]["folded_hits"] == st[1]["folded_hits"] == \
+            st[1]["injected_hits"] > 0
+        assert insts[1].engine.mesh_fused_hits == \
+            insts[0].engine.mesh_fused_hits > 0
+        assert (insts[0]._meshglobal.replica_columns("remaining")
+                == insts[1]._meshglobal.replica_columns("remaining")).all()
+    finally:
+        for i in insts:
+            i.close()

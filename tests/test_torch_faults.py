@@ -29,12 +29,13 @@ from gubernator_tpu_torch.wire import encode_get_rate_limits
 
 NOW = 1_765_000_000_000
 
-#: points of subsystems the port has not ported
-NOT_PORTED = ("global_accum_swap", "global_psum")
+#: points of subsystems the port has not ported (none since mesh-GLOBAL)
+NOT_PORTED = ()
 
-#: points of the Loader, the cold tier and MULTI_REGION, ported with them
+#: points of the Loader, the cold tier, MULTI_REGION and the mesh-GLOBAL
+#: tier, ported with them
 STATE_POINTS = ("snapshot", "restore", "tier_promote", "tier_demote",
-                "mr_sync")
+                "mr_sync", "global_accum_swap", "global_psum")
 
 VALID = [
     "peer_send:error:0.3",
@@ -89,19 +90,11 @@ def test_malformed_specs_raise_as_jax(spec):
     assert port.describe()["spec"] == "peer_send:error" and port.armed
 
 
-@pytest.mark.parametrize("point", NOT_PORTED)
-def test_points_outside_the_port_catalog_raise(point):
-    assert point in jax_faults.FAULT_POINTS
-    jax_faults.FaultSet().arm(f"{point}:error")
-    with pytest.raises(ValueError, match="unknown faultpoint"):
-        FaultSet().arm(f"{point}:error")
-
-
 @pytest.mark.parametrize("point", STATE_POINTS)
 def test_state_points_arm_and_describe_as_jax(point):
-    """The Loader's, the cold tier's and MULTI_REGION's points are in
-    the catalog with the JAX package's description, and arm in both
-    packages."""
+    """The Loader's, the cold tier's, MULTI_REGION's and the mesh-GLOBAL
+    tier's points are in the catalog with the JAX package's
+    description, and arm in both packages."""
     assert faults.FAULT_POINTS[point] == jax_faults.FAULT_POINTS[point]
     got = []
     for cls in (FaultSet, jax_faults.FaultSet):
@@ -169,7 +162,7 @@ def test_from_env_reads_the_spec_and_seed():
     assert FaultSet.from_env({"GUBER_FAULT_SEED": "x"}).seed == 0
     assert not FaultSet.from_env({}).armed
     with pytest.raises(ValueError):
-        FaultSet.from_env({"GUBER_FAULT": "global_psum:error"})
+        FaultSet.from_env({"GUBER_FAULT": "no_such_point:error"})
 
 
 def test_fires_are_counted_and_arming_is_recorded():
@@ -329,7 +322,7 @@ def test_daemon_arms_and_clears_over_http(monkeypatch):
         assert desc["spec"] == "device_step:error:0.5"
         assert desc["catalog"] == sorted(faults.FAULT_POINTS)
         with pytest.raises(urllib.error.HTTPError) as e:
-            post({"spec": "global_psum:error"})
+            post({"spec": "no_such_point:error"})
         assert e.value.code == 400
         assert d.instance.faults.describe()["spec"] == "device_step:error:0.5"
         code, got = post({"clear": True})

@@ -348,3 +348,55 @@ def test_debug_audit_endpoint_and_drift_gauge(monkeypatch):
         assert "fleet_conservation" not in d.instance.slo.names()
     finally:
         d.close()
+
+
+def test_audit_mesh_lane_equals_jax(monkeypatch):
+    """Mesh mode: /debug/audit adds the tier's lane, its backlog in the
+    drift until a fold, conserved after it; the lane equals the JAX
+    instance's on the same traffic."""
+    from gubernator_tpu.config import BehaviorConfig as JaxBehaviors
+    from gubernator_tpu.config import Config as JaxConfig
+    from gubernator_tpu.instance import V1Instance as JaxInstance
+    from gubernator_tpu.parallel import make_mesh as jax_mesh
+    from gubernator_tpu.types import Behavior as JaxBehavior
+    from gubernator_tpu.types import RateLimitRequest as JaxReq
+    from gubernator_tpu_torch.config import Config
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.mesh import make_mesh
+
+    monkeypatch.setenv("GUBER_MESH_GLOBAL_CAP", "64")
+    inst = V1Instance(Config(device="cpu", cache_size=1 << 10,
+                             batch_rows=64, global_mode="mesh",
+                             behaviors=BehaviorConfig(
+                                 global_sync_wait_ms=60_000)),
+                      mesh=make_mesh(["cpu"] * 2))
+    ref = JaxInstance(JaxConfig(cache_size=1 << 10, batch_rows=64,
+                                global_mode="mesh",
+                                behaviors=JaxBehaviors(
+                                    global_sync_wait_ms=60_000)),
+                      mesh=jax_mesh(n=2))
+    keys = ("lane", "drift", "fold")
+
+    def lane(i):
+        d = i.audit_doc()
+        m = d["lanes"]["mesh"]
+        return d["drift"], d["conserved"], {k: m[k] for k in (
+            "injected", "folded", "backlog", "pinned_keys")}
+
+    try:
+        for side, cls, beh in ((inst, RateLimitRequest, Behavior),
+                               (ref, JaxReq, JaxBehavior)):
+            side.get_rate_limits([cls(
+                name="au", unique_key=k, hits=3, limit=100,
+                duration=60_000, behavior=beh.GLOBAL) for k in keys])
+        got = lane(inst)
+        assert got == lane(ref)
+        assert got[0] == 9 and not got[1]
+        for side in (inst, ref):
+            side._mesh_reconcile_tick()
+        got = lane(inst)
+        assert got == lane(ref)
+        assert got[0] == 0 and got[1] and got[2]["folded"] == 9
+    finally:
+        inst.close()
+        ref.close()

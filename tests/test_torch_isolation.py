@@ -32,7 +32,7 @@ def test_importing_every_module_loads_no_jax():
               "cmd.healthcheck", "faults", "store", "tiering",
               "analytics", "multiregion", "cmd.cluster", "hotset",
               "tlsutil", "cmd.tapcost", "tracing", "slo", "memledger",
-              "fleet"):
+              "fleet", "mesh", "meshglobal", "multihost"):
         assert f"gubernator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -357,6 +357,62 @@ def test_hot_set_discovery_and_tls_paths_load_nothing_of_the_jax_package(
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=180)
     assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+
+
+def test_mesh_and_multihost_paths_load_nothing_of_the_jax_package():
+    """A mesh-mode instance on a 4-shard CPU mesh (the fused lane, a
+    fold) and a one-process gloo group stepping over its global mesh,
+    in a fresh process: no JAX-package module is loaded."""
+    code = (
+        "import socket, sys\n"
+        "import numpy as np\n"
+        "from gubernator_tpu_torch import multihost\n"
+        "from gubernator_tpu_torch.config import Config\n"
+        "from gubernator_tpu_torch.instance import V1Instance\n"
+        "from gubernator_tpu_torch.mesh import make_mesh\n"
+        "from gubernator_tpu_torch.types import RateLimitRequest as R\n"
+        "inst = V1Instance(Config(device='cpu', cache_size=4096, "
+        "global_mode='mesh'), mesh=make_mesh(['cpu'] * 4))\n"
+        "r = R(name='n', unique_key='g', hits=2, limit=9, duration=60000, "
+        "behavior=2)\n"
+        "inst.get_rate_limits([r])\n"
+        "inst._mesh_reconcile_tick()\n"
+        "assert inst._meshglobal.stats()['folded_hits'] == 2\n"
+        "inst.close()\n"
+        "s = socket.socket(); s.bind(('127.0.0.1', 0))\n"
+        "port = s.getsockname()[1]; s.close()\n"
+        "multihost.initialize(f'127.0.0.1:{port}', 1, 0, "
+        "local_device_count=2, device='cpu', timeout_s=30)\n"
+        "m = multihost.global_mesh()\n"
+        "assert int(multihost.psum(multihost.process_local_batch("
+        "m, np.ones((2, 1), np.int64))).sum()) == 2\n"
+        "multihost.shutdown()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'gubernator_tpu' "
+        "or m.startswith('gubernator_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+
+
+def test_mesh_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    from gubernator_tpu_torch import multihost
+    from gubernator_tpu_torch.config import Config
+    from gubernator_tpu_torch.instance import V1Instance
+    from gubernator_tpu_torch.mesh import Mesh, make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Mesh(["cuda"] * 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        V1Instance(Config(global_mode="mesh"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multihost.initialize("127.0.0.1:1", 1, 0)
 
 
 def _imports(path: Path):

@@ -326,3 +326,29 @@ def test_debug_memory_404_when_off(monkeypatch):
         assert "memory" not in json.loads(_get(d, "/healthz?deep=1"))
     finally:
         d.close()
+
+
+def test_the_mesh_tier_enrolls_with_its_replicas(monkeypatch):
+    """mesh_global: the replicas and both accumulator buffers of every
+    mesh device, as JAX's consumer counts them."""
+    from gubernator_tpu_torch.mesh import make_mesh
+
+    monkeypatch.setenv("GUBER_MESH_GLOBAL_CAP", "256")
+    inst = V1Instance(Config(cache_size=4096, device="cpu", batch_rows=64,
+                             global_mode="mesh"),
+                      mesh=make_mesh(["cpu"] * 4))
+    try:
+        inst.get_rate_limits(reqs("m", 5, behavior=Behavior.GLOBAL))
+        snap = inst.memledger.snapshot()
+        mg = snap["consumers"]["mesh_global"]
+        mge = inst._meshglobal
+        want = 4 * 256 * (8 * 8 + 4) + 2 * 4 * 256 * 8
+        assert mg["bytes"] == want == sum(
+            int(t.nbytes) for t in mge.table_tensors())
+        assert mg["capacity_rows"] == 256 and mg["occupied_rows"] == 5
+        assert mg["advisable"] and not mg["host"]
+        table = sum(int(t.nbytes) for t in inst.engine.table_tensors())
+        assert snap["consumers"]["hot_table"]["bytes"] == table
+        assert snap["device_bytes"] == table + want
+    finally:
+        inst.close()

@@ -33,15 +33,10 @@ from test_torch_wire import (CAP, ENGINES, jax_instance, port_instance,  # noqa:
 
 #: JAX families of subsystems the port has not ported, by subsystem
 NOT_PORTED = {
-    "fused Pallas serving counters": {"gubernator_pallas_fused_waves",
-                                      "gubernator_pallas_mesh_fused_hits"},
+    "fused Pallas serving's wave counter": {
+        "gubernator_pallas_fused_waves"},
     "compile ledger": {"gubernator_jit_compiles"},
     "scenario lab": {"gubernator_scenario_runs"},
-    "mesh-GLOBAL": {"gubernator_mesh_global_folds",
-                    "gubernator_mesh_global_fold_errors",
-                    "gubernator_mesh_global_staleness_seconds",
-                    "gubernator_mesh_global_degraded",
-                    "gubernator_mesh_global_keys"},
 }
 
 
@@ -58,7 +53,7 @@ def families(m):
 
 def test_every_port_family_has_its_jax_namesake():
     port, ref = families(Metrics()), families(JaxMetrics())
-    assert len(port) == 61
+    assert len(port) == 67
     for attr, fam in port.items():
         assert ref.get(attr) == fam, attr
 

@@ -378,3 +378,44 @@ def test_error_ratio_breaches_on_degraded_serves(monkeypatch):
         assert main(["--url", url, "--fail-on-burn"]) == 1
     finally:
         c.stop()
+
+
+def test_global_staleness_reads_the_mesh_tier(monkeypatch):
+    """In mesh mode global_staleness reads the tier's last staleness, or
+    the age of the last fold that succeeded when that is older (a
+    failing fold must still breach); grpc mode keeps (0, target)."""
+    import time
+
+    from gubernator_tpu_torch.config import BehaviorConfig
+    from gubernator_tpu_torch.mesh import make_mesh
+    from gubernator_tpu_torch.types import Behavior
+
+    monkeypatch.setenv("GUBER_SLO_TICK", "10s")
+    monkeypatch.setenv("GUBER_MESH_GLOBAL_CAP", "64")
+    inst = V1Instance(Config(cache_size=1 << 10, device="cpu",
+                             batch_rows=64, global_mode="mesh",
+                             behaviors=BehaviorConfig(
+                                 global_sync_wait_ms=60_000)),
+                      mesh=make_mesh(["cpu"] * 2))
+
+    def staleness():
+        return {r["slo"]: r for r in inst.slo.snapshot()["slos"]
+                if r.get("tenant") is None}["global_staleness"]
+
+    try:
+        r = RateLimitRequest(name="slo", unique_key="g", hits=1,
+                             limit=100, duration=60_000,
+                             behavior=Behavior.GLOBAL)
+        inst.get_rate_limits([r])
+        time.sleep(0.02)
+        inst._mesh_reconcile_tick()
+        mge = inst._meshglobal
+        row = staleness()
+        assert row["target"] == 2 * 60.0
+        assert mge.last_staleness_s >= 0.02
+        # the snapshot rounds to the microsecond
+        assert mge.last_staleness_s - 1e-6 <= row["value"] < 1.0
+        inst._mesh_last_fold_ok = time.monotonic() - 5
+        assert staleness()["value"] >= 5
+    finally:
+        inst.close()
