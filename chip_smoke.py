@@ -9,8 +9,10 @@ GLOBAL keys from the hot set, daemons whose peers come from a peers
 file and from gossip, a pair forwarding over TLS, both engines at n = 4
 shards against n = 1, a daemon serving GLOBAL from the mesh-resident
 tier (GUBER_GLOBAL_MODE=mesh), the multi-host bootstrap on NCCL, the
-daemon on the classic SoA engine (K2), and a daemon whose 10M keys
-outgrow its table, served by the cold tier behind it.
+daemon on the classic SoA engine (K2), a daemon whose 10M keys
+outgrow its table, served by the cold tier behind it, a daemon process
+driven by the port's load-test and debug CLI, and the scenario lab's
+library.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -18,6 +20,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --only hot,membership,gossip   # those phases
     python3 chip_smoke.py --only main,cluster   # phase 5, the cluster
     python3 chip_smoke.py --only shards,mesh,multihost   # n > 1
+    python3 chip_smoke.py --only cli,scenarios   # the CLI and the lab
 
 Phases (each prints a line with its seconds; any failure exits non-zero):
 
@@ -319,6 +322,25 @@ cluster: 3 daemons in this process (cluster.start_with), each with a
    counting Store on a small instance with the cold tier (on_change =
    answers, get = misses, each key in one tier) and the same traffic
    as wire bytes through the object path, answering the same.
+9. cli: ``python -m gubernator_tpu_torch.cmd.daemon`` as a process of
+   its own on the GPU (the bucket engine, phase 5's 2^25 rows), healthy
+   by cmd/healthcheck.py, driven by ``python -m
+   gubernator_tpu_torch.cmd.cli --rate-limits 10000000 --concurrency 8
+   --batch 1000 --zipf 1.1 --json`` for 10 s over gRPC, then over HTTP:
+   each prints decisions/s, p50 / p99, OVER_LIMIT answers and K1's
+   launches (the daemon's /debug/kernels before and after); no error,
+   and the CLI's decisions and OVER_LIMIT answers equal the daemon's
+   own /metrics deltas; then every ``cli debug`` subcommand
+   (events, traces, topkeys, tenants, slo, memory, faults) with --json
+   exits 0 against it.  (``cli fleet status`` and ``fleet audit`` run
+   over the cluster phase's three daemons once its GLOBAL queues
+   drained: both exit 0, the folded drift 0.)
+10. scenarios: the whole scenarios/ library through the port's
+   ScenarioRunner on the GPU in full mode: every scenario ok (its
+   oracles, digest, wall_ms and, for the mesh stack, its two-entry
+   device list printed), each parity oracle's digest equal to its
+   OracleEngine reference lane's, gubernator_scenario_runs{verdict="ok"}
+   counted once a run, K1 launched.
 
 The line before the last is a JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -1702,6 +1724,8 @@ def phase_cluster(torch, args, solo_rate=None):
             held += found
         require((held == 1).all(), "a touched key is not on its owner")
         audit = cluster_audit_check(c, "after the GLOBAL queues drained")
+        audit["fleet_cli"] = fleet_cli_check(
+            [c.http_address(i) for i in range(n)], "the cluster")
         costmodel = cluster_costmodel_check(c)
         ctx = OutageContext(
             ring=ring, owner=owner, pop_idx=pop_idx, pop_keys=pop_keys,
@@ -3217,7 +3241,6 @@ def phase_handover(args, c, ctx) -> dict:
     moved row."""
     from gubernator_tpu_torch.config import DaemonConfig
     from gubernator_tpu_torch.daemon import spawn_daemon
-    from gubernator_tpu_torch.hashing import hash_request_keys
 
     for d in c.daemons:
         d.instance.config.handover_on_reshard = True
@@ -3225,6 +3248,11 @@ def phase_handover(args, c, ctx) -> dict:
         grpc_listen_address="127.0.0.1:0", http_listen_address="127.0.0.1:0",
         cache_size=1 << args.handover_log2_cap, batch_rows=1024,
         device=DEVICE, behaviors=ctx.behaviors, handover_on_reshard=True))
+    # the newcomer's own warm-up row would leave it again when the new
+    # ring gives that key to another daemon (its own handover pass),
+    # racing the chunks that land in its bucket: removed before the
+    # join, its table holds only what the handover brings
+    require(d3.instance.remove("_warmup", "w"), "no warm-up row")
     c.daemons.append(d3)
     new_ring = cluster_ring(c)
     by_addr = {d.advertise_address: i for i, d in enumerate(c.daemons)}
@@ -3246,9 +3274,8 @@ def phase_handover(args, c, ctx) -> dict:
     n_moved = sum(len(k) for k, _ in moved)
     keys = np.concatenate([k for k, _ in moved])
     nb = 1 << (args.handover_log2_cap - 3)
-    warm = hash_request_keys(["_warmup"], ["w"])
-    cnt = np.bincount((np.concatenate([warm, keys]) & np.uint64(nb - 1))
-                      .astype(np.int64), minlength=nb)
+    cnt = np.bincount((keys & np.uint64(nb - 1)).astype(np.int64),
+                      minlength=nb)
     predicted = int(np.maximum(cnt - 8, 0).sum())
     dropped0 = d3.instance.engine.dropped_rows
     seq0 = [d.instance.recorder.events()[-1]["seq"] for d in c.daemons[:3]]
@@ -6773,6 +6800,290 @@ def phase_multihost(torch, args) -> dict:
     return out
 
 
+#: the cli phase: the load tester's flags, the README's north star (10M
+#: keys, Zipf(1.1), 8 workers of 1000-request batches)
+CLI_KEYS = 10_000_000
+CLI_CONCURRENCY = 8
+CLI_BATCH = 1000
+CLI_ZIPF = 1.1
+#: seconds of load a transport
+CLI_SECONDS = 10.0
+#: the daemon's start, its 2^log2-cap table and warm-up included
+CLI_START_S = 300.0
+CLI_MOD = "gubernator_tpu_torch.cmd.cli"
+#: the debug subcommands driven with --json against the cli daemon
+CLI_DEBUG = ("events", "traces", "topkeys", "tenants", "slo", "memory",
+             "faults")
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_modules(calls, timeout: float = 120.0) -> list:
+    """Start every ``(module, argv)`` as ``python -m`` at once, from the
+    repository root, then wait for each: [(exit code, stdout, stderr)].
+    A call past ``timeout`` is killed (exit code None); no process is
+    left running."""
+    procs = [subprocess.Popen([sys.executable, "-m", mod, *argv], cwd=REPO,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for mod, argv in calls]
+    out = []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            try:
+                so, se = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 0.1))
+                out.append((p.returncode, so, se))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                so, se = p.communicate()
+                out.append((None, so, se))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def last_json(text: str) -> dict:
+    """The JSON document on the last non-empty line of ``text``."""
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    require(bool(lines), "no output")
+    return json.loads(lines[-1])
+
+
+def cli_debug_check(base: str) -> dict:
+    """Every ``cli debug`` subcommand with --json against one daemon, all
+    started together: each exits 0 with one JSON document."""
+    res = run_modules([(CLI_MOD, ["debug", what, "--url", base, "--json"])
+                       for what in CLI_DEBUG])
+    docs = {}
+    for what, (rc, so, se) in zip(CLI_DEBUG, res):
+        require(rc == 0, f"cli debug {what} exited {rc}: {se[-1500:]}")
+        docs[what] = last_json(so)
+    out = {"events": len(docs["events"]["events"]),
+           "spans": len(docs["traces"]["spans"]),
+           "topkeys": len(docs["topkeys"]["keys"]),
+           "tenants": docs["tenants"].get("tenant_count"),
+           "slos": len(docs["slo"].get("slos", [])),
+           "memory_device_bytes": docs["memory"].get("device_bytes"),
+           "faults_armed": docs["faults"].get("armed")}
+    print(f"cli debug: {json.dumps(out)}", flush=True)
+    require(out["events"] > 0 and out["topkeys"] > 0,
+            f"cli debug read an empty daemon: {out}")
+    return out
+
+
+def fleet_cli_check(urls: list, label: str) -> dict:
+    """``cli fleet status`` and ``cli fleet audit`` over daemons' HTTP
+    base URLs, started together: both exit 0 (every daemon healthy, the
+    rings consistent, the audits conserved) with the folded drift 0."""
+    flags = [a for u in urls for a in ("--url", u)]
+    (rs, so_s, se_s), (ra, so_a, se_a) = run_modules(
+        [(CLI_MOD, ["fleet", what, *flags, "--json"])
+         for what in ("status", "audit")])
+    require(bool(so_s.strip()) and bool(so_a.strip()),
+            f"fleet over {label}: no output\n{se_s[-1500:]}{se_a[-1500:]}")
+    status, audit = last_json(so_s), last_json(so_a)
+    out = {"status_rc": rs, "audit_rc": ra, "daemons": status["daemons"],
+           "healthy": status["healthy"],
+           "ring_consistent": audit["ring"]["consistent"],
+           "drift": audit["drift"], "conserved": audit["conserved"],
+           "injected": audit["totals"]["injected"],
+           "applied": audit["totals"]["applied"]}
+    print(f"fleet over {label}: {json.dumps(out)}", flush=True)
+    require(rs == 0 and ra == 0 and audit["drift"] == 0
+            and status["daemons"] == len(urls),
+            f"fleet over {label}: {out}\n{se_s[-1500:]}{se_a[-1500:]}")
+    return out
+
+
+def cli_round(transport: str, grpc_addr: str, http_port: int) -> dict:
+    """One ``cli`` load run over ``transport`` against the cli daemon:
+    the CLI's one-line JSON beside the daemon's own counters' deltas on
+    /metrics and its K1 launches on /debug/kernels."""
+    api_key = ("gubernator_getratelimit_total", (("calltype", "api"),))
+    over_key = ("gubernator_over_limit_total", ())
+    k0 = get_json(http_port, "/debug/kernels")[1]["decide"]
+    m0 = scrape_metrics(http_port)
+    argv = ["--address", (grpc_addr if transport == "grpc"
+                          else f"127.0.0.1:{http_port}"),
+            "--rate-limits", str(CLI_KEYS), "--concurrency",
+            str(CLI_CONCURRENCY), "--batch", str(CLI_BATCH), "--zipf",
+            str(CLI_ZIPF), "--duration", str(CLI_SECONDS), "--json"]
+    if transport == "http":
+        argv.append("--http")
+    rc, so, se = run_modules([(CLI_MOD, argv)],
+                             timeout=CLI_SECONDS + 300)[0]
+    require(rc == 0, f"cli over {transport} exited {rc}: {se[-2000:]}")
+    doc = last_json(so)
+    k1 = get_json(http_port, "/debug/kernels")[1]["decide"]
+    m1 = scrape_metrics(http_port)
+    rec = dict(doc, transport=transport,
+               daemon_api_requests=m1.get(api_key, 0) - m0.get(api_key, 0),
+               daemon_over_limit=m1.get(over_key, 0) - m0.get(over_key, 0),
+               launches=k1 - k0)
+    print(f"cli over {transport}: {rec['decisions_per_s']} decisions/s, "
+          f"batch p50 {rec['p50_ms']} ms p99 {rec['p99_ms']} ms, "
+          f"{rec['decisions']} decisions, over_limit {rec['over_limit']}; "
+          f"the daemon counted {rec['daemon_api_requests']} api requests "
+          f"and {rec['daemon_over_limit']} OVER_LIMIT; K1 launches "
+          f"{rec['launches']}: {json.dumps(rec)}", flush=True)
+    require(not doc["errors"], f"cli over {transport}: {doc['errors']}")
+    require(doc["decisions"] > 0
+            and doc["decisions"] == rec["daemon_api_requests"],
+            f"cli over {transport}: {doc['decisions']} decisions, the "
+            f"daemon counted {rec['daemon_api_requests']}")
+    require(doc["over_limit"] == rec["daemon_over_limit"],
+            f"cli over {transport}: {doc['over_limit']} OVER_LIMIT, the "
+            f"daemon counted {rec['daemon_over_limit']}")
+    # a CPU rehearsal's daemon steps through the plain version, which
+    # counts no launch
+    require(rec["launches"] > 0 or DEVICE != "cuda",
+            f"cli over {transport}: K1 never launched")
+    return rec
+
+
+def phase_cli(torch, args) -> dict:
+    """The slice's path at full size: ``python -m
+    gubernator_tpu_torch.cmd.daemon`` as a process of its own on DEVICE
+    (the bucket engine, 2^log2-cap rows as phase 5), healthy by
+    ``cmd/healthcheck.py``, then ``python -m gubernator_tpu_torch.cmd.cli
+    --rate-limits CLI_KEYS --concurrency 8 --batch 1000 --zipf 1.1
+    --json`` for CLI_SECONDS over gRPC and again over HTTP: no error,
+    its decisions and OVER_LIMIT answers equal to the daemon's own
+    /metrics deltas, K1 launched (GET /debug/kernels before and after);
+    then every ``cli debug`` subcommand with --json exits 0 against
+    it."""
+    import signal
+    import tempfile
+
+    from gubernator_tpu_torch.cluster import free_port
+
+    grpc_addr = f"127.0.0.1:{free_port()}"
+    http_port = free_port()
+    base = f"http://127.0.0.1:{http_port}"
+    env = dict(os.environ, GUBER_DEVICE=DEVICE, GUBER_ENGINE="pallas",
+               GUBER_GRPC_ADDRESS=grpc_addr,
+               GUBER_HTTP_ADDRESS=f"127.0.0.1:{http_port}",
+               GUBER_CACHE_SIZE=str(1 << args.log2_cap))
+    log = tempfile.NamedTemporaryFile(prefix="smoke-cli-daemon-",
+                                      suffix=".log", delete=False)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gubernator_tpu_torch.cmd.daemon"],
+        cwd=REPO, stdout=log, stderr=subprocess.STDOUT, env=env)
+    log.close()
+
+    def tail() -> str:
+        with open(log.name, "rb") as f:
+            return f.read()[-3000:].decode(errors="replace")
+
+    ok = False
+    try:
+        deadline = time.monotonic() + CLI_START_S
+        while True:
+            require(proc.poll() is None,
+                    f"cli daemon exited {proc.returncode}:\n{tail()}")
+            try:
+                if get_json(http_port, "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            require(time.monotonic() < deadline,
+                    f"cli daemon not up in {CLI_START_S} s:\n{tail()}")
+            time.sleep(0.5)
+        rc, so, se = run_modules([("gubernator_tpu_torch.cmd.healthcheck",
+                                   ["--url", f"{base}/healthz"])])[0]
+        require(rc == 0, f"healthcheck exited {rc}: {so}{se}")
+        up_s = time.perf_counter() - t0
+        print(f"cli daemon: 2^{args.log2_cap} rows on {DEVICE}, healthy "
+              f"after {up_s:.2f} s", flush=True)
+        rounds = {t: cli_round(t, grpc_addr, http_port)
+                  for t in ("grpc", "http")}
+        debug = cli_debug_check(base)
+        ok = True
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        if not ok:
+            print(f"cli daemon log:\n{tail()}", flush=True)
+        os.unlink(log.name)
+    return {"rows": 1 << args.log2_cap, "daemon_up_s": up_s,
+            "grpc": rounds["grpc"], "http": rounds["http"], "debug": debug,
+            "launches": sum(r["launches"] for r in rounds.values())}
+
+
+def phase_scenarios(torch, args) -> dict:
+    """The whole scenarios/ library through the port's ScenarioRunner on
+    DEVICE, in full mode: every scenario ok, each parity oracle's
+    digest equal to its reference lane's (an OracleEngine on the host),
+    and gubernator_scenario_runs{verdict="ok"} counted once a run on
+    the run's instance.  Prints each row's oracles, digest, wall_ms and the
+    mesh stack's device list; K1's launches over the phase."""
+    from gubernator_tpu_torch import scenarios as scn
+    from gubernator_tpu_torch.ops.decide import decide_cuda
+
+    class Runner(scn.ScenarioRunner):
+        """Keeps the stack it built, to read its instance's registry."""
+
+        def _build(self):
+            self.handle = super()._build()
+            return self.handle
+
+    specs = scn.load_library()
+    rows = {}
+    decide_cuda.launches = 0
+    for spec in specs:
+        runner = Runner(spec, device=DEVICE)
+        row = runner.run()
+        par = row["oracles"].get("parity")
+        rec = {"ok": row["ok"], "stack": row["stack"],
+               "requests": row["requests"], "ticks": row["ticks"],
+               "oracles": {k: v["ok"] for k, v in row["oracles"].items()},
+               "digest": row["decision_digest"],
+               "reference_digest": (par["reference_digest"]
+                                    if par is not None else None),
+               "wall_ms": row["wall_ms"],
+               "mesh_devices": row.get("mesh_devices"),
+               "runs_ok_counted": runner.handle.instances[0].metrics
+               .registry.get_sample_value("gubernator_scenario_runs_total",
+                                          {"verdict": "ok"}),
+               "errors": row["errors"]}
+        if "jain_index" in row:
+            rec["jain_index"] = row["jain_index"]
+        print(f"scenario {spec.name}: {json.dumps(rec)}", flush=True)
+        rows[spec.name] = rec
+    launches = decide_cuda.launches
+    out = {"count": len(rows),
+           "all_ok": all(r["ok"] for r in rows.values()),
+           "wall_ms": sum(r["wall_ms"] for r in rows.values()),
+           "launches": launches, "scenarios": rows}
+    print(f"scenarios: {out['count']} on {DEVICE} "
+          f"(full mode), all_ok "
+          f"{out['all_ok']}, {out['wall_ms']} ms of runs, K1 launches "
+          f"{launches}", flush=True)
+    require(out["all_ok"], "scenarios: " + ", ".join(
+        n for n, r in rows.items() if not r["ok"]) + " failed")
+    for name, r in rows.items():
+        require(r["reference_digest"] in (None, r["digest"]),
+                f"scenario {name}: digest {r['digest']} against its "
+                f"reference's {r['reference_digest']}")
+        require(r["runs_ok_counted"] == 1,
+                f"scenario {name}: gubernator_scenario_runs ok counted "
+                f"{r['runs_ok_counted']}")
+    require(any(r["reference_digest"] for r in rows.values()),
+            "scenarios: no parity oracle ran")
+    require(launches > 0, "scenarios: K1 never launched")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2-cap", type=int, default=25,
@@ -6813,8 +7124,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="run only these phases after the build (comma-"
                          "separated: main, cluster, hot, membership, "
-                         "gossip, shards, mesh, multihost); prints their "
-                         "results and no kernels or ok line")
+                         "gossip, shards, mesh, multihost, cli, "
+                         "scenarios); prints their results and no "
+                         "kernels or ok line")
     args = ap.parse_args(argv)
 
     import torch
@@ -6832,7 +7144,8 @@ def main(argv=None) -> int:
         runs = {"main": main_path, "cluster": phase_cluster,
                 "hot": phase_hot, "membership": phase_membership,
                 "gossip": phase_gossip, "shards": phase_shards,
-                "mesh": phase_mesh, "multihost": phase_multihost}
+                "mesh": phase_mesh, "multihost": phase_multihost,
+                "cli": phase_cli, "scenarios": phase_scenarios}
         out = {}
         for p in only:
             with phase(p):
@@ -6906,12 +7219,20 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     with phase("tiers"):
         tiers = phase_tiers(torch, args)
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    with phase("cli"):
+        cli = phase_cli(torch, args)
+    with phase("scenarios"):
+        scen = phase_scenarios(torch, args)
     print(json.dumps({"main_path": m, "cluster": cl, "group": grp,
                       "regions": reg, "hot": hot, "membership": mem,
                       "gossip": gos, "shards": sh, "mesh": msh,
                       "multihost": mh, "kernel_detail": k,
                       "classic_main_path": c, "sweep_detail": k2,
-                      "probe_detail": k3, "tiers": tiers}), flush=True)
+                      "probe_detail": k3, "tiers": tiers, "cli": cli,
+                      "scenarios": scen}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "decide", "route": "cuda",
@@ -6935,6 +7256,8 @@ def main(argv=None) -> int:
          "mesh_launches": msh["launches"],
          "mesh_fused_hits": msh["mesh_fused_hits"],
          "multihost_launches": mh["launches"],
+         "cli_launches": cli["launches"],
+         "scenarios_launches": scen["launches"],
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": "bytes", "library_ms": None,

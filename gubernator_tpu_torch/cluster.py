@@ -31,8 +31,12 @@ from .types import PeerInfo
 
 
 class Cluster:
-    def __init__(self, daemons: List[Daemon]):
+    def __init__(self, daemons: List[Daemon],
+                 engine: Optional[Callable[[], object]] = None):
         self.daemons = daemons
+        #: the engine factory the daemons were started with (None: each
+        #: builds its configured engine); restart calls it again
+        self.engine = engine
 
     # cluster.go's names
     def peer_at(self, i: int) -> PeerInfo:
@@ -43,6 +47,16 @@ class Cluster:
 
     def daemon_at(self, i: int) -> Daemon:
         return self.daemons[i]
+
+    def grpc_address(self, i: int = 0) -> str:
+        """Daemon ``i``'s advertised gRPC address (its peers' name for
+        it, and a faultpoint's tag)."""
+        return self.daemons[i].advertise_address
+
+    def http_address(self, i: int = 0) -> str:
+        """Daemon ``i``'s HTTP base URL, on the port it bound."""
+        host = self.daemons[i].cfg.http_listen_address.rsplit(":", 1)[0]
+        return f"http://{host or '127.0.0.1'}:{self.daemons[i].http_port}"
 
     def owner_daemon_of(self, key: str) -> Daemon:
         """The daemon owning ``key`` (name + "_" + unique_key), by
@@ -64,7 +78,8 @@ class Cluster:
                       http_listen_address=http,
                       advertise_address=old.advertise_address)
         old.close()
-        d = spawn_daemon(cfg, mesh=old.mesh)
+        d = spawn_daemon(cfg, mesh=old.mesh,
+                         engine=self.engine() if self.engine else None)
         self.daemons[i] = d
         infos = [dm.peer_info() for dm in self.daemons]
         for dm in self.daemons:
@@ -78,25 +93,31 @@ class Cluster:
 
 def start(n: int, behaviors: Optional[BehaviorConfig] = None,
           cache_size: int = 1 << 12, batch_rows: int = 64,
-          device: str = "cuda", **cfg_kwargs) -> Cluster:
+          device: str = "cuda", mesh=None,
+          engine: Optional[Callable[[], object]] = None,
+          **cfg_kwargs) -> Cluster:
     """Boot ``n`` daemons on 127.0.0.1 (port 0) and join them
-    (cluster.go › Start)."""
+    (cluster.go › Start); ``mesh`` and ``engine`` as ``start_with``."""
     return start_with([DaemonConfig(
         grpc_listen_address="127.0.0.1:0",
         http_listen_address="127.0.0.1:0", cache_size=cache_size,
         batch_rows=batch_rows, device=device,
         behaviors=behaviors or BehaviorConfig(), **cfg_kwargs)
-        for _ in range(n)])
+        for _ in range(n)], mesh=mesh, engine=engine)
 
 
-def start_with(cfgs: List[DaemonConfig], mesh=None) -> Cluster:
+def start_with(cfgs: List[DaemonConfig], mesh=None,
+               engine: Optional[Callable[[], object]] = None) -> Cluster:
     """Boot one daemon per config, each on ``mesh`` when given, and join
     them (cluster.go › StartWith); a daemon that fails to start stops
-    the ones before it."""
+    the ones before it.  ``engine``: a factory called once per daemon
+    (a daemon owns its engine) whose engine each instance serves
+    (spawn_daemon's ``engine``); None builds the configured one."""
     daemons: List[Daemon] = []
     try:
         for cfg in cfgs:
-            daemons.append(spawn_daemon(cfg, mesh=mesh))
+            daemons.append(spawn_daemon(
+                cfg, mesh=mesh, engine=engine() if engine else None))
         infos = [d.peer_info() for d in daemons]
         for d in daemons:
             d.set_peers(infos)
@@ -104,7 +125,7 @@ def start_with(cfgs: List[DaemonConfig], mesh=None) -> Cluster:
         for d in daemons:
             d.close()
         raise
-    return Cluster(daemons)
+    return Cluster(daemons, engine=engine)
 
 
 def free_port(host: str = "127.0.0.1") -> int:

@@ -74,6 +74,7 @@ from .discovery import make_discovery
 from .dispatcher import ResourceExhausted, request_deadline
 from .instance import V1Instance
 from .netutil import resolve_host_ip, split_host_port
+from .peer_client import is_rehomed
 from .store import FileLoader
 from .telemetry import exc_text
 from .tlsutil import setup_tls
@@ -159,7 +160,8 @@ class _PeersServicer:
                 span("grpc.GetPeerRateLimits", metrics=inst.metrics), \
                 request_deadline(context.time_remaining()):
             try:
-                return inst.get_peer_rate_limits_wire(request)
+                return inst.get_peer_rate_limits_wire(
+                    request, rehomed=is_rehomed(context))
             except ValueError as e:
                 context.abort(grpc.StatusCode.INVALID_ARGUMENT, exc_text(e))
             except ResourceExhausted as e:
@@ -179,7 +181,7 @@ class _PeersServicer:
 class Daemon:
     """Use spawn_daemon() to construct."""
 
-    def __init__(self, cfg: DaemonConfig, mesh=None):
+    def __init__(self, cfg: DaemonConfig, mesh=None, engine=None):
         self.cfg = cfg
         #: the instance's mesh (mesh.py) as given; None: its default
         self.mesh = mesh
@@ -218,12 +220,14 @@ class Daemon:
             self.instance = V1Instance(
                 icfg, peer_tls_creds=(self.tls.grpc_client_credentials()
                                       if self.tls is not None else None),
-                mesh=mesh)
+                mesh=mesh, engine=engine)
             # warm-up: build the kernel and run one wave before serving
             self.instance.get_rate_limits(
                 [RateLimitRequest(name="_warmup", unique_key="w", hits=0,
                                   limit=1, duration=1000)])
-            self.instance.engine.warmup()
+            warmup = getattr(self.instance.engine, "warmup", None)
+            if warmup is not None:
+                warmup()
             if cfg.client_listen_address:
                 self._serve_client(cfg.client_listen_address)
             if self.grpc_server is not None:
@@ -518,7 +522,8 @@ class Daemon:
     PROFILE_MAX_SECONDS = 300.0
 
     def _on_cuda(self) -> bool:
-        return getattr(self.instance.engine.device, "type", "") == "cuda"
+        dev = getattr(self.instance.engine, "device", None)
+        return getattr(dev, "type", "") == "cuda"
 
     def _handle_profile(self, q: dict) -> tuple:
         """``?seconds=N`` starts a DeviceProfiler capture for N seconds
@@ -651,10 +656,13 @@ def _int_arg(q: dict, name: str) -> Optional[int]:
         return None
 
 
-def spawn_daemon(cfg: DaemonConfig, mesh=None) -> Daemon:
+def spawn_daemon(cfg: DaemonConfig, mesh=None, engine=None) -> Daemon:
     """reference: daemon.go › SpawnDaemon.  ``mesh`` (mesh.py) is the
-    instance's: by default every visible GPU on ``cuda``."""
-    d = Daemon(cfg, mesh=mesh)
+    instance's: by default every visible GPU on ``cuda``.  ``engine``
+    injects the instance's engine (e.g. oracle.OracleEngine), which
+    then serves on its own terms: ``cfg.device`` and ``mesh`` build
+    nothing."""
+    d = Daemon(cfg, mesh=mesh, engine=engine)
     log.info("gubernator-tpu-torch daemon up: grpc=%s http=%s "
              "advertise=%s device=%s engine=%s",
              cfg.grpc_listen_address or "off", cfg.http_listen_address,

@@ -209,6 +209,9 @@ class Dispatcher:
                  metrics=None, recorder=None, clock=time.monotonic,
                  faults=None, analytics=None):
         self.engine = engine
+        #: an engine without a packed interface (an injected
+        #: oracle.OracleEngine) steps request lists: JAX's list lane
+        self._list_engine = not hasattr(engine, "check_packed")
         #: the owning instance's KeyAnalytics (optional)
         self.analytics = analytics
         self._fused_tap = getattr(engine, "fused_tap", False)
@@ -1032,9 +1035,68 @@ class Dispatcher:
         for j, r in zip(jobs, results):
             j.future.set_result(r)
 
+    def _run_list_wave(self, wave: List[_Job]) -> None:
+        """A list engine's wave (JAX's ``_run_list_jobs``): the jobs'
+        requests grouped by their now, each group one
+        ``engine.check_batch`` in ascending now; a row the packer
+        refuses (an invalid Gregorian ordinal) answers its error, as on
+        the packed lanes.  The analytics get the wave as packed columns,
+        as an object-lane wave."""
+        wid = self._wave_begin("list", wave)
+        try:
+            self._fault("dispatch_launch")
+            if any(j.reqs is None for j in wave):
+                raise NotImplementedError(
+                    f"{type(self.engine).__name__} has no packed "
+                    "interface: it serves request lists only")
+            parts = []  # (job, batch, khash, errors)
+            for j in wave:
+                kh = hash_request_keys([r.name for r in j.reqs],
+                                       [r.unique_key for r in j.reqs])
+                b, errs = pack_requests(j.reqs, j.now_ms,
+                                        size=len(j.reqs), key_hashes=kh)
+                parts.append((j, b, kh, errs))
+            self._wave_mark(wid, "pack")
+            answers = {}  # job index -> responses
+            with self._engine_lock:
+                self._fault("device_step")
+                for now in sorted({j.now_ms for j in wave}):
+                    rows = [(x, i, r) for x, (j, _, _, errs)
+                            in enumerate(parts) if j.now_ms == now
+                            for i, r in enumerate(j.reqs) if not errs[i]]
+                    resps = self.engine.check_batch([r for _, _, r in rows],
+                                                    now)
+                    for (x, i, _), resp in zip(rows, resps):
+                        answers.setdefault(x, {})[i] = resp
+            self._wave_mark(wid, "device")
+            self._fault("dispatch_splice")
+            results = []
+            for x, (j, _, _, errs) in enumerate(parts):
+                got = answers.get(x, {})
+                results.append([got[i] if i in got
+                                else RateLimitResponse(error=errs[i])
+                                for i in range(len(j.reqs))])
+        except Exception as e:  # noqa: BLE001 - surfaced to every caller
+            self._wave_end(wid, error=e)
+            _fail(wave, e)
+            return
+        self._resolve(wid, wave, results)
+        if self.analytics is not None:
+            flat = [r for res in results for r in res]
+            batch, khash = _concat([(p[1], p[2]) for p in parts])
+            cols = (np.array([int(r.status) for r in flat], np.int32),
+                    np.array([r.limit for r in flat], np.int64),
+                    np.array([r.remaining for r in flat], np.int64),
+                    np.array([r.reset_time for r in flat], np.int64),
+                    np.zeros(len(flat), bool))
+            self._tap_named(khash, batch, cols, [j.reqs for j in wave])
+
     def _run_wave(self, wave: List[_Job]) -> None:
         """Pack every job at its own now, concatenate, ONE engine call,
         then resolve each job with its slice."""
+        if self._list_engine:
+            self._run_list_wave(wave)
+            return
         n_list = sum(j.reqs is not None for j in wave)
         kind = ("packed" if not n_list
                 else "list" if n_list == len(wave) else "merged")

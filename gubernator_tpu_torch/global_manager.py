@@ -349,13 +349,15 @@ class GlobalManager:
                 tlv = tlv_with_hits(proto, acc)
                 entry = (kh, proto, acc, seq, d)
             else:
-                # the JAX flush builds these from the prototype's
-                # fields, so its created_at does not ride along
+                # the prototype's created_at rides along, as the raw
+                # lane's TLV carries it: the owner applies the hits at
+                # the caller's time base (JAX's flush drops it, and its
+                # owner applies them at its own clock: ROADMAP §C.2)
                 tlv = req_to_tlv(RateLimitRequest(
                     name=proto.name, unique_key=proto.unique_key, hits=acc,
                     limit=proto.limit, duration=proto.duration,
                     algorithm=proto.algorithm, behavior=proto.behavior,
-                    burst=proto.burst))
+                    burst=proto.burst, created_at=proto.created_at))
                 entry = (proto.key, proto, acc, seq, d)
             slot = by_owner.setdefault(addr, (peer, [], []))
             slot[1].append(tlv)

@@ -284,7 +284,7 @@ class V1Instance:
     manager."""
 
     def __init__(self, config: Config, peer_tls_creds=None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, engine=None):
         # the GLOBAL reconcile backend: "grpc" keeps the hit queues and
         # broadcasts; "mesh" serves a lone daemon's GLOBAL keys from the
         # mesh-resident replica tier (meshglobal.py), folded once a tick;
@@ -325,21 +325,28 @@ class V1Instance:
         self._memledger_live = 0
         if os.environ.get("GUBER_MEM_LEDGER", "1") != "0":
             self.memledger = MemoryLedger(recorder=self.recorder)
-        # the mesh: the caller's, else every visible GPU for "cuda" (as
-        # JAX's make_mesh() takes every local device), else the one
-        # device named
-        if mesh is None:
-            mesh = (make_mesh() if config.device == "cuda"
-                    else Mesh([config.device]))
-        # rows per shard: at least 1024, a power of two (the JAX
-        # instance's split of cache_size)
-        cap = max(config.cache_size // mesh.n, 1024)
-        cap = 1 << (cap - 1).bit_length()
-        self.engine = self._build_engine(
-            resolve_engine_kind(config.engine), cap, config, mesh)
-        self.engine.wave_pool.metrics = self.metrics
-        if isinstance(self.engine, BucketEngine):
-            self.engine.metrics_ref = self.metrics
+        if engine is None:
+            # the mesh: the caller's, else every visible GPU for "cuda"
+            # (as JAX's make_mesh() takes every local device), else the
+            # one device named
+            if mesh is None:
+                mesh = (make_mesh() if config.device == "cuda"
+                        else Mesh([config.device]))
+            # rows per shard: at least 1024, a power of two (the JAX
+            # instance's split of cache_size)
+            cap = max(config.cache_size // mesh.n, 1024)
+            cap = 1 << (cap - 1).bit_length()
+            engine = self._build_engine(
+                resolve_engine_kind(config.engine), cap, config, mesh)
+        # an injected engine (``engine=``, e.g. oracle.OracleEngine) is
+        # served as its type allows: one without a packed interface
+        # takes the dispatcher's list lane, and the lanes that need the
+        # packed or row interface raise on it
+        self.engine = engine
+        if hasattr(engine, "wave_pool"):
+            engine.wave_pool.metrics = self.metrics
+        if isinstance(engine, BucketEngine):
+            engine.metrics_ref = self.metrics
         self._engine_mu = threading.Lock()
         # key analytics: the heavy-hitter sketch and the phase ledger,
         # fed off the serving path (GUBER_ANALYTICS=0 turns it off)
@@ -350,7 +357,8 @@ class V1Instance:
             self._analytics = KeyAnalytics(metrics=self.metrics)
         self.dispatcher = self._make_dispatcher()
         analytics = self._analytics
-        if self.engine.fused_tap and analytics is not None:
+        fused_tap = getattr(self.engine, "fused_tap", False)
+        if fused_tap and analytics is not None:
             # the bucket engine taps in its step: its device tap goes
             # straight to the analytics, set once before serving
             self.engine.tap_sink = analytics.tap_device
@@ -360,6 +368,10 @@ class V1Instance:
         tier_cold = os.environ.get("GUBER_TIER_COLD")
         if (tier_cold == "1" if tier_cold is not None
                 else config.tier_cold):
+            if not self._row_engine():
+                raise ValueError(
+                    f"the cold tier needs an engine with row operations; "
+                    f"{type(self.engine).__name__} has none")
             from .tiering import TierController
 
             thr = int(os.environ.get("GUBER_TIER_PROMOTE")
@@ -374,8 +386,7 @@ class V1Instance:
                 # an engine tapping in its step leaves out the cold rows,
                 # which ride its waves invalid: the tier feeds them
                 tap=(analytics.tap_packed
-                     if self.engine.fused_tap and analytics is not None
-                     else None),
+                     if fused_tap and analytics is not None else None),
                 rank_batch=(analytics.sketch_counts
                             if analytics is not None else None))
         self._enroll_memledger()
@@ -471,7 +482,9 @@ class V1Instance:
         """A dispatcher over this instance's engine, lock, registry,
         recorder and faultpoints; the GUBER_* dispatcher knobs are read
         now."""
-        d = Dispatcher(self.engine, max_wave=self.engine.wave_buckets[-1],
+        buckets = getattr(self.engine, "wave_buckets", None)
+        kw = {"max_wave": buckets[-1]} if buckets else {}
+        d = Dispatcher(self.engine, **kw,
                        lock=self._engine_mu, metrics=self.metrics,
                        recorder=self.recorder, faults=self.faults,
                        analytics=self._analytics)
@@ -1048,6 +1061,7 @@ class V1Instance:
         # the hot set
         mesh_on = membership is None and bool(mesh_served)
         hot_on = (membership is None and self.config.hot_set_capacity > 0
+                  and self._row_engine()
                   and self._global_mode != "mesh")
         # a batch that may send a GLOBAL key to the table holds the
         # promotion gate from routing through its step: a pin then
@@ -1081,22 +1095,23 @@ class V1Instance:
                             _req_stamped(req, now))
                 else:
                     owner = rpick.get(req.key)
+                    # beside the gate, a row's membership owner tells
+                    # whether the gate rehomed it
+                    mowner = (membership.get(req.key) if gate_active
+                              else owner)
                     if not self.is_self(owner):
-                        fwd.append((i, owner, req))
+                        fwd.append((i, owner, req, mowner is not owner))
                         continue
                     local_idx.append(i)
-                    if gate_active and not int(req.behavior) & EXCL:
-                        mowner = membership.get(req.key)
-                        if not self.is_self(mowner):
-                            deg_local.append(
-                                (i, mowner.info.grpc_address))
+                    if (gate_active and not int(req.behavior) & EXCL
+                            and not self.is_self(mowner)):
+                        deg_local.append((i, mowner.info.grpc_address))
                     # the local region's owner replicates to the others
                     if int(req.behavior) & MULTI_REGION:
                         self._ensure_mr_manager().queue_hits(
                             _req_stamped(req, now))
             # forwards first, so their RPCs overlap the device step
-            futures = [(i, self._forward_one(peer, req, now),
-                        peer.info.grpc_address, req) for i, peer, req in fwd]
+            futures = self._forward_rows(fwd, now)
             over = 0
             if meshl:
                 m_reqs = [reqs[i] for i, _ in meshl]
@@ -1254,30 +1269,67 @@ class V1Instance:
         resp.metadata["degraded"] = "true"
         resp.metadata["degraded_peer"] = addr
 
-    @staticmethod
-    def _forward_one(peer: PeerClient, req: RateLimitRequest,
-                     now: int) -> Future:
-        """A future of ``req``'s answer from its owner: stamped with this
-        daemon's clock (first hop wins), NO_BATCHING in a typed RPC of
-        its own on a thread, the rest through the batching lane."""
-        if not req.created_at and created_at_fwd_enabled():
-            req = replace(req, created_at=now)
-        f: Future = Future()
-        if int(req.behavior) & int(Behavior.NO_BATCHING):
-            def go():
-                try:
-                    f.set_result(peer.get_peer_rate_limit(req))
-                except Exception as e:  # noqa: BLE001 - to the caller
-                    f.set_exception(e)
+    def _forward_rows(self, fwd, now: int) -> list:
+        """The object lane's forwards, ``fwd`` = [(request index, owner,
+        request, whether this daemon's gate rehomed it)]: [(request
+        index, future of its answer, owner address, request)].  An
+        owner's batched rows ride one entry of its forward lane (its
+        rehome lane for the rehomed rows: a key's rows are all or none),
+        in the batch's order, so the owner applies a key's rows as the
+        caller sent them (JAX forwards one entry a row, and two of one
+        key may ride concurrent flushes in either order: ROADMAP §C.2);
+        NO_BATCHING rows go one RPC each."""
+        out, groups = [], {}
+        for i, peer, req, rehomed in fwd:
+            addr = peer.info.grpc_address
+            if int(req.behavior) & int(Behavior.NO_BATCHING):
+                out.append((i, self._forward_one(peer, req, now, rehomed),
+                            addr, req))
+            else:
+                groups.setdefault((addr, rehomed), (peer, []))[1].append(
+                    (i, req))
+        for (addr, rehomed), (peer, rows) in groups.items():
+            sent = [_req_stamped(req, now) for _, req in rows]
+            try:
+                whole = peer.enqueue_many(sent, rehomed=rehomed)
+            except Exception as e:  # noqa: BLE001 - circuit open, closing
+                whole = Future()
+                whole.set_exception(e)
+            parts = [Future() for _ in rows]
 
-            threading.Thread(target=go, daemon=True,
-                             name="peer-forward-nobatch").start()
-            return f
-        try:
-            return peer.enqueue(req)
-        except Exception as e:  # noqa: BLE001 - circuit open, closing
-            f.set_exception(e)
-            return f
+            def split(f: Future, parts=parts) -> None:
+                try:
+                    for part, resp in zip(parts, f.result()):
+                        part.set_result(resp)
+                except Exception as e:  # noqa: BLE001 - every row's error
+                    for part in parts:
+                        part.set_exception(e)
+
+            whole.add_done_callback(split)
+            out.extend((i, part, addr, req)
+                       for (i, req), part in zip(rows, parts))
+        return out
+
+    @staticmethod
+    def _forward_one(peer: PeerClient, req: RateLimitRequest, now: int,
+                     rehomed: bool = False) -> Future:
+        """A future of a NO_BATCHING ``req``'s answer from its owner,
+        stamped with this daemon's clock (first hop wins), in a typed RPC
+        of its own on a thread (marked when this daemon's gate
+        ``rehomed`` it)."""
+        req = _req_stamped(req, now)
+        f: Future = Future()
+
+        def go():
+            try:
+                f.set_result(peer.get_peer_rate_limit(req,
+                                                      rehomed=rehomed))
+            except Exception as e:  # noqa: BLE001 - to the caller
+                f.set_exception(e)
+
+        threading.Thread(target=go, daemon=True,
+                         name="peer-forward-nobatch").start()
+        return f
 
     def _maybe_sweep(self, now: int) -> None:
         iv = self.config.sweep_interval_ms
@@ -1448,8 +1500,25 @@ class V1Instance:
     # ---- the mesh-resident GLOBAL tier (meshglobal.py) ------------------
 
     def _mesh_mode(self) -> bool:
-        """Whether the mesh reconcile backend is selected."""
-        return self._global_mode == "mesh"
+        """Whether the mesh reconcile backend is selected, on an engine
+        with a mesh (an injected engine may have none: JAX's rule)."""
+        return (self._global_mode == "mesh"
+                and getattr(self.engine, "mesh", None) is not None)
+
+    def _row_engine(self) -> bool:
+        """Whether the engine has the row interface (gather / upsert /
+        remove) that the hot set, the cold tier and the GLOBAL replicas
+        read and write: the port's engines do, an injected list engine
+        (oracle.OracleEngine) does not."""
+        return hasattr(self.engine, "gather_rows")
+
+    def _require_packed(self) -> None:
+        """The wire lanes step packed columns: an engine without
+        ``check_packed`` (an injected list engine) cannot serve them."""
+        if not hasattr(self.engine, "check_packed"):
+            raise NotImplementedError(
+                f"the wire lanes need an engine with a packed interface; "
+                f"{type(self.engine).__name__} has none")
 
     def _mesh_routable(self) -> bool:
         """Mesh routing serves a daemon alone (the hot set's rule: no
@@ -1927,6 +1996,7 @@ class V1Instance:
         lane.  Raises ResourceExhausted when admission control sheds
         the batch."""
         self._fault_point("wire_ingest")
+        self._require_packed()
         data = bytes(data) if not isinstance(data, bytes) else data
         if self.store is not None:
             # every answer passes the Store: the object path
@@ -2274,16 +2344,24 @@ class V1Instance:
         local_mask = np.isin(owners, self_pi)
         # rows rehomed here by an ejection serve DEGRADED: answered
         # locally, flagged, their hits queued to the membership owner
-        deg_mask = _NO_ROWS
+        deg_mask = rehomed = _NO_ROWS
         m_owners = m_peers = None
-        if picker is not membership and \
-                self.config.behaviors.peer_degraded_fallback:
+        if picker is not membership:
             m_peers = membership.owner_peers()
             m_owners = membership.owner_indices(raw)
-            m_self = [pi for pi, p in enumerate(m_peers) if self.is_self(p)]
-            deg_mask = (local_mask & ~np.isin(m_owners, m_self)
-                        & ((parsed["behavior"]
-                            & int(self._DEGRADED_EXCLUDED)) == 0))
+            # a forwarded row whose routing owner is not its membership
+            # owner was rehomed by this daemon's gate: its owner is told
+            r_at = {p.info.grpc_address: pi
+                    for pi, p in enumerate(peer_list)}
+            m_to_r = np.array([r_at.get(p.info.grpc_address, -1)
+                               for p in m_peers], np.int64)
+            rehomed = m_to_r[m_owners] != owners
+            if self.config.behaviors.peer_degraded_fallback:
+                m_self = [pi for pi, p in enumerate(m_peers)
+                          if self.is_self(p)]
+                deg_mask = (local_mask & ~np.isin(m_owners, m_self)
+                            & ((parsed["behavior"]
+                                & int(self._DEGRADED_EXCLUDED)) == 0))
         if parsed["behavior_or"] & int(Behavior.GLOBAL):
             glob_mask = (parsed["behavior"] & int(Behavior.GLOBAL)) != 0
         else:
@@ -2300,8 +2378,18 @@ class V1Instance:
                 deg_mask = deg_mask & ~glob_mask
         item_tlvs: List[Optional[bytes]] = [None] * n
         groups = []
+        fwd_groups = []
         for pi in np.unique(owners[~local_mask]):
-            idxs = np.nonzero((owners == pi) & ~local_mask)[0]
+            sel = (owners == pi) & ~local_mask
+            if rehomed.size:
+                fwd_groups.append((pi, sel & ~rehomed, False))
+                fwd_groups.append((pi, sel & rehomed, True))
+            else:
+                fwd_groups.append((pi, sel, False))
+        for pi, sel, marked in fwd_groups:
+            idxs = np.nonzero(sel)[0]
+            if not idxs.size:
+                continue
             if created_at_fwd_enabled():
                 sub = wire_native.stamp_req_tlvs(
                     data, toff[idxs], tlen[idxs], created[idxs], now)
@@ -2311,7 +2399,7 @@ class V1Instance:
             peer = peer_list[int(pi)]
             fut = send_err = None
             try:
-                fut = peer.forward_raw(sub, int(idxs.size))
+                fut = peer.forward_raw(sub, int(idxs.size), rehomed=marked)
             except Exception as e:  # noqa: BLE001 - circuit open, closing
                 send_err = e
             groups.append((idxs, fut, send_err, peer.info.grpc_address))
@@ -2488,24 +2576,28 @@ class V1Instance:
         return served
 
     def _peer_degraded_rewrite(self, parsed: dict, data: bytes, out: bytes,
-                               stamp_ms: Optional[int] = None) -> bytes:
+                               stamp_ms: Optional[int] = None,
+                               rehomed: bool = False) -> bytes:
         """The owner side of a rehome: a forwarded row whose MEMBERSHIP
-        owner this daemon's gate has ejected was routed here by another
-        daemon's gated ring.  Its local apply (done by the caller) is a
-        degraded serve: its response is flagged and its hits queued to
-        the true owner, or they would be absorbed into this shard.  Runs
-        only while the gate has ejected peers."""
+        owner this daemon's gate has ejected, or any row of another
+        daemon's in a batch the sender marked ``rehomed``, was routed
+        here by the sender's gated ring.  Its local apply (done by the
+        caller) is a degraded serve: its response is flagged and its
+        hits queued to the true owner, or they would be absorbed into
+        this shard.  Runs only while the gate has ejected peers or on a
+        marked batch."""
         from .proto import gubernator_pb2 as pb
 
         bad = self._gate_bad  # lock-free: one frozenset read
         with self._peer_mu:
             mpick = self._picker
-        if not bad or not mpick.peers() or not self._uses_default_hash(
-                mpick):
+        if (not bad and not rehomed) or not mpick.peers() or \
+                not self._uses_default_hash(mpick):
             return out
         peers_l = mpick.owner_peers()
         bad_pi = [pi for pi, p in enumerate(peers_l)
-                  if p.info.grpc_address in bad]
+                  if not self.is_self(p)
+                  and (rehomed or p.info.grpc_address in bad)]
         if not bad_pi:
             return out
         owners = mpick.owner_indices(mix64_np(parsed["khash_raw"]))
@@ -2543,13 +2635,14 @@ class V1Instance:
                                 khash=int(kh0) or 1, rehomed=True)
         return b"".join(items)
 
-    def _peer_degraded_objects(self, reqs, resps, now: int) -> None:
+    def _peer_degraded_objects(self, reqs, resps, now: int,
+                               rehomed: bool = False) -> None:
         """``_peer_degraded_rewrite`` for a forwarded batch of request
         objects (the protobuf lane)."""
         bad = self._gate_bad  # lock-free: one frozenset read
         with self._peer_mu:
             mpick = self._picker
-        if not bad or not mpick.peers():
+        if (not bad and not rehomed) or not mpick.peers():
             return
         excl = int(self._DEGRADED_EXCLUDED | Behavior.GLOBAL)
         for req, resp in zip(reqs, resps):
@@ -2557,7 +2650,7 @@ class V1Instance:
                 continue
             owner = mpick.get(req.key)
             addr = owner.info.grpc_address
-            if addr not in bad or self.is_self(owner):
+            if self.is_self(owner) or (not rehomed and addr not in bad):
                 continue
             self._flag_degraded(resp, addr)
             self._ensure_global_manager().queue_hits(
@@ -2614,11 +2707,13 @@ class V1Instance:
     # ---- the peer service (owner side) ----------------------------------
 
     def get_peer_rate_limits(self, reqs: Sequence[RateLimitRequest],
-                             now_ms: Optional[int] = None
+                             now_ms: Optional[int] = None,
+                             rehomed: bool = False
                              ) -> List[RateLimitResponse]:
         """Apply a forwarded batch locally (gubernator.go ›
         GetPeerRateLimits); GLOBAL keys are marked for the next
-        broadcast, and MULTI_REGION hits queue for the other regions."""
+        broadcast, and MULTI_REGION hits queue for the other regions.
+        ``rehomed``: the sender's gate rehomed these rows here."""
         if len(reqs) > self.config.behaviors.batch_limit:
             raise ValueError(
                 "'PeerRequest.rate_limits' list too large; max size is "
@@ -2637,29 +2732,35 @@ class V1Instance:
             if int(req.behavior) & int(Behavior.MULTI_REGION):
                 # this daemon is the region's owner of the forwarded key
                 self._ensure_mr_manager().queue_hits(_req_stamped(req, now))
-        # rows whose membership owner this daemon's gate has ejected
-        # were rehomed here: flagged, their hits reconciled
-        if self._gate_bad and self.config.behaviors.peer_degraded_fallback:
-            self._peer_degraded_objects(reqs, resps, now)
+        # rows whose membership owner this daemon's gate has ejected, or
+        # that the sender's gate rehomed, were rehomed here: flagged,
+        # their hits reconciled
+        if (self._gate_bad or rehomed) and \
+                self.config.behaviors.peer_degraded_fallback:
+            self._peer_degraded_objects(reqs, resps, now, rehomed)
         self._after_local(reqs, resps)
         return resps
 
     def get_peer_rate_limits_wire(self, data: bytes,
-                                  now_ms: Optional[int] = None) -> bytes:
+                                  now_ms: Optional[int] = None,
+                                  rehomed: bool = False) -> bytes:
         """GetPeerRateLimits wire bytes in and out: the owner side of the
         forward hop (its items are field 1, as in GetRateLimitsReq, so
         the C++ lanes apply as they are).  Forwarded rows always apply
         locally; GLOBAL rows mark their keys for the next broadcast and
         MULTI_REGION rows queue their hits for the other regions, after
-        the step.  While the health gate has ejected peers, rows
-        whose membership owner is ejected were rehomed here and serve
-        degraded (the parse lane; the fused lane is skipped then)."""
+        the step.  While the health gate has ejected peers, rows whose
+        membership owner is ejected were rehomed here, and so were the
+        rows of a batch the sender marked ``rehomed`` (its gate ejected
+        their owner): they serve degraded (the parse lane; the fused
+        lane is skipped then)."""
         self._fault_point("wire_ingest")
+        self._require_packed()
         data = bytes(data) if not isinstance(data, bytes) else data
         if self.store is not None:
-            return self._wire_peer_pb2(data, now_ms)
+            return self._wire_peer_pb2(data, now_ms, rehomed)
         # one attribute read in the steady state
-        gate_rehome = (bool(self._gate_bad)
+        gate_rehome = ((rehomed or bool(self._gate_bad))
                        and self.config.behaviors.peer_degraded_fallback)
         if not gate_rehome:
             out = self._wire_peer_fused(data, now_ms)
@@ -2667,7 +2768,7 @@ class V1Instance:
                 return out
         parsed = wire_native.parse_get_rate_limits(data)
         if parsed is None:
-            return self._wire_peer_pb2(data, now_ms)
+            return self._wire_peer_pb2(data, now_ms, rehomed)
         if parsed["n"] > self.config.behaviors.batch_limit:
             raise ValueError(
                 "'PeerRequest.rate_limits' list too large; max size is "
@@ -2688,7 +2789,7 @@ class V1Instance:
             self._queue_mr_raw(parsed, data, mr, stamp_ms=now)
         if gate_rehome:
             out = self._peer_degraded_rewrite(parsed, data, out,
-                                              stamp_ms=now)
+                                              stamp_ms=now, rehomed=rehomed)
         return out
 
     def _wire_peer_fused(self, data: bytes,
@@ -2714,7 +2815,8 @@ class V1Instance:
         self.metrics.getratelimit_counter.labels(calltype="peer").inc(n)
         self.metrics.wire_lane_counter.labels(lane="peer_wire").inc(n)
 
-    def _wire_peer_pb2(self, data: bytes, now_ms: Optional[int]) -> bytes:
+    def _wire_peer_pb2(self, data: bytes, now_ms: Optional[int],
+                       rehomed: bool = False) -> bytes:
         """The protobuf lane of a forwarded batch."""
         from google.protobuf.message import DecodeError
 
@@ -2728,7 +2830,8 @@ class V1Instance:
         self.metrics.wire_lane_counter.labels(
             lane="peer_pb2_fallback").inc(len(msg.requests))
         resps = self.get_peer_rate_limits(
-            [req_from_pb(m) for m in msg.requests], now_ms=now_ms)
+            [req_from_pb(m) for m in msg.requests], now_ms=now_ms,
+            rehomed=rehomed)
         out = peers_pb.GetPeerRateLimitsResp()
         out.rate_limits.extend(resp_to_pb(r) for r in resps)
         return out.SerializeToString()
@@ -2850,8 +2953,11 @@ class V1Instance:
         led = self.memledger
         if led is None:
             return
-        led.enroll("hot_table", self._probe_hot_table, advisable=True)
-        led.enroll("wave_pool", self._probe_wave_pool, host=True)
+        # an injected engine enrols what it holds (JAX's guards)
+        if hasattr(self.engine, "table_tensors"):
+            led.enroll("hot_table", self._probe_hot_table, advisable=True)
+        if hasattr(self.engine, "wave_pool"):
+            led.enroll("wave_pool", self._probe_wave_pool, host=True)
         if self._analytics is not None:
             led.enroll("sketch", self._probe_sketch, host=True)
         if self._tier is not None:

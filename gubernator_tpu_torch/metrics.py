@@ -11,10 +11,11 @@ waves, stall watchdog and pipeline, the wave pool, admission and drain,
 the peer lanes and circuit, forwards, GLOBAL queue and broadcasts,
 degraded serves, the health-gated ring, fault injection, the
 heavy-hitter analytics, the cold tier, tenants, the SLO engine, the
-fleet audit, the memory ledger).  The JAX families of subsystems not
-ported yet (fused Pallas counters, compile ledger, scenarios,
-mesh-GLOBAL) are not registered; ROADMAP lists them beside their
-subsystems.
+fleet audit, the memory ledger, the mesh-GLOBAL tier, the scenario
+lab).  The JAX families of subsystems the port has no counterpart of
+(the fused Pallas wave counter, the compile ledger) are not registered;
+ROADMAP gives the reasons.  The scenario lab's help text leaves out
+the tag of the JAX project's change log that ends JAX's.
 """
 from __future__ import annotations
 
@@ -80,6 +81,11 @@ class Metrics:
             "gubernator_hotset_demotions",
             "hot-set pinned keys demoted back to the sharded path",
             ["reason"], registry=r)
+        # ---- the scenario lab (scenarios.py) ----
+        self.scenario_runs = Counter(
+            "gubernator_scenario_runs",
+            "scenario-lab runs by verdict (scenarios.py)",
+            ["verdict"], registry=r)
         # ---- dispatcher waves, watchdog, pipeline ----
         self.wave_size = Histogram(
             "gubernator_dispatcher_wave_size",

@@ -12,6 +12,13 @@ backoff; after ``peer_circuit_threshold`` consecutive final failures the
 peer's circuit opens and sends fail fast until the cooldown ends and one
 flush half-opens it.
 
+Rows that a sender's health gate rehomed (sent to a ring successor
+because their membership owner is ejected) ride a lane of their own,
+whose RPCs carry the ``gubernator-rehomed`` metadata key: the receiver
+serves exactly those rows degraded (``is_rehomed``), and an ordinary
+forward, a stale-ring one during a reshard included, stays a plain
+apply.
+
 Object-lane forwards (``enqueue``) serialize to a TLV at once and ride
 the same lane; GLOBAL hit flushes and owner broadcasts ride it too
 (global_manager.py).  The JAX package keeps a legacy object-batching
@@ -56,6 +63,18 @@ from .wire import req_to_pb, req_to_tlv, resp_from_pb
 
 log = logging.getLogger("gubernator_tpu_torch.peer")
 
+#: the metadata key of a forward RPC whose rows the sender rehomed
+REHOMED_KEY = "gubernator-rehomed"
+
+
+def is_rehomed(context) -> bool:
+    """Whether a GetPeerRateLimits call's rows were rehomed by the
+    sender's health gate (its metadata carries ``REHOMED_KEY``)."""
+    try:
+        return any(k == REHOMED_KEY for k, _ in context.invocation_metadata())
+    except Exception:  # noqa: BLE001 - no metadata: a plain forward
+        return False
+
 
 class ErrClosing(Exception):
     """A send that arrives while the client drains
@@ -88,12 +107,15 @@ class _SendLane:
     """Pooled send buffer + depth-K pipelined raw RPCs to one peer
     method.  ``split`` lanes (GetPeerRateLimits) resolve each entry with
     its response-TLV slice; the others (UpdatePeerGlobals) with the raw
-    response bytes."""
+    response bytes.  Every RPC carries ``metadata`` (and its first
+    traced entry's traceparent)."""
 
     def __init__(self, client: "PeerClient", method: str,
-                 max_items: int, rpc_timeout_s: float, split: bool):
+                 max_items: int, rpc_timeout_s: float, split: bool,
+                 metadata: tuple = ()):
         self.client = client
         self.method = method
+        self.metadata = tuple(metadata)
         self.max_items = max(int(max_items), 1)
         self.rpc_timeout_s = rpc_timeout_s
         self.split = split
@@ -237,9 +259,9 @@ class _SendLane:
             # a faulted send takes the path of a real dial failure
             client._fault("peer_send")
             tp = next((e.trace for e in entries if e.trace), None)
+            md = self.metadata + ((("traceparent", tp),) if tp else ())
             rpc = client._raw_call(self.method).future(
-                data, timeout=self.rpc_timeout_s,
-                metadata=[("traceparent", tp)] if tp else None)
+                data, timeout=self.rpc_timeout_s, metadata=md or None)
         except Exception as e:  # noqa: BLE001 - incl. a closed channel
             self._on_done(None, entries, data, attempt, t0, err=e)
             return
@@ -413,6 +435,11 @@ class PeerClient:
         self._forward_lane = _SendLane(
             self, "GetPeerRateLimits", behaviors.batch_limit,
             behaviors.batch_timeout_ms / 1000.0 + 60.0, split=True)
+        # rows this daemon's gate rehomed to this peer: marked RPCs
+        self._rehome_lane = _SendLane(
+            self, "GetPeerRateLimits", behaviors.batch_limit,
+            behaviors.batch_timeout_ms / 1000.0 + 60.0, split=True,
+            metadata=((REHOMED_KEY, "1"),))
         self._globals_lane = _SendLane(
             self, "UpdatePeerGlobals", behaviors.global_batch_limit,
             behaviors.global_timeout_ms / 1000.0, split=False)
@@ -548,36 +575,51 @@ class PeerClient:
         with self._lock:
             single = self.single_calls
         return {"circuit": circ, "forward": self._forward_lane.stats(),
+                "rehome": self._rehome_lane.stats(),
                 "globals": self._globals_lane.stats(),
                 "single_calls": single}
 
     # ---- forwarded checks ----------------------------------------------
 
     def get_peer_rate_limit(self, req: RateLimitRequest,
-                            timeout_s: Optional[float] = None
-                            ) -> RateLimitResponse:
+                            timeout_s: Optional[float] = None,
+                            rehomed: bool = False) -> RateLimitResponse:
         """Forward one request to its owner: one RPC of its own for
-        NO_BATCHING, else through the batching lane."""
+        NO_BATCHING, else through the batching lane (marked when this
+        daemon's gate ``rehomed`` it)."""
         if self._closing.is_set():
             raise ErrClosing("peer client is closing")
         if int(req.behavior) & int(Behavior.NO_BATCHING):
-            return self.get_peer_rate_limits([req])[0]
+            return self.get_peer_rate_limits([req], rehomed=rehomed)[0]
         if timeout_s is None:
             timeout_s = (self.behaviors.batch_timeout_ms
                          + self.behaviors.batch_wait_ms) / 1000.0 + 30.0
-        return self.enqueue(req).result(timeout=timeout_s)
+        return self.enqueue_many([req], pick=0, rehomed=rehomed).result(
+            timeout=timeout_s)
 
     def enqueue(self, req: RateLimitRequest) -> Future:
         """Queue one request for the next flush of the forward lane (its
         TLV is made now; ``created_at`` rides as field 10); the future
         resolves to its RateLimitResponse."""
+        return self.enqueue_many([req], pick=0)
+
+    def enqueue_many(self, reqs: Sequence[RateLimitRequest],
+                     pick: Optional[int] = None,
+                     rehomed: bool = False) -> Future:
+        """Queue ``reqs`` as one entry of the next flush of the forward
+        lane (the rehome lane when this daemon's gate ``rehomed`` them):
+        contiguous in one RPC, so the owner applies them in their order
+        (a caller batch's rows of one key among them); the future
+        resolves to their RateLimitResponses (to the ``pick``-th alone
+        when given)."""
         if self._closing.is_set():
             raise ErrClosing("peer client is closing")
-        inner = self._forward_lane.enqueue(
-            req_to_tlv(req), 1,
+        lane = self._rehome_lane if rehomed else self._forward_lane
+        inner = lane.enqueue(
+            b"".join(req_to_tlv(r) for r in reqs), len(reqs),
             hop_traceparent("peer.forward",
                             attrs={"peer": self.info.grpc_address,
-                                   "items": 1}))
+                                   "items": len(reqs)}))
         outer: Future = Future()
 
         def convert(f: Future) -> None:
@@ -585,25 +627,32 @@ class PeerClient:
                 from .proto import gubernator_pb2 as pb
 
                 msg = pb.GetRateLimitsResp.FromString(f.result())
-                outer.set_result(resp_from_pb(msg.responses[0]))
+                if pick is not None:
+                    outer.set_result(resp_from_pb(msg.responses[pick]))
+                else:
+                    outer.set_result([resp_from_pb(m)
+                                      for m in msg.responses])
             except Exception as e:  # noqa: BLE001 - the caller's error
                 outer.set_exception(e)
 
         inner.add_done_callback(convert)
         return outer
 
-    def forward_raw(self, data: bytes, n_items: int) -> Future:
+    def forward_raw(self, data: bytes, n_items: int,
+                    rehomed: bool = False) -> Future:
         """The columnar forward hop: ``data`` is ``n_items`` request TLV
         slices (GetRateLimitsReq.requests framing, which is also
         GetPeerRateLimitsReq's).  The future resolves to this call's
         contiguous slice of response TLVs (exactly ``n_items``, counted).
-        Concurrent callers forwarding to one peer share flush RPCs.
-        Raises ErrClosing / ErrCircuitOpen.  The caller's trace rides
-        the flush: a hop span is recorded here whose id the owner's
-        handler parents under (``hop_traceparent``)."""
+        Concurrent callers forwarding to one peer share flush RPCs; rows
+        this daemon's gate ``rehomed`` ride the rehome lane's.  Raises
+        ErrClosing / ErrCircuitOpen.  The caller's trace rides the
+        flush: a hop span is recorded here whose id the owner's handler
+        parents under (``hop_traceparent``)."""
         if self._closing.is_set():
             raise ErrClosing("peer client is closing")
-        return self._forward_lane.enqueue(
+        lane = self._rehome_lane if rehomed else self._forward_lane
+        return lane.enqueue(
             data, n_items,
             hop_traceparent("peer.forward",
                             attrs={"peer": self.info.grpc_address,
@@ -624,11 +673,13 @@ class PeerClient:
                                    "lane": "globals"}))
 
     def get_peer_rate_limits(self, reqs: Sequence[RateLimitRequest],
-                             timeout_s: Optional[float] = None
+                             timeout_s: Optional[float] = None,
+                             rehomed: bool = False
                              ) -> List[RateLimitResponse]:
         """One synchronous typed batch call (peers.proto ›
-        GetPeerRateLimits); the generated classes carry no
-        ``created_at``, so the owner applies these at its own clock."""
+        GetPeerRateLimits), marked when this daemon's gate ``rehomed``
+        the rows; the generated classes carry no ``created_at``, so the
+        owner applies these at its own clock."""
         from .proto import peers_pb2 as peers_pb
 
         stub = self._ensure_stub()
@@ -638,8 +689,9 @@ class PeerClient:
             timeout_s = self.behaviors.batch_timeout_ms / 1000.0 + 60.0
         with self._lock:
             self.single_calls += 1
-        resp = stub.GetPeerRateLimits(msg, timeout=timeout_s,
-                                      metadata=outbound_metadata())
+        resp = stub.GetPeerRateLimits(
+            msg, timeout=timeout_s, metadata=outbound_metadata(
+                ((REHOMED_KEY, "1"),) if rehomed else ()))
         return [resp_from_pb(m) for m in resp.rate_limits]
 
     def update_peer_globals(self, updates) -> None:
@@ -660,7 +712,8 @@ class PeerClient:
         (peer_client.go › shutdown)."""
         self._closing.set()
         lane_timeout = self.behaviors.batch_timeout_ms / 1000.0 + 5
-        for lane in (self._forward_lane, self._globals_lane):
+        for lane in (self._forward_lane, self._rehome_lane,
+                     self._globals_lane):
             lane.close(lane_timeout)
         with self._lock:
             if self._channel is not None:

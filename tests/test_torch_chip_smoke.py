@@ -1,9 +1,10 @@
-"""chip_smoke.py's phases 4, 5, 6, 7, its cluster and tiers phases, and
-chip_ab.py's threshold sweep and K2 section, rehearsed on the CPU at a
-small size: the plain versions stand
-in for K1 and K2 and the host clock for CUDA events, so the phases'
-wave making, table fill, checks, timing set-up and bookkeeping run here
+"""chip_smoke.py's phases 4, 5, 6, 7, its cluster, tiers, cli and
+scenarios phases, and chip_ab.py's threshold sweep and K2 section,
+rehearsed on the CPU at a small size: the plain versions stand in for
+K1 and K2 and the host clock for CUDA events, so the phases' wave
+making, table fill, checks, timing set-up and bookkeeping run here
 before they run on the card."""
+import os
 import time
 import types
 
@@ -403,6 +404,10 @@ def test_cluster_phase_rehearses_on_the_cpu(path_rehearsal, monkeypatch):
         chip_smoke.CLUSTER_TRACES
     assert res["audit"]["fold"]["conserved"] and \
         res["audit"]["drift"] == [0, 0, 0]
+    # the port's CLI folds the three daemons' /healthz and /debug/audit
+    fl = res["audit"]["fleet_cli"]
+    assert (fl["status_rc"], fl["audit_rc"], fl["drift"]) == (0, 0, 0)
+    assert fl["daemons"] == fl["healthy"] == 3 and fl["ring_consistent"]
     assert {"broadcast", "peer_flush"} <= set(res["costmodel"]["phases"])
     assert out["tenant_degraded"] == out["degraded_served"]
     assert all(out["forced_traces_degraded_window"])
@@ -899,12 +904,56 @@ def test_shards_mesh_and_multihost_phases_rehearse_on_the_cpu(
     assert mh["inserted"] == 4 * 1024 and mh["backend"] == "gloo"
 
 
+def test_cli_phase_rehearses_on_the_cpu(path_rehearsal, monkeypatch):
+    """The cli phase at a small size: a daemon process on the CPU (2^13
+    rows), the load tester over gRPC and over HTTP for 1.5 s each, its
+    counts equal to the daemon's /metrics deltas, every debug
+    subcommand exiting 0.  The daemon process steps through the plain
+    version, which counts no K1 launch."""
+    for name, v in (("CLI_KEYS", 2_000), ("CLI_SECONDS", 1.5),
+                    ("CLI_CONCURRENCY", 2), ("CLI_BATCH", 100)):
+        monkeypatch.setattr(chip_smoke, name, v)
+    res = chip_smoke.phase_cli(torch, path_rehearsal)
+    assert res["rows"] == 1 << path_rehearsal.log2_cap
+    for t in ("grpc", "http"):
+        r = res[t]
+        assert r["errors"] == [] and r["decisions"] > 0
+        assert r["decisions"] == r["daemon_api_requests"]
+        assert r["over_limit"] == r["daemon_over_limit"] > 0
+        assert (r["batch"], r["concurrency"]) == (100, 2)
+    assert res["launches"] == 0
+    assert set(res["debug"]) == {"events", "spans", "topkeys", "tenants",
+                                 "slos", "memory_device_bytes",
+                                 "faults_armed"}
+    assert res["debug"]["events"] > 0 and res["debug"]["topkeys"] > 0
+
+
+def test_scenarios_phase_rehearses_on_the_cpu(path_rehearsal):
+    """The whole library through the port's runner on the CPU in full
+    mode, as on the card: every scenario ok, each parity digest its
+    reference's, the runs counted once each, the mesh stack on two CPU
+    entries, K1's stand-in launched."""
+    res = chip_smoke.phase_scenarios(torch, path_rehearsal)
+    assert res["all_ok"]
+    assert res["count"] == len([f for f in os.listdir(os.path.join(
+        chip_smoke.REPO, "scenarios")) if f.endswith(".json")])
+    assert res["launches"] > 0
+    rows = res["scenarios"]
+    assert rows["mesh_global"]["mesh_devices"] == ["cpu", "cpu"]
+    parity = [r for r in rows.values() if r["reference_digest"]]
+    assert len(parity) == 5
+    assert all(r["digest"] == r["reference_digest"] for r in parity)
+    assert all(r["runs_ok_counted"] == 1 for r in rows.values())
+
+
 def test_only_lists_the_new_phases_and_the_last_line_is_unchanged():
     import inspect
 
     src = inspect.getsource(chip_smoke.main)
-    for p in ("shards", "mesh", "multihost"):
+    for p in ("shards", "mesh", "multihost", "cli", "scenarios"):
         assert f'"{p}": phase_{p}' in src
+    assert '"cli_launches": cli["launches"]' in src
+    assert '"scenarios_launches": scen["launches"]' in src
     assert ('print(json.dumps({"ok": True, "device": {\n'
             '        "platform": "gpu", "kind": name,\n'
             '        "count": torch.cuda.device_count()}}), flush=True)'

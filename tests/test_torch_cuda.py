@@ -723,3 +723,24 @@ def test_mesh_mode_fused_lane_on_the_card_equals_the_cpu(cuda, monkeypatch):
     finally:
         for i in insts:
             i.close()
+
+
+@pytest.mark.gpu
+def test_object_stack_scenario_holds_k1_to_the_oracle(cuda):
+    """The scenario lab's object stack on the card: a library spec's
+    decision stream through K1 equals, byte for byte, the stream of its
+    parity oracle's reference lane (the OracleEngine on the host)."""
+    from pathlib import Path
+
+    from gubernator_tpu_torch import scenarios as scn
+
+    spec = scn.load_spec(str(Path(__file__).resolve().parents[1]
+                             / "scenarios" / "baseline_zipf_drift.json"))
+    assert spec.stack == "object" and "parity" in spec.oracles
+    before = dmod.decide_cuda.launches
+    row = scn.ScenarioRunner(spec, device="cuda").run()
+    assert row["ok"], row
+    assert row["oracles"]["parity"]["ok"]
+    assert row["oracles"]["parity"]["reference_digest"] == \
+        row["decision_digest"]
+    assert dmod.decide_cuda.launches > before

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package (its
 wire lane, its cluster path, one daemon's lifecycle, the cluster's
 failure path, the state beyond the device table, the subprocess group,
-MULTI_REGION, the hot set, the discovery backends and TLS included), and
-its entry points default to the GPU, raising where there is none;
+MULTI_REGION, the hot set, the discovery backends, TLS, the client, the
+CLI and the scenario lab included), and its entry points default to the
+GPU, raising where there is none;
 ``cryptography`` loads only inside AutoTLS."""
 import ast
 import pkgutil
@@ -32,7 +33,8 @@ def test_importing_every_module_loads_no_jax():
               "cmd.healthcheck", "faults", "store", "tiering",
               "analytics", "multiregion", "cmd.cluster", "hotset",
               "tlsutil", "cmd.tapcost", "tracing", "slo", "memledger",
-              "fleet", "mesh", "meshglobal", "multihost"):
+              "fleet", "mesh", "meshglobal", "multihost", "oracle",
+              "client", "cmd.cli", "scenarios", "cmd.scenario_lab"):
         assert f"gubernator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -397,6 +399,52 @@ def test_mesh_and_multihost_paths_load_nothing_of_the_jax_package():
     assert r.returncode == 0, r.stdout + r.stderr[-3000:]
 
 
+def test_client_cli_and_lab_paths_load_nothing_of_the_jax_package():
+    """The last modules in a fresh process: the oracle behind an
+    injected engine, the gRPC and HTTP clients against a daemon on the
+    CPU, the CLI's debug and fleet subcommands, and one library scenario
+    through the lab on the CPU with its parity oracle: no JAX-package
+    module is loaded."""
+    code = (
+        "import contextlib, io, sys\n"
+        "from gubernator_tpu_torch import scenarios\n"
+        "from gubernator_tpu_torch.client import Client, HttpClient\n"
+        "from gubernator_tpu_torch.cmd import cli, scenario_lab\n"
+        "from gubernator_tpu_torch.config import Config, DaemonConfig\n"
+        "from gubernator_tpu_torch.daemon import spawn_daemon\n"
+        "from gubernator_tpu_torch.instance import V1Instance\n"
+        "from gubernator_tpu_torch.oracle import OracleEngine\n"
+        "from gubernator_tpu_torch.types import RateLimitRequest as R\n"
+        "inst = V1Instance(Config(device='cpu'), engine=OracleEngine())\n"
+        "assert inst.get_rate_limits([R(name='n', unique_key='k', "
+        "limit=5, duration=60000)])[0].remaining == 4\n"
+        "inst.close()\n"
+        "d = spawn_daemon(DaemonConfig(device='cpu', cache_size=4096, "
+        "grpc_listen_address='127.0.0.1:0', "
+        "http_listen_address='127.0.0.1:0'))\n"
+        "base = f'http://127.0.0.1:{d.http_port}'\n"
+        "r = R(name='n', unique_key='k', limit=5, duration=60000)\n"
+        "with Client(f'127.0.0.1:{d.grpc_port}') as c:\n"
+        "    assert c.check(r).remaining == 4\n"
+        "assert HttpClient(base).check(r).remaining == 3\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert cli.main(['debug', 'topkeys', '--url', base, "
+        "'--json']) == 0\n"
+        "    assert cli.main(['fleet', 'audit', '--url', base, "
+        "'--json']) == 0\n"
+        "    assert scenario_lab.main(['--only', 'baseline_zipf_drift', "
+        "'--fast', '--device', 'cpu']) == 0\n"
+        "d.close()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'gubernator_tpu' "
+        "or m.startswith('gubernator_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+
+
 def test_mesh_entry_points_default_to_cuda_and_raise_without_it(
         monkeypatch):
     from gubernator_tpu_torch import multihost
@@ -413,6 +461,27 @@ def test_mesh_entry_points_default_to_cuda_and_raise_without_it(
         V1Instance(Config(global_mode="mesh"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         multihost.initialize("127.0.0.1:1", 1, 0)
+
+
+def test_lab_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    """The scenario runner and the lab's CLI serve on cuda unless asked
+    for the CPU; only the parity oracle's reference lane is the host's
+    OracleEngine, and it never stands in for a stack."""
+    import inspect
+
+    from gubernator_tpu_torch import scenarios
+    from gubernator_tpu_torch.cmd import scenario_lab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = scenarios.load_library()[0]
+    assert scenarios.ScenarioRunner(spec).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        scenarios.ScenarioRunner(spec, fast=True).run(fast=True)
+    assert inspect.signature(scenarios.run_scenarios).parameters[
+        "device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        scenario_lab.main(["--only", spec.name, "--fast"])
 
 
 def _imports(path: Path):

@@ -2,9 +2,10 @@
 to the JAX package's:
 
 - every port family has a JAX namesake with the same type, help, labels
-  and buckets, under the same attribute name;
-- the JAX families the port lacks are exactly those of subsystems not
-  ported yet (listed here by subsystem);
+  and buckets, under the same attribute name (one help text, named
+  below, is worded apart);
+- the JAX families the port lacks are exactly those of the subsystems
+  it has no counterpart of (listed here by subsystem);
 - after one seeded stream through a JAX V1Instance and a port
   V1Instance on the CPU (object, fused, parse and protobuf lanes, then
   queue-full and drain sheds), the deterministic samples are equal:
@@ -31,13 +32,18 @@ from test_torch_service import caller_stream  # noqa: E402
 from test_torch_wire import (CAP, ENGINES, jax_instance, port_instance,  # noqa: E402
                              quiet_jax, wire_stream)
 
-#: JAX families of subsystems the port has not ported, by subsystem
+#: JAX families of subsystems the port has no counterpart of, by subsystem
 NOT_PORTED = {
     "fused Pallas serving's wave counter": {
         "gubernator_pallas_fused_waves"},
     "compile ledger": {"gubernator_jit_compiles"},
-    "scenario lab": {"gubernator_scenario_runs"},
 }
+
+
+#: the one family whose help the port words apart: JAX's ends its
+#: parentheses with a tag of the JAX project's own change log, which the
+#: port's files do not carry; the rest of the text is equal
+HELP_APART = {"scenario_runs"}
 
 
 def families(m):
@@ -53,9 +59,14 @@ def families(m):
 
 def test_every_port_family_has_its_jax_namesake():
     port, ref = families(Metrics()), families(JaxMetrics())
-    assert len(port) == 67
+    assert len(port) == 68
     for attr, fam in port.items():
-        assert ref.get(attr) == fam, attr
+        if attr in HELP_APART:
+            want = ref[attr]
+            assert fam[:2] + fam[3:] == want[:2] + want[3:], attr
+            assert want[2].startswith(fam[2][:-1] + ", "), attr
+        else:
+            assert ref.get(attr) == fam, attr
 
 
 def test_the_missing_families_are_the_unported_subsystems():

@@ -29,6 +29,7 @@ import pytest
 
 from gubernator_tpu import peer_client as jax_pc
 from gubernator_tpu.config import Config as JaxConfig
+from gubernator_tpu.oracle import Oracle as JaxOracle
 from gubernator_tpu.proto import gubernator_pb2 as jax_pb
 from gubernator_tpu.types import PeerInfo as JaxPeer
 from gubernator_tpu.types import RateLimitRequest as JaxReq
@@ -147,6 +148,32 @@ def drain(c):
             d.instance.global_manager = None
 
 
+def owner_expected(batches, cfg, keys, name):
+    """The owner's rows of the dead daemon's keys after the drain, by the
+    JAX package's Oracle: each key's degraded hits arrive as one request
+    of their sum stamped with its latest degraded serve's time (the
+    flush's prototype is the key's latest request), then the hits=0
+    probe at NOW + 10 s."""
+    acc, last = {}, {}
+    for b, rows in enumerate(batches):
+        for r, j, h, beh in rows:
+            if r == 2 and beh == 0:
+                acc[j] = acc.get(j, 0) + h
+                last[j] = NOW + 1_000 * b
+    oracle = JaxOracle()
+    out = []
+    for j in range(KEYS_PER_ROLE):
+        limit, duration, algo = cfg[2, j]
+        req = dict(name=name, unique_key=keys[2][j], limit=limit,
+                   duration=duration, algorithm=algo)
+        if acc.get(j, 0) > 0:
+            oracle.check(JaxReq(hits=acc[j], **req), last[j])
+        r = oracle.check(JaxReq(hits=0, **req), NOW + 10_000)
+        out.append((int(r.status), r.limit, r.remaining, r.reset_time,
+                    r.error, ()))
+    return out
+
+
 @pytest.mark.parametrize("lane", ["wire", "object"])
 def test_degraded_serves_answer_as_jax(clusters, lane):
     name = f"res_{lane}"
@@ -204,12 +231,22 @@ def test_degraded_serves_answer_as_jax(clusters, lane):
     for b, (p, j) in enumerate(zip(*got)):
         assert p == j, b
     if lane == "object":
-        # the object lane's hits flush rebuilds its TLV from the
-        # prototype's fields, so the owner applies the hits at its own
-        # clock in both packages (ROADMAP C.3): the reset times differ
-        # by the wall-clock instants of the two flushes
-        owner_rows = [[r[:3] + r[4:] for r in rows] for rows in owner_rows]
-    assert owner_rows[0] == owner_rows[1]
+        # the port's object-lane hits flush carries the prototype's
+        # created_at, as the wire lane's does, so its owner applies the
+        # hits at the callers' time base; JAX's flush rebuilds the TLV
+        # without it and applies them at the owner's wall clock
+        # (ROADMAP §C.2): the port is held to the exact owner rows, and
+        # JAX to them where no clock enters (token keys, reset aside)
+        want = owner_expected(batches, cfg, role_keys(clusters[0], name),
+                              name)
+        assert owner_rows[0] == want
+        token = [j for j in range(KEYS_PER_ROLE) if cfg[2, j][2] == 0]
+        assert token
+        assert [owner_rows[1][j][:3] + owner_rows[1][j][4:]
+                for j in token] == [want[j][:3] + want[j][4:]
+                                    for j in token]
+    else:
+        assert owner_rows[0] == owner_rows[1]
     assert counted[0] == counted[1] == sum(
         ("degraded", "true") in r[5] for r in flat)
 
