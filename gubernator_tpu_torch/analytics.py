@@ -54,6 +54,7 @@ import numpy as np
 
 from .hashing import hash_request_keys, mix64_np
 from .metrics import observe_with_exemplar
+from .tracing import device_range
 from .types import TD_BOUND, VALUE_MAX
 
 log = logging.getLogger("gubernator_tpu_torch.analytics")
@@ -1260,7 +1261,10 @@ class KeyAnalytics:
                     # waves launched since, not behind them
                     if event is not None:
                         self._copy_stream.wait_event(event)
-                    arr = tap.to("cpu").numpy()
+                    # a range of this thread in a device trace, apart
+                    # from the dispatcher's copies
+                    with device_range("guber.analytics.tap_copy"):
+                        arr = tap.to("cpu").numpy()
             else:
                 arr = tap.numpy()
             served = arr[3] != 0

@@ -73,6 +73,7 @@ from .config import DaemonConfig
 from .discovery import make_discovery
 from .dispatcher import ResourceExhausted, request_deadline
 from .instance import V1Instance
+from .metrics import install_gc_pauses
 from .netutil import resolve_host_ip, split_host_port
 from .peer_client import is_rehomed
 from .store import FileLoader
@@ -221,6 +222,9 @@ class Daemon:
                 icfg, peer_tls_creds=(self.tls.grpc_client_credentials()
                                       if self.tls is not None else None),
                 mesh=mesh, engine=engine)
+            # gubernator_gc_pause_seconds: the collector's pauses stop
+            # every serving thread (once per process)
+            install_gc_pauses()
             # warm-up: build the kernel and run one wave before serving
             self.instance.get_rate_limits(
                 [RateLimitRequest(name="_warmup", unique_key="w", hits=0,

@@ -54,6 +54,22 @@ are serialized by one lock, which the instance's row-level operations
   children partition it exactly.  A pipelined wave's span runs from its
   launch to its sync; an inline wave takes its caller's trace.  A shed
   forces its caller's trace to be sampled.
+- **Steps.** The worker arms the wave's step timeline on its thread
+  around its engine calls (``tracing.armed``) and times each call as a
+  host step (``tracing.step``): ``wave.fill`` a launch (an inline
+  wave's whole engine call too), ``wave.collect`` a sync.  The engine's
+  steps nested in them (``wave.upload``, ``wave.plan``,
+  ``wave.launch``, ``wave.download``, and an inline call's
+  ``wave.collect``) take their own time out of it: a step's times
+  exclude its nested steps, so the steps of one thread never overlap.
+  Each step lands inside the phase that ran it.  At the wave's end each
+  step's wall time, summed over the wave, is a phase sample (in the
+  histogram alone: the analytics' phase ledger keeps the phases) and its
+  CPU time goes to ``gubernator_phase_cpu_seconds``; the ``wave_completed``
+  event carries them as ``steps`` and the wave span as children of its
+  phases.  A pipelined wave's ``device`` phase overlaps the next
+  wave's ``pack``.  Handing a job over (``_submit``, or an inline
+  wave's start) ends the caller's ``ingest`` step.
 """
 from __future__ import annotations
 
@@ -76,8 +92,8 @@ from .core.batch import RequestBatch, pack_requests, responses_from_columns
 from .hashing import hash_request_keys
 from .metrics import observe_with_exemplar
 from .telemetry import exc_text
-from .tracing import (current_span_id, current_trace_id, force_sample,
-                      new_span_id)
+from .tracing import (armed, current_span_id, current_trace_id,
+                      force_sample, new_span_id, step, submitted)
 from .types import RateLimitRequest, RateLimitResponse
 
 log = logging.getLogger("gubernator_tpu_torch.dispatcher")
@@ -248,6 +264,8 @@ class Dispatcher:
         self.reconcile_gen = 0
         self.inline_waves = 0
         self._phase_hist: dict = {}  # phase → histogram child (benign race)
+        #: step → (duration, CPU) children (benign race)
+        self._step_kids: dict = {}
         # ---- wave telemetry (under _tel_mu) ----
         self._tel_mu = threading.Lock()
         #: wave id → {t0, kind, size, stalled, slot, marks}
@@ -421,10 +439,13 @@ class Dispatcher:
         if not self._try_inline():
             return self._BUSY
         try:
+            submitted()
             wid = self._wave_begin(kind, nreq=nreq)
             try:
                 self._wave_mark(wid, "pack")
-                with self._engine_lock:
+                # the engine call's host work its own steps leave
+                with armed(self._steps_of(wid), "device"), \
+                        step("wave.fill"), self._engine_lock:
                     self._fault("device_step")
                     out = fn()
                 self._wave_mark(wid, "device")
@@ -532,6 +553,7 @@ class Dispatcher:
                 raise RuntimeError("dispatcher is closed")
             self._queue.put(job)
             self._queued_rows += n
+        submitted()
         return job
 
     def _dequeued(self, job: _Job) -> None:
@@ -584,7 +606,8 @@ class Dispatcher:
                                    "gen": gen,
                                    "trace": trace, "span": wspan,
                                    "parent": parent, "links": links,
-                                   "tenant": tenant, "marks": []}
+                                   "tenant": tenant, "marks": [],
+                                   "steps": [], "p0": time.perf_counter()}
             self._recent_sizes.append(nreq)
             self._recent_waits.extend(waits)
         m = self.metrics
@@ -627,6 +650,33 @@ class Dispatcher:
             info = self._inflight.get(wid)
             if info is not None:
                 info["marks"].append((name, t))
+
+    def _steps_of(self, wid: int) -> list:
+        """The wave's step timeline (tracing.armed): the host steps of
+        its engine calls land there."""
+        with self._tel_mu:
+            info = self._inflight.get(wid)
+            return info["steps"] if info is not None else []
+
+    def _step_kids_of(self, name: str) -> tuple:
+        """The ``gubernator_phase_duration`` and
+        ``gubernator_phase_cpu_seconds`` children of a step."""
+        kids = self._step_kids.get(name)
+        if kids is None:  # benign race: labels() is idempotent
+            m = self.metrics
+            kids = self._step_kids[name] = (
+                m.phase_duration.labels(phase=name),
+                m.phase_cpu_seconds.labels(phase=name))
+        return kids
+
+    def observe_step(self, name: str, wall_s: float, cpu_s: float) -> None:
+        """tracing.step's sink, a caller's ingest and build: the wall
+        time as a phase sample (the analytics' ledger's too) and the
+        thread CPU time to ``gubernator_phase_cpu_seconds``."""
+        self._obs_phase(name, wall_s)
+        if self.metrics is not None and cpu_s > 0:
+            # a coarse CPU clock reads 0 for most steps
+            self._step_kids_of(name)[1].inc(cpu_s)
 
     def _obs_phase(self, phase: str, seconds: float,
                    exemplar=None) -> None:
@@ -692,6 +742,19 @@ class Dispatcher:
             phases["resolve"] = max(t1 - prev, 0.0)
         for name, secs in (phases or {}).items():
             self._obs_phase(name, secs, exemplar=ex)
+        steps = {}  # step → [wall, cpu], each summed over the wave
+        for st in info["steps"]:
+            acc = steps.setdefault(st[0], [0.0, 0.0])
+            acc[0] += st[4]
+            acc[1] += st[5]
+        if self.metrics is not None:
+            # straight to the families, on the worker's path every wave:
+            # the analytics' phase ledger (/debug/phases) keeps the phases
+            for name, (wall, cpu) in steps.items():
+                dur_kid, cpu_kid = self._step_kids_of(name)
+                dur_kid.observe(max(wall, 0.0))
+                if cpu > 0:  # a coarse CPU clock reads 0 for most steps
+                    cpu_kid.inc(cpu)
         if sr is not None and info["span"] and info["trace"]:
             self._record_wave_span(sr, wid, info, dur, phases, error)
         m = self.metrics
@@ -723,6 +786,10 @@ class Dispatcher:
                 # per-phase breakdown in ms; sums to duration_ms
                 ev["phases"] = {k: round(v * 1000, 3)
                                 for k, v in phases.items()}
+            if steps:
+                # host steps in ms, each inside one phase; not a partition
+                ev["steps"] = {k: round(v[0] * 1000, 3)
+                               for k, v in steps.items()}
             if error is not None:
                 self.recorder.record("wave_error", error=exc_text(error),
                                      **ev)
@@ -735,10 +802,12 @@ class Dispatcher:
 
     def _record_wave_span(self, sr, wid: int, info: dict, dur: float,
                           phases, error) -> None:
-        """The wave's span and its phase children.  The wave clock is
-        monotonic and spans carry wall time, so the wave is laid out
-        backwards from now: the children end to end, and the wave's end
-        taken from the same running sum, partition it exactly.  Never
+        """The wave's span, its phase children and their step spans.
+        The wave clock is monotonic and spans carry wall time, so the
+        wave is laid out backwards from now: the children end to end,
+        and the wave's end taken from the same running sum, partition it
+        exactly.  Each host step hangs under the step it ran in, else
+        under its phase, at its offset from the wave's start.  Never
         raises into the serving path."""
         try:
             total = sum(phases.values()) if phases else dur
@@ -765,10 +834,22 @@ class Dispatcher:
             sr.add({"trace_id": tid, "span_id": info["span"],
                     "parent_id": info["parent"], "name": "wave",
                     "start": start, "end": end, "attrs": attrs})
+            phase_sid = {}
             for name, k0, k1 in kids:
-                sr.add({"trace_id": tid, "span_id": new_span_id(),
+                phase_sid[name] = new_span_id()
+                sr.add({"trace_id": tid, "span_id": phase_sid[name],
                         "parent_id": info["span"], "name": f"wave.{name}",
                         "start": k0, "end": k1, "attrs": {}})
+            step_sid = {st[6]: new_span_id() for st in info["steps"]}
+            for name, phase, t0, t1, wall, cpu, seq, parent in info["steps"]:
+                s0 = min(max(start + t0 - info["p0"], start), end)
+                sr.add({"trace_id": tid, "span_id": step_sid[seq],
+                        "parent_id": step_sid.get(parent) or phase_sid.get(
+                            phase, info["span"]),
+                        "name": name, "start": s0,
+                        "end": min(s0 + t1 - t0, end),
+                        "attrs": {"self_ms": round(wall * 1000, 3),
+                                  "cpu_ms": round(cpu * 1000, 3)}})
         except Exception:  # pragma: no cover - tracing only
             log.exception("wave span record")
 
@@ -989,13 +1070,16 @@ class Dispatcher:
         wid = self._wave_begin("packed_pipelined", jobs, slot=slot)
         try:
             self._fault("dispatch_launch")
-            batch, khash = _concat([(j.batch, j.khash) for j in jobs])
-            now = max(j.now_ms for j in jobs)
-            mslot = _concat_mslot(jobs)
-            with self._engine_lock:
-                self._fault("device_step")
-                token = self.engine.launch_packed(batch, khash, now,
-                                                  **_mslot_kw(mslot))
+            # wave.fill: the launch's host work but for the engine's
+            # upload, plan and launch steps
+            with armed(self._steps_of(wid), "pack"), step("wave.fill"):
+                batch, khash = _concat([(j.batch, j.khash) for j in jobs])
+                now = max(j.now_ms for j in jobs)
+                mslot = _concat_mslot(jobs)
+                with self._engine_lock:
+                    self._fault("device_step")
+                    token = self.engine.launch_packed(batch, khash, now,
+                                                      **_mslot_kw(mslot))
             # the launch's host routing and upload are pack work; device
             # time runs from here until sync_packed returns
             self._wave_mark(wid, "pack")
@@ -1008,8 +1092,11 @@ class Dispatcher:
     def _sync_and_resolve(self, jobs: List[_Job], token, wid: int) -> None:
         try:
             self._fault("dispatch_sync")
-            cols = self.engine.sync_packed(token,
-                                           engine_lock=self._engine_lock)
+            # wave.collect: the sync's host work but for the download
+            with armed(self._steps_of(wid), "device"), \
+                    step("wave.collect"):
+                cols = self.engine.sync_packed(
+                    token, engine_lock=self._engine_lock)
             self._wave_mark(wid, "device")
             # delay holds the splice while later waves launch
             self._fault("dispatch_splice")
@@ -1101,26 +1188,31 @@ class Dispatcher:
         kind = ("packed" if not n_list
                 else "list" if n_list == len(wave) else "merged")
         wid = self._wave_begin(kind, wave)
+        steps = self._steps_of(wid)
         try:
             self._fault("dispatch_launch")
             parts = []  # (job, batch, khash, errors or None)
-            for j in wave:
-                if j.reqs is not None:
-                    kh = hash_request_keys([r.name for r in j.reqs],
-                                           [r.unique_key for r in j.reqs])
-                    b, errs = pack_requests(j.reqs, j.now_ms,
-                                            size=len(j.reqs), key_hashes=kh)
-                    parts.append((j, b, kh, errs))
-                else:
-                    parts.append((j, j.batch, j.khash, None))
-            batch, khash = _concat([(p[1], p[2]) for p in parts])
+            with armed(steps, "pack"), step("wave.fill"):
+                for j in wave:
+                    if j.reqs is not None:
+                        kh = hash_request_keys(
+                            [r.name for r in j.reqs],
+                            [r.unique_key for r in j.reqs])
+                        b, errs = pack_requests(j.reqs, j.now_ms,
+                                                size=len(j.reqs),
+                                                key_hashes=kh)
+                        parts.append((j, b, kh, errs))
+                    else:
+                        parts.append((j, j.batch, j.khash, None))
+                batch, khash = _concat([(p[1], p[2]) for p in parts])
             # the scalar now only backstops rows without their own
             now = max(j.now_ms for j in wave)
             self._wave_mark(wid, "pack")
             # an object-lane wave is tapped below with its key names:
             # the engine's device tap stays quiet for it
             mute = kind == "list" and self._fused_tap
-            with self._engine_lock:
+            with armed(steps, "device"), step("wave.fill"), \
+                    self._engine_lock:
                 self._fault("device_step")
                 self.engine._tap_mute = mute
                 try:

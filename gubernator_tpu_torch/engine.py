@@ -52,8 +52,9 @@ from .core.table import (EFF_BOUND, SLOTS, VALUE_BOUND, W_ALG, W_DHI,
                          W_STATUS, W_TDHI, W_TDLO, W_THI, W_TLO, W_XHI,
                          W_XLO, WORDS, init_table, join64, split64)
 from .hashing import shard_of
-from .ops.decide import decide, value_domain_mask
+from .ops.decide import K1Tally, decide, value_domain_mask
 from .sharded import ShardedEngine
+from .tracing import step
 
 #: snapshot column → (lo word, hi word)
 _I64_PAIRS = {"duration": (W_DLO, W_DHI),
@@ -201,8 +202,6 @@ class BucketEngine(ShardedEngine):
         #: mesh-GLOBAL hits the fused waves applied (the injected side
         #: of the tier's conservation ledger)
         self.mesh_fused_hits = 0  # lock-free: sync path, under the engine lock
-        #: the instance's Metrics, for gubernator_pallas_mesh_fused_hits
-        self.metrics_ref = None
         super().__init__(device=device, capacity=capacity,
                          batch_rows=batch_rows, mesh=mesh)
 
@@ -226,8 +225,8 @@ class BucketEngine(ShardedEngine):
         return self.shard_rows[0]
 
     def _decide(self, shard: int, batch: RequestBatch,
-                now_ms: int) -> StepOutput:
-        return decide(self.shard_rows[shard], batch, now_ms)
+                now_ms: int, tally: K1Tally | None = None) -> StepOutput:
+        return decide(self.shard_rows[shard], batch, now_ms, tally)
 
     def _mask_out_of_domain(self, batch: RequestBatch, mslot=None):
         """Invalidate rows outside the step's value domain; returns
@@ -275,7 +274,7 @@ class BucketEngine(ShardedEngine):
             self._finish_wave(self._launch_arrays(a64, a32, now_ms, mblk))
 
     def _launch_arrays(self, a64: np.ndarray, a32: np.ndarray,
-                       now_ms: int, mblk=None) -> list:
+                       now_ms: int, mblk=None) -> tuple:
         """One wave; with the tier bound and mesh rows in it, the fused
         mesh launch: per shard, K1 over the rows whose ``mslot`` is -1,
         the SoA step over the mesh rows on the shard's (their home)
@@ -285,35 +284,41 @@ class BucketEngine(ShardedEngine):
         mge = self._mge
         if mge is None or mblk is None or not (mblk >= 0).any():
             return super()._launch_arrays(a64, a32, now_ms)
-        batches = self._upload(a64, a32)
+        with step("wave.upload"):
+            batches = self._upload(a64, a32)
         bw = a64.shape[1] // self.n
-        masks, slots, k1_outs = [], [], []
-        for d, b in enumerate(batches):
-            ms = torch.from_numpy(mblk[d * bw:(d + 1) * bw]).to(
-                self.devices[d])
-            masks.append(ms >= 0)
-            slots.append(ms)
-            # K1 over the table rows, outside the tier's locks
-            k1_outs.append(self._decide(
-                d, b._replace(valid=b.valid & ~masks[d]), now_ms))
-        mouts, hits = mge.serve_rows(
-            [b._replace(valid=b.valid & m) for b, m in zip(batches, masks)],
-            slots, now_ms)
-        outs = []
-        for mesh_rows, out, mout in zip(masks, k1_outs, mouts):
-            outs.append(StepOutput(
-                status=torch.where(mesh_rows, mout.status, out.status),
-                remaining=torch.where(mesh_rows, mout.remaining,
-                                      out.remaining),
-                reset_time=torch.where(mesh_rows, mout.reset_time,
-                                       out.reset_time),
-                limit=torch.where(mesh_rows, mout.limit, out.limit),
-                err=torch.where(mesh_rows, mout.err, out.err),
-                over_count=out.over_count + mout.over_count,
-                insert_count=out.insert_count + mout.insert_count))
-        hits = [h.sum() for h in hits]
-        self._deliver_tap(batches, outs)
-        return [self._result_vector(o, h) for o, h in zip(outs, hits)]
+        tally = K1Tally(mesh=True)
+        # the mesh rows' slots ride the launch (a copy of one row)
+        with step("wave.launch"):
+            masks, slots, k1_outs = [], [], []
+            for d, b in enumerate(batches):
+                ms = torch.from_numpy(mblk[d * bw:(d + 1) * bw]).to(
+                    self.devices[d])
+                masks.append(ms >= 0)
+                slots.append(ms)
+                # K1 over the table rows, outside the tier's locks
+                k1_outs.append(self._decide(
+                    d, b._replace(valid=b.valid & ~masks[d]), now_ms,
+                    tally))
+            mouts, hits = mge.serve_rows(
+                [b._replace(valid=b.valid & m)
+                 for b, m in zip(batches, masks)], slots, now_ms)
+            outs = []
+            for mesh_rows, out, mout in zip(masks, k1_outs, mouts):
+                outs.append(StepOutput(
+                    status=torch.where(mesh_rows, mout.status, out.status),
+                    remaining=torch.where(mesh_rows, mout.remaining,
+                                          out.remaining),
+                    reset_time=torch.where(mesh_rows, mout.reset_time,
+                                           out.reset_time),
+                    limit=torch.where(mesh_rows, mout.limit, out.limit),
+                    err=torch.where(mesh_rows, mout.err, out.err),
+                    over_count=out.over_count + mout.over_count,
+                    insert_count=out.insert_count + mout.insert_count))
+            hits = [h.sum() for h in hits]
+            self._deliver_tap(batches, outs)
+            return [self._result_vector(o, h)
+                    for o, h in zip(outs, hits)], tally
 
     def _on_mesh_hits(self, hits: int) -> None:
         """The fused waves' applied mesh hits: the injected side of the

@@ -168,7 +168,7 @@ from .peers import RegionPeerPicker, ReplicatedConsistentHash
 from .sharded import ShardedEngine, autogrow_limit_per_shard
 from .store import CacheItem, arrays_from_items, items_from_arrays
 from .telemetry import FlightRecorder, exc_text
-from .tracing import SpanRecorder, current_span_id, force_sample
+from .tracing import SpanRecorder, current_span_id, force_sample, step
 from .types import (MAX_BATCH_SIZE, Algorithm, Behavior,
                     HealthCheckResponse, PeerInfo, RateLimitRequest,
                     RateLimitResponse, Status)
@@ -357,6 +357,7 @@ class V1Instance:
             self._analytics = KeyAnalytics(metrics=self.metrics)
         self.dispatcher = self._make_dispatcher()
         analytics = self._analytics
+        self.metrics.cpu_threads = self._serving_threads
         fused_tap = getattr(self.engine, "fused_tap", False)
         if fused_tap and analytics is not None:
             # the bucket engine taps in its step: its device tap goes
@@ -496,6 +497,15 @@ class V1Instance:
         """The KeyAnalytics (None when off); it lives on the dispatcher,
         so detaching that one reference darkens every host tap."""
         return self.dispatcher.analytics
+
+    def _serving_threads(self) -> dict:
+        """The threads gubernator_thread_cpu_seconds names: the
+        dispatcher's worker and the analytics worker."""
+        out = {"dispatcher": self.dispatcher._thread}
+        ana = self.analytics
+        if ana is not None:
+            out["analytics"] = ana._thread
+        return out
 
     # ---- persistence (store.go › Loader, Store) -------------------------
 
@@ -1995,45 +2005,49 @@ class V1Instance:
         does a batch of more than MAX_BATCH_SIZE requests on every
         lane.  Raises ResourceExhausted when admission control sheds
         the batch."""
-        self._fault_point("wire_ingest")
-        self._require_packed()
-        data = bytes(data) if not isinstance(data, bytes) else data
-        if self.store is not None:
-            # every answer passes the Store: the object path
-            return self._wire_pb2(data, now_ms)
-        picker = self._clustered_picker()
-        if picker is None:
-            out = self._wire_client_fused(data, now_ms)
-            if out is not None:
-                return out
-        parsed = wire_native.parse_get_rate_limits(data)
-        if parsed is not None:
-            n = parsed["n"]
-            if n > MAX_BATCH_SIZE:
-                raise ValueError(
-                    f"Requests.RateLimits list too large; max size is "
-                    f"{MAX_BATCH_SIZE}")
-            now = clock_ms() if now_ms is None else now_ms
-            glob = bool(parsed["behavior_or"] & int(Behavior.GLOBAL))
-            # alone, GLOBAL batches take the hot set's routing under the
-            # promotion gate (see _get_rate_limits), or the mesh tier's
-            # under its gate; a pinned key that needs demoting sends the
-            # batch to the protobuf lane, before any state changes
-            gated = (picker is None and glob
-                     and self.config.hot_set_capacity > 0
-                     and self._global_mode != "mesh")
-            if glob and self._mesh_mode():
-                out = self._wire_parsed_mesh(parsed, data, now)
-            else:
-                with (self._promote_gate.shared() if gated
-                      else nullcontext()):
-                    out = self._wire_parsed(parsed, data, now, picker, glob)
-            if out is None:
+        # the ingest step: to the job's hand-off to the dispatcher (or
+        # the call's end where none is handed over)
+        with step("ingest", self.dispatcher, until_submit=True):
+            self._fault_point("wire_ingest")
+            self._require_packed()
+            data = bytes(data) if not isinstance(data, bytes) else data
+            if self.store is not None:
+                # every answer passes the Store: the object path
                 return self._wire_pb2(data, now_ms)
-            if gated and self._promote_pending:
-                self._drain_promotions(now)
-            return out
-        return self._wire_pb2(data, now_ms)
+            picker = self._clustered_picker()
+            if picker is None:
+                out = self._wire_client_fused(data, now_ms)
+                if out is not None:
+                    return out
+            parsed = wire_native.parse_get_rate_limits(data)
+            if parsed is not None:
+                n = parsed["n"]
+                if n > MAX_BATCH_SIZE:
+                    raise ValueError(
+                        f"Requests.RateLimits list too large; max size is "
+                        f"{MAX_BATCH_SIZE}")
+                now = clock_ms() if now_ms is None else now_ms
+                glob = bool(parsed["behavior_or"] & int(Behavior.GLOBAL))
+                # alone, GLOBAL batches take the hot set's routing under the
+                # promotion gate (see _get_rate_limits), or the mesh tier's
+                # under its gate; a pinned key that needs demoting sends the
+                # batch to the protobuf lane, before any state changes
+                gated = (picker is None and glob
+                         and self.config.hot_set_capacity > 0
+                         and self._global_mode != "mesh")
+                if glob and self._mesh_mode():
+                    out = self._wire_parsed_mesh(parsed, data, now)
+                else:
+                    with (self._promote_gate.shared() if gated
+                          else nullcontext()):
+                        out = self._wire_parsed(parsed, data, now,
+                                                picker, glob)
+                if out is None:
+                    return self._wire_pb2(data, now_ms)
+                if gated and self._promote_pending:
+                    self._drain_promotions(now)
+                return out
+            return self._wire_pb2(data, now_ms)
 
     def _wire_parsed_mesh(self, parsed: dict, data: bytes,
                           now: int) -> Optional[bytes]:
@@ -2179,20 +2193,21 @@ class V1Instance:
         """Rows [lo, hi) of result columns → response bytes (their
         OVER_LIMIT rows counted); ``errs`` maps a row (relative to lo) to
         its error, and table-full rows without one answer ``rate limit
-        table full``."""
-        self.metrics.over_limit_counter.inc(
-            int((cols[0][lo:hi] == Status.OVER_LIMIT).sum()))
-        full = np.nonzero(cols[4][lo:hi])[0]
-        errors = None
-        if errs or len(full):
-            errors = [None] * (hi - lo)
-            for i, msg in (errs or {}).items():
-                errors[i] = msg
-            for i in full.tolist():
-                if errors[i] is None:
-                    errors[i] = wire_native.TABLE_FULL
-        return wire_native.build_responses_from_columns(cols, lo, hi,
-                                                        errors)
+        table full``: the ``build`` step."""
+        with step("build", self.dispatcher):
+            self.metrics.over_limit_counter.inc(
+                int((cols[0][lo:hi] == Status.OVER_LIMIT).sum()))
+            full = np.nonzero(cols[4][lo:hi])[0]
+            errors = None
+            if errs or len(full):
+                errors = [None] * (hi - lo)
+                for i, msg in (errs or {}).items():
+                    errors[i] = msg
+                for i in full.tolist():
+                    if errors[i] is None:
+                        errors[i] = wire_native.TABLE_FULL
+            return wire_native.build_responses_from_columns(cols, lo, hi,
+                                                            errors)
 
     def _wire_check_columns(self, parsed: dict, now: int) -> bytes:
         """Parsed wire columns → pack → dispatcher → response bytes."""
@@ -2754,43 +2769,45 @@ class V1Instance:
         rows of a batch the sender marked ``rehomed`` (its gate ejected
         their owner): they serve degraded (the parse lane; the fused
         lane is skipped then)."""
-        self._fault_point("wire_ingest")
-        self._require_packed()
-        data = bytes(data) if not isinstance(data, bytes) else data
-        if self.store is not None:
-            return self._wire_peer_pb2(data, now_ms, rehomed)
-        # one attribute read in the steady state
-        gate_rehome = ((rehomed or bool(self._gate_bad))
-                       and self.config.behaviors.peer_degraded_fallback)
-        if not gate_rehome:
-            out = self._wire_peer_fused(data, now_ms)
-            if out is not None:
-                return out
-        parsed = wire_native.parse_get_rate_limits(data)
-        if parsed is None:
-            return self._wire_peer_pb2(data, now_ms, rehomed)
-        if parsed["n"] > self.config.behaviors.batch_limit:
-            raise ValueError(
-                "'PeerRequest.rate_limits' list too large; max size is "
-                f"{self.config.behaviors.batch_limit}")
-        now = clock_ms() if now_ms is None else now_ms
-        self._count_peer_wire(parsed["n"])
-        out = self._wire_check_columns(parsed, now)
-        if parsed["behavior_or"] & int(Behavior.GLOBAL):
-            glob = (parsed["behavior"] & int(Behavior.GLOBAL)) != 0
-            gm = self._ensure_global_manager()
-            for k, tlv, _a, _i in self._raw_queue_groups(parsed, data,
-                                                         glob):
-                gm.queue_update_raw(k, tlv)
-        if parsed["behavior_or"] & int(Behavior.MULTI_REGION):
-            # no GLOBAL precedence here: the object lane's owner side
-            # queues both for a GLOBAL | MULTI_REGION row
-            mr = (parsed["behavior"] & int(Behavior.MULTI_REGION)) != 0
-            self._queue_mr_raw(parsed, data, mr, stamp_ms=now)
-        if gate_rehome:
-            out = self._peer_degraded_rewrite(parsed, data, out,
-                                              stamp_ms=now, rehomed=rehomed)
-        return out
+        with step("ingest", self.dispatcher, until_submit=True):
+            self._fault_point("wire_ingest")
+            self._require_packed()
+            data = bytes(data) if not isinstance(data, bytes) else data
+            if self.store is not None:
+                return self._wire_peer_pb2(data, now_ms, rehomed)
+            # one attribute read in the steady state
+            gate_rehome = ((rehomed or bool(self._gate_bad))
+                           and self.config.behaviors.peer_degraded_fallback)
+            if not gate_rehome:
+                out = self._wire_peer_fused(data, now_ms)
+                if out is not None:
+                    return out
+            parsed = wire_native.parse_get_rate_limits(data)
+            if parsed is None:
+                return self._wire_peer_pb2(data, now_ms, rehomed)
+            if parsed["n"] > self.config.behaviors.batch_limit:
+                raise ValueError(
+                    "'PeerRequest.rate_limits' list too large; max size is "
+                    f"{self.config.behaviors.batch_limit}")
+            now = clock_ms() if now_ms is None else now_ms
+            self._count_peer_wire(parsed["n"])
+            out = self._wire_check_columns(parsed, now)
+            if parsed["behavior_or"] & int(Behavior.GLOBAL):
+                glob = (parsed["behavior"] & int(Behavior.GLOBAL)) != 0
+                gm = self._ensure_global_manager()
+                for k, tlv, _a, _i in self._raw_queue_groups(parsed, data,
+                                                             glob):
+                    gm.queue_update_raw(k, tlv)
+            if parsed["behavior_or"] & int(Behavior.MULTI_REGION):
+                # no GLOBAL precedence here: the object lane's owner side
+                # queues both for a GLOBAL | MULTI_REGION row
+                mr = (parsed["behavior"] & int(Behavior.MULTI_REGION)) != 0
+                self._queue_mr_raw(parsed, data, mr, stamp_ms=now)
+            if gate_rehome:
+                out = self._peer_degraded_rewrite(parsed, data, out,
+                                                  stamp_ms=now,
+                                                  rehomed=rehomed)
+            return out
 
     def _wire_peer_fused(self, data: bytes,
                          now_ms: Optional[int]) -> Optional[bytes]:

@@ -16,14 +16,28 @@ lab).  The JAX families of subsystems the port has no counterpart of
 (the fused Pallas wave counter, the compile ledger) are not registered;
 ROADMAP gives the reasons.  The scenario lab's help text leaves out
 the tag of the JAX project's change log that ends JAX's.
+
+The port adds families of its own (``PORT_FAMILIES``): thread CPU time
+per phase and wave step, K1's launches, live rows and segments, the
+collector's pauses (``gubernator_gc_pause_seconds``, fed once
+``install_gc_pauses()`` ran in the process) and, read at scrape time,
+each serving thread's CPU seconds (``gubernator_thread_cpu_seconds``).
 """
 from __future__ import annotations
 
+import bisect
+import gc
+import os
+import threading
 import time
+import weakref
 from contextlib import contextmanager
 
 from prometheus_client import (CollectorRegistry, Counter, Gauge, Histogram,
                                generate_latest)
+from prometheus_client.core import (CounterMetricFamily,
+                                     HistogramMetricFamily)
+from prometheus_client.utils import floatToGoString
 
 _BUCKETS = (.0005, .001, .0025, .005, .01, .025, .05, .1, .25, .5, 1.0, 2.5)
 
@@ -34,6 +48,16 @@ _WAVE_DURATION_BUCKETS = _BUCKETS + (10.0, 30.0, 60.0, 120.0, 300.0, 600.0)
 #: requests per coalesced wave: 1 (idle inline) up to max_wave and beyond
 _WAVE_SIZE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 1024, 4096,
                       16384, 65536)
+
+#: a collection of the young generations takes tens of microseconds, a
+#: full one of a large heap up to seconds
+_GC_BUCKETS = (1e-5, 5e-5, 1e-4, 5e-4, .001, .005, .01, .05, .1, .5, 1.0)
+
+#: the families the port registers beyond the JAX package's
+PORT_FAMILIES = frozenset({
+    "gubernator_phase_cpu_seconds", "gubernator_k1_launches",
+    "gubernator_k1_rows", "gubernator_k1_segments",
+    "gubernator_gc_pause_seconds", "gubernator_thread_cpu_seconds"})
 
 
 class Metrics:
@@ -130,6 +154,33 @@ class Metrics:
             "pack, queue_wait, device, resolve, build, peer_flush — "
             "pack+device+resolve partition wave_duration",
             ["phase"], buckets=_BUCKETS, registry=r)
+        self.phase_cpu_seconds = Counter(
+            "gubernator_phase_cpu_seconds",
+            "thread CPU time per serving phase and wave step (s): the "
+            "caller's ingest and build, the worker's wave.* steps "
+            "(time.thread_time, exclusive of nested steps)",
+            ["phase"], registry=r)
+        # ---- K1's launches (ops/decide.py), counted on the host ----
+        self.k1_launches = Counter(
+            "gubernator_k1_launches",
+            "decision-step launches of K1 (its plain version on a CPU "
+            "table)", registry=r)
+        self.k1_rows = Counter(
+            "gubernator_k1_rows",
+            "live request rows K1's launches applied", registry=r)
+        self.k1_segments = Counter(
+            "gubernator_k1_segments",
+            "distinct buckets (segments) K1's launches walked",
+            registry=r)
+        # ---- the host runtime ----
+        #: gubernator_gc_pause_seconds, fed by the collector's callback
+        self.gc_pause = _GcPauses()
+        r.register(self.gc_pause)
+        _GC_SINKS.add(self.gc_pause)
+        #: name → thread for gubernator_thread_cpu_seconds (the instance
+        #: sets it: a callable returning the dict, read at scrape time)
+        self.cpu_threads = None
+        r.register(_ThreadCpu(self))
         # ---- the wave pool ----
         self.wave_buffer_pool_hit = Counter(
             "gubernator_wave_buffer_pool_hits",
@@ -363,6 +414,124 @@ class Metrics:
     def render(self) -> bytes:
         """Text exposition for the /metrics endpoint."""
         return generate_latest(self.registry)
+
+
+def _proc_cpu_s(path: str) -> float:
+    """utime + stime of a /proc stat file, in seconds."""
+    with open(path, "rb") as f:
+        fields = f.read().rsplit(b")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / _CLK_TCK
+
+
+_CLK_TCK = os.sysconf("SC_CLK_TCK") if hasattr(os, "sysconf") else 100
+
+
+class _ThreadCpu:
+    """``gubernator_thread_cpu_seconds{thread}``, read from /proc at
+    scrape time (the serving path pays nothing): each thread named by
+    ``Metrics.cpu_threads()``, and ``other``, the rest of the process
+    (its exited threads included)."""
+
+    def __init__(self, metrics: Metrics):
+        self._m = weakref.ref(metrics)
+
+    def describe(self):
+        return [CounterMetricFamily(
+            "gubernator_thread_cpu_seconds", _THREAD_CPU_HELP,
+            labels=["thread"])]
+
+    def collect(self):
+        fam = CounterMetricFamily("gubernator_thread_cpu_seconds",
+                                  _THREAD_CPU_HELP, labels=["thread"])
+        m = self._m()
+        named = m.cpu_threads() if m is not None and m.cpu_threads else {}
+        try:
+            total = _proc_cpu_s("/proc/self/stat")
+        except OSError:  # no /proc: nothing to report
+            return [fam]
+        for name, t in named.items():
+            tid = getattr(t, "native_id", None)
+            if tid is None or not t.is_alive():
+                continue
+            try:
+                s = _proc_cpu_s(f"/proc/self/task/{tid}/stat")
+            except OSError:  # the thread ended since
+                continue
+            fam.add_metric([name], s)
+            total -= s
+        fam.add_metric(["other"], max(total, 0.0))
+        return [fam]
+
+
+_THREAD_CPU_HELP = ("CPU seconds (user + system) of the daemon's serving "
+                    "threads: the dispatcher's worker, the analytics "
+                    "worker, and the rest of the process (other)")
+
+_GC_HELP = ("the Python collector's pauses by generation (s): every "
+            "thread of the process stops for them")
+
+
+class _GcPauses:
+    """``gubernator_gc_pause_seconds{generation}``: bucket counts and
+    sums in plain lists, which the collector's callback adds to, laid
+    out as a histogram at scrape time.  The callback takes no lock: it
+    runs on whichever thread the collection interrupted, a scrape's
+    too, and one that waited there on a lock that thread holds would
+    stop the collector for the rest of the process."""
+
+    __slots__ = ("counts", "sums", "__weakref__")
+
+    def __init__(self):
+        self.counts = {g: [0] * (len(_GC_BUCKETS) + 1) for g in "012"}
+        self.sums = dict.fromkeys("012", 0.0)
+
+    def add(self, gen: str, seconds: float) -> None:
+        counts = self.counts.get(gen)
+        if counts is not None:
+            counts[bisect.bisect_left(_GC_BUCKETS, seconds)] += 1
+            self.sums[gen] += seconds
+
+    def describe(self):
+        return [HistogramMetricFamily("gubernator_gc_pause_seconds",
+                                      _GC_HELP, labels=["generation"])]
+
+    def collect(self):
+        fam = HistogramMetricFamily("gubernator_gc_pause_seconds",
+                                    _GC_HELP, labels=["generation"])
+        for gen, counts in self.counts.items():
+            total, sum_s = list(counts), self.sums[gen]
+            buckets, n = [], 0
+            for bound, k in zip(_GC_BUCKETS + (float("inf"),), total):
+                n += k
+                buckets.append((floatToGoString(bound), n))
+            fam.add_metric([gen], buckets, sum_s)
+        return [fam]
+
+
+#: every live Metrics' _GcPauses: the collector's callback (one per
+#: process) adds each pause to each
+_GC_SINKS: "weakref.WeakSet" = weakref.WeakSet()
+_gc_t0 = [0.0]
+_gc_installed = threading.Lock()
+
+
+def _gc_callback(phase: str, info: dict) -> None:
+    if phase == "start":
+        _gc_t0[0] = time.perf_counter()
+        return
+    dt = time.perf_counter() - _gc_t0[0]
+    gen = str(info.get("generation", ""))
+    for sink in list(_GC_SINKS):
+        sink.add(gen, dt)
+
+
+def install_gc_pauses() -> None:
+    """Time the collector's pauses into ``gubernator_gc_pause_seconds``
+    from now on: one ``gc.callbacks`` hook per process, however many
+    daemons it runs."""
+    with _gc_installed:
+        if _gc_callback not in gc.callbacks:
+            gc.callbacks.append(_gc_callback)
 
 
 def observe_with_exemplar(hist, value: float, exemplar=None) -> None:

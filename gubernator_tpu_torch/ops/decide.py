@@ -36,6 +36,7 @@ from ..core.table import (EFF_BOUND, SLOTS, VALUE_BOUND, W_ALG, W_DHI,
                           W_DLO, W_EHI, W_ELO, W_KHI, W_KLO, W_LIMIT, W_REM,
                           W_STATUS, W_TDHI, W_TDLO, W_THI, W_TLO, W_XHI,
                           W_XLO, WORDS, join64, split64)
+from ..tracing import step
 from ..types import TD_BOUND, Behavior
 
 _RESET = int(Behavior.RESET_REMAINING)
@@ -102,6 +103,26 @@ def qualifies(batch: RequestBatch) -> bool:
             if (same & (n_s[1:] < n_s[:-1])).any():
                 return False
     return True
+
+
+class K1Tally:
+    """A wave's decision steps, counted from the host integers their
+    plans hold (``_plan``'s two syncs made them host values; counting
+    adds none): launches, live rows, and segments (distinct buckets).
+    ``mesh`` marks a wave of the fused mesh lane, whose insert counter
+    also holds the replica's inserts."""
+
+    __slots__ = ("launches", "rows", "segments", "mesh")
+
+    def __init__(self, mesh: bool = False):
+        self.launches = self.rows = self.segments = 0
+        self.mesh = mesh
+
+    def add(self, plan: "_Plan") -> None:
+        segments = plan.seg_bucket.shape[0]
+        self.launches += segments > 0
+        self.rows += plan.order.shape[0]
+        self.segments += segments
 
 
 def batch_from_packed(a64: torch.Tensor, a32: torch.Tensor) -> RequestBatch:
@@ -322,15 +343,18 @@ def _transition(w: torch.Tensor, q: torch.Tensor):
     return w, out
 
 
-def decide_plain(rows: torch.Tensor, batch: RequestBatch, now
-                 ) -> StepOutput:
+def decide_plain(rows: torch.Tensor, batch: RequestBatch, now,
+                 tally: K1Tally | None = None) -> StepOutput:
     """The plain PyTorch version of K1: updates ``rows`` in place.
 
     Gathers every touched bucket once, then round j applies the j-th
     request of every segment at once (segments are sorted longest
     first, so round j works on a prefix), and scatters the buckets
-    back."""
-    plan = _plan(rows, batch, now)
+    back.  ``tally``, if given, counts the step as K1's launch."""
+    with step("wave.plan"):
+        plan = _plan(rows, batch, now)
+    if tally is not None:
+        tally.add(plan)
     B = plan.req.shape[1]
     out = torch.zeros((N_OUT, B), dtype=torch.int64, device=rows.device)
     S = plan.seg_bucket.shape[0]
@@ -354,15 +378,16 @@ def decide_plain(rows: torch.Tensor, batch: RequestBatch, now
 # ---- K1 -----------------------------------------------------------------
 
 def decide_cuda(rows: torch.Tensor, batch: RequestBatch, now,
-                hot: int = HOT_SEGMENT, stats: torch.Tensor | None = None
-                ) -> StepOutput:
+                hot: int = HOT_SEGMENT, stats: torch.Tensor | None = None,
+                tally: K1Tally | None = None) -> StepOutput:
     """Launch K1 (csrc/decide.cu) on the current stream: updates ``rows``
     in place.  Segments longer than ``hot`` go to a block each.  Serving
     always passes ``HOT_SEGMENT``; other values are a seam for the tests
     (0: every segment on the block path) and for ``chip_ab.py``'s
     threshold sweep.  ``stats``, if given, is a CUDA int64 tensor of
-    len(K1_STATS) counters that the launch adds to.  Raises on a refused
-    launch; never falls back."""
+    len(K1_STATS) counters that the launch adds to; ``tally``, a
+    K1Tally the launch is counted in.  Raises on a refused launch;
+    never falls back."""
     from .build import load_library
 
     if rows.device.type != "cuda":
@@ -381,7 +406,10 @@ def decide_cuda(rows: torch.Tensor, batch: RequestBatch, now,
         raise ValueError(f"stats must be a contiguous int64 "
                          f"[{len(K1_STATS)}] tensor on the table's device")
     lib = load_library()
-    plan = _plan(rows, batch, now)
+    with step("wave.plan"):
+        plan = _plan(rows, batch, now)
+    if tally is not None:
+        tally.add(plan)
     B = plan.req.shape[1]
     out = torch.zeros((N_OUT, B), dtype=torch.int64, device=rows.device)
     S = plan.seg_bucket.shape[0]
@@ -410,13 +438,14 @@ def decide_cuda(rows: torch.Tensor, batch: RequestBatch, now,
 decide_cuda.launches = 0
 
 
-def decide(rows: torch.Tensor, batch: RequestBatch, now) -> StepOutput:
+def decide(rows: torch.Tensor, batch: RequestBatch, now,
+           tally: K1Tally | None = None) -> StepOutput:
     """The decision step: the plain version for a CPU table, K1 for a
-    CUDA table."""
+    CUDA table; ``tally`` counts it."""
     if rows.device.type == "cuda":
-        return decide_cuda(rows, batch, now)
+        return decide_cuda(rows, batch, now, tally=tally)
     if rows.device.type == "cpu":
-        return decide_plain(rows, batch, now)
+        return decide_plain(rows, batch, now, tally=tally)
     raise ValueError(f"no decision step for device {rows.device}")
 
 

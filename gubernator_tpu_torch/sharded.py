@@ -70,10 +70,11 @@ from .core.table import TableState, init_soa_table, occupancy
 from .hashing import hash_request_keys, shard_of
 from .mesh import Mesh
 from .ops import native as wire_native
-from .ops.decide import batch_from_packed, fused_tap_columns
+from .ops.decide import K1Tally, batch_from_packed, fused_tap_columns
 from .ops.sweep import sweep as sweep_table
 from .state import soa_to_numpy
 from .store import items_from_arrays
+from .tracing import step
 from .types import RateLimitRequest, RateLimitResponse
 
 log = logging.getLogger("gubernator_tpu_torch.sharded")
@@ -137,6 +138,10 @@ class ShardedEngine:
     #: the dispatcher taps this engine's waves on the host (the bucket
     #: engine taps in its step instead)
     fused_tap = False
+    #: the instance's Metrics, for the counters a wave folds (the bucket
+    #: engine's: K1's launches, rows and segments, the table lookups and
+    #: the mesh lane's hits), or None
+    metrics_ref = None
 
     def __init__(self, device="cuda", capacity: int = 1 << 16,
                  batch_rows: int = 1024, auto_grow_limit: int = 0,
@@ -196,8 +201,10 @@ class ShardedEngine:
         return self.states[0]
 
     def _decide(self, shard: int, batch: RequestBatch,
-                now_ms: int) -> StepOutput:
-        """One shard's decision step of a wave, on its device."""
+                now_ms: int, tally: Optional[K1Tally] = None) -> StepOutput:
+        """One shard's decision step of a wave, on its device.  ``tally``
+        counts the launches of K1 (the bucket engine's): the SoA step
+        leaves it as it is."""
         return decide_batch(self.states[shard], batch, now_ms)
 
     def _mask_out_of_domain(self, batch: RequestBatch, mslot=None):
@@ -308,36 +315,59 @@ class ShardedEngine:
             [t.to(self.device) for t in taps], dim=1))
 
     def _launch_arrays(self, a64: np.ndarray, a32: np.ndarray,
-                       now_ms: int, mblk=None) -> list:
+                       now_ms: int, mblk=None) -> tuple:
         """One wave: the uploads and one decision step per shard, not
-        waited on.  Returns the shards' device result vectors.  ``mblk``
-        (the mesh-GLOBAL slot of each block row) is the bucket engine's
-        operand: the classic engine is never handed mesh rows."""
-        batches = self._upload(a64, a32)
-        outs = [self._decide(d, b, now_ms) for d, b in enumerate(batches)]
-        self._deliver_tap(batches, outs)
-        return [self._result_vector(o) for o in outs]
+        waited on.  Returns the shards' device result vectors and the
+        wave's K1Tally, for ``_finish_wave``.  ``mblk`` (the mesh-GLOBAL
+        slot of each block row) is the bucket engine's operand: the
+        classic engine is never handed mesh rows."""
+        with step("wave.upload"):
+            batches = self._upload(a64, a32)
+        tally = K1Tally()
+        with step("wave.launch"):
+            outs = [self._decide(d, b, now_ms, tally)
+                    for d, b in enumerate(batches)]
+            self._deliver_tap(batches, outs)
+            return [self._result_vector(o) for o in outs], tally
 
-    def _finish_wave(self, packed: list):
-        """One download per device for the wave; folds its counters.
-        Returns (status, remaining, reset, limit, table_full) host
-        columns in [n·bw] block order."""
-        if len(packed) == 1 or self._one_device:
-            host = torch.cat(packed).cpu().numpy() if len(packed) > 1 \
-                else packed[0].cpu().numpy()
-        else:
-            host = np.concatenate([p.cpu().numpy() for p in packed])
+    def _finish_wave(self, launched: tuple):
+        """One download per device for the wave (``_launch_arrays``'s
+        result); folds its counters.  Returns (status, remaining, reset,
+        limit, table_full) host columns in [n·bw] block order."""
+        packed, tally = launched
+        with step("wave.download"):
+            if len(packed) == 1 or self._one_device:
+                host = torch.cat(packed).cpu().numpy() if len(packed) > 1 \
+                    else packed[0].cpu().numpy()
+            else:
+                host = np.concatenate([p.cpu().numpy() for p in packed])
         host = host.reshape(self.n, -1)
         B = (host.shape[1] - 3) // 5
         o = (host[0, :5 * B].reshape(5, B) if self.n == 1 else
              host[:, :5 * B].reshape(self.n, 5, B).transpose(1, 0, 2)
              .reshape(5, self.n * B))
         self.over_count += int(host[:, -3].sum())
-        self.insert_count += int(host[:, -2].sum())
+        inserts = int(host[:, -2].sum())
+        self.insert_count += inserts
         mh = int(host[:, -1].sum())
         if mh:
             self._on_mesh_hits(mh)
-        return o[0], o[1], o[2], o[3], o[4] != 0
+        full = o[4] != 0
+        m = self.metrics_ref
+        if m is not None and tally.launches:
+            # host integers of the plans and the downloaded counters
+            m.k1_launches.inc(tally.launches)
+            m.k1_rows.inc(tally.rows)
+            m.k1_segments.inc(tally.segments)
+            if not tally.mesh:  # the mesh lane's inserts hold the replica's
+                # table lookups: a miss is a row K1 inserted, a hit a
+                # live row it found; a row it could not place (table
+                # full) is neither, and is counted when it is re-run
+                n_full = int(full.sum())
+                m.cache_access_count.labels(type="miss").inc(inserts)
+                m.cache_access_count.labels(type="hit").inc(
+                    tally.rows - inserts - n_full)
+        return o[0], o[1], o[2], o[3], full
 
     def _launch_waves(self, batch, khash, pending, now_ms, mslot=None):
         launched = []
@@ -439,8 +469,12 @@ class ShardedEngine:
                    else np.empty(0, np.int64))
         retried = False
         while len(pending):
-            err = self._collect(self._launch_waves(
-                batch, khash, pending, now_ms, mslot), cols)
+            launched = self._launch_waves(batch, khash, pending, now_ms,
+                                          mslot)
+            # the rest of the engine call is its caller's step (an
+            # inline wave's wave.fill, a sync's wave.collect)
+            with step("wave.collect"):
+                err = self._collect(launched, cols)
             if len(err) and not retried:
                 # probe windows clogged with expired rows: sweep once
                 # and retry those requests
@@ -580,24 +614,28 @@ class ShardedEngine:
                 if cm.any():
                     cold_i = np.nonzero(cm)[0]
                     lease.a32[2][cold_i] = 0
-            o_st, o_rem, o_rst, o_lim, o_err = self._finish_wave(
-                self._launch_arrays(lease.a64, lease.a32, now_ms))
-            cols = [o_st[:n].astype(np.int32), o_lim[:n], o_rem[:n],
-                    o_rst[:n], o_err[:n]]
-            err = np.nonzero(cols[4])[0]
-            if len(err) or cold_i is not None:
-                ei = err
-                if cold_i is not None:
-                    lease.a32[2][cold_i] = 1  # valid again for the re-run
-                    ei = np.union1d(err, cold_i)
-                sub = lease_batch(lease, ei)
-                lease.release()
-                if len(err):  # a cold-only re-run needs no sweep
-                    self.sweep(now_ms)
-                for c, rc in zip(cols, self.check_packed(
-                        sub, pre.khash[ei], now_ms)):
-                    c[ei] = rc
-            return self._merge_ood(cols, ood)
+            launched = self._launch_arrays(lease.a64, lease.a32, now_ms)
+            # what comes before is its caller's step (the inline wave's
+            # wave.fill)
+            with step("wave.collect"):
+                o_st, o_rem, o_rst, o_lim, o_err = self._finish_wave(launched)
+                cols = [o_st[:n].astype(np.int32), o_lim[:n], o_rem[:n],
+                        o_rst[:n], o_err[:n]]
+                err = np.nonzero(cols[4])[0]
+                if len(err) or cold_i is not None:
+                    ei = err
+                    if cold_i is not None:
+                        # valid again for the re-run
+                        lease.a32[2][cold_i] = 1
+                        ei = np.union1d(err, cold_i)
+                    sub = lease_batch(lease, ei)
+                    lease.release()
+                    if len(err):  # a cold-only re-run needs no sweep
+                        self.sweep(now_ms)
+                    for c, rc in zip(cols, self.check_packed(
+                            sub, pre.khash[ei], now_ms)):
+                        c[ei] = rc
+                return self._merge_ood(cols, ood)
         finally:
             lease.release()
 

@@ -12,8 +12,16 @@
 - ``DeviceProfiler`` captures a ``torch.profiler`` trace (CPU activity,
   and CUDA activity on a CUDA daemon: the kernels, K1's among them) into
   a directory as a Chrome trace (``trace.json``); ``step_annotation``
-  names a region in it (``record_function``).  One capture a process:
+  names a region in it (``_RecordFunctionFast``, which keeps the GIL,
+  else ``record_function``).  One capture a process:
   the profiler is process-wide.
+- ``step(name)`` times one host step of a wave (or of a caller's call)
+  with its wall and thread CPU time; the dispatcher arms a wave's
+  timeline on its thread (``armed``) and folds the steps into
+  ``gubernator_phase_duration`` / ``gubernator_phase_cpu_seconds``, its
+  wave span and its ``wave_completed`` event.  While a torch profiler
+  records, each step is also a ``guber.<name>`` range in the trace, on
+  the kernels' clock (``device_range``).
 """
 from __future__ import annotations
 
@@ -114,6 +122,14 @@ SPAN_CATALOG: Dict[str, str] = {
     "wave.pack": "host pack phase (absent when the engine fuses it)",
     "wave.device": "device step phase",
     "wave.resolve": "host resolve/demux phase",
+    "wave.fill": "host step: a launch but its nested steps (concat, "
+                 "arrival order, routing, packed fill, engine lock)",
+    "wave.upload": "host step: the packed pair's copies to the device",
+    "wave.plan": "host step: K1's plan (bucket sort, its two syncs)",
+    "wave.launch": "host step: K1's launch, outputs, tap, result vector",
+    "wave.download": "host step: the result vector's copy to the host",
+    "wave.collect": "host step: a sync but its download (results into "
+                    "columns, counter folds, re-runs)",
 }
 
 
@@ -568,8 +584,168 @@ class DeviceProfiler:
 
 @contextlib.contextmanager
 def step_annotation(name: str) -> Iterator[None]:
-    """A named region in the profiler's trace (``record_function``)."""
+    """A named region in the profiler's trace.  ``_RecordFunctionFast``
+    where torch has it: ``record_function`` enters and exits through
+    operator calls that release the GIL, so under the serving threads'
+    contention each of its ranges waits to win the GIL back twice."""
     import torch
 
-    with torch.profiler.record_function(name):
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    with (fast(name) if fast is not None
+          else torch.profiler.record_function(name)):
         yield
+
+
+# --- host steps, on the wave's timeline and the device trace's clock --
+#
+# A step is one piece of host work inside a wave (fill, upload, plan,
+# launch, download, collect) or of a caller's call (ingest, build).  It
+# takes its wall time (perf_counter) and its thread's CPU time
+# (thread_time), exclusive of the steps nested in it, so the steps of
+# one thread never overlap.  The dispatcher arms a wave's timeline on
+# its thread around the engine calls (``armed``); a step without a sink
+# lands there, and with nothing armed does nothing.  A step with a sink
+# (``observe_step(name, wall_s, cpu_s)``) reports to it when it ends.
+
+class _StepLocal(threading.local):
+    """This thread's step state: the armed timeline and its phase, the
+    open steps (innermost last) and the last step's number."""
+
+    timeline = None
+    phase = None
+    seq = 0
+
+    def __init__(self):
+        self.stack = []
+
+
+_steps = _StepLocal()
+_prof_mod = None
+
+
+def profiling() -> bool:
+    """True while a torch profiler records (not in its warm-up): one
+    module-attribute read, seen from every thread."""
+    return (_prof_mod or _load_prof())._is_profiler_enabled
+
+
+def _load_prof():
+    global _prof_mod
+    import torch.autograd.profiler as prof
+
+    _prof_mod = prof
+    return prof
+
+
+def device_range(name: str):
+    """``step_annotation(name)`` while a torch profiler records, else a
+    context that does nothing."""
+    if profiling():
+        return step_annotation(name)
+    return contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def armed(timeline: list, phase: str) -> Iterator[None]:
+    """Arm ``timeline`` on this thread for the body: each step that ends
+    in it appends (name, phase, start, end, wall_s, cpu_s, seq, parent
+    seq) to it; start and end are perf_counter readings, the times
+    exclusive of nested steps."""
+    st = _steps
+    prev = st.timeline, st.phase
+    st.timeline, st.phase = timeline, phase
+    try:
+        yield
+    finally:
+        st.timeline, st.phase = prev
+
+
+class step:
+    """Time one host step: ``with step("wave.plan"): ...``.  Ends at the
+    block's exit or at ``end()``, whichever comes first; a step made
+    with ``until_submit`` also ends at ``submitted()`` on its thread
+    (the caller's ingest ends where its job is handed to the
+    dispatcher).  Each stretch of a step reads the thread's CPU clock
+    inside the wall-clock readings that bound it, so its CPU time
+    cannot pass its wall time; where that clock ticks coarsely (whole
+    scheduler ticks), a step's CPU time is a count of the ticks that
+    fell in it, and only its sum over many steps is to be read."""
+
+    __slots__ = ("name", "sink", "until_submit", "_tl", "_ann", "_t0",
+                 "_rw", "_rc", "_w", "_c", "_seq", "_parent", "_live")
+
+    def __init__(self, name: str, sink=None, until_submit: bool = False):
+        self.name = name
+        self.sink = sink
+        self.until_submit = until_submit
+        self._live = False
+
+    def __enter__(self) -> "step":
+        st = _steps
+        tl = None
+        if self.sink is None:
+            tl = st.timeline
+            if tl is None:
+                return self
+        self._tl = tl
+        stack = st.stack
+        parent = stack[-1] if stack else None
+        if parent is not None:  # paused while this one runs
+            parent._c += time.thread_time() - parent._rc
+            w = time.perf_counter()
+            parent._w += w - parent._rw
+            self._parent = parent._seq
+        else:
+            w = time.perf_counter()
+            self._parent = None
+        self._seq = st.seq = st.seq + 1
+        stack.append(self)
+        self._t0 = self._rw = w
+        self._w = self._c = 0.0
+        self._ann = None
+        if (_prof_mod or _load_prof())._is_profiler_enabled:
+            self._ann = step_annotation("guber." + self.name)
+            self._ann.__enter__()
+        self._live = True
+        self._rc = time.thread_time()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end()
+        return False
+
+    def end(self) -> None:
+        if not self._live:
+            return
+        self._live = False
+        c = time.thread_time()
+        w = time.perf_counter()
+        if self._ann is not None:
+            self._ann.__exit__(None, None, None)
+        wall, cpu = self._w, self._c
+        st = _steps
+        stack = st.stack
+        if stack[-1] is self:
+            wall += w - self._rw
+            cpu += c - self._rc
+            stack.pop()
+            if stack:  # the step this one paused runs on
+                parent = stack[-1]
+                parent._rw = w
+                parent._rc = time.thread_time()
+        else:  # ended while paused under a nested step, which runs on
+            stack.remove(self)
+        if self._tl is not None:
+            self._tl.append((self.name, st.phase, self._t0, w, wall, cpu,
+                             self._seq, self._parent))
+        else:
+            self.sink.observe_step(self.name, wall, cpu)
+
+
+def submitted() -> None:
+    """The caller's job was handed to the dispatcher: end this thread's
+    open ``until_submit`` steps."""
+    stack = _steps.stack
+    if stack:
+        for s in [s for s in stack if s.until_submit]:
+            s.end()

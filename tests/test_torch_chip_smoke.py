@@ -35,9 +35,10 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     launches = []
 
-    def plain_for_k1(rows, b, now, hot=dmod.HOT_SEGMENT, stats=None):
+    def plain_for_k1(rows, b, now, hot=dmod.HOT_SEGMENT, stats=None,
+                     tally=None):
         launches.append(hot)
-        return dmod.decide_plain(rows, b, now)
+        return dmod.decide_plain(rows, b, now, tally)
 
     def raw_launch(torch_, rows, b, now, hot=None):
         launches.append(hot)
@@ -206,12 +207,12 @@ def path_rehearsal(monkeypatch):
     # SLO's target (250 ms on the card) scaled to it
     monkeypatch.setenv("GUBER_SLO_P99_MS", "60000")
 
-    def k1(rows, b, now, hot=dmod.HOT_SEGMENT, stats=None):
-        return dmod.decide_plain(rows, b, now)
+    def k1(rows, b, now, hot=dmod.HOT_SEGMENT, stats=None, tally=None):
+        return dmod.decide_plain(rows, b, now, tally)
 
-    def decide(rows, b, now):
+    def decide(rows, b, now, tally=None):
         k1.launches += 1
-        return dmod.decide_plain(rows, b, now)
+        return dmod.decide_plain(rows, b, now, tally)
 
     k1.launches = 0
     monkeypatch.setattr(dmod, "decide_cuda", k1)

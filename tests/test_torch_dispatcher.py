@@ -362,3 +362,165 @@ def test_waves_feed_the_histograms():
                          ("wave_completed", "inline_packed")]
     assert ("wave_completed", "list") in kinds
     assert disp.inline_waves == 1 and disp.wave_count == 1
+
+
+def _instance(**kw):
+    from gubernator_tpu_torch.config import Config
+    from gubernator_tpu_torch.instance import V1Instance
+
+    return V1Instance(Config(cache_size=1 << 12, device="cpu",
+                             batch_rows=64, **kw))
+
+
+def _wire(inst, keys, prefix="k"):
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    return inst.get_rate_limits_wire(encode_get_rate_limits(
+        [RateLimitRequest(name="dsp", unique_key=f"{prefix}{k}", hits=1,
+                          limit=100, duration=60_000) for k in keys]), NOW)
+
+
+@pytest.mark.parametrize("pipeline", ["0", "1"])
+def test_steps_leave_the_phase_partition_exact(monkeypatch, pipeline):
+    """pack + device + resolve still sum to the waves' duration, in the
+    histograms and in each wave_completed event; the wave.* steps sum
+    to no more than it and are not part of that sum."""
+    monkeypatch.setenv("GUBER_PIPELINE", pipeline)
+    inst = _instance()
+    g = inst.metrics.registry.get_sample_value
+    try:
+        for c in range(4):
+            _wire(inst, range(c * 10, c * 10 + 10))
+        phases = sum(g("gubernator_phase_duration_sum", {"phase": p}) or 0
+                     for p in ("pack", "device", "resolve"))
+        steps = sum(g("gubernator_phase_duration_sum", {"phase": p}) or 0
+                    for p in ("wave.fill", "wave.upload", "wave.plan",
+                              "wave.launch", "wave.download",
+                              "wave.collect"))
+        total = g("gubernator_dispatcher_wave_duration_sum")
+        assert phases == pytest.approx(total, rel=1e-9, abs=1e-12)
+        assert 0 < steps <= total
+        for e in inst.recorder.events(kind="wave_completed"):
+            assert abs(sum(e["phases"].values()) - e["duration_ms"]) \
+                <= 0.0005 * (len(e["phases"]) + 1)
+            assert sum(e["steps"].values()) <= \
+                e["duration_ms"] + 0.0005 * len(e["steps"])
+    finally:
+        inst.close()
+
+
+def test_thread_cpu_names_the_serving_threads():
+    """gubernator_thread_cpu_seconds reads the dispatcher's worker, the
+    analytics worker and the rest of the process at scrape time."""
+    inst = _instance()
+    g = inst.metrics.registry.get_sample_value
+    try:
+        _wire(inst, range(20))
+        got = {t: g("gubernator_thread_cpu_seconds_total", {"thread": t})
+               for t in ("dispatcher", "analytics", "other")}
+        assert all(v is not None and v >= 0 for v in got.values()), got
+        assert b'gubernator_thread_cpu_seconds_total{thread="dispatcher"}' \
+            in inst.metrics.render()
+    finally:
+        inst.close()
+
+
+def test_gc_pauses_count_a_forced_collection():
+    import gc
+
+    from gubernator_tpu_torch.metrics import install_gc_pauses
+
+    m = Metrics()
+    install_gc_pauses()
+    install_gc_pauses()  # once per process, however often asked
+    from gubernator_tpu_torch import metrics as pmet
+
+    assert gc.callbacks.count(pmet._gc_callback) == 1
+    g = m.registry.get_sample_value
+    before = g("gubernator_gc_pause_seconds_count",
+               {"generation": "2"}) or 0
+    gc.collect()
+    assert g("gubernator_gc_pause_seconds_count",
+             {"generation": "2"}) == before + 1
+    assert g("gubernator_gc_pause_seconds_sum", {"generation": "2"}) > 0
+
+
+def test_gc_pauses_land_while_a_scrape_runs(monkeypatch):
+    """A collection forced from inside a scrape, and from inside the
+    pause family's own collect, lands in the family: the collector's
+    callback takes no lock a scrape holds, so neither hangs."""
+    import gc
+
+    from prometheus_client import generate_latest
+
+    from gubernator_tpu_torch import metrics as pmet
+
+    m = Metrics()
+    pmet.install_gc_pauses()
+
+    class ForceGc:
+        def collect(self):
+            gc.collect()
+            return []
+
+    m.registry.register(ForceGc())
+    inner = pmet._GcPauses.collect
+
+    def collect_mid_gc(self):
+        gc.collect()
+        return inner(self)
+
+    monkeypatch.setattr(pmet._GcPauses, "collect", collect_mid_gc)
+    before = sum(m.gc_pause.counts["2"])
+    out = []
+    t = threading.Thread(target=lambda: out.append(
+        generate_latest(m.registry)), daemon=True)
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive(), "a scrape hung on a collection"
+    assert b'gubernator_gc_pause_seconds_count{generation="2"}' in out[0]
+    assert sum(m.gc_pause.counts["2"]) >= before + 2
+
+
+def test_table_lookups_add_up_to_the_rows_served():
+    """K1's counters and gubernator_cache_access_count: every live row
+    a launch applied is a hit or a miss, the misses are the keys new to
+    the table, and the launches' segments are its distinct buckets."""
+    inst = _instance()
+    g = inst.metrics.registry.get_sample_value
+    try:
+        _wire(inst, range(30))           # 30 new keys
+        _wire(inst, list(range(20)) * 2)  # 40 rows of 20 known keys
+        rows = g("gubernator_k1_rows_total")
+        assert rows == 70
+        assert g("gubernator_cache_access_count_total",
+                 {"type": "miss"}) == 30
+        assert g("gubernator_cache_access_count_total",
+                 {"type": "hit"}) == 40
+        assert g("gubernator_k1_launches_total") == 2
+        assert 20 <= g("gubernator_k1_segments_total") <= 50
+    finally:
+        inst.close()
+    # a full bucket: SLOTS + 3 new keys of one bucket.  The 3 rows K1
+    # cannot place are neither hits nor misses, in the wave and in its
+    # re-run after the sweep; the keys placed are hits the next time.
+    from gubernator_tpu_torch.core.table import SLOTS
+
+    eng = BucketEngine(device="cpu", capacity=4096, batch_rows=64)
+    eng.metrics_ref = m = Metrics()
+    g = m.registry.get_sample_value
+    n = SLOTS + 3
+    kh = np.array([(j << 40) | 5 for j in range(1, n + 1)], np.uint64)
+    ones = np.ones(n, np.int64)
+    batch = pack_columns(kh, ones, 5 * ones, 60_000 * ones,
+                         np.zeros(n, np.int32), np.zeros(n, np.int32),
+                         np.zeros(n, np.int64), NOW)[0]
+    cols = eng.check_packed(batch, kh, NOW)
+    assert cols[4].sum() == 3
+    assert g("gubernator_k1_rows_total") == n + 3
+    assert g("gubernator_cache_access_count_total",
+             {"type": "miss"}) == SLOTS
+    assert g("gubernator_cache_access_count_total", {"type": "hit"}) == 0
+    eng.check_packed(batch, kh, NOW)
+    assert g("gubernator_cache_access_count_total",
+             {"type": "hit"}) == SLOTS

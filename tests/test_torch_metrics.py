@@ -3,7 +3,8 @@ to the JAX package's:
 
 - every port family has a JAX namesake with the same type, help, labels
   and buckets, under the same attribute name (one help text, named
-  below, is worded apart);
+  below, is worded apart), but the port's own (metrics.PORT_FAMILIES:
+  step CPU time, K1's launches, the collector's pauses, thread CPU);
 - the JAX families the port lacks are exactly those of the subsystems
   it has no counterpart of (listed here by subsystem);
 - after one seeded stream through a JAX V1Instance and a port
@@ -24,7 +25,7 @@ from gubernator_tpu.types import RateLimitRequest as JaxReq
 from gubernator_tpu_torch.config import BehaviorConfig, Config
 from gubernator_tpu_torch.dispatcher import ResourceExhausted
 from gubernator_tpu_torch.instance import V1Instance
-from gubernator_tpu_torch.metrics import Metrics
+from gubernator_tpu_torch.metrics import PORT_FAMILIES, Metrics
 from gubernator_tpu_torch.types import PeerInfo, RateLimitRequest
 from gubernator_tpu_torch.wire import encode_get_rate_limits
 
@@ -59,9 +60,15 @@ def families(m):
 
 def test_every_port_family_has_its_jax_namesake():
     port, ref = families(Metrics()), families(JaxMetrics())
-    assert len(port) == 68
+    own = {a for a, f in port.items() if f[0] in PORT_FAMILIES}
+    assert len(port) == 68 + len(own)
+    # the port families laid out at scrape time are collectors
+    assert {port[a][0] for a in own} == PORT_FAMILIES - {
+        "gubernator_thread_cpu_seconds", "gubernator_gc_pause_seconds"}
     for attr, fam in port.items():
-        if attr in HELP_APART:
+        if attr in own:
+            assert attr not in ref, attr
+        elif attr in HELP_APART:
             want = ref[attr]
             assert fam[:2] + fam[3:] == want[:2] + want[3:], attr
             assert want[2].startswith(fam[2][:-1] + ", "), attr
@@ -70,9 +77,9 @@ def test_every_port_family_has_its_jax_namesake():
 
 
 def test_the_missing_families_are_the_unported_subsystems():
-    port = {f[0] for f in families(Metrics()).values()}
+    port = {f[0] for f in families(Metrics()).values()} - PORT_FAMILIES
     ref = {f[0] for f in families(JaxMetrics()).values()}
-    assert port <= ref
+    assert port <= ref and not PORT_FAMILIES & ref
     missing = set().union(*NOT_PORTED.values())
     assert ref - port == missing
     assert len(ref) == len(port) + len(missing)

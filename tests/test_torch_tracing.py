@@ -162,10 +162,18 @@ def test_assemble_and_waterfall_equal_jax():
         jt.render_waterfall({"trace_id": "x", "roots": []})
 
 
-def _tree(trace):
-    """An assembled trace's structure: names, nested, children sorted."""
+#: the port's host steps, which its wave spans carry under their phases
+#: (the JAX package has none)
+STEPS = {n for n in pt.SPAN_CATALOG if n.startswith("wave.")} - {
+    "wave.pack", "wave.device", "wave.resolve"}
+
+
+def _tree(trace, skip=frozenset()):
+    """An assembled trace's structure: names, nested, children sorted;
+    spans named in ``skip`` left out with what hangs under them."""
     def node(n):
-        return (n["name"], tuple(sorted(node(c) for c in n["children"])))
+        return (n["name"], tuple(sorted(node(c) for c in n["children"]
+                                        if c["name"] not in skip)))
     return tuple(sorted(node(r) for r in trace["roots"]))
 
 
@@ -313,8 +321,12 @@ def test_two_daemons_assemble_one_tree_shaped_as_jax(monkeypatch):
                         http_listen_address="127.0.0.1:0", cache_size=4096)
         for _ in range(2)], mesh=make_mesh(n=1)), jt, "1")
     assert len(port) == 1 and len(port[0]["roots"]) == 1
-    t = _tree(port[0])
+    t = _tree(port[0], skip=STEPS)
     assert t == _tree(ref[0])
+    # the port's steps hang under the phases of its waves
+    for w in _waves(port[0]):
+        kids = [c for k in w["children"] for c in k["children"]]
+        assert kids and {c["name"] for c in kids} <= STEPS
     root = port[0]["roots"][0]
     assert root["name"] == "grpc.GetRateLimits"
     hop = [c for c in root["children"] if c["name"] == "peer.forward"]
@@ -482,3 +494,163 @@ def test_sixteen_threads_never_block_on_the_recorder():
         t.join(timeout=60)
     assert not errors and len(r) == 256
     assert r.stats()["pending"] == 0
+
+
+# --- host steps (tracing.step) ------------------------------------------
+
+WAVE_STEPS = {"wave.fill", "wave.upload", "wave.plan", "wave.launch",
+              "wave.download", "wave.collect"}
+
+
+def _wire_calls(inst, n, rows=8, prefix="st"):
+    from gubernator_tpu_torch.wire import encode_get_rate_limits
+
+    for c in range(n):
+        inst.get_rate_limits_wire(encode_get_rate_limits(
+            [req(f"{prefix}{c}_{i}") for i in range(rows)]), NOW)
+
+
+def _timelines(disp):
+    """Capture each wave's start, end and step timeline as it ends
+    (perf_counter readings)."""
+    got = []
+    end = disp._wave_end
+
+    def recording(wid, error=None):
+        with disp._tel_mu:
+            info = disp._inflight.get(wid)
+        if info is not None:
+            got.append((info["p0"], time.perf_counter(),
+                        list(info["steps"])))
+        return end(wid, error)
+
+    disp._wave_end = recording
+    return got
+
+
+@pytest.mark.parametrize("pipeline", ["0", "1"])
+def test_steps_lie_inside_their_wave(monkeypatch, pipeline):
+    """Inline waves (pipeline off) and pipelined ones: each wave's steps
+    start and end inside it, none overlaps another step of the wave but
+    the one it runs in, their sum stays under the wave's duration, each
+    step's CPU time under its wall time, and every step of the engine
+    path shows; the phases still partition the wave and its span."""
+    monkeypatch.setenv("GUBER_PIPELINE", pipeline)
+    inst = V1Instance(Config(cache_size=1 << 10, device="cpu",
+                             batch_rows=64))
+    try:
+        got = _timelines(inst.dispatcher)
+        inst.span_recorder.sample = 1.0
+        with pt.request_context(None, recorder=inst.span_recorder):
+            tid = pt.current_trace_id()
+            with pt.span("grpc.GetRateLimits"):
+                _wire_calls(inst, 3)
+        assert len(got) == 3
+        for p0, p1, steps in got:
+            assert {s[0] for s in steps} == WAVE_STEPS
+            for name, phase, t0, t1, wall, cpu, seq, parent in steps:
+                assert p0 <= t0 <= t1 <= p1, name
+                assert 0 <= cpu <= wall <= t1 - t0, name
+                assert phase == "device" or pipeline == "1"
+            assert sum(s[4] for s in steps) <= p1 - p0
+            outer = [s for s in steps if s[7] is None]
+            outer.sort(key=lambda s: s[2])
+            for a, b in zip(outer, outer[1:]):
+                assert a[3] <= b[2]
+        evs = [e for e in inst.recorder.events(kind="wave_completed")
+               if e["trace"] == tid]
+        assert len(evs) == 3
+        for e in evs:
+            assert set(e["steps"]) == WAVE_STEPS
+            assert sum(e["steps"].values()) <= \
+                e["duration_ms"] + 0.0005 * len(e["steps"])
+            assert abs(sum(e["phases"].values()) - e["duration_ms"]) <= \
+                0.0005 * (len(e["phases"]) + 1)
+        (trace,) = pt.assemble(inst.span_recorder.spans(), tid)
+        for w in _waves(trace):
+            _exact_partition(w)
+            kids = [c for k in w["children"] for c in k["children"]]
+            assert {c["name"] for c in kids} <= WAVE_STEPS
+            assert all(w["start"] <= c["start"] <= c["end"] <= w["end"]
+                       for c in kids)
+    finally:
+        inst.close()
+
+
+def test_no_annotation_without_a_profiler(monkeypatch):
+    """With no profiler recording, a step never opens a device-trace
+    range, and neither does the analytics' tap copy."""
+    calls = []
+
+    def spy(name):
+        calls.append(name)
+        return pt.contextlib.nullcontext()
+
+    monkeypatch.setattr(pt, "step_annotation", spy)
+    inst = V1Instance(Config(cache_size=1 << 10, device="cpu",
+                             batch_rows=64))
+    try:
+        _wire_calls(inst, 2)
+        inst.get_rate_limits([req("spy_k")], now_ms=NOW)
+        assert not pt.profiling() and calls == []
+        assert inst.metrics.registry.get_sample_value(
+            "gubernator_phase_duration_count", {"phase": "wave.plan"}) == 3
+    finally:
+        inst.close()
+
+
+def test_steps_are_ranges_of_a_cpu_profile(monkeypatch):
+    """Under torch.profiler (every thread recorded, as the benchmark's
+    traced run records): the wave's ranges lie on the dispatcher's
+    worker, the caller's ingest and build on the caller's thread."""
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setenv("GUBER_PIPELINE", "1")
+    inst = V1Instance(Config(cache_size=1 << 10, device="cpu",
+                             batch_rows=64))
+    try:
+        _wire_calls(inst, 1, prefix="warm")
+        with profile(activities=[ProfilerActivity.CPU],
+                     experimental_config=_ExperimentalConfig(
+                         profile_all_threads=True)) as prof:
+            assert pt.profiling()
+            with torch.profiler.record_function("test.caller"):
+                _wire_calls(inst, 3)
+        assert not pt.profiling()
+        evs = [(e.name(), e.start_thread_id())
+               for e in prof.profiler.kineto_results.events()]
+        names = {n for n, _ in evs}
+        assert {"guber." + s for s in WAVE_STEPS} | {
+            "guber.ingest", "guber.build"} <= names
+        caller = {t for n, t in evs if n == "test.caller"}
+        worker = {t for n, t in evs if n.startswith("guber.wave.")}
+        assert len(worker) == 1 and worker.isdisjoint(caller)
+        assert {t for n, t in evs
+                if n in ("guber.ingest", "guber.build")} == caller
+        assert not any("decide_kernel" in n or n == "portbench.window"
+                       for n in names if n.startswith("guber."))
+    finally:
+        inst.close()
+
+
+@pytest.mark.parametrize("pipeline", ["0", "1"])
+def test_ingest_and_build_once_per_wire_call(monkeypatch, pipeline):
+    """Each wire call observes one ingest and one build, with their CPU
+    time, inline (its ingest ends where its wave starts) or queued (at
+    its job's hand-off)."""
+    monkeypatch.setenv("GUBER_PIPELINE", pipeline)
+    inst = V1Instance(Config(cache_size=1 << 10, device="cpu",
+                             batch_rows=64))
+    g = inst.metrics.registry.get_sample_value
+    try:
+        _wire_calls(inst, 5)
+        for phase in ("ingest", "build"):
+            assert g("gubernator_phase_duration_count",
+                     {"phase": phase}) == 5
+            cpu = g("gubernator_phase_cpu_seconds_total", {"phase": phase})
+            assert 0 < cpu <= g("gubernator_phase_duration_sum",
+                                {"phase": phase})
+    finally:
+        inst.close()
